@@ -1,0 +1,449 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch + CUDA port (`kmsr_tpu_torch`) on one NVIDIA GPU.
+
+Run from the repository root on a machine with a card:
+
+    python3 chip_smoke.py
+
+It needs one CUDA device, nvcc (CUDA_HOME or /usr/local/cuda) and g++,
+and exits non-zero without them. Phases, one line each:
+
+1. device: the card's name and power limit (nvidia-smi);
+2. build: the CUDA kernels (nvcc, sm_90a) and the native patch loader
+   (g++) from this checkout's sources, in parallel;
+3. kernels: every instantiation of the fused degrade stencil (NCHW and
+   CHWB for the v3 kernel, halo-free presplit for v3psn; with and without
+   noise; f=8 span 20 and f=4 span 16; float32, plus bfloat16 storage at
+   f=8) against its plain PyTorch version on the card at the factory's
+   full width (B=128, C=5, 256x256, 13x13 blur), within rtol 1e-4 /
+   atol 1e-5; and against the grouped strided F.conv2d route (TF32 off);
+4. factory: the factory's device path over 256 synthetic 5x256x256 .npy
+   patches (two full batches of 128) with a seeded [64, 5, 32, 32] noise
+   pool, through both routes — `factory_batches` (.npy input: native split
+   loader -> presplit kernel) and `natural_batches` (the .nc route's
+   device code: NCHW stack -> v3 kernel; fed .npy here because the card's
+   machine has no h5py to read .nc files). Launch counts are set to 0
+   before each route and read after it; every lr is checked against the
+   plain degrade(hr) + pool[idx];
+5. timing: CUDA-event medians of 30 runs for each kernel at the main
+   path's shapes, its plain version and the conv route, beside the least
+   time the card needs for the same bytes and operations.
+
+Prints one JSON line {"factory": {...}} (per-route results), then the
+card's nvidia-smi line, one JSON line {"kernels": [...]} and, last,
+{"ok": true, "device": {...}}. Any mismatch or error exits non-zero
+before that last line; timing never fails the run.
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+import traceback
+from concurrent.futures import ThreadPoolExecutor
+
+RTOL, ATOL = 1e-4, 1e-5
+B, C, HW, KSIZE, FACTOR = 128, 5, 256, 13, 8
+N_FILES, POOL_N, SEED = 256, 64, 0
+TIMING_RUNS = 30
+SOURCE = "kmsr_tpu_torch/kernels/degrade_stencil.cu"
+#: TPU kernel each CUDA kernel replaces (the kernel body; the noise variant
+#: follows it in the same file)
+REPLACES = {
+    "degrade_v3": "kmsr_tpu/ops/degrade_pallas.py:253",
+    "degrade_v3psn": "kmsr_tpu/ops/degrade_pallas.py:351",
+}
+#: published peaks (NVIDIA data sheets): HBM bytes/s and fp32 (non-tensor
+#: core) FLOP/s, by a substring of the card's name
+PEAKS = [
+    ("H100 PCIe", 2.0e12, 51e12),
+    ("H100 NVL", 3.9e12, 60e12),
+    ("H100", 3.35e12, 67e12),
+    ("H200", 4.8e12, 67e12),
+]
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def nvidia_smi() -> str:
+    r = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    return r.stdout.strip().splitlines()[0] if r.returncode == 0 and r.stdout.strip() \
+        else f"nvidia-smi failed ({r.returncode}): {r.stderr.strip()}"
+
+
+def peaks(name: str) -> tuple[float, float]:
+    for key, bw, flops in PEAKS:
+        if key in name:
+            return bw, flops
+    return PEAKS[2][1], PEAKS[2][2]  # unknown card: H100 SXM figures
+
+
+def errors(got, want) -> dict:
+    import torch
+
+    diff = (got - want).abs()
+    return {
+        "max_abs_err": float(diff.max()),
+        "max_rel_err": float((diff / want.abs().clamp_min(ATOL)).max()),
+        "ok": bool(torch.allclose(got, want, rtol=RTOL, atol=ATOL)),
+    }
+
+
+def phase_build() -> None:
+    from kmsr_tpu_torch import kernels
+    from kmsr_tpu_torch.runtime import loader
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        cu = pool.submit(kernels.build)
+        cpp = pool.submit(loader._build_library)
+        so, loader_so = cu.result(), cpp.result()
+    secs = time.perf_counter() - t0
+    ptxas = [ln.split("ptxas info    : ")[-1] for ln in
+             so.with_suffix(".log").read_text().splitlines()
+             if "Used" in ln and "registers" in ln]
+    log(f"[build] ok in {secs:.1f}s: {so.name}, {loader_so.name}; ptxas: "
+        f"{sorted(set(ptxas))}")
+
+
+def make_inputs(factor: int, gen, dev):
+    import torch
+
+    img = (torch.randn(B, C, HW, HW, generator=gen) * 2 + 5).to(dev)
+    kernel = (torch.rand(C, KSIZE, KSIZE, generator=gen) * 0.9 + 0.1).to(dev)
+    oh = HW // factor
+    noise = (torch.randn(C, oh, oh, B, generator=gen) * 0.1).to(dev)
+    return img, kernel, noise
+
+
+def layout_inputs(img, noise, factor, layout, dtype):
+    """(x, noise) for one entry point's layout."""
+    from kmsr_tpu_torch.ops.degrade_fused import phase_split_chwb
+
+    x = img.to(dtype)
+    if layout == "nchw":
+        return x, noise.permute(3, 0, 1, 2).contiguous()
+    x = x.permute(1, 2, 3, 0).contiguous()
+    if layout == "presplit":
+        x = phase_split_chwb(x, factor).contiguous()
+    return x, noise
+
+
+def entry(layout):
+    from kmsr_tpu_torch.ops import degrade_fused as df
+
+    return {
+        "nchw": (df.degrade_fused, df.degrade_fused_ref),
+        "chwb": (df.degrade_fused_chwb, df.degrade_fused_chwb_ref),
+        "presplit": (df.degrade_fused_presplit, df.degrade_fused_presplit_ref),
+    }[layout]
+
+
+def to_nchw(out, layout):
+    return out if layout == "nchw" else out.permute(3, 0, 1, 2)
+
+
+def phase_kernels(dev, failures: list) -> list:
+    import torch
+
+    from kmsr_tpu_torch.ops.degrade import degrade_strided
+
+    gen = torch.Generator().manual_seed(SEED)
+    cases = []
+    for factor in (FACTOR, 4):
+        img, kernel, noise = make_inputs(factor, gen, dev)
+        conv = degrade_strided(img, kernel, factor=factor)
+        dtypes = (torch.float32, torch.bfloat16) if factor == FACTOR else (torch.float32,)
+        for dtype in dtypes:
+            for layout in ("nchw", "chwb", "presplit"):
+                for with_noise in (False, True):
+                    if dtype == torch.bfloat16 and not with_noise:
+                        continue
+                    x, n = layout_inputs(img, noise, factor, layout, dtype)
+                    n = n if with_noise else None
+                    fused, ref = entry(layout)
+                    got = fused(x, kernel, n, factor=factor)
+                    want = ref(x, kernel, n, factor=factor)
+                    torch.cuda.synchronize()
+                    case = {
+                        "kernel": "degrade_v3psn" if layout == "presplit" else "degrade_v3",
+                        "layout": layout, "factor": factor, "span": KSIZE + factor - 1,
+                        "noise": with_noise, "dtype": str(dtype).replace("torch.", ""),
+                        **errors(got, want),
+                    }
+                    if dtype == torch.float32:
+                        want_conv = conv if n is None else conv + to_nchw(n, layout)
+                        e = errors(to_nchw(got, layout), want_conv)
+                        case["vs_conv_max_abs_err"] = e["max_abs_err"]
+                        case["ok"] = case["ok"] and e["ok"]
+                    cases.append(case)
+                    tag = "ok" if case["ok"] else "MISMATCH"
+                    log(f"[kernels] {case['kernel']} {layout} f={factor} "
+                        f"noise={with_noise} {case['dtype']}: {tag} "
+                        f"max_abs={case['max_abs_err']:.3g} "
+                        f"max_rel={case['max_rel_err']:.3g}"
+                        + (f" vs_conv_max_abs={case['vs_conv_max_abs_err']:.3g}"
+                           if "vs_conv_max_abs_err" in case else ""))
+                    if not case["ok"]:
+                        failures.append(f"kernel case {case}")
+        del img, conv
+    torch.cuda.empty_cache()
+    return cases
+
+
+def write_inputs(tmp: str) -> tuple[list, str, str]:
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    patches = os.path.join(tmp, "patches")
+    os.makedirs(patches)
+    files = []
+    for i in range(N_FILES):
+        path = os.path.join(patches, f"scene_{i:04d}.npy")
+        np.save(path, rng.normal(5, 2, (C, HW, HW)).astype(np.float32))
+        files.append(path)
+    k_path, pool_path = os.path.join(tmp, "kernel.npy"), os.path.join(tmp, "pool.npy")
+    np.save(k_path, rng.uniform(0.1, 1, (C, KSIZE, KSIZE)).astype(np.float32))
+    np.save(pool_path, rng.normal(0, 0.1, (POOL_N, C, HW // FACTOR, HW // FACTOR))
+            .astype(np.float32))
+    return files, k_path, pool_path
+
+
+def drive(batches, files, kernel, pool, noise_of, dev, check: bool,
+          failures: list, label: str) -> dict:
+    """Consume a factory generator as run_factory does (sync batch k after
+    batch k+1 was dispatched); with check, hold every lr against the plain
+    degrade(hr) + pool[idx] and every hr against its file."""
+    import numpy as np
+    import torch
+
+    from kmsr_tpu_torch.ops.degrade import degrade
+    from kmsr_tpu_torch.utils.profiling import stage_timer, timing_report
+
+    seen, worst = 0, 0.0
+    timing_report(reset=True)
+
+    def writeback(paths, hr, lr_dev):
+        nonlocal seen, worst
+        with stage_timer("factory.device_sync"):
+            lr = lr_dev.cpu()
+        seen += len(paths)
+        if not check:
+            return
+        want = degrade(torch.from_numpy(hr).to(dev), kernel).cpu() + torch.from_numpy(
+            pool[[noise_of[p] for p in paths]])
+        if not bool(torch.isfinite(lr).all()) or lr.shape != want.shape:
+            failures.append(f"{label}: non-finite or misshapen lr {tuple(lr.shape)}")
+        e = errors(lr, want)
+        worst = max(worst, e["max_abs_err"])
+        if not e["ok"]:
+            failures.append(f"{label}: lr vs plain degrade + noise {e}")
+        for p, h in zip(paths, hr):
+            if not np.array_equal(h, np.load(p)):
+                failures.append(f"{label}: hr of {p} differs from the file")
+
+    t0 = time.perf_counter()
+    pending = None
+    for paths, hr, lr, fails in batches:
+        if fails:
+            failures.append(f"{label}: per-file failures {fails}")
+        if lr is None:
+            continue
+        if pending is not None:
+            writeback(*pending)
+        pending = (paths, hr, lr)
+    if pending is not None:
+        writeback(*pending)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if seen != len(files):
+        failures.append(f"{label}: {seen} of {len(files)} patches came out")
+    stages = {name: rec["total_s"] for name, rec in timing_report(reset=True).items()}
+    return {"patches": seen, "seconds": secs, "max_abs_err": worst,
+            "stages_s": stages}
+
+
+def phase_factory(dev, failures: list) -> dict:
+    from kmsr_tpu_torch import kernels
+    from kmsr_tpu_torch.pipeline import factory
+
+    tmp = tempfile.mkdtemp(prefix="kmsr_chip_smoke_")
+    try:
+        t0 = time.perf_counter()
+        files, k_path, pool_path = write_inputs(tmp)
+        log(f"[factory] wrote {len(files)} patches in {time.perf_counter() - t0:.1f}s")
+        kernel, pool, noise_of = factory.factory_inputs(files, k_path, pool_path,
+                                                        seed=42, device=dev)
+        routes = {
+            # the .npy route exactly as run_factory builds it
+            "npy": ("degrade_v3psn", lambda: factory.factory_batches(
+                files, k_path, pool_path, factor=FACTOR, batch_size=128,
+                seed=42, backend="auto", input_format="npy", device=dev)),
+            # the .nc route's device code (natural NCHW stack -> v3 kernel)
+            "nc-device": ("degrade_v3", lambda: factory.natural_batches(
+                files, kernel, pool, noise_of, factor=FACTOR, batch_size=128,
+                backend="auto", input_format="npy", device=dev)),
+        }
+        result = {}
+        for route, (name, make) in routes.items():
+            kernels.reset_launches()
+            checked = drive(make(), files, kernel, pool, noise_of, dev, True,
+                            failures, route)
+            launches = dict(kernels.LAUNCHES)
+            if launches[name] < 1:
+                failures.append(f"route {route}: kernel {name} was never launched")
+            timed = drive(make(), files, kernel, pool, noise_of, dev, False,
+                          failures, route)
+            result[route] = {"kernel": name, "launches": launches[name],
+                             "all_launches": launches, **checked,
+                             "timed_seconds": timed["seconds"],
+                             "timed_stages_s": timed["stages_s"]}
+            log(f"[factory] route {route}: {checked['patches']} patches, "
+                f"launches {launches}, lr max_abs_err vs plain "
+                f"{checked['max_abs_err']:.3g}; unchecked pass "
+                f"{timed['seconds']:.3f}s = "
+                f"{timed['patches'] / timed['seconds']:.1f} patches/s "
+                f"(host .npy read + H2D + kernel + D2H, page cache warm); "
+                f"main-thread stages (s): {timed['stages_s']}")
+        return result
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_timing(dev, card: str) -> dict:
+    """Device times at the main path's shapes (B=128, f=8, with noise)."""
+    import torch
+    import torch.nn.functional as F
+
+    from kmsr_tpu_torch.ops.degrade import fp32_convs, normalize_kernel, compose_with_box
+    from kmsr_tpu_torch.utils.profiling import cuda_time_ms
+
+    bw, flops_peak = peaks(card)
+    gen = torch.Generator().manual_seed(SEED + 1)
+    img, kernel, noise = make_inputs(FACTOR, gen, dev)
+    comp = compose_with_box(normalize_kernel(kernel), FACTOR)
+    pad = KSIZE // 2
+    noise_nchw = noise.permute(3, 0, 1, 2).contiguous()
+
+    def conv_route():
+        with fp32_convs():
+            x = F.pad(img, (pad, pad, pad, pad), mode="replicate")
+            return F.conv2d(x, comp[:, None], stride=FACTOR, groups=C) + noise_nchw
+
+    library = cuda_time_ms(conv_route, runs=TIMING_RUNS)["median_ms"]
+    padded = F.pad(img, (pad, pad, pad, pad), mode="replicate")
+
+    def conv_only():
+        with fp32_convs():
+            return F.conv2d(padded, comp[:, None], stride=FACTOR, groups=C)
+
+    conv_ms = cuda_time_ms(conv_only, runs=TIMING_RUNS)["median_ms"]
+    out = {}
+    for name, layout in (("degrade_v3", "nchw"), ("degrade_v3", "chwb"),
+                         ("degrade_v3psn", "presplit")):
+        x, n = layout_inputs(img, noise, FACTOR, layout, torch.float32)
+        fused, ref = entry(layout)
+        ms = cuda_time_ms(lambda: fused(x, kernel, n, factor=FACTOR), runs=TIMING_RUNS)
+        plain = cuda_time_ms(lambda: ref(x, kernel, n, factor=FACTOR), runs=TIMING_RUNS)
+        k = comp.shape[-1]
+        n_out = n.numel()
+        nbytes = x.numel() * x.element_size() + 2 * n_out * 4 + comp.numel() * 4
+        nflops = 2 * n_out * k * k + n_out
+        t_bytes, t_ops = nbytes / bw * 1e3, nflops / flops_peak * 1e3
+        rec = {
+            "layout": layout, "ms": ms["median_ms"], "ms_min": ms["min_ms"],
+            "ms_max": ms["max_ms"], "plain_ms": plain["median_ms"],
+            "library_ms": library, "conv_only_ms": conv_ms,
+            "bytes": nbytes, "flops": nflops,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        }
+        out[(name, layout)] = rec
+        log(f"[timing] {name} {layout}: {rec['ms']:.4f} ms (min {rec['ms_min']:.4f}, "
+            f"max {rec['ms_max']:.4f}; median of {TIMING_RUNS}); plain "
+            f"{rec['plain_ms']:.3f} ms; conv route (F.pad + grouped F.conv2d + "
+            f"noise) {library:.4f} ms, of it the grouped F.conv2d alone "
+            f"{conv_ms:.4f} ms; moves {nbytes / 1e6:.1f} MB, "
+            f"{nflops / 1e9:.3f} GFLOP -> bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']}, {bw / 1e12:.2f} TB/s, {flops_peak / 1e12:.0f} "
+            f"TFLOP/s fp32); launches per 128-file factory batch: 1")
+    return out
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this smoke test "
+              "needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    failures: list[str] = []
+    try:
+        import kmsr_tpu_torch  # noqa: F401  (fails outside the repository)
+
+        dev = torch.device("cuda")
+        card = torch.cuda.get_device_name(0)
+        smi = nvidia_smi()
+        log(smi)
+        log(f"[device] ok: {card} x{torch.cuda.device_count()}; torch "
+            f"{torch.__version__}, CUDA {torch.version.cuda}; nvidia-smi: {smi}")
+        phase_build()
+        cases = phase_kernels(dev, failures)
+        log(f"[kernels] {'ok' if not failures else 'FAILED'}: {len(cases)} cases, "
+            f"rtol={RTOL} atol={ATOL}")
+        factory_res = phase_factory(dev, failures)
+        log(f"[factory] {'ok' if not failures else 'FAILED'}")
+        try:
+            timing = phase_timing(dev, card)
+        except Exception:  # timing never fails the run
+            traceback.print_exc()
+            timing = {}
+    except Exception:
+        traceback.print_exc()
+        return 1
+    if failures:
+        for f in failures:
+            print(f"FAILED: {f}", file=sys.stderr)
+        return 1
+
+    launches = {r["kernel"]: r["launches"] for r in factory_res.values()}
+    main_layout = {"degrade_v3": "nchw", "degrade_v3psn": "presplit"}
+    records = []
+    for name, layout in main_layout.items():
+        t = timing.get((name, layout), {})
+        mine = [c for c in cases if c["kernel"] == name]
+        records.append({
+            "name": name, "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": max(c["max_abs_err"] for c in mine),
+            "max_rel_err": max(c["max_rel_err"] for c in mine),
+            "ms": t.get("ms"), "plain_ms": t.get("plain_ms"),
+            "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
+            "library_ms": t.get("library_ms"),
+            "library_call": "F.pad(replicate) + grouped strided F.conv2d "
+                            "(TF32 off) + noise add",
+            "conv_only_ms": t.get("conv_only_ms"),
+            "rtol": RTOL, "atol": ATOL, "timed_layout": layout, "cases": mine,
+            "other_layouts_ms": {lay: r["ms"] for (n, lay), r in timing.items()
+                                 if n == name and lay != layout},
+        })
+    log(json.dumps({"factory": factory_res}))
+    log(smi)
+    log(json.dumps({"kernels": records}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

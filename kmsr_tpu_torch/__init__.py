@@ -1,0 +1,27 @@
+"""kmsr_tpu_torch — the PyTorch + CUDA port of `kmsr_tpu`, for NVIDIA Hopper.
+
+The JAX package `kmsr_tpu` is the reference; this package mirrors its
+layout and module names so each function's counterpart is easy to find
+(`kmsr_tpu.ops.degrade_pallas` -> `kmsr_tpu_torch.ops.degrade_fused`,
+`kmsr_tpu.pipeline.factory` -> `kmsr_tpu_torch.pipeline.factory`, ...)
+and writes the same artifacts (grouped `.nc` hr/lr files), so a stage run
+by either package can feed the other.
+
+Rules the package keeps:
+
+* It imports `torch`, never `jax`, and nothing of `kmsr_tpu` — not even
+  its JAX-free host modules (`io/`, `runtime/`): it keeps its own copies.
+* Entry points take `device=` (CLI `--device`) and default to "cuda". A
+  CUDA request on a host without a card raises (`device.resolve_device`);
+  nothing falls back to the CPU silently.
+* Every Pallas kernel on a ported path is a hand-written Hopper kernel
+  (`kernels/`), with a plain PyTorch version beside it. The plain version
+  runs only for tensors that lie on the CPU (the tests); a CUDA tensor
+  launches the kernel or raises.
+
+Ported so far: the single-kernel fused train-data factory
+(`pipeline.factory`), its `.nc` route (v3 stencil kernel) and its `.npy`
+route (halo-free presplit kernel fed by the native split loader).
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,265 @@
+"""NetCDF4-compatible grouped-file IO built directly on HDF5 (h5py).
+
+The port's own copy of `kmsr_tpu.io.ncio` (same on-disk contract, so a
+file written by either package reads in the other). One difference:
+h5py is imported at first use, not at import time, so the device-side
+modules that import this one load on hosts without h5py; reading or
+writing a `.nc` file there raises ImportError.
+
+NetCDF-4 files *are* HDF5 files following a small set of conventions
+(dimension scales + naming attributes).  This module writes files that the
+standard `netCDF4` library can open, and reads files produced by it, without
+depending on the netCDF4 package (not present in this environment).
+
+It replaces the ~6 duplicated NetCDF readers in the reference
+(`utils.py:8-15`, `E_make_train_data.py:32-46`, `D_build_noise_pool.py:26-38`,
+`single_kernel/train.py:39-88`, `C_30apply_kernel_to_landsat.py:36-65`,
+`A_00_patch_cutter_universal.py:42-86`) with one reader/writer pair.
+
+Conventions implemented for netCDF4 compatibility:
+  * Dimensions are HDF5 datasets flagged as dimension scales with the
+    canonical "This is a netCDF dimension but not a netCDF variable" NAME.
+  * Variables attach their dimensions via HDF5 dimension scales.
+  * `_FillValue` attributes mark invalid data (default -9999.0), converted
+    to/from NaN by the band-stack helpers, matching the masked-array
+    `.filled(np.nan)` semantics used throughout the reference.
+"""
+from __future__ import annotations
+
+import os
+from typing import Dict, Iterable, Mapping, Optional, Sequence
+
+import numpy as np
+
+from .schema import BAND_NAMES, INVALID_VALUE
+
+_NC_DIM_NAME = (
+    "This is a netCDF dimension but not a netCDF variable. "
+)
+
+
+def _h5py():
+    """h5py, imported at first use (see the module docstring)."""
+    try:
+        import h5py
+    except ImportError as e:
+        raise ImportError(
+            "reading or writing grouped .nc files needs h5py, which is not "
+            "installed in this environment"
+        ) from e
+    return h5py
+
+
+def _ensure_dim(grp: h5py.Group, name: str, size: int) -> h5py.Dataset:
+    """Create (or fetch) a netCDF-style dimension scale in `grp`."""
+    if name in grp:
+        dim = grp[name]
+        if dim.shape != (size,):
+            raise ValueError(
+                f"dimension {name!r} exists with size {dim.shape[0]}, wanted {size}"
+            )
+        return dim
+    dim = grp.create_dataset(name, shape=(size,), dtype="f4")
+    dim.make_scale(name)
+    # netCDF marks pure dimensions (no coordinate variable) with this NAME.
+    dim.attrs["NAME"] = np.bytes_(f"{_NC_DIM_NAME}{size:10d}")
+    return dim
+
+
+class NCFile:
+    """Minimal grouped NetCDF4-style file handle.
+
+    Usage:
+        with NCFile(path, "w") as f:
+            g = f.create_group("geophysical_data")
+            f.create_variable(g, "L_TOA_443", data, dims=("y", "x"))
+    """
+
+    def __init__(self, path: str | os.PathLike, mode: str = "r"):
+        self.path = str(path)
+        self._h5 = _h5py().File(self.path, mode)
+        if mode in ("w", "w-", "x"):
+            # Stamp so netCDF4 recognizes the file as netCDF-4.
+            self._h5.attrs["_NCProperties"] = np.bytes_(
+                "version=2,netcdf=kmsr_tpu-0.1,hdf5=1.10"
+            )
+
+    # -- context manager -------------------------------------------------
+    def __enter__(self) -> "NCFile":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def close(self) -> None:
+        if self._h5:
+            self._h5.close()
+
+    # -- structure --------------------------------------------------------
+    @property
+    def h5(self) -> h5py.File:
+        return self._h5
+
+    @property
+    def groups(self) -> Dict[str, h5py.Group]:
+        return {
+            k: v for k, v in self._h5.items()
+            if isinstance(v, _h5py().Group)
+        }
+
+    def has_group(self, name: str) -> bool:
+        return name in self._h5 and isinstance(self._h5[name], _h5py().Group)
+
+    def create_group(self, name: str) -> h5py.Group:
+        if name in self._h5:
+            return self._h5[name]
+        return self._h5.create_group(name)
+
+    def group(self, name: str) -> h5py.Group:
+        if not self.has_group(name):
+            raise KeyError(f"group {name!r} not in {self.path}")
+        return self._h5[name]
+
+    # -- attributes ---------------------------------------------------------
+    def set_attrs(self, attrs: Mapping[str, object], group: Optional[str] = None):
+        tgt = self._h5 if group is None else self.create_group(group)
+        for k, v in attrs.items():
+            if isinstance(v, str):
+                v = np.bytes_(v)
+            tgt.attrs[k] = v
+
+    def get_attrs(self, group: Optional[str] = None) -> Dict[str, object]:
+        tgt = self._h5 if group is None else self.group(group)
+        out = {}
+        for k, v in tgt.attrs.items():
+            if isinstance(v, bytes):
+                v = v.decode("utf-8", "replace")
+            elif isinstance(v, np.bytes_):
+                v = bytes(v).decode("utf-8", "replace")
+            out[k] = v
+        return out
+
+    # -- variables ----------------------------------------------------------
+    def create_variable(
+        self,
+        group: h5py.Group | str,
+        name: str,
+        data: np.ndarray,
+        dims: Sequence[str] = ("y", "x"),
+        attrs: Optional[Mapping[str, object]] = None,
+        fill_value: Optional[float] = INVALID_VALUE,
+        compress: bool = True,
+    ) -> h5py.Dataset:
+        """Create a variable with netCDF dimension scales attached."""
+        grp = self.create_group(group) if isinstance(group, str) else group
+        data = np.asarray(data)
+        if data.ndim != len(dims):
+            raise ValueError(f"{name}: data rank {data.ndim} != dims {dims}")
+        kwargs = {}
+        if compress and data.size > 64:
+            kwargs.update(compression="gzip", compression_opts=4, shuffle=True)
+        var = grp.create_dataset(name, data=data.astype(np.float32), **kwargs)
+        for axis, (dname, dsize) in enumerate(zip(dims, data.shape)):
+            dim = _ensure_dim(grp, dname, dsize)
+            var.dims[axis].attach_scale(dim)
+        if fill_value is not None:
+            var.attrs["_FillValue"] = np.float32(fill_value)
+        if attrs:
+            for k, v in attrs.items():
+                var.attrs[k] = np.bytes_(v) if isinstance(v, str) else v
+        return var
+
+    def variable(self, group: str, name: str) -> np.ndarray:
+        grp = self.group(group)
+        if name not in grp:
+            raise KeyError(f"variable {name!r} not in group {group!r}")
+        return np.asarray(grp[name])
+
+    def variable_names(self, group: str) -> list[str]:
+        grp = self.group(group)
+        names = []
+        for k, v in grp.items():
+            if not isinstance(v, _h5py().Dataset):
+                continue
+            if v.attrs.get("CLASS") == b"DIMENSION_SCALE":
+                continue
+            names.append(k)
+        return names
+
+
+# ---------------------------------------------------------------------------
+# Band-stack helpers (the framework-wide [5, H, W] contract)
+# ---------------------------------------------------------------------------
+
+def read_band_stack(
+    path: str | os.PathLike,
+    group: str,
+    band_names: Iterable[str] = BAND_NAMES,
+    fill_to_nan: bool = True,
+) -> np.ndarray:
+    """Read the 5 spectral bands of `group` as a `[C, H, W]` float32 stack.
+
+    `_FillValue` pixels (and exact INVALID_VALUE matches) become NaN when
+    `fill_to_nan`, mirroring the masked-array `.filled(np.nan)` reads in the
+    reference (`D_build_noise_pool.py:33-37`).
+    """
+    with NCFile(path, "r") as f:
+        grp = f.group(group)
+        bands = []
+        for b in band_names:
+            if b not in grp:
+                raise KeyError(f"band {b!r} not in group {group!r} of {path}")
+            arr = np.asarray(grp[b], dtype=np.float32)
+            if fill_to_nan:
+                fv = grp[b].attrs.get("_FillValue", INVALID_VALUE)
+                arr = np.where(arr == np.float32(fv), np.nan, arr)
+            bands.append(arr)
+    return np.stack(bands, axis=0)
+
+
+def write_band_stack(
+    path: str | os.PathLike,
+    group: str,
+    stack: np.ndarray,
+    band_names: Sequence[str] = BAND_NAMES,
+    dims: tuple[str, str] = ("y", "x"),
+    mode: str = "a",
+    var_attrs: Optional[Mapping[str, object]] = None,
+    group_attrs: Optional[Mapping[str, object]] = None,
+    nan_to_fill: bool = False,
+) -> None:
+    """Write a `[C, H, W]` stack into `group`, one variable per band."""
+    stack = np.asarray(stack, dtype=np.float32)
+    if stack.ndim != 3 or stack.shape[0] != len(band_names):
+        raise ValueError(f"expected [{len(band_names)},H,W] stack, got {stack.shape}")
+    if mode == "a" and not os.path.exists(path):
+        mode = "w"
+    with NCFile(path, mode) as f:
+        for i, b in enumerate(band_names):
+            data = stack[i]
+            if nan_to_fill:
+                data = np.where(np.isnan(data), np.float32(INVALID_VALUE), data)
+            f.create_variable(group, b, data, dims=dims, attrs=var_attrs)
+        if group_attrs:
+            f.set_attrs(group_attrs, group=group)
+
+
+def read_nav(path: str | os.PathLike) -> Dict[str, np.ndarray]:
+    """Read latitude/longitude (and any other nav rasters) if present."""
+    out: Dict[str, np.ndarray] = {}
+    with NCFile(path, "r") as f:
+        if not f.has_group("navigation_data"):
+            return out
+        for name in f.variable_names("navigation_data"):
+            out[name] = np.asarray(f.group("navigation_data")[name], np.float32)
+    return out
+
+
+def copy_file_with_groups(src: str, dst: str) -> None:
+    """Copy a grouped file (used by append-a-group pipeline stages)."""
+    h5py = _h5py()
+    with h5py.File(src, "r") as s, h5py.File(dst, "w") as d:
+        for k, v in s.attrs.items():
+            d.attrs[k] = v
+        for name in s:
+            s.copy(name, d, name=name, expand_refs=True)

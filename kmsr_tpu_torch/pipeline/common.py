@@ -1,0 +1,158 @@
+"""Shared pipeline-runner plumbing: per-file failure isolation + accounting.
+
+The port's copy of the parts of `kmsr_tpu.pipeline.common` the factory
+uses: `RunReport`, `run_per_file`, `DeviceSyncGuard` and `chunked_reader`.
+Every reference batch driver wraps its per-file work in try/except-continue
+with success/failure counting (`A_00_patch_cutter_universal.py:409-419`,
+`E_make_train_data.py:264-272`, `denoise/batch_denoise.py:60-93`) so one
+bad file never kills a run; this module centralizes that contract.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+import traceback
+from typing import Callable, Iterable, Optional
+
+
+@dataclasses.dataclass
+class RunReport:
+    succeeded: list
+    failed: list            # (item, error string)
+    seconds: float
+
+    @property
+    def n_ok(self) -> int:
+        return len(self.succeeded)
+
+    @property
+    def n_fail(self) -> int:
+        return len(self.failed)
+
+    def summary(self) -> str:
+        return (
+            f"{self.n_ok} succeeded, {self.n_fail} failed "
+            f"in {self.seconds:.1f}s"
+        )
+
+
+def run_per_file(
+    items: Iterable,
+    fn: Callable,
+    desc: str = "processing",
+    progress: bool = True,
+    verbose_errors: bool = False,
+    on_error: Optional[Callable] = None,
+) -> RunReport:
+    """Apply `fn(item)` to every item; isolate failures; account results."""
+    items = list(items)
+    if progress:
+        try:
+            from tqdm import tqdm
+
+            items_iter = tqdm(items, desc=desc, unit="file")
+        except ImportError:
+            items_iter = items
+    else:
+        items_iter = items
+    t0 = time.time()
+    ok, fail = [], []
+    for item in items_iter:
+        try:
+            fn(item)
+            ok.append(item)
+        except Exception as e:
+            fail.append((item, str(e)))
+            if verbose_errors:
+                traceback.print_exc()
+            if on_error:
+                on_error(item, e)
+    return RunReport(succeeded=ok, failed=fail, seconds=time.time() - t0)
+
+
+class DeviceSyncGuard:
+    """Escalate persistent device-sync failures into a run abort.
+
+    The pipelined writebacks (factory, apply_kernel) sync each
+    batch (a device-to-host copy) AFTER the next batch was dispatched, so
+    device-side runtime failures surface there; a single bad batch is
+    isolated per-file (reference failure-isolation contract). But a
+    permanently wedged device — or a programming error — would convert
+    EVERY remaining batch into per-file failures while the driver keeps
+    dispatching to a dead device. This guard re-raises after
+    `max_consecutive` whole-batch sync failures in a row so such runs
+    abort loudly instead of grinding to a 100%-failed report.
+    """
+
+    def __init__(self, max_consecutive: int = 3):
+        self.max_consecutive = max_consecutive
+        self._consecutive = 0
+
+    def succeeded(self) -> None:
+        self._consecutive = 0
+
+    def failed(self, exc: Exception) -> None:
+        """Record one whole-batch sync failure; re-raise when persistent."""
+        self._consecutive += 1
+        if self._consecutive >= self.max_consecutive:
+            raise RuntimeError(
+                f"{self._consecutive} consecutive whole-batch device syncs "
+                f"failed (last: {type(exc).__name__}: {exc}) — device wedged "
+                f"or programming error; aborting instead of failing every "
+                f"remaining batch"
+            ) from exc
+
+
+def chunked_reader(
+    files: list,
+    batch_size: int,
+    read_fn: Callable,
+    lookahead: int = 2,
+    timer: Optional[str] = None,
+):
+    """Yield (valid_paths, stacks, failures) per chunk, with the NEXT
+    chunk's file reads running on a background thread while the caller
+    (typically a device computation) consumes the current one — the host
+    IO / device-compute overlap the file-batched stages (factory,
+    apply_kernel) use. Per-file failure isolation preserved;
+    chunks are yielded strictly in order so seeded RNG streams match the
+    synchronous path.
+
+    timer: optional `utils.profiling.stage_timer` scope name accumulated
+    around each file read (BACKGROUND-thread busy time — it overlaps the
+    caller's device compute, so it is not additive with main-thread
+    scopes).
+    """
+    import queue
+    import threading
+
+    if timer is not None:
+        from ..utils.profiling import stage_timer
+    else:
+        stage_timer = None
+
+    q: "queue.Queue" = queue.Queue(maxsize=lookahead)
+
+    def worker():
+        for start in range(0, len(files), batch_size):
+            chunk = files[start : start + batch_size]
+            stacks, valid, fail = [], [], []
+            for path in chunk:
+                try:
+                    if stage_timer is not None:
+                        with stage_timer(timer):
+                            stacks.append(read_fn(path))
+                    else:
+                        stacks.append(read_fn(path))
+                    valid.append(path)
+                except Exception as e:
+                    fail.append((path, str(e)))
+            q.put((valid, stacks, fail))
+        q.put(None)
+
+    threading.Thread(target=worker, daemon=True).start()
+    while True:
+        item = q.get()
+        if item is None:
+            return
+        yield item

@@ -1,0 +1,112 @@
+"""Stage: assemble SR training pairs (hr, lr) with noise-pool injection.
+
+Counterpart of `kmsr_tpu.pipeline.make_train_data` (host-only: numpy and
+h5py). Contract parity with `E_make_train_data.py:187-299`: for each input
+file, hr = `denoised` group (C,256,256), lr = `blurred` group (C,32,32) +
+one random noise-pool sample; strict shape gates; per-sample output .nc
+with `hr`/`lr`/`navigation_data` groups (zlib); seeded RNG;
+success/failure accounting. The QA figures (`--vis-dir`) come with the
+analysis slice (ROADMAP.md).
+
+Usage:
+    python -m kmsr_tpu_torch.pipeline.make_train_data --input-dir BLURRED \
+        --noise-pool pool.npy --output-dir OUT [--seed 42]
+"""
+from __future__ import annotations
+
+import argparse
+import os
+
+import numpy as np
+
+from ..data.noise_pool import add_noise_np, load_noise_pool
+from ..data.sampler import list_patch_files
+from ..io.ncio import NCFile, read_band_stack, read_nav, write_band_stack
+from ..io.schema import GROUP_BLURRED, GROUP_DENOISED, GROUP_HR, GROUP_LR
+from .common import RunReport, run_per_file
+
+
+def save_training_sample(
+    output_path: str,
+    hr: np.ndarray,
+    lr: np.ndarray,
+    nav: dict | None,
+    lr_attrs: dict | None = None,
+) -> None:
+    write_band_stack(output_path, GROUP_HR, hr, dims=("y_hr", "x_hr"), mode="w")
+    write_band_stack(output_path, GROUP_LR, lr, dims=("y_lr", "x_lr"), mode="a",
+                     group_attrs=lr_attrs)
+    if nav:
+        with NCFile(output_path, "a") as f:
+            for name, arr in nav.items():
+                if arr is not None and arr.size:
+                    dims = tuple(f"{name}_dim_{j}" for j in range(arr.ndim))
+                    f.create_variable("navigation_data", name, arr, dims=dims)
+
+
+def process_files(
+    input_dir: str,
+    noise_pool_path: str,
+    output_dir: str,
+    seed: int = 42,
+    hr_group: str = GROUP_DENOISED,
+    lr_group: str = GROUP_BLURRED,
+    hr_size: int = 256,
+    lr_size: int = 32,
+    progress: bool = True,
+) -> RunReport:
+    rng = np.random.default_rng(seed)
+    pool = load_noise_pool(noise_pool_path)
+    files = list_patch_files(input_dir, "*.nc")
+    os.makedirs(output_dir, exist_ok=True)
+
+    def one(path):
+        hr = read_band_stack(path, hr_group)
+        blurred = read_band_stack(path, lr_group)
+        c = hr.shape[0]
+        # strict shape gates (`E_make_train_data.py:238-246`)
+        if hr.shape != (c, hr_size, hr_size):
+            raise ValueError(f"hr shape {hr.shape} != ({c},{hr_size},{hr_size})")
+        if blurred.shape != (c, lr_size, lr_size):
+            raise ValueError(f"blurred shape {blurred.shape} != ({c},{lr_size},{lr_size})")
+        lr = add_noise_np(rng, blurred, pool)
+        nav = read_nav(path)
+        base = os.path.splitext(os.path.basename(path))[0]
+        out_path = os.path.join(output_dir, f"{base}_train.nc")
+        save_training_sample(out_path, hr, lr, nav or None)
+
+    report = run_per_file(files, one, desc="making train data", progress=progress)
+    print(f"make_train_data: {report.summary()} -> {output_dir}")
+    return report
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="Assemble hr/lr training pairs")
+    p.add_argument("--input-dir", required=True)
+    p.add_argument("--noise-pool", required=True)
+    p.add_argument("--output-dir", required=True)
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--hr-group", default=GROUP_DENOISED)
+    p.add_argument("--lr-group", default=GROUP_BLURRED)
+    p.add_argument("--hr-size", type=int, default=256)
+    p.add_argument("--lr-size", type=int, default=32)
+    return p
+
+
+def main(argv=None) -> int:
+    a = build_parser().parse_args(argv)
+    report = process_files(
+        a.input_dir,
+        a.noise_pool,
+        a.output_dir,
+        seed=a.seed,
+        hr_group=a.hr_group,
+        lr_group=a.lr_group,
+        hr_size=a.hr_size,
+        lr_size=a.lr_size,
+    )
+    return 0 if report.n_fail == 0 else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,91 @@
+"""The port stands alone: no JAX, nothing of kmsr_tpu, no silent CPU fallback."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from kmsr_tpu_torch.device import resolve_device
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def _port_sources():
+    files = sorted((REPO / "kmsr_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    return files
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+def test_port_sources_import_no_jax_and_no_kmsr_tpu():
+    files = _port_sources()
+    assert len(files) > 10 and all(f.exists() for f in files)
+    bad = []
+    for path in files:
+        for mod in _imported_modules(path):
+            top = mod.split(".")[0]
+            if top in ("jax", "jaxlib", "kmsr_tpu"):
+                bad.append(f"{path.relative_to(REPO)}: import {mod}")
+    assert not bad, bad
+
+
+def test_importing_the_factory_loads_no_jax():
+    code = (
+        "import sys; import kmsr_tpu_torch.pipeline.factory, "
+        "kmsr_tpu_torch.convert, kmsr_tpu_torch.kernels; "
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'kmsr_tpu')]; print(bad); sys.exit(1 if bad else 0)"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device; the check is for hosts without")
+    from kmsr_tpu_torch.pipeline.apply_kernel import apply_kernel_to_folder
+    from kmsr_tpu_torch.pipeline.factory import main, run_factory
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_factory(str(tmp_path), "k.npy", "pool.npy", str(tmp_path / "out"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["--input-dir", str(tmp_path), "--kernel", "k.npy",
+              "--noise-pool", "pool.npy", "--output-dir", str(tmp_path / "o")])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        apply_kernel_to_folder(str(tmp_path), "k.npy", str(tmp_path / "out"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device()
+    assert not (tmp_path / "out").exists()  # raised before touching anything
+
+
+def test_resolve_device():
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert resolve_device(torch.device("cpu")) == torch.device("cpu")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        resolve_device("meta")
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    """The kernel binding never runs a plain version: a CPU tensor is an
+    error (the CPU path is chosen one level up, in ops.degrade_fused)."""
+    from kmsr_tpu_torch.kernels import degrade_stencil
+
+    x = torch.zeros(5, 16, 16, 2)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        degrade_stencil(x, torch.zeros(5, 20, 20), None, torch.zeros(5, 2, 2, 2),
+                        layout="chwb", dims=(5, 16, 16, 2), factor=8)
