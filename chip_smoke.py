@@ -9,15 +9,21 @@ It needs one CUDA device, nvcc (CUDA_HOME or /usr/local/cuda) and g++,
 and exits non-zero without them. Phases, one line each:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: the CUDA kernels (nvcc, sm_90a) and the native patch loader
-   (g++) from this checkout's sources, in parallel;
+2. build: the CUDA kernels (nvcc, sm_90a, one process per source) and the
+   native patch loader (g++) from this checkout's sources, in parallel;
 3. kernels: every instantiation of the fused degrade stencil (NCHW and
    CHWB for the v3 kernel, halo-free presplit for v3psn; with and without
    noise; f=8 span 20 and f=4 span 16; float32, plus bfloat16 storage at
    f=8) against its plain PyTorch version on the card at the factory's
    full width (B=128, C=5, 256x256, 13x13 blur), within rtol 1e-4 /
    atol 1e-5; and against the grouped strided F.conv2d route (TF32 off);
-4. factory: the factory's device path over 256 synthetic 5x256x256 .npy
+4. scene-kernels: both instantiations of the scene stencil (raw rows +
+   halos, `colsplit_raw`; halo-extended slab, `colsplit`) against their
+   plain versions and the F.pad + grouped strided F.conv2d route at the
+   scene path's full width (5x8192x8192, f=8, 13x13 blur, K=20) and at
+   5x2048x2048, f=4 (K=16); the raw one with edge halos and as two slabs
+   fed each other's real rows;
+5. factory: the factory's device path over 256 synthetic 5x256x256 .npy
    patches (two full batches of 128) with a seeded [64, 5, 32, 32] noise
    pool, through both routes — `factory_batches` (.npy input: native split
    loader -> presplit kernel) and `natural_batches` (the .nc route's
@@ -25,14 +31,23 @@ and exits non-zero without them. Phases, one line each:
    machine has no h5py to read .nc files). Launch counts are set to 0
    before each route and read after it; every lr is checked against the
    plain degrade(hr) + pool[idx];
-5. timing: CUDA-event medians of 30 runs for each kernel at the main
-   path's shapes, its plain version and the conv route, beside the least
+6. scene: `pipeline.degrade_scene.degrade_scene_file` (the CLI's device
+   code, fed in-memory scenes: no h5py there either) on a seeded
+   5x8192x8192 scene with NaN cells, in 1 and 4 row slabs, and on an
+   uneven 5x8003x7999 scene; and the public `degrade_slab_fast` on the
+   edge-extended 8192^2 scene. Launch counts are set to 0 before each
+   route and read after it; each output is held against the plain
+   `degrade_strided` of the cropped, mean-filled scene, with identical NaN
+   cells; each route is timed end to end (H2D / kernel / D2H stages);
+7. timing: CUDA-event medians of 30 runs for each kernel at the main
+   paths' shapes, its plain version and the conv route, beside the least
    time the card needs for the same bytes and operations.
 
-Prints one JSON line {"factory": {...}} (per-route results), then the
-card's nvidia-smi line, one JSON line {"kernels": [...]} and, last,
-{"ok": true, "device": {...}}. Any mismatch or error exits non-zero
-before that last line; timing never fails the run.
+Prints one JSON line {"factory": {...}} (per-route results), one
+{"scene": {...}}, then the card's nvidia-smi line, one JSON line
+{"kernels": [...]} and, last, {"ok": true, "device": {...}}. Any mismatch
+or error in any phase, timing included, exits non-zero before that last
+line.
 """
 from __future__ import annotations
 
@@ -50,12 +65,22 @@ RTOL, ATOL = 1e-4, 1e-5
 B, C, HW, KSIZE, FACTOR = 128, 5, 256, 13, 8
 N_FILES, POOL_N, SEED = 256, 64, 0
 TIMING_RUNS = 30
-SOURCE = "kmsr_tpu_torch/kernels/degrade_stencil.cu"
-#: TPU kernel each CUDA kernel replaces (the kernel body; the noise variant
-#: follows it in the same file)
+#: the scene path's full width (bench_scene.py): 5 bands, 8192^2 f32, x8
+SCENE_C, SCENE_HW, SCENE_K = 5, 8192, 13
+UNEVEN_HW = (8003, 7999)
+#: CUDA source of each kernel, and the TPU kernel it replaces (the kernel
+#: body; a noise variant follows it in the same file)
+SOURCES = {
+    "degrade_v3": "kmsr_tpu_torch/kernels/degrade_stencil.cu",
+    "degrade_v3psn": "kmsr_tpu_torch/kernels/degrade_stencil.cu",
+    "colsplit_raw": "kmsr_tpu_torch/kernels/scene_stencil.cu",
+    "colsplit": "kmsr_tpu_torch/kernels/scene_stencil.cu",
+}
 REPLACES = {
     "degrade_v3": "kmsr_tpu/ops/degrade_pallas.py:253",
     "degrade_v3psn": "kmsr_tpu/ops/degrade_pallas.py:351",
+    "colsplit_raw": "kmsr_tpu/ops/degrade_scene_fast.py:358",
+    "colsplit": "kmsr_tpu/ops/degrade_scene_fast.py:215",
 }
 #: published peaks (NVIDIA data sheets): HBM bytes/s and fp32 (non-tensor
 #: core) FLOP/s, by a substring of the card's name
@@ -103,16 +128,18 @@ def phase_build() -> None:
     from kmsr_tpu_torch.runtime import loader
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        cu = pool.submit(kernels.build)
+    with ThreadPoolExecutor(len(kernels.SOURCES) + 1) as pool:
+        cus = [pool.submit(kernels.build, name) for name in kernels.SOURCES]
         cpp = pool.submit(loader._build_library)
-        so, loader_so = cu.result(), cpp.result()
+        sos, loader_so = [f.result() for f in cus], cpp.result()
     secs = time.perf_counter() - t0
-    ptxas = [ln.split("ptxas info    : ")[-1] for ln in
-             so.with_suffix(".log").read_text().splitlines()
-             if "Used" in ln and "registers" in ln]
-    log(f"[build] ok in {secs:.1f}s: {so.name}, {loader_so.name}; ptxas: "
-        f"{sorted(set(ptxas))}")
+    for so in sos:
+        ptxas = [ln.split("ptxas info    : ")[-1] for ln in
+                 so.with_suffix(".log").read_text().splitlines()
+                 if "Used" in ln and "registers" in ln]
+        log(f"[build] {so.name}: ptxas {sorted(set(ptxas))}")
+    log(f"[build] ok in {secs:.1f}s: {', '.join(so.name for so in sos)}, "
+        f"{loader_so.name}")
 
 
 def make_inputs(factor: int, gen, dev):
@@ -379,6 +406,277 @@ def phase_timing(dev, card: str) -> dict:
     return out
 
 
+def scene_inputs(hw: int, factor: int, seed: int, dev):
+    """(scene [C, hw, hw], kernel [C, 13, 13], comp) made on the card."""
+    import torch
+
+    from kmsr_tpu_torch.ops.degrade import compose_with_box, normalize_kernel
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(SCENE_C, hw, hw, generator=gen, device=dev) * 2 + 5
+    kernel = torch.rand(SCENE_C, SCENE_K, SCENE_K, generator=gen, device=dev) * 0.9 + 0.1
+    return x, kernel, compose_with_box(normalize_kernel(kernel), factor).contiguous()
+
+
+def conv_route(x, comp, factor: int):
+    """The library yardstick: F.pad (replicate) + grouped strided F.conv2d
+    of the composed kernel, TF32 off — the same function as the stencil."""
+    import torch.nn.functional as F
+
+    from kmsr_tpu_torch.ops.degrade import fp32_convs
+
+    half = (comp.shape[-1] - factor) // 2
+    with fp32_convs():
+        xp = F.pad(x[None], (half, half, half, half), mode="replicate")
+        return F.conv2d(xp, comp[:, None], stride=factor, groups=x.shape[0])[0]
+
+
+def phase_scene_kernels(dev, failures: list) -> list:
+    import torch
+
+    from kmsr_tpu_torch.ops import degrade_scene_fast as sf
+
+    cases = []
+    for factor, hw in ((FACTOR, SCENE_HW), (4, SCENE_HW // 4)):
+        x, _, comp = scene_inputs(hw, factor, SEED + 2, dev)
+        ksize = comp.shape[-1]
+        th, bh = sf.halo_rows(factor, ksize)
+        top, bot = x[:, :1].expand(-1, th, -1), x[:, -1:].expand(-1, bh, -1)
+        conv = conv_route(x, comp, factor)
+        lo, hi = x[:, :hw // 2], x[:, hw // 2:]
+        x_ext = sf.extend_rows_edge(x, factor, ksize)
+        runs = {
+            ("colsplit_raw", "edge halos"): (
+                lambda: sf.degrade_rows_fast(x, comp, factor, top, bot),
+                lambda: sf.degrade_rows_fast_ref(x, comp, factor, top, bot)),
+            ("colsplit_raw", "two slabs, neighbour halos"): (
+                lambda: torch.cat([
+                    sf.degrade_rows_fast(lo, comp, factor, top, hi[:, :bh]),
+                    sf.degrade_rows_fast(hi, comp, factor, lo[:, -th:], bot)], 1),
+                lambda: torch.cat([
+                    sf.degrade_rows_fast_ref(lo, comp, factor, top, hi[:, :bh]),
+                    sf.degrade_rows_fast_ref(hi, comp, factor, lo[:, -th:], bot)], 1)),
+            ("colsplit", "edge-extended slab"): (
+                lambda: sf.degrade_slab_fast(x_ext, comp, factor),
+                lambda: sf.degrade_slab_fast_ref(x_ext, comp, factor)),
+        }
+        for (name, halos), (fused, ref) in runs.items():
+            got = fused()
+            want = ref()
+            torch.cuda.synchronize()
+            e = errors(got, conv)
+            case = {"kernel": name, "halos": halos, "shape": [SCENE_C, hw, hw],
+                    "factor": factor, "span": ksize, **errors(got, want),
+                    "vs_conv_max_abs_err": e["max_abs_err"]}
+            case["ok"] = case["ok"] and e["ok"]
+            cases.append(case)
+            log(f"[scene-kernels] {name} {halos} {SCENE_C}x{hw}x{hw} f={factor} "
+                f"K={ksize}: {'ok' if case['ok'] else 'MISMATCH'} "
+                f"max_abs={case['max_abs_err']:.3g} "
+                f"max_rel={case['max_rel_err']:.3g} "
+                f"vs_conv_max_abs={case['vs_conv_max_abs_err']:.3g}")
+            if not case["ok"]:
+                failures.append(f"scene kernel case {case}")
+            del got, want
+        del x, x_ext, conv, lo, hi, top, bot
+        torch.cuda.empty_cache()
+    return cases
+
+
+def host_scene(shape, seed: int, dev):
+    """A seeded float32 host scene (made on the card) with NaN cells: a
+    masked corner of whole 8x8 cells, a band of partly masked cells, and a
+    masked bottom-right corner reaching into the cropped remainder."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    scene = (torch.randn(SCENE_C, *shape, generator=gen, device=dev) * 2 + 5).cpu().numpy()
+    scene[:, :64, :64] = float("nan")
+    scene[:, 64:67, 1000:2000] = float("nan")
+    scene[1:3, -45:, -70:] = float("nan")
+    return scene
+
+
+def scene_reference(scene, kernel, dev):
+    """(lr, any_valid) on the card: plain `degrade_strided` of the cropped
+    scene with NaNs filled by each band's mean over its valid pixels
+    (float64), and which output cells have a valid pixel in their
+    footprint."""
+    import torch
+
+    from kmsr_tpu_torch.ops.degrade import degrade_strided
+
+    x = torch.from_numpy(scene).to(dev)
+    valid = ~torch.isnan(x)
+    fills = torch.stack([x[i][valid[i]].double().mean() for i in range(x.shape[0])])
+    x = torch.where(valid, x, fills.float()[:, None, None])
+    oh, ow = x.shape[1] // FACTOR, x.shape[2] // FACTOR
+    x, valid = x[:, :oh * FACTOR, :ow * FACTOR], valid[:, :oh * FACTOR, :ow * FACTOR]
+    lr = degrade_strided(x.contiguous(), kernel, factor=FACTOR)
+    any_valid = valid.reshape(-1, oh, FACTOR, ow, FACTOR).any(dim=4).any(dim=2)
+    return lr.cpu(), any_valid.cpu()
+
+
+def check_scene(got, want, any_valid, label: str, failures: list) -> dict:
+    import torch
+
+    got = torch.from_numpy(got)
+    if tuple(got.shape) != tuple(want.shape):
+        failures.append(f"scene {label}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+        return {"ok": False}
+    nan_ok = bool(torch.equal(torch.isnan(got), ~any_valid))
+    finite = bool(torch.isfinite(got[any_valid]).all())
+    e = errors(got[any_valid], want[any_valid])
+    e["nan_cells"] = int((~any_valid).sum())
+    e["ok"] = e["ok"] and nan_ok and finite
+    if not e["ok"]:
+        failures.append(f"scene {label}: nan cells identical {nan_ok}, finite "
+                        f"{finite}, {e}")
+    return e
+
+
+def phase_scene(dev, failures: list) -> dict:
+    """The whole-scene path through its device entry points, each route
+    with the launch counts set to 0 before it and read after it."""
+    import numpy as np
+    import torch
+
+    from kmsr_tpu_torch import kernels
+    from kmsr_tpu_torch.ops import degrade_scene_fast as sf
+    from kmsr_tpu_torch.ops.degrade import compose_with_box, normalize_kernel
+    from kmsr_tpu_torch.pipeline.degrade_scene import degrade_scene_file
+    from kmsr_tpu_torch.utils.profiling import timing_report
+
+    rng = np.random.default_rng(SEED)
+    kernel = torch.from_numpy(
+        rng.uniform(0.1, 1, (SCENE_C, SCENE_K, SCENE_K)).astype(np.float32)).to(dev)
+    t0 = time.perf_counter()
+    scenes = {"8192": host_scene((SCENE_HW, SCENE_HW), SEED + 3, dev),
+              "uneven": host_scene(UNEVEN_HW, SEED + 4, dev)}
+    refs = {name: scene_reference(sc, kernel, dev) for name, sc in scenes.items()}
+    log(f"[scene] made 2 scenes and their references in "
+        f"{time.perf_counter() - t0:.1f}s")
+    result = {}
+    for route, name, n_shards in (("n_shards=1", "8192", 1),
+                                  ("n_shards=4", "8192", 4),
+                                  ("uneven n_shards=1", "uneven", 1)):
+        scene = scenes[name]
+        kernels.reset_launches()
+        got = degrade_scene_file(scene, kernel, FACTOR, n_shards=n_shards)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        if launches["colsplit_raw"] < 1:
+            failures.append(f"scene route {route}: colsplit_raw was never launched")
+        checked = check_scene(got, *refs[name], route, failures)
+        walls, stages = [], []
+        for _ in range(3):  # timed, unchecked
+            timing_report(reset=True)
+            t0 = time.perf_counter()
+            degrade_scene_file(scene, kernel, FACTOR, n_shards=n_shards)
+            walls.append(time.perf_counter() - t0)
+            stages.append({k: v["total_s"] for k, v in timing_report(reset=True).items()})
+        best = sorted(range(3), key=walls.__getitem__)[1]  # the median run
+        mpix = scene.shape[1] * scene.shape[2] / 1e6
+        result[route] = {
+            "shape": list(scene.shape), "n_shards": n_shards,
+            "launches": launches["colsplit_raw"], "all_launches": launches,
+            **checked, "seconds": walls[best], "seconds_all": walls,
+            "mpix_per_s": mpix / walls[best], "stages_s": stages[best],
+        }
+        st = stages[best]
+        log(f"[scene] {route} {scene.shape}: {'ok' if checked['ok'] else 'MISMATCH'} "
+            f"max_abs={checked.get('max_abs_err', float('nan')):.3g} "
+            f"nan cells={checked.get('nan_cells')}; launches {launches}; median "
+            f"of 3 {walls[best]:.4f}s = {mpix / walls[best]:.1f} Mpix/s (h2d "
+            f"{st.get('scene.h2d', 0):.4f}s, kernel {st.get('scene.kernel', 0):.4f}s, "
+            f"d2h {st.get('scene.d2h', 0):.4f}s); all walls {walls}")
+    # the public halo-extended entry point on the edge-extended scene
+    x = torch.from_numpy(np.nan_to_num(scenes["8192"], nan=5.0)).to(dev)
+    comp = compose_with_box(normalize_kernel(kernel), FACTOR).contiguous()
+    want = conv_route(x, comp, FACTOR)
+    x_ext = sf.extend_rows_edge(x, FACTOR, comp.shape[-1])
+    kernels.reset_launches()
+    got = sf.degrade_slab_fast(x_ext, comp, FACTOR)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    if launches["colsplit"] < 1:
+        failures.append("slab route: colsplit was never launched")
+    e = errors(got, want)
+    if not e["ok"]:
+        failures.append(f"slab route vs the conv route: {e}")
+    result["slab"] = {"launches": launches["colsplit"], "all_launches": launches,
+                      "vs_conv": e}
+    log(f"[scene] slab (degrade_slab_fast on the extended 8192^2 scene): "
+        f"{'ok' if e['ok'] else 'MISMATCH'} vs conv max_abs={e['max_abs_err']:.3g}; "
+        f"launches {launches}")
+    del x, x_ext, got, want
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_scene_timing(dev, card: str) -> dict:
+    """Device times of the scene kernels at the scene path's full width."""
+    import torch
+    import torch.nn.functional as F
+
+    from kmsr_tpu_torch.ops import degrade_scene_fast as sf
+    from kmsr_tpu_torch.ops.degrade import fp32_convs
+    from kmsr_tpu_torch.utils.profiling import cuda_time_ms
+
+    bw, flops_peak = peaks(card)
+    x, _, comp = scene_inputs(SCENE_HW, FACTOR, SEED + 5, dev)
+    ksize = comp.shape[-1]
+    half = (ksize - FACTOR) // 2
+    th, bh = sf.halo_rows(FACTOR, ksize)
+    top, bot = x[:, :1].expand(-1, th, -1), x[:, -1:].expand(-1, bh, -1)
+    x_ext = sf.extend_rows_edge(x, FACTOR, ksize)
+    library = cuda_time_ms(lambda: conv_route(x, comp, FACTOR), runs=TIMING_RUNS)
+    padded = F.pad(x[None], (half, half, half, half), mode="replicate")
+
+    def conv_only():
+        with fp32_convs():
+            return F.conv2d(padded, comp[:, None], stride=FACTOR, groups=SCENE_C)
+
+    conv_ms = cuda_time_ms(conv_only, runs=TIMING_RUNS)["median_ms"]
+    del padded
+    n_out = SCENE_C * (SCENE_HW // FACTOR) ** 2
+    row_bytes = SCENE_C * SCENE_HW * 4
+    out = {}
+    for name, fused, ref, in_bytes in (
+        ("colsplit_raw", lambda: sf.degrade_rows_fast(x, comp, FACTOR, top, bot),
+         lambda: sf.degrade_rows_fast_ref(x, comp, FACTOR, top, bot),
+         x.numel() * 4 + (th + bh) * row_bytes),
+        ("colsplit", lambda: sf.degrade_slab_fast(x_ext, comp, FACTOR),
+         lambda: sf.degrade_slab_fast_ref(x_ext, comp, FACTOR),
+         x_ext.numel() * 4),
+    ):
+        ms = cuda_time_ms(fused, runs=TIMING_RUNS)
+        plain = cuda_time_ms(ref, runs=TIMING_RUNS)
+        nbytes = in_bytes + comp.numel() * 4 + n_out * 4
+        nflops = 2 * n_out * ksize * ksize
+        t_bytes, t_ops = nbytes / bw * 1e3, nflops / flops_peak * 1e3
+        rec = {
+            "layout": f"{SCENE_C}x{SCENE_HW}x{SCENE_HW} f32, f={FACTOR}, K={ksize}",
+            "ms": ms["median_ms"], "ms_min": ms["min_ms"], "ms_max": ms["max_ms"],
+            "plain_ms": plain["median_ms"], "library_ms": library["median_ms"],
+            "conv_only_ms": conv_ms, "bytes": nbytes, "flops": nflops,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        }
+        out[(name, "scene")] = rec
+        log(f"[timing] {name} {rec['layout']}: {rec['ms']:.4f} ms (min "
+            f"{rec['ms_min']:.4f}, max {rec['ms_max']:.4f}; median of "
+            f"{TIMING_RUNS}); plain {rec['plain_ms']:.3f} ms; conv route (F.pad "
+            f"+ grouped F.conv2d) {rec['library_ms']:.4f} ms, of it the grouped "
+            f"F.conv2d alone {conv_ms:.4f} ms; moves {nbytes / 1e6:.1f} MB, "
+            f"{nflops / 1e9:.3f} GFLOP -> bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']}, {bw / 1e12:.2f} TB/s, {flops_peak / 1e12:.0f} "
+            f"TFLOP/s fp32); {rec['ms'] / rec['bound_ms']:.2f}x the bound")
+    del x, x_ext
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -400,13 +698,15 @@ def main() -> int:
         cases = phase_kernels(dev, failures)
         log(f"[kernels] {'ok' if not failures else 'FAILED'}: {len(cases)} cases, "
             f"rtol={RTOL} atol={ATOL}")
+        cases += phase_scene_kernels(dev, failures)
+        log(f"[scene-kernels] {'ok' if not failures else 'FAILED'}, "
+            f"rtol={RTOL} atol={ATOL}")
         factory_res = phase_factory(dev, failures)
         log(f"[factory] {'ok' if not failures else 'FAILED'}")
-        try:
-            timing = phase_timing(dev, card)
-        except Exception:  # timing never fails the run
-            traceback.print_exc()
-            timing = {}
+        scene_res = phase_scene(dev, failures)
+        log(f"[scene] {'ok' if not failures else 'FAILED'}")
+        timing = phase_timing(dev, card)
+        timing.update(phase_scene_timing(dev, card))
     except Exception:
         traceback.print_exc()
         return 1
@@ -415,28 +715,35 @@ def main() -> int:
             print(f"FAILED: {f}", file=sys.stderr)
         return 1
 
+    # launches on each kernel's main-path run: the factory routes, the
+    # default scene route (one 8192^2 scene, n_shards=1), the slab route
     launches = {r["kernel"]: r["launches"] for r in factory_res.values()}
-    main_layout = {"degrade_v3": "nchw", "degrade_v3psn": "presplit"}
+    launches["colsplit_raw"] = scene_res["n_shards=1"]["launches"]
+    launches["colsplit"] = scene_res["slab"]["launches"]
+    main_layout = {"degrade_v3": "nchw", "degrade_v3psn": "presplit",
+                   "colsplit_raw": "scene", "colsplit": "scene"}
     records = []
     for name, layout in main_layout.items():
-        t = timing.get((name, layout), {})
+        t = timing[(name, layout)]
         mine = [c for c in cases if c["kernel"] == name]
         records.append({
-            "name": name, "route": "cuda", "source": SOURCE,
+            "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "max_rel_err": max(c["max_rel_err"] for c in mine),
-            "ms": t.get("ms"), "plain_ms": t.get("plain_ms"),
-            "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
-            "library_ms": t.get("library_ms"),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
             "library_call": "F.pad(replicate) + grouped strided F.conv2d "
-                            "(TF32 off) + noise add",
-            "conv_only_ms": t.get("conv_only_ms"),
-            "rtol": RTOL, "atol": ATOL, "timed_layout": layout, "cases": mine,
+                            "(TF32 off)" + (" + noise add" if layout != "scene" else ""),
+            "conv_only_ms": t["conv_only_ms"],
+            "rtol": RTOL, "atol": ATOL, "timed_layout": t.get("layout", layout),
+            "cases": mine,
             "other_layouts_ms": {lay: r["ms"] for (n, lay), r in timing.items()
                                  if n == name and lay != layout},
         })
     log(json.dumps({"factory": factory_res}))
+    log(json.dumps({"scene": scene_res}))
     log(smi)
     log(json.dumps({"kernels": records}))
     log(json.dumps({"ok": True, "device": {

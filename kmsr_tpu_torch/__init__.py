@@ -21,7 +21,9 @@ Rules the package keeps:
 
 Ported so far: the single-kernel fused train-data factory
 (`pipeline.factory`), its `.nc` route (v3 stencil kernel) and its `.npy`
-route (halo-free presplit kernel fed by the native split loader).
+route (halo-free presplit kernel fed by the native split loader); the
+whole-scene degrade (`pipeline.degrade_scene` -> `parallel.spatial` ->
+`ops.degrade_scene_fast`, the scene stencil kernel over row slabs).
 """
 
 __version__ = "0.1.0"

@@ -7,7 +7,10 @@ On the factory path that state is two arrays, both plain numpy on disk:
 * the noise pool ([N, C, h, w], `kmsr_tpu.data.noise_pool`) —
   `noise_pool_from_jax`.
 
-Generator, discriminator and MoE parameters come with their own slices.
+The whole-scene degrade path (`pipeline.degrade_scene`) carries nothing
+more: its only state is the same kernel artifact, so `kernel_from_jax`
+serves it too. Generator, discriminator and MoE parameters come with their
+own slices.
 """
 from __future__ import annotations
 

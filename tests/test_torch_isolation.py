@@ -44,7 +44,9 @@ def test_port_sources_import_no_jax_and_no_kmsr_tpu():
 def test_importing_the_factory_loads_no_jax():
     code = (
         "import sys; import kmsr_tpu_torch.pipeline.factory, "
-        "kmsr_tpu_torch.convert, kmsr_tpu_torch.kernels; "
+        "kmsr_tpu_torch.convert, kmsr_tpu_torch.kernels, "
+        "kmsr_tpu_torch.pipeline.degrade_scene, "
+        "kmsr_tpu_torch.parallel.spatial; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'kmsr_tpu')]; print(bad); sys.exit(1 if bad else 0)"
     )
@@ -58,6 +60,7 @@ def test_importing_the_factory_loads_no_jax():
 def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device; the check is for hosts without")
+    from kmsr_tpu_torch.pipeline import degrade_scene
     from kmsr_tpu_torch.pipeline.apply_kernel import apply_kernel_to_folder
     from kmsr_tpu_torch.pipeline.factory import main, run_factory
 
@@ -69,8 +72,14 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         apply_kernel_to_folder(str(tmp_path), "k.npy", str(tmp_path / "out"))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
+        degrade_scene.process_scenes(str(tmp_path), "k.npy", str(tmp_path / "out"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        degrade_scene.main(["--input", str(tmp_path), "--kernel", "k.npy",
+                            "--output-dir", str(tmp_path / "o")])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         resolve_device()
-    assert not (tmp_path / "out").exists()  # raised before touching anything
+    # raised before touching anything
+    assert not (tmp_path / "out").exists() and not (tmp_path / "o").exists()
 
 
 def test_resolve_device():
@@ -81,11 +90,19 @@ def test_resolve_device():
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
-    """The kernel binding never runs a plain version: a CPU tensor is an
-    error (the CPU path is chosen one level up, in ops.degrade_fused)."""
-    from kmsr_tpu_torch.kernels import degrade_stencil
+    """The kernel bindings never run a plain version: a CPU tensor is an
+    error (the CPU path is chosen one level up, in ops.degrade_fused and
+    ops.degrade_scene_fast)."""
+    from kmsr_tpu_torch.kernels import (
+        degrade_stencil, scene_stencil_ext, scene_stencil_raw,
+    )
 
     x = torch.zeros(5, 16, 16, 2)
     with pytest.raises(ValueError, match="CUDA tensors"):
         degrade_stencil(x, torch.zeros(5, 20, 20), None, torch.zeros(5, 2, 2, 2),
                         layout="chwb", dims=(5, 16, 16, 2), factor=8)
+    x, comp, out = torch.zeros(5, 16, 16), torch.zeros(5, 20, 20), torch.zeros(5, 2, 2)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        scene_stencil_raw(x, x[:, :6], x[:, :6], comp, out, factor=8)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        scene_stencil_ext(x, comp, out[:, :1], factor=8, top=8)

@@ -7,10 +7,15 @@ import pytest
 import torch
 
 from kmsr_tpu_torch import kernels
+from kmsr_tpu_torch.ops.degrade import compose_with_box, normalize_kernel
 from kmsr_tpu_torch.ops.degrade_fused import (
     degrade_fused, degrade_fused_chwb, degrade_fused_chwb_ref,
     degrade_fused_presplit, degrade_fused_presplit_ref, degrade_fused_ref,
     phase_split_chwb,
+)
+from kmsr_tpu_torch.ops.degrade_scene_fast import (
+    degrade_rows_fast, degrade_rows_fast_ref, degrade_slab_fast,
+    degrade_slab_fast_ref, extend_rows_edge, halo_rows,
 )
 
 TOL = dict(rtol=1e-4, atol=1e-5)
@@ -54,7 +59,8 @@ def test_kernel_matches_plain_every_layout(cuda, factor, dtype):
             degrade_fused(img, kernel, nn, factor=factor),
             degrade_fused_ref(img, kernel, nn, factor=factor), **TOL)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES == {"degrade_v3": 4, "degrade_v3psn": 2}
+    assert kernels.LAUNCHES == {"degrade_v3": 4, "degrade_v3psn": 2,
+                                "colsplit_raw": 0, "colsplit": 0}
 
 
 @pytest.mark.cuda
@@ -72,3 +78,65 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         kernels.degrade_stencil(x, comp, None, torch.empty(5, 4, 8, 4, device=cuda),
                                 layout="chwb",
                                 dims=(5, 64, 64, 4), factor=8)
+
+
+def _scene(dev, c, h, w, factor, ksize=13, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    x = (torch.randn(c, h, w, generator=g) * 2 + 5).to(dev)
+    k = torch.rand(c, ksize, ksize, generator=g).to(dev)
+    return x, compose_with_box(normalize_kernel(k), factor).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,h,w,factor,ksize", [
+    (5, 256, 192, 8, 13), (3, 128, 128, 4, 13), (2, 36, 36, 3, 5),
+    (2, 8, 96, 8, 13),  # a slab thinner than the blur's reach
+])
+def test_scene_kernels_match_plain(cuda, c, h, w, factor, ksize):
+    """Both scene stencil instantiations (raw rows + halos, extended slab)
+    against their plain versions: edge halos, two slabs fed each other's
+    rows, and a W-cropped view read in place; every launch counted."""
+    x, comp = _scene(cuda, c, h, w + 5, factor, ksize)
+    x = x[:, :, :w]  # cropped view: row stride w + 5
+    th, bh = halo_rows(factor, comp.shape[-1])
+    top = x[:, :1].expand(-1, max(th, 1), -1)
+    bot = x[:, -1:].expand(-1, max(bh, 1), -1)
+    kernels.reset_launches()
+    want = degrade_rows_fast_ref(x, comp, factor, top, bot)
+    torch.testing.assert_close(
+        degrade_rows_fast(x, comp, factor, top, bot, impl="cuda"), want,
+        rtol=0, atol=0)
+    x_ext = extend_rows_edge(x, factor, comp.shape[-1])
+    torch.testing.assert_close(
+        degrade_slab_fast(x_ext, comp, factor),
+        degrade_slab_fast_ref(x_ext, comp, factor), rtol=0, atol=0)
+    torch.testing.assert_close(degrade_slab_fast(x_ext, comp, factor), want,
+                               **TOL)
+    launches = 1
+    if h >= 2 * factor and (h // 2) % factor == 0:
+        lo, hi = x[:, : h // 2], x[:, h // 2:]
+        got = torch.cat([
+            degrade_rows_fast(lo, comp, factor, top, hi[:, :max(bh, 1)]),
+            degrade_rows_fast(hi, comp, factor, lo[:, -max(th, 1):], bot),
+        ], dim=1)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        launches += 2
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["colsplit_raw"] == launches
+    assert kernels.LAUNCHES["colsplit"] == 2
+
+
+@pytest.mark.cuda
+def test_scene_kernel_rejects_what_it_does_not_take(cuda):
+    x, comp = _scene(cuda, 2, 64, 64, 8)
+    top, bot = x[:, :6], x[:, -6:]
+    out = torch.empty(2, 8, 8, device=cuda)
+    with pytest.raises(TypeError, match="dtype"):
+        kernels.scene_stencil_raw(x.double(), top, bot, comp, out, factor=8)
+    with pytest.raises(ValueError, match="column stride"):
+        kernels.scene_stencil_raw(x.transpose(1, 2), top, bot, comp, out,
+                                  factor=8)
+    with pytest.raises(RuntimeError, match="arguments refused"):
+        kernels.scene_stencil_raw(x, top[:, :2], bot, comp, out, factor=8)
+    with pytest.raises(ValueError, match="impl='plain' needs a CPU"):
+        degrade_rows_fast(x, comp, 8, top, bot, impl="plain")
