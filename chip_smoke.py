@@ -553,20 +553,24 @@ def phase_scene(dev, failures: list) -> dict:
     t0 = time.perf_counter()
     scenes = {"8192": host_scene((SCENE_HW, SCENE_HW), SEED + 3, dev),
               "uneven": host_scene(UNEVEN_HW, SEED + 4, dev)}
+    # 4 slabs of 16 rows, thinner than 2*K: still the colsplit_raw kernel
+    scenes["thin"] = np.ascontiguousarray(scenes["8192"][:, :4 * 2 * FACTOR])
     refs = {name: scene_reference(sc, kernel, dev) for name, sc in scenes.items()}
-    log(f"[scene] made 2 scenes and their references in "
+    log(f"[scene] made {len(scenes)} scenes and their references in "
         f"{time.perf_counter() - t0:.1f}s")
     result = {}
     for route, name, n_shards in (("n_shards=1", "8192", 1),
                                   ("n_shards=4", "8192", 4),
-                                  ("uneven n_shards=1", "uneven", 1)):
+                                  ("uneven n_shards=1", "uneven", 1),
+                                  ("thin slabs n_shards=4", "thin", 4)):
         scene = scenes[name]
         kernels.reset_launches()
         got = degrade_scene_file(scene, kernel, FACTOR, n_shards=n_shards)
         torch.cuda.synchronize()
         launches = dict(kernels.LAUNCHES)
-        if launches["colsplit_raw"] < 1:
-            failures.append(f"scene route {route}: colsplit_raw was never launched")
+        if launches["colsplit_raw"] != n_shards:
+            failures.append(f"scene route {route}: colsplit_raw launched "
+                            f"{launches['colsplit_raw']} times, not once a slab")
         checked = check_scene(got, *refs[name], route, failures)
         walls, stages = [], []
         for _ in range(3):  # timed, unchecked

@@ -241,10 +241,9 @@ def degrade_rows_fast(
     composed kernel. impl: 'auto' (by the tensor's device), 'cuda' (the
     `colsplit_raw` kernel) or 'plain' (a CPU tensor's plain version).
     """
-    comp, top_rows, bot_rows = _rows_setup(x, comp, factor, top_rows, bot_rows)
     if _route(impl, x) == "plain":
-        return _stencil_ref(_raw_rows(x, top_rows, bot_rows), comp, factor,
-                            x.shape[1], x.shape[2])
+        return degrade_rows_fast_ref(x, comp, factor, top_rows, bot_rows)
+    comp, top_rows, bot_rows = _rows_setup(x, comp, factor, top_rows, bot_rows)
     from ..kernels import scene_stencil_raw
 
     c, hs, w = x.shape
@@ -279,10 +278,9 @@ def degrade_slab_fast(
     [C, Hs/f, W/f], the replicate-pad strided conv of the composed kernel.
     impl: 'auto', 'cuda' (the `colsplit` kernel) or 'plain'.
     """
-    comp, top, hs = _slab_setup(x_ext, comp, factor)
     if _route(impl, x_ext) == "plain":
-        return _stencil_ref(lambda y: x_ext[:, top + y], comp, factor, hs,
-                            x_ext.shape[2])
+        return degrade_slab_fast_ref(x_ext, comp, factor)
+    comp, top, hs = _slab_setup(x_ext, comp, factor)
     from ..kernels import scene_stencil_ext
 
     c, _, w = x_ext.shape

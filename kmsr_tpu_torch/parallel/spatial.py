@@ -15,7 +15,10 @@ Two local implementations, as in JAX:
 - 'fast' (default): `ops.degrade_scene_fast.degrade_rows_fast`, the raw
   slab plus two thin halo tensors (views of the neighbouring slabs, or a
   few replicated edge rows) — no slab-sized concat; on a CUDA tensor the
-  `colsplit_raw` kernel.
+  `colsplit_raw` kernel, at every slab height. JAX switches slabs thinner
+  than 2*K rows to 'bands' because its Pallas strip convs reach about K
+  rows into the slab; the CUDA kernel has no strip convs and takes thin
+  slabs as they are, so the switch has no counterpart.
 - 'bands': an extended slab (one concat) through one grouped strided
   `F.conv2d` (full float32). JAX's `_degrade_slab` row-band batching is
   an XLA memory workaround and has no counterpart; the result is the same
@@ -96,8 +99,6 @@ def degrade_scene_sharded(
         impl = "fast"
     if impl not in ("fast", "bands"):
         raise ValueError(f"impl must be fast|bands, got {impl!r}")
-    if impl == "fast" and h // n < 2 * ksize:
-        impl = "bands"  # the JAX gate for thin slabs, kept for parity
     hs = h // n
     slabs = [scene[:, i * hs:(i + 1) * hs] for i in range(n)]
     outs = []

@@ -17,6 +17,7 @@ from kmsr_tpu_torch.ops.degrade_scene_fast import (
     degrade_rows_fast, degrade_rows_fast_ref, degrade_slab_fast,
     degrade_slab_fast_ref, extend_rows_edge, halo_rows,
 )
+from kmsr_tpu_torch.parallel.spatial import degrade_scene_sharded
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 
@@ -124,6 +125,22 @@ def test_scene_kernels_match_plain(cuda, c, h, w, factor, ksize):
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["colsplit_raw"] == launches
     assert kernels.LAUNCHES["colsplit"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+def test_thin_slab_scene_launches_kernel(cuda, n):
+    """Slabs thinner than 2*K rows (where JAX switches to its 'bands'
+    conv) still go through the `colsplit_raw` kernel, one launch a slab,
+    and agree with the single-slab kernel result."""
+    x, _ = _scene(cuda, 2, 16, 32, 4, ksize=5)
+    k = torch.rand(2, 5, 5, generator=torch.Generator().manual_seed(1)).to(cuda)
+    want = degrade_scene_sharded(x, k, n_shards=1, factor=4)
+    kernels.reset_launches()
+    got = degrade_scene_sharded(x, k, n_shards=n, factor=4)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["colsplit_raw"] == n
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 @pytest.mark.cuda

@@ -28,8 +28,9 @@ def _jax_sharded(scene, kernel, n, factor, impl="fast"):
     return np.asarray(fn(jnp.asarray(scene), jnp.asarray(kernel)))
 
 
-# (2, 128, 32): 128/n >= 2*K (K = 8) for every n, the 'fast' path;
-# (2, 16, 32): 16/n < 16 for n = 2, 4, the switch to 'bands'
+# (2, 128, 32): 128/n >= 2*K (K = 8) for every n, JAX's 'fast' path;
+# (2, 16, 32): 16/n < 16 for n = 2, 4, where JAX switches to 'bands'
+# and the port's 'fast' path still takes the slabs as they are
 @pytest.mark.parametrize("shape", [(2, 128, 32), (2, 16, 32)])
 @pytest.mark.parametrize("n", [1, 2, 4])
 def test_sharded_matches_jax_mesh(rng, shape, n):
@@ -39,6 +40,26 @@ def test_sharded_matches_jax_mesh(rng, shape, n):
     got = degrade_scene_sharded(torch.from_numpy(scene), torch.from_numpy(kernel),
                                 n_shards=n, factor=4)
     assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_thin_slabs_stay_on_fast_path(rng, monkeypatch, n):
+    """Slabs thinner than 2*K rows go through `degrade_rows_fast`, one
+    call a slab: no shape-triggered switch to the 'bands' conv."""
+    import kmsr_tpu_torch.parallel.spatial as S
+
+    calls = []
+    real = S.degrade_rows_fast
+    monkeypatch.setattr(S, "degrade_rows_fast",
+                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    monkeypatch.setattr(S, "depthwise_conv2d", None)  # 'bands' would fail
+    scene = torch.from_numpy(rng.normal(5, 2, (2, 16, 32)).astype(np.float32))
+    kernel = torch.from_numpy(rng.uniform(0, 1, (2, 5, 5)).astype(np.float32))
+    got = S.degrade_scene_sharded(scene, kernel, n_shards=n, factor=4)
+    assert len(calls) == n
+    want = np.asarray(j_degrade(jnp.asarray(scene.numpy()),
+                                jnp.asarray(kernel.numpy()), factor=4))
     np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
@@ -97,5 +118,5 @@ def test_shape_gate():
     with pytest.raises(ValueError, match="n_shards must be"):
         degrade_scene_sharded(torch.zeros(5, 64, 64), k, n_shards=0, factor=8)
     with pytest.raises(ValueError, match="exceeds the 4-row slab"):
-        # 'bands' on 4-row slabs: the 13x13 blur's 6-row halo is deeper
+        # 4-row slabs: the 13x13 blur's 6-row halo is deeper
         degrade_scene_sharded(torch.zeros(2, 16, 32), k, n_shards=4, factor=4)
