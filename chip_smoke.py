@@ -17,6 +17,14 @@ and exits non-zero without them. Phases, one line each:
    f=8) against its plain PyTorch version on the card at the factory's
    full width (B=128, C=5, 256x256, 13x13 blur), within rtol 1e-4 /
    atol 1e-5; and against the grouped strided F.conv2d route (TF32 off);
+   then the wide-span kernels the same way, with and without noise,
+   float32 and bfloat16 storage: v1 (CHWB) and v2 (CHWB; NCHW where
+   auto-selection picks it) at f=2 (span 14) and f=8, the baked-halo
+   presplit v3ps at f=8 (m=1) and f=4 (m=2), all at 256x256 and bit-equal
+   to their plain versions; and the dense v4 kernel (tensor cores; CHWB,
+   and NCHW where auto-selection picks it) at f=2 on 32x32 and 48x48 and
+   at f=8 on 64x64 (CHWB), within the tolerance; every NCHW case must
+   launch the kernel named;
 4. scene-kernels: both instantiations of the scene stencil (raw rows +
    halos, `colsplit_raw`; halo-extended slab, `colsplit`) against their
    plain versions and the F.pad + grouped strided F.conv2d route at the
@@ -28,8 +36,12 @@ and exits non-zero without them. Phases, one line each:
    pool, through both routes — `factory_batches` (.npy input: native split
    loader -> presplit kernel) and `natural_batches` (the .nc route's
    device code: NCHW stack -> v3 kernel; fed .npy here because the card's
-   machine has no h5py to read .nc files). Launch counts are set to 0
-   before each route and read after it; every lr is checked against the
+   machine has no h5py to read .nc files); then both at x2 (span 14 > 10,
+   where the .npy route goes natural too): the same patches with a
+   [64, 5, 128, 128] pool (the v2 kernel) and 256 5x48x48 patches with a
+   [64, 5, 24, 24] pool (the dense v4 kernel). Launch counts are set to 0
+   before each route and read after it (one launch of the route's kernel
+   per batch, no other degrade kernel); every lr is checked against the
    plain degrade(hr) + pool[idx];
 6. scene: `pipeline.degrade_scene.degrade_scene_file` (the CLI's device
    code, fed in-memory scenes: no h5py there either) on a seeded
@@ -39,9 +51,14 @@ and exits non-zero without them. Phases, one line each:
    route and read after it; each output is held against the plain
    `degrade_strided` of the cropped, mean-filled scene, with identical NaN
    cells; each route is timed end to end (H2D / kernel / D2H stages);
-7. timing: CUDA-event medians of 30 runs for each kernel at the main
-   paths' shapes, its plain version and the conv route, beside the least
-   time the card needs for the same bytes and operations.
+7. api: the public calls that reach v1 and v3ps, each with the counts
+   set to 0 before it: `degrade_fused_chwb(version=1)` at the x2 factory's
+   batch and `degrade_fused_presplit(baked_halo=True)` at the x8 one;
+8. timing: CUDA-event medians of 30 runs for each kernel at the main
+   paths' shapes, its plain version and the conv route (for v4 also the
+   f32 `torch.matmul` of the same product), beside the least time the
+   card needs for the degrade's bytes and operations (for v4 also the
+   bound of its dense operands, the stencil matrix's terms included).
 
 Prints one JSON line {"factory": {...}} (per-route results), one
 {"scene": {...}}, then the card's nvidia-smi line, one JSON line
@@ -70,25 +87,37 @@ SCENE_C, SCENE_HW, SCENE_K = 5, 8192, 13
 UNEVEN_HW = (8003, 7999)
 #: CUDA source of each kernel, and the TPU kernel it replaces (the kernel
 #: body; a noise variant follows it in the same file)
+#: the x2 factory (span 14 > 5*2): 256x256 patches take the v2 stencil,
+#: 48x48 ones (the largest v4 shape at f=2) the dense v4 kernel
+X2, X2_SMALL_HW = 2, 48
 SOURCES = {
     "degrade_v3": "kmsr_tpu_torch/kernels/degrade_stencil.cu",
     "degrade_v3psn": "kmsr_tpu_torch/kernels/degrade_stencil.cu",
+    "degrade_v3ps": "kmsr_tpu_torch/kernels/degrade_stencil.cu",
+    "degrade_v2": "kmsr_tpu_torch/kernels/degrade_stencil.cu",
+    "degrade_v1": "kmsr_tpu_torch/kernels/degrade_stencil.cu",
+    "degrade_v4": "kmsr_tpu_torch/kernels/degrade_dense.cu",
     "colsplit_raw": "kmsr_tpu_torch/kernels/scene_stencil.cu",
     "colsplit": "kmsr_tpu_torch/kernels/scene_stencil.cu",
 }
 REPLACES = {
     "degrade_v3": "kmsr_tpu/ops/degrade_pallas.py:253",
     "degrade_v3psn": "kmsr_tpu/ops/degrade_pallas.py:351",
+    "degrade_v3ps": "kmsr_tpu/ops/degrade_pallas.py:320",
+    "degrade_v2": "kmsr_tpu/ops/degrade_pallas.py:113",
+    "degrade_v1": "kmsr_tpu/ops/degrade_pallas.py:64",
+    "degrade_v4": "kmsr_tpu/ops/degrade_pallas.py:634",
     "colsplit_raw": "kmsr_tpu/ops/degrade_scene_fast.py:358",
     "colsplit": "kmsr_tpu/ops/degrade_scene_fast.py:215",
 }
-#: published peaks (NVIDIA data sheets): HBM bytes/s and fp32 (non-tensor
-#: core) FLOP/s, by a substring of the card's name
+#: published peaks (NVIDIA data sheets, dense, no sparsity): HBM bytes/s,
+#: fp32 (non-tensor core) FLOP/s and bf16 tensor-core FLOP/s, by a
+#: substring of the card's name
 PEAKS = [
-    ("H100 PCIe", 2.0e12, 51e12),
-    ("H100 NVL", 3.9e12, 60e12),
-    ("H100", 3.35e12, 67e12),
-    ("H200", 4.8e12, 67e12),
+    ("H100 PCIe", 2.0e12, 51e12, 756e12),
+    ("H100 NVL", 3.9e12, 60e12, 835e12),
+    ("H100", 3.35e12, 67e12, 989e12),
+    ("H200", 4.8e12, 67e12, 989e12),
 ]
 
 
@@ -105,11 +134,12 @@ def nvidia_smi() -> str:
         else f"nvidia-smi failed ({r.returncode}): {r.stderr.strip()}"
 
 
-def peaks(name: str) -> tuple[float, float]:
-    for key, bw, flops in PEAKS:
+def peaks(name: str) -> tuple[float, float, float]:
+    """(HBM bytes/s, fp32 FLOP/s, bf16 tensor-core FLOP/s) of the card."""
+    for key, *rates in PEAKS:
         if key in name:
-            return bw, flops
-    return PEAKS[2][1], PEAKS[2][2]  # unknown card: H100 SXM figures
+            return tuple(rates)
+    return tuple(PEAKS[2][1:])  # unknown card: H100 SXM figures
 
 
 def errors(got, want) -> dict:
@@ -142,19 +172,19 @@ def phase_build() -> None:
         f"{loader_so.name}")
 
 
-def make_inputs(factor: int, gen, dev):
+def make_inputs(factor: int, gen, dev, hw: int = HW):
     import torch
 
-    img = (torch.randn(B, C, HW, HW, generator=gen) * 2 + 5).to(dev)
+    img = (torch.randn(B, C, hw, hw, generator=gen) * 2 + 5).to(dev)
     kernel = (torch.rand(C, KSIZE, KSIZE, generator=gen) * 0.9 + 0.1).to(dev)
-    oh = HW // factor
+    oh = hw // factor
     noise = (torch.randn(C, oh, oh, B, generator=gen) * 0.1).to(dev)
     return img, kernel, noise
 
 
 def layout_inputs(img, noise, factor, layout, dtype):
     """(x, noise) for one entry point's layout."""
-    from kmsr_tpu_torch.ops.degrade_fused import phase_split_chwb
+    from kmsr_tpu_torch.ops.degrade_fused import col_halo, phase_split_chwb
 
     x = img.to(dtype)
     if layout == "nchw":
@@ -162,16 +192,28 @@ def layout_inputs(img, noise, factor, layout, dtype):
     x = x.permute(1, 2, 3, 0).contiguous()
     if layout == "presplit":
         x = phase_split_chwb(x, factor).contiguous()
+    elif layout == "presplit_halo":
+        m = col_halo(KSIZE + factor - 1, factor)
+        x = phase_split_chwb(x, factor, halo=True, halo_rows=m).contiguous()
     return x, noise
 
 
-def entry(layout):
+def entry(layout, version=None):
+    """(entry point, its plain version), both called (x, kernel, noise,
+    factor=f); version pins the CHWB kernel (None: auto). NCHW always
+    auto-selects, as JAX's `degrade_pallas` does."""
+    import functools
+
     from kmsr_tpu_torch.ops import degrade_fused as df
 
+    pinned = functools.partial
     return {
         "nchw": (df.degrade_fused, df.degrade_fused_ref),
-        "chwb": (df.degrade_fused_chwb, df.degrade_fused_chwb_ref),
+        "chwb": (pinned(df.degrade_fused_chwb, version=version),
+                 pinned(df.degrade_fused_chwb_ref, version=version)),
         "presplit": (df.degrade_fused_presplit, df.degrade_fused_presplit_ref),
+        "presplit_halo": (pinned(df.degrade_fused_presplit, baked_halo=True),
+                          pinned(df.degrade_fused_presplit_ref, baked_halo=True)),
     }[layout]
 
 
@@ -227,26 +269,108 @@ def phase_kernels(dev, failures: list) -> list:
     return cases
 
 
-def write_inputs(tmp: str) -> tuple[list, str, str]:
+def phase_wide_kernels(dev, failures: list) -> list:
+    """The wide-span instantiations against their plain versions (v1, v2,
+    v3ps bit for bit; v4 within the tolerance) and, in float32, against
+    the F.pad + grouped strided F.conv2d route (TF32 off). CHWB pins the
+    version; NCHW runs only where auto-selection picks the kernel named,
+    and must launch it."""
+    import torch
+
+    from kmsr_tpu_torch import kernels
+    from kmsr_tpu_torch.ops.degrade import degrade_strided
+
+    gen = torch.Generator().manual_seed(SEED + 6)
+    runs = [  # (kernel, version, factor, patch side, layouts)
+        ("degrade_v1", 1, X2, HW, ("chwb",)),
+        ("degrade_v2", 2, X2, HW, ("nchw", "chwb")),
+        ("degrade_v1", 1, FACTOR, HW, ("chwb",)),
+        ("degrade_v2", 2, FACTOR, HW, ("chwb",)),
+        ("degrade_v3ps", 3, FACTOR, HW, ("presplit_halo",)),
+        ("degrade_v3ps", 3, 4, HW, ("presplit_halo",)),
+        ("degrade_v4", 4, X2, 32, ("nchw", "chwb")),
+        ("degrade_v4", 4, X2, X2_SMALL_HW, ("nchw", "chwb")),
+        ("degrade_v4", 4, FACTOR, 64, ("chwb",)),
+    ]
+    cases = []
+    for name, version, factor, hw, layouts in runs:
+        img, kernel, noise = make_inputs(factor, gen, dev, hw=hw)
+        conv = degrade_strided(img, kernel, factor=factor)
+        for layout in layouts:
+            fused, ref = entry(layout, version)
+            for dtype, with_noise in ((torch.float32, False), (torch.float32, True),
+                                      (torch.bfloat16, True)):
+                x, n = layout_inputs(img, noise, factor, layout, dtype)
+                n = n if with_noise else None
+                before = kernels.LAUNCHES[name]
+                got = fused(x, kernel, n, factor=factor)
+                launched = kernels.LAUNCHES[name] - before
+                want = ref(x, kernel, n, factor=factor)
+                torch.cuda.synchronize()
+                case = {"kernel": name, "layout": layout, "factor": factor,
+                        "span": KSIZE + factor - 1, "shape": [B, C, hw, hw],
+                        "noise": with_noise,
+                        "dtype": str(dtype).replace("torch.", ""),
+                        **errors(got, want)}
+                if launched != 1:
+                    case["ok"] = False
+                    failures.append(f"{name} {layout} {hw}x{hw} f={factor}: "
+                                    f"launched {launched} times, not once")
+                if name != "degrade_v4":  # the stencil modes: same taps, same
+                    # order, separately rounded; v4's tensor cores sum in their
+                    # own order and are held to the tolerance only
+                    case["bit_equal"] = bool(torch.equal(got, want))
+                    case["ok"] = case["ok"] and case["bit_equal"]
+                if dtype == torch.float32:
+                    want_conv = conv if n is None else conv + to_nchw(n, layout)
+                    e = errors(to_nchw(got, layout), want_conv)
+                    case["vs_conv_max_abs_err"] = e["max_abs_err"]
+                    case["ok"] = case["ok"] and e["ok"]
+                cases.append(case)
+                log(f"[kernels] {name} {layout} {hw}x{hw} f={factor} "
+                    f"noise={with_noise} {case['dtype']}: "
+                    f"{'ok' if case['ok'] else 'MISMATCH'} "
+                    f"max_abs={case['max_abs_err']:.3g} "
+                    f"max_rel={case['max_rel_err']:.3g}"
+                    + (f" bit_equal={case['bit_equal']}" if "bit_equal" in case else "")
+                    + (f" vs_conv_max_abs={case['vs_conv_max_abs_err']:.3g}"
+                       if "vs_conv_max_abs_err" in case else ""))
+                if not case["ok"]:
+                    failures.append(f"kernel case {case}")
+                del x, got, want
+        del img, conv
+    torch.cuda.empty_cache()
+    return cases
+
+
+def write_inputs(tmp: str) -> tuple[dict, str, dict]:
+    """Seeded .npy patch sets ({"256": 5x256x256, "48": 5x48x48}, N_FILES
+    each), one 13x13 kernel, and a [POOL_N, 5, h, w] noise pool per
+    (patch side, factor) the routes use."""
     import numpy as np
 
     rng = np.random.default_rng(SEED)
-    patches = os.path.join(tmp, "patches")
-    os.makedirs(patches)
-    files = []
-    for i in range(N_FILES):
-        path = os.path.join(patches, f"scene_{i:04d}.npy")
-        np.save(path, rng.normal(5, 2, (C, HW, HW)).astype(np.float32))
-        files.append(path)
-    k_path, pool_path = os.path.join(tmp, "kernel.npy"), os.path.join(tmp, "pool.npy")
+    sets = {}
+    for hw in (HW, X2_SMALL_HW):
+        d = os.path.join(tmp, f"patches{hw}")
+        os.makedirs(d)
+        sets[hw] = []
+        for i in range(N_FILES):
+            path = os.path.join(d, f"scene_{i:04d}.npy")
+            np.save(path, rng.normal(5, 2, (C, hw, hw)).astype(np.float32))
+            sets[hw].append(path)
+    k_path = os.path.join(tmp, "kernel.npy")
     np.save(k_path, rng.uniform(0.1, 1, (C, KSIZE, KSIZE)).astype(np.float32))
-    np.save(pool_path, rng.normal(0, 0.1, (POOL_N, C, HW // FACTOR, HW // FACTOR))
-            .astype(np.float32))
-    return files, k_path, pool_path
+    pools = {}
+    for hw, factor in ((HW, FACTOR), (HW, X2), (X2_SMALL_HW, X2)):
+        pools[hw, factor] = os.path.join(tmp, f"pool{hw}_x{factor}.npy")
+        np.save(pools[hw, factor], rng.normal(
+            0, 0.1, (POOL_N, C, hw // factor, hw // factor)).astype(np.float32))
+    return sets, k_path, pools
 
 
 def drive(batches, files, kernel, pool, noise_of, dev, check: bool,
-          failures: list, label: str) -> dict:
+          failures: list, label: str, factor: int = FACTOR) -> dict:
     """Consume a factory generator as run_factory does (sync batch k after
     batch k+1 was dispatched); with check, hold every lr against the plain
     degrade(hr) + pool[idx] and every hr against its file."""
@@ -266,8 +390,8 @@ def drive(batches, files, kernel, pool, noise_of, dev, check: bool,
         seen += len(paths)
         if not check:
             return
-        want = degrade(torch.from_numpy(hr).to(dev), kernel).cpu() + torch.from_numpy(
-            pool[[noise_of[p] for p in paths]])
+        want = degrade(torch.from_numpy(hr).to(dev), kernel, factor=factor).cpu() \
+            + torch.from_numpy(pool[[noise_of[p] for p in paths]])
         if not bool(torch.isfinite(lr).all()) or lr.shape != want.shape:
             failures.append(f"{label}: non-finite or misshapen lr {tuple(lr.shape)}")
         e = errors(lr, want)
@@ -300,41 +424,60 @@ def drive(batches, files, kernel, pool, noise_of, dev, check: bool,
 
 
 def phase_factory(dev, failures: list) -> dict:
+    """Each factory route with the launch counts set to 0 before it and
+    read after it: one launch of the route's kernel per 128-patch batch,
+    and no other degrade kernel."""
     from kmsr_tpu_torch import kernels
     from kmsr_tpu_torch.pipeline import factory
 
     tmp = tempfile.mkdtemp(prefix="kmsr_chip_smoke_")
     try:
         t0 = time.perf_counter()
-        files, k_path, pool_path = write_inputs(tmp)
-        log(f"[factory] wrote {len(files)} patches in {time.perf_counter() - t0:.1f}s")
-        kernel, pool, noise_of = factory.factory_inputs(files, k_path, pool_path,
-                                                        seed=42, device=dev)
-        routes = {
-            # the .npy route exactly as run_factory builds it
-            "npy": ("degrade_v3psn", lambda: factory.factory_batches(
-                files, k_path, pool_path, factor=FACTOR, batch_size=128,
-                seed=42, backend="auto", input_format="npy", device=dev)),
-            # the .nc route's device code (natural NCHW stack -> v3 kernel)
-            "nc-device": ("degrade_v3", lambda: factory.natural_batches(
-                files, kernel, pool, noise_of, factor=FACTOR, batch_size=128,
-                backend="auto", input_format="npy", device=dev)),
-        }
+        sets, k_path, pools = write_inputs(tmp)
+        log(f"[factory] wrote {sum(map(len, sets.values()))} patches in "
+            f"{time.perf_counter() - t0:.1f}s")
+        routes = [  # (route, kernel, patch side, factor, input route)
+            ("npy", "degrade_v3psn", HW, FACTOR, "factory_batches"),
+            ("nc-device", "degrade_v3", HW, FACTOR, "natural_batches"),
+            ("x2 npy", "degrade_v2", HW, X2, "factory_batches"),
+            ("x2 nc-device", "degrade_v2", HW, X2, "natural_batches"),
+            ("x2 small npy", "degrade_v4", X2_SMALL_HW, X2, "factory_batches"),
+            ("x2 small nc-device", "degrade_v4", X2_SMALL_HW, X2, "natural_batches"),
+        ]
         result = {}
-        for route, (name, make) in routes.items():
+        for route, name, hw, factor, via in routes:
+            files, pool_path = sets[hw], pools[hw, factor]
+            kernel, pool, noise_of = factory.factory_inputs(
+                files, k_path, pool_path, seed=42, device=dev)
+            if via == "factory_batches":  # the .npy route as run_factory builds it
+                def make():
+                    return factory.factory_batches(
+                        files, k_path, pool_path, factor=factor, batch_size=128,
+                        seed=42, backend="auto", input_format="npy", device=dev)
+            else:  # the .nc route's device code (natural NCHW stack)
+                def make():
+                    return factory.natural_batches(
+                        files, kernel, pool, noise_of, factor=factor,
+                        batch_size=128, backend="auto", input_format="npy",
+                        device=dev)
             kernels.reset_launches()
             checked = drive(make(), files, kernel, pool, noise_of, dev, True,
-                            failures, route)
+                            failures, route, factor)
             launches = dict(kernels.LAUNCHES)
-            if launches[name] < 1:
-                failures.append(f"route {route}: kernel {name} was never launched")
+            batches = -(-len(files) // 128)
+            degrades = sum(n for k, n in launches.items() if k.startswith("degrade_"))
+            if launches[name] != batches or degrades != batches:
+                failures.append(f"route {route}: launches {launches}, want {name} "
+                                f"once per batch ({batches}) and nothing else")
             timed = drive(make(), files, kernel, pool, noise_of, dev, False,
-                          failures, route)
-            result[route] = {"kernel": name, "launches": launches[name],
+                          failures, route, factor)
+            result[route] = {"kernel": name, "patch": [C, hw, hw], "factor": factor,
+                             "via": via, "launches": launches[name],
                              "all_launches": launches, **checked,
                              "timed_seconds": timed["seconds"],
                              "timed_stages_s": timed["stages_s"]}
-            log(f"[factory] route {route}: {checked['patches']} patches, "
+            log(f"[factory] route {route} ({C}x{hw}x{hw}, x{factor}, {via}): "
+                f"{checked['patches']} patches, "
                 f"launches {launches}, lr max_abs_err vs plain "
                 f"{checked['max_abs_err']:.3g}; unchecked pass "
                 f"{timed['seconds']:.3f}s = "
@@ -346,6 +489,37 @@ def phase_factory(dev, failures: list) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def phase_api(dev, failures: list) -> dict:
+    """The public calls that reach v1 and v3ps (no CLI route does), each
+    with the counts set to 0 before it and read after it, held bit for bit
+    against its plain version."""
+    import torch
+
+    from kmsr_tpu_torch import kernels
+
+    gen = torch.Generator().manual_seed(SEED + 7)
+    result = {}
+    for name, version, factor, layout in (("degrade_v1", 1, X2, "chwb"),
+                                          ("degrade_v3ps", 3, FACTOR, "presplit_halo")):
+        img, kernel, noise = make_inputs(factor, gen, dev)
+        x, n = layout_inputs(img, noise, factor, layout, torch.float32)
+        fused, ref = entry(layout, version)
+        kernels.reset_launches()
+        got = fused(x, kernel, n, factor=factor)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        equal = bool(torch.equal(got, ref(x, kernel, n, factor=factor)))
+        if launches[name] != 1 or not equal:
+            failures.append(f"api {name}: launches {launches}, bit-equal {equal}")
+        result[name] = {"launches": launches[name], "all_launches": launches,
+                        "bit_equal": equal, "layout": layout, "factor": factor}
+        log(f"[api] {name} ({layout}, x{factor}, B={B}): launches {launches}, "
+            f"bit-equal to its plain version: {equal}")
+        del img, x, got
+    torch.cuda.empty_cache()
+    return result
+
+
 def phase_timing(dev, card: str) -> dict:
     """Device times at the main path's shapes (B=128, f=8, with noise)."""
     import torch
@@ -354,7 +528,7 @@ def phase_timing(dev, card: str) -> dict:
     from kmsr_tpu_torch.ops.degrade import fp32_convs, normalize_kernel, compose_with_box
     from kmsr_tpu_torch.utils.profiling import cuda_time_ms
 
-    bw, flops_peak = peaks(card)
+    bw, flops_peak, _ = peaks(card)
     gen = torch.Generator().manual_seed(SEED + 1)
     img, kernel, noise = make_inputs(FACTOR, gen, dev)
     comp = compose_with_box(normalize_kernel(kernel), FACTOR)
@@ -404,6 +578,108 @@ def phase_timing(dev, card: str) -> dict:
             f"({rec['bound_by']}, {bw / 1e12:.2f} TB/s, {flops_peak / 1e12:.0f} "
             f"TFLOP/s fp32); launches per 128-file factory batch: 1")
     return out
+
+
+def phase_wide_timing(dev, card: str) -> dict:
+    """Device times of the wide-span kernels at their main paths' shapes
+    (B=128, C=5, with noise): v2 at 256x256, x2 (NCHW, the .nc route's
+    layout; also CHWB); v1 there on CHWB, the only layout that reaches it;
+    v3ps at 256x256, x8; v4 at 48x48, x2 (NCHW). v4's time is the dense
+    kernel alone on prebuilt A terms (JAX builds them outside its kernel
+    too); the whole `degrade_fused` call, A's build included, is
+    `call_ms`. `bound_ms` is the degrade's own: x, noise and out moved
+    once, 2*K*K fp32 operations an output; v4's `operand_bound_ms` is that
+    of the dense product it runs (A's three bf16 terms read too, six term
+    products at the bf16 tensor-core peak)."""
+    import torch
+
+    from kmsr_tpu_torch import kernels
+    from kmsr_tpu_torch.ops import degrade_fused as df
+    from kmsr_tpu_torch.ops.degrade import compose_with_box, normalize_kernel
+    from kmsr_tpu_torch.utils.profiling import cuda_time_ms
+
+    bw, flops_peak, bf16_peak = peaks(card)
+    gen = torch.Generator().manual_seed(SEED + 8)
+    out = {}
+
+    def record(name, layout, fused, ref, library, nbytes, nflops, peak, extra=()):
+        ms = cuda_time_ms(fused, runs=TIMING_RUNS)
+        plain = cuda_time_ms(ref, runs=5)
+        t_bytes, t_ops = nbytes / bw * 1e3, nflops / peak * 1e3
+        rec = {"layout": layout, "ms": ms["median_ms"], "ms_min": ms["min_ms"],
+               "ms_max": ms["max_ms"], "plain_ms": plain["median_ms"],
+               "library_ms": library, "bytes": nbytes, "flops": nflops,
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               **dict(extra)}
+        out[(name, layout)] = rec
+        log(f"[timing] {name} {layout}: {rec['ms']:.4f} ms (min {rec['ms_min']:.4f}, "
+            f"max {rec['ms_max']:.4f}; median of {TIMING_RUNS}); plain "
+            f"{rec['plain_ms']:.3f} ms (median of 5); conv route {library:.4f} ms; "
+            + "".join(f"{k} {v:.4f} ms; " for k, v in dict(extra).items())
+            + f"moves {nbytes / 1e6:.1f} MB, {nflops / 1e9:.3f} GFLOP -> bound "
+            f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}, {bw / 1e12:.2f} TB/s, "
+            f"{peak / 1e12:.0f} TFLOP/s); {rec['ms'] / rec['bound_ms']:.2f}x the bound")
+
+    for name, version, factor, hw, layouts in (
+            ("degrade_v1", 1, X2, HW, ("chwb",)),
+            ("degrade_v2", 2, X2, HW, ("nchw", "chwb")),
+            ("degrade_v3ps", 3, FACTOR, HW, ("presplit_halo",)),
+            ("degrade_v4", 4, X2, X2_SMALL_HW, ("nchw",))):
+        img, kernel, noise = make_inputs(factor, gen, dev, hw=hw)
+        comp = compose_with_box(normalize_kernel(kernel), factor).contiguous()
+        nn = noise.permute(3, 0, 1, 2).contiguous()
+        library = cuda_time_ms(lambda: conv_route_nchw(img, comp, factor) + nn,
+                               runs=TIMING_RUNS)["median_ms"]
+        for layout in layouts:
+            x, n = layout_inputs(img, noise, factor, layout, torch.float32)
+            fused, ref = entry(layout, version)
+            n_out, k = n.numel(), comp.shape[-1]
+            out_bytes = 2 * n_out * 4  # noise read, out written
+            nbytes = x.numel() * 4 + out_bytes + comp.numel() * 4
+            nflops = 2 * n_out * k * k + n_out
+            if name != "degrade_v4":
+                record(name, layout, lambda: fused(x, kernel, n, factor=factor),
+                       lambda: ref(x, kernel, n, factor=factor), library,
+                       nbytes, nflops, flops_peak)
+                continue
+            a_terms = df._a_terms(comp, factor, hw, hw)
+            dst = torch.empty_like(n)
+            a32 = df.stencil_matrix(comp, factor, hw, hw)
+            xm = x.reshape(B, C, hw * hw).permute(1, 2, 0).contiguous()
+
+            def matmul():
+                with df._fp32_matmuls():
+                    return torch.matmul(a32, xm)
+
+            operand_bytes = a_terms.numel() * 2 + x.numel() * 4 + out_bytes
+            operand_flops = 6 * 2 * a_terms[:, 0].numel() * B + n_out
+            record(name, layout,
+                   lambda: kernels.degrade_dense(x, a_terms, n, dst, layout=layout),
+                   lambda: df.degrade_v4_ref(x, a_terms, n, factor, layout), library,
+                   nbytes, nflops, flops_peak,
+                   extra={"matmul_ms": cuda_time_ms(matmul, runs=TIMING_RUNS)["median_ms"],
+                          "call_ms": cuda_time_ms(lambda: fused(x, kernel, n, factor=factor),
+                                                  runs=TIMING_RUNS)["median_ms"],
+                          "operand_bound_ms": max(operand_bytes / bw,
+                                                  operand_flops / bf16_peak) * 1e3
+                          }.items())
+        del img, noise, nn
+    torch.cuda.empty_cache()
+    return out
+
+
+def conv_route_nchw(img, comp, factor: int):
+    """The library yardstick on an NCHW batch: F.pad (replicate) + grouped
+    strided F.conv2d of the composed kernel, TF32 off."""
+    import torch.nn.functional as F
+
+    from kmsr_tpu_torch.ops.degrade import fp32_convs
+
+    half = (comp.shape[-1] - factor) // 2
+    with fp32_convs():
+        xp = F.pad(img, (half, half, half, half), mode="replicate")
+        return F.conv2d(xp, comp[:, None], stride=factor, groups=img.shape[1])
 
 
 def scene_inputs(hw: int, factor: int, seed: int, dev):
@@ -627,7 +903,7 @@ def phase_scene_timing(dev, card: str) -> dict:
     from kmsr_tpu_torch.ops.degrade import fp32_convs
     from kmsr_tpu_torch.utils.profiling import cuda_time_ms
 
-    bw, flops_peak = peaks(card)
+    bw, flops_peak, _ = peaks(card)
     x, _, comp = scene_inputs(SCENE_HW, FACTOR, SEED + 5, dev)
     ksize = comp.shape[-1]
     half = (ksize - FACTOR) // 2
@@ -700,6 +976,7 @@ def main() -> int:
             f"{torch.__version__}, CUDA {torch.version.cuda}; nvidia-smi: {smi}")
         phase_build()
         cases = phase_kernels(dev, failures)
+        cases += phase_wide_kernels(dev, failures)
         log(f"[kernels] {'ok' if not failures else 'FAILED'}: {len(cases)} cases, "
             f"rtol={RTOL} atol={ATOL}")
         cases += phase_scene_kernels(dev, failures)
@@ -709,7 +986,10 @@ def main() -> int:
         log(f"[factory] {'ok' if not failures else 'FAILED'}")
         scene_res = phase_scene(dev, failures)
         log(f"[scene] {'ok' if not failures else 'FAILED'}")
+        api_res = phase_api(dev, failures)
+        log(f"[api] {'ok' if not failures else 'FAILED'}")
         timing = phase_timing(dev, card)
+        timing.update(phase_wide_timing(dev, card))
         timing.update(phase_scene_timing(dev, card))
     except Exception:
         traceback.print_exc()
@@ -719,12 +999,18 @@ def main() -> int:
             print(f"FAILED: {f}", file=sys.stderr)
         return 1
 
-    # launches on each kernel's main-path run: the factory routes, the
-    # default scene route (one 8192^2 scene, n_shards=1), the slab route
-    launches = {r["kernel"]: r["launches"] for r in factory_res.values()}
+    # launches on each kernel's main-path run: the factory routes (x8
+    # .npy and .nc; x2 .nc for v2, x2 small-patch .nc for v4), the public
+    # calls of the api phase (v1, v3ps), the default scene route (one
+    # 8192^2 scene, n_shards=1), the slab route
+    launches = {r["kernel"]: r["launches"] for route, r in factory_res.items()
+                if route in ("npy", "nc-device", "x2 nc-device", "x2 small nc-device")}
+    launches.update({name: r["launches"] for name, r in api_res.items()})
     launches["colsplit_raw"] = scene_res["n_shards=1"]["launches"]
     launches["colsplit"] = scene_res["slab"]["launches"]
     main_layout = {"degrade_v3": "nchw", "degrade_v3psn": "presplit",
+                   "degrade_v3ps": "presplit_halo", "degrade_v2": "nchw",
+                   "degrade_v1": "chwb", "degrade_v4": "nchw",
                    "colsplit_raw": "scene", "colsplit": "scene"}
     records = []
     for name, layout in main_layout.items():
@@ -740,7 +1026,8 @@ def main() -> int:
             "library_ms": t["library_ms"],
             "library_call": "F.pad(replicate) + grouped strided F.conv2d "
                             "(TF32 off)" + (" + noise add" if layout != "scene" else ""),
-            "conv_only_ms": t["conv_only_ms"],
+            **{k: t[k] for k in ("conv_only_ms", "matmul_ms", "call_ms",
+                                 "operand_bound_ms") if k in t},
             "rtol": RTOL, "atol": ATOL, "timed_layout": t.get("layout", layout),
             "cases": mine,
             "other_layouts_ms": {lay: r["ms"] for (n, lay), r in timing.items()
@@ -748,6 +1035,7 @@ def main() -> int:
         })
     log(json.dumps({"factory": factory_res}))
     log(json.dumps({"scene": scene_res}))
+    log(json.dumps({"api": api_res}))
     log(smi)
     log(json.dumps({"kernels": records}))
     log(json.dumps({"ok": True, "device": {

@@ -5,7 +5,9 @@ with a plain C interface, at first use, into `_build/` beside this file
 (listed in .gitignore):
 
 * `degrade_stencil.cu` — the factory's fused degrade stencil
-  (`degrade_stencil`);
+  (`degrade_stencil`: the v3, v3psn, v3ps, v2 and v1 instantiations);
+* `degrade_dense.cu` — the dense stencil-matrix degrade on the tensor
+  cores (`degrade_dense`, the v4 counterpart);
 * `scene_stencil.cu` — the whole-scene slab stencil (`scene_stencil_raw`,
   `scene_stencil_ext`).
 
@@ -35,7 +37,7 @@ import torch
 
 _DIR = Path(__file__).parent
 _BUILD_DIR = _DIR / "_build"
-SOURCES = ("degrade_stencil", "scene_stencil")
+SOURCES = ("degrade_stencil", "degrade_dense", "scene_stencil")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -43,15 +45,23 @@ NVCC_FLAGS = (
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
 
-#: launches per kernel, keyed by the TPU kernel each replaces:
-#: degrade_v3 <- degrade_pallas.py:_degrade_kernel_v3 (+ noise variant),
-#: degrade_v3psn <- degrade_pallas.py:_degrade_kernel_v3psn (+ noise),
+#: launches per kernel, keyed by the TPU kernel each replaces (each with
+#: its noise variant):
+#: degrade_v3 <- degrade_pallas.py:_degrade_kernel_v3,
+#: degrade_v3psn <- degrade_pallas.py:_degrade_kernel_v3psn,
+#: degrade_v3ps <- degrade_pallas.py:_degrade_kernel_v3ps,
+#: degrade_v2 <- degrade_pallas.py:_degrade_kernel_v2,
+#: degrade_v1 <- degrade_pallas.py:_degrade_kernel,
+#: degrade_v4 <- degrade_pallas.py:_degrade_kernel_v4,
 #: colsplit_raw <- degrade_scene_fast.py:_colsplit_raw_kernel,
 #: colsplit <- degrade_scene_fast.py:_colsplit_kernel
-LAUNCHES = {"degrade_v3": 0, "degrade_v3psn": 0, "colsplit_raw": 0,
-            "colsplit": 0}
+LAUNCHES = {"degrade_v3": 0, "degrade_v3psn": 0, "degrade_v3ps": 0,
+            "degrade_v2": 0, "degrade_v1": 0, "degrade_v4": 0,
+            "colsplit_raw": 0, "colsplit": 0}
 
-LAYOUTS = {"nchw": 0, "chwb": 1, "presplit": 2}
+LAYOUTS = {"nchw": 0, "chwb": 1, "presplit": 2, "presplit_halo": 3}
+#: the stencil's tap order, by the JAX version it follows
+MODES = {3: 0, 2: 1, 1: 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -105,10 +115,17 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
     if name == "degrade_stencil":
         lib.kmsr_degrade_stencil.restype = ci
         lib.kmsr_degrade_stencil.argtypes = [
-            vp, ci, ci, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp,
+            vp, ci, ci, ci, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, vp,
         ]
         lib.kmsr_cuda_error_string.restype = ctypes.c_char_p
         lib.kmsr_cuda_error_string.argtypes = [ci]
+    elif name == "degrade_dense":
+        lib.kmsr_degrade_dense.restype = ci
+        lib.kmsr_degrade_dense.argtypes = [
+            vp, ci, vp, vp, vp, ci, ci, ci, ci, cl, cl, cl, cl, cl, cl, vp,
+        ]
+        lib.kmsr_dense_cuda_error_string.restype = ctypes.c_char_p
+        lib.kmsr_dense_cuda_error_string.argtypes = [ci]
     else:
         lib.kmsr_scene_stencil.restype = ci
         lib.kmsr_scene_stencil.argtypes = [
@@ -138,6 +155,13 @@ def _check(t: torch.Tensor, what: str, device: torch.device,
         raise ValueError(f"{what} must be contiguous")
 
 
+def _stencil_launch_name(layout: str, version: int) -> str:
+    if version != 3:
+        return f"degrade_v{version}"
+    return {"presplit": "degrade_v3psn",
+            "presplit_halo": "degrade_v3ps"}.get(layout, "degrade_v3")
+
+
 def degrade_stencil(
     x: torch.Tensor,
     comp: torch.Tensor,
@@ -147,19 +171,30 @@ def degrade_stencil(
     layout: str,
     dims: tuple[int, int, int, int],
     factor: int,
+    version: int = 3,
+    half: int | None = None,
+    halo: int = 0,
 ) -> torch.Tensor:
     """Launch the fused degrade stencil: out = stencil(x, comp) (+ noise).
 
-    x: float32 or bfloat16 in `layout` ("nchw", "chwb" or "presplit");
-    dims: the image dims (C, H, W, B); comp: [C, K, K] float32 composed
-    kernels; noise: None or float32 shaped like `out`; out: float32
-    [B, C, H/f, W/f] (nchw) or [C, H/f, W/f, B]. All on one CUDA device
-    and contiguous. Launches on the current stream, does not synchronize.
+    x: float32 or bfloat16 in `layout` ("nchw", "chwb", "presplit" or
+    "presplit_halo", the last with `halo` replicate rows baked at each end
+    of every phase); dims: the image dims (C, H, W, B); comp: [C, K, K]
+    float32 composed kernels; version: the JAX kernel whose tap order to
+    follow (3: v3/v3psn/v3ps; 2 on "nchw"/"chwb", 1 on "chwb" only, the
+    layouts that reach them; others are refused); half: the
+    tap offset (default (K - f) // 2, the v3 family's; v1/v2 take the blur
+    kernel's kh // 2); noise: None or float32 shaped like `out`; out:
+    float32 [B, C, H/f, W/f] (nchw) or [C, H/f, W/f, B]. All on one CUDA
+    device and contiguous. Launches on the current stream, does not
+    synchronize.
     """
     c, h, w, b = dims
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"degrade_stencil needs CUDA tensors, got {dev}")
+    if layout not in LAYOUTS or version not in MODES:
+        raise ValueError(f"unknown layout {layout!r} or version {version!r}")
     _check(x, "x", dev, tuple(_DTYPES))
     _check(comp, "comp", dev)
     _check(out, "out", dev)
@@ -167,9 +202,11 @@ def degrade_stencil(
     want_out = (b, c, oh, ow) if layout == "nchw" else (c, oh, ow, b)
     if tuple(out.shape) != want_out:
         raise ValueError(f"out shape {tuple(out.shape)} != {want_out}")
-    if x.numel() != c * h * w * b:
-        raise ValueError(f"x has {x.numel()} elements, dims {dims} need "
-                         f"{c * h * w * b}")
+    halo = halo if layout == "presplit_halo" else 0
+    n_x = c * (h + 2 * halo * factor) * w * b
+    if x.numel() != n_x:
+        raise ValueError(f"x has {x.numel()} elements, dims {dims} with "
+                         f"halo {halo} need {n_x}")
     k = comp.shape[-1]
     if tuple(comp.shape) != (c, k, k):
         raise ValueError(f"comp shape {tuple(comp.shape)} != {(c, k, k)}")
@@ -178,21 +215,97 @@ def degrade_stencil(
         if noise.shape != out.shape:
             raise ValueError(
                 f"noise shape {tuple(noise.shape)} != {tuple(out.shape)}")
+    half = (k - factor) // 2 if half is None else half
     lib = _lib()
     with torch.cuda.device(dev):
         rc = lib.kmsr_degrade_stencil(
-            x.data_ptr(), _DTYPES[x.dtype], LAYOUTS[layout], comp.data_ptr(),
-            None if noise is None else noise.data_ptr(), out.data_ptr(),
-            c, h, w, b, factor, k, torch.cuda.current_stream(dev).cuda_stream,
+            x.data_ptr(), _DTYPES[x.dtype], LAYOUTS[layout], MODES[version],
+            comp.data_ptr(), None if noise is None else noise.data_ptr(),
+            out.data_ptr(), c, h, w, b, factor, k, half, halo,
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
         reason = ("arguments refused" if rc < 0
                   else lib.kmsr_cuda_error_string(rc).decode())
         raise RuntimeError(
             f"degrade_stencil launch failed ({rc}: {reason}) for layout="
-            f"{layout}, dims={dims}, factor={factor}, K={k}, "
+            f"{layout}, version={version}, dims={dims}, factor={factor}, "
+            f"K={k}, half={half}, halo={halo}, dtype={x.dtype}")
+    LAUNCHES[_stencil_launch_name(layout, version)] += 1
+    return out
+
+
+def degrade_dense(
+    x: torch.Tensor,
+    a_terms: torch.Tensor,
+    noise: torch.Tensor | None,
+    out: torch.Tensor,
+    *,
+    layout: str,
+) -> torch.Tensor:
+    """Launch the dense degrade (the v4 counterpart) on the tensor cores:
+    out[c] = sum_{i+j<=2} A_i[c] . x_j[c] (+ noise), x split into its bf16
+    terms in the kernel.
+
+    x: float32 or bfloat16, [B, C, h, w] ("nchw") or [C, h, w, B]
+    ("chwb"); a_terms: [C, 3, out_h*out_w, h*w] bfloat16, the stencil
+    matrix's three mantissa-masked terms (h*w a multiple of 8); noise: None
+    or float32 shaped like `out`; out: float32 [B, C, out_h, out_w] (nchw)
+    or [C, out_h, out_w, B]. All on one CUDA device and contiguous.
+    Launches on the current stream, does not synchronize.
+    """
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"degrade_dense needs CUDA tensors, got {dev}")
+    if layout not in ("nchw", "chwb"):
+        raise ValueError(f"degrade_dense takes nchw or chwb, got {layout!r}")
+    _check(x, "x", dev, tuple(_DTYPES))
+    _check(a_terms, "a_terms", dev, (torch.bfloat16,))
+    _check(out, "out", dev)
+    if x.ndim != 4 or out.ndim != 4 or a_terms.ndim != 4:
+        raise ValueError("x and out must be 4-D and a_terms [C, 3, M, K]")
+    if layout == "nchw":
+        b, c, h, w = x.shape
+        oh, ow = out.shape[2:]
+        want_out = (b, c, oh, ow)
+    else:
+        c, h, w, b = x.shape
+        oh, ow = out.shape[1:3]
+        want_out = (c, oh, ow, b)
+    m, kd = oh * ow, h * w
+    if tuple(out.shape) != want_out:
+        raise ValueError(f"out shape {tuple(out.shape)} != {want_out}")
+    if tuple(a_terms.shape) != (c, 3, m, kd):
+        raise ValueError(f"a_terms shape {tuple(a_terms.shape)} != "
+                         f"{(c, 3, m, kd)}")
+    if kd % 8 or a_terms.data_ptr() % 16:
+        raise ValueError(f"h*w={kd} must be a multiple of 8 and a_terms "
+                         f"16-byte aligned")
+    if noise is not None:
+        _check(noise, "noise", dev)
+        if noise.shape != out.shape:
+            raise ValueError(
+                f"noise shape {tuple(noise.shape)} != {tuple(out.shape)}")
+    if layout == "nchw":
+        x_strides, o_strides = (kd, 1, c * kd), (m, 1, c * m)
+    else:
+        x_strides, o_strides = (kd * b, b, 1), (m * b, b, 1)
+    lib = _lib("degrade_dense")
+    with torch.cuda.device(dev):
+        rc = lib.kmsr_degrade_dense(
+            x.data_ptr(), _DTYPES[x.dtype], a_terms.data_ptr(),
+            None if noise is None else noise.data_ptr(), out.data_ptr(),
+            c, m, kd, b, *x_strides, *o_strides,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        reason = ("arguments refused" if rc < 0
+                  else lib.kmsr_dense_cuda_error_string(rc).decode())
+        raise RuntimeError(
+            f"degrade_dense launch failed ({rc}: {reason}) for layout="
+            f"{layout}, x {tuple(x.shape)}, a_terms {tuple(a_terms.shape)}, "
             f"dtype={x.dtype}")
-    LAUNCHES["degrade_v3psn" if layout == "presplit" else "degrade_v3"] += 1
+    LAUNCHES["degrade_v4"] += 1
     return out
 
 

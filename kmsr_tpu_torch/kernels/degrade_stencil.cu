@@ -1,39 +1,58 @@
 // Fused degrade stencil for NVIDIA Hopper (sm_90a): blur + x`factor` box
 // downsample + optional noise-pool injection, in one pass.
 //
-// Replaces the Pallas TPU kernels
-//   kmsr_tpu/ops/degrade_pallas.py  _degrade_kernel_v3 / _degrade_noise_kernel_v3
-//       (raw [C, H, W, B] block; here also the [B, C, H, W] layout)
-//   kmsr_tpu/ops/degrade_pallas.py  _degrade_kernel_v3psn / _degrade_noise_kernel_v3psn
-//       (halo-free presplit [C, f, H/f, W, B] block)
+// Replaces the Pallas TPU kernels of kmsr_tpu/ops/degrade_pallas.py
+//   _degrade_kernel_v3    / _degrade_noise_kernel_v3     (raw [C, H, W, B];
+//                                                          here also [B, C, H, W])
+//   _degrade_kernel_v3psn / _degrade_noise_kernel_v3psn  (halo-free presplit
+//                                                          [C, f, H/f, W, B])
+//   _degrade_kernel_v3ps  / _degrade_noise_kernel_v3ps   (presplit with m
+//                                                          baked halo rows,
+//                                                          [C, f, H/f+2m, W, B])
+//   _degrade_kernel_v2    / _degrade_noise_kernel_v2     (all phases, v2 order)
+//   _degrade_kernel       / _degrade_noise_kernel        (v1: per-row-phase
+//                                                          partial sums; CHWB,
+//                                                          the only layout
+//                                                          that reaches it)
 // All of them compute
 //   out[c,i,j,b] = sum_{dy<K} sum_{dx<K} comp[c,dy,dx]
 //                  * x[c, clamp(f*i+dy-h, 0, H-1), clamp(f*j+dx-h, 0, W-1), b]
 //                  (+ noise[c,i,j,b])
-// with comp = compose_with_box(normalize_kernel(k), f) ([C, K, K], K = k+f-1)
-// and h = (K-f)/2: replicate padding as clamped indices, as the TPU kernels
-// realize it. Inputs are float32 or bfloat16 (stored), accumulation and
-// output float32.
+// with comp = compose_with_box(normalize_kernel(k), f) ([C, K, K], K = k+f-1),
+// replicate padding as clamped indices. The tap offset h is (K-f)/2 for the
+// v3 family and k/2 (the blur kernel's own half width) for v1/v2: the JAX
+// versions differ there when k is even, and each mode keeps its own. Inputs
+// are float32 or bfloat16 (stored), accumulation and output float32.
+//
+// Modes (the order in which taps are summed, as in each TPU kernel):
+//   V3: dy outer, dx inner;
+//   V2: dyi, dxi, dxo, dyo over the ceil(K/f)*f lattice, dy = dyo*f + dyi,
+//       dx = dxo*f + dxi (lattice taps with dy or dx >= K carry a zero
+//       coefficient in the TPU kernel and are skipped);
+//   V1: as V2, but each row phase dyi sums into its own partial, and
+//       out = out + partial is taken in dyi order.
+// The TPU kernels' edge-pad and phase-split pre-pass (v1/v2), column
+// permutation matmuls (v3) and baked halo rows are layout work for the
+// TPU's vector unit; a CUDA thread gathers its clamped taps in place.
 //
 // Design (first, simple version): one thread per output element; the
 // composed kernels of all bands (C*K*K floats, 8 KB at C=5, K=20) are
 // staged once per block in shared memory, where every thread of a warp
-// reads the same tap (a broadcast). Taps accumulate in the JAX kernels'
-// order (dy outer, dx inner) with separately rounded multiply and add, so
-// the result matches the plain PyTorch reference (`acc = acc + k * x`,
-// tap by tap) bit for bit on the same inputs; the noise is added last.
-// The TPU kernels' column permutation matmuls and halo rows have no
-// counterpart: a CUDA thread gathers its clamped taps directly.
+// reads the same tap (a broadcast). Taps accumulate with separately
+// rounded multiply and add, so the result matches the plain PyTorch
+// reference (`acc = acc + k * x`, tap by tap, in the same order) bit for
+// bit on the same inputs; the noise is added last.
 //
 // Bound on an H100: bytes. At the factory shape (B=128, C=5, 256x256,
 // f=8, K=20) one launch must move 167.8 MB of input plus 2 x 2.6 MB of
 // noise and output (~0.05 ms at 3.35 TB/s) for 0.52 GFLOP (~0.008 ms at
-// 67 TFLOP/s fp32). Each input element is read by up to ceil(K/f)^2 = 9
-// output threads; the neighbours that share it run in the same or nearby
-// blocks, so the re-reads come from L1/L2 and HBM sees the input about
-// once. Index arithmetic, not memory, is what this version spends most
-// of its instructions on; tiling the input through shared memory (TMA)
-// is later work.
+// 67 TFLOP/s fp32); at f=2 (K=14) 167.8 MB + 2 x 41.9 MB (~0.075 ms) for
+// 4.1 GFLOP (~0.061 ms): close to balanced. Each input element is read by
+// up to ceil(K/f)^2 output threads; the neighbours that share it run in
+// the same or nearby blocks, so the re-reads come from L1/L2 and HBM sees
+// the input about once. Index arithmetic, not memory, is what this
+// version spends most of its instructions on; tiling the input through
+// shared memory (TMA) is later work.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -shared
 // (see kmsr_tpu_torch/kernels/__init__.py); exported as a plain C ABI and
@@ -47,10 +66,17 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kNCHW = 0;      // x [B, C, H, W], noise/out [B, C, H/f, W/f]
-constexpr int kCHWB = 1;      // x [C, H, W, B], noise/out [C, H/f, W/f, B]
-constexpr int kPresplit = 2;  // x [C, f, H/f, W, B] with columns permuted to
-                              // v = (x % f) * (W/f) + x / f; noise/out CHWB
+constexpr int kNCHW = 0;          // x [B, C, H, W], noise/out [B, C, H/f, W/f]
+constexpr int kCHWB = 1;          // x [C, H, W, B], noise/out [C, H/f, W/f, B]
+constexpr int kPresplit = 2;      // x [C, f, H/f, W, B] with columns permuted to
+                                  // v = (x % f) * (W/f) + x / f; noise/out CHWB
+constexpr int kPresplitHalo = 3;  // x [C, f, H/f + 2m, W, B]: as kPresplit with
+                                  // m replicate rows baked at each end
+constexpr int kV3 = 0, kV2 = 1, kV1 = 2;
+
+struct Args {
+  int C, H, W, B, f, K, half, m;
+};
 
 __device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
 
@@ -58,11 +84,16 @@ __device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
 
-// Offset of image row (f*blk + r), clamped, inside one (c, b) image.
-// blk may lie outside [0, n_blk): the row then clamps to row 0 / H-1.
+// Offset of image row (f*blk + r) inside one (c, b) image; rows outside
+// the image clamp to row 0 / H-1, except in kPresplitHalo, whose layout
+// carries the clamped rows itself. For the presplit maps r is the phase
+// (0 <= r < f) and blk may lie in [-m, n_blk + m).
 template <int LAYOUT>
 __device__ __forceinline__ int64_t row_offset(int blk, int r, int f,
-                                              int n_blk, int w, int b) {
+                                              int n_blk, int w, int b, int m) {
+  if (LAYOUT == kPresplitHalo) {
+    return ((int64_t)r * (n_blk + 2 * m) + m + blk) * w * b;
+  }
   if (LAYOUT == kPresplit) {
     // presplit row y lives at [phase y % f, block y / f]
     int p = r, q = blk;
@@ -84,7 +115,7 @@ __device__ __forceinline__ int64_t row_offset(int blk, int r, int f,
 template <int LAYOUT>
 __device__ __forceinline__ int64_t col_offset(int blk, int r, int f,
                                               int n_blk, int b) {
-  if (LAYOUT == kPresplit) {
+  if (LAYOUT == kPresplit || LAYOUT == kPresplitHalo) {
     // presplit column x lives at v = (x % f) * n_blk + x / f
     int v = r * n_blk + blk;
     if (blk < 0) v = 0;
@@ -96,18 +127,18 @@ __device__ __forceinline__ int64_t col_offset(int blk, int r, int f,
   return LAYOUT == kNCHW ? (int64_t)x : (int64_t)x * b;
 }
 
-template <int LAYOUT, bool NOISE, typename T>
+template <int LAYOUT, int MODE, bool NOISE, typename T>
 __global__ void __launch_bounds__(kThreads)
 degrade_stencil_kernel(const T* __restrict__ x, const float* __restrict__ comp,
                        const float* __restrict__ noise,
-                       float* __restrict__ out, int C, int H, int W, int B,
-                       int f, int K) {
+                       float* __restrict__ out, Args a) {
   extern __shared__ float s_comp[];
+  const int C = a.C, B = a.B, W = a.W, f = a.f, K = a.K;
   const int kk = K * K;
   for (int t = threadIdx.x; t < C * kk; t += blockDim.x) s_comp[t] = comp[t];
   __syncthreads();
 
-  const int oh = H / f, ow = W / f;
+  const int oh = a.H / f, ow = W / f;
   const int64_t n_out = (int64_t)C * oh * ow * B;
   const int64_t o = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (o >= n_out) return;
@@ -134,103 +165,141 @@ degrade_stencil_kernel(const T* __restrict__ x, const float* __restrict__ comp,
   const T* plane;
   int bs;  // batch stride of a pixel step (1 for NCHW: batch is outermost)
   if (LAYOUT == kNCHW) {
-    plane = x + ((int64_t)b * C + c) * H * W;
+    plane = x + ((int64_t)b * C + c) * a.H * W;
     bs = 1;
   } else {
-    plane = x + (int64_t)c * H * W * B + b;
+    const int64_t rows = LAYOUT == kPresplitHalo ? (int64_t)f * (oh + 2 * a.m)
+                                                 : (int64_t)a.H;
+    plane = x + (int64_t)c * rows * W * B + b;
     bs = B;
   }
-
-  // tap d reads image coordinate f*i + d - half = f*(i + q) + r with
-  // (q, r) = divmod(d - half, f) (floor division); walk it incrementally
-  const int half = (K - f) / 2;
-  const int r0 = ((-half) % f + f) % f;
-  const int q0 = (-half - r0) / f;
   const float* kc = s_comp + c * kk;
+  const int half = a.half;
 
   float acc = 0.f;
-  int qy = q0, ry = r0;
-  for (int dy = 0; dy < K; ++dy) {
-    const T* row = plane + row_offset<LAYOUT>(i + qy, ry, f, oh, W, bs);
-    int qx = q0, rx = r0;
-    for (int dx = 0; dx < K; ++dx) {
-      const float v = load_f32(row + col_offset<LAYOUT>(j + qx, rx, f, ow, bs));
-      acc = __fadd_rn(acc, __fmul_rn(kc[dy * K + dx], v));
-      if (++rx == f) {
-        rx = 0;
-        ++qx;
+  if (MODE == kV3) {
+    // tap d reads image coordinate f*i + d - half = f*(i + q) + r with
+    // (q, r) = divmod(d - half, f) (floor division); walk it incrementally
+    const int r0 = ((-half) % f + f) % f;
+    const int q0 = (-half - r0) / f;
+    int qy = q0, ry = r0;
+    for (int dy = 0; dy < K; ++dy) {
+      const T* row = plane + row_offset<LAYOUT>(i + qy, ry, f, oh, W, bs, a.m);
+      int qx = q0, rx = r0;
+      for (int dx = 0; dx < K; ++dx) {
+        const float v = load_f32(row + col_offset<LAYOUT>(j + qx, rx, f, ow, bs));
+        acc = __fadd_rn(acc, __fmul_rn(kc[dy * K + dx], v));
+        if (++rx == f) {
+          rx = 0;
+          ++qx;
+        }
+      }
+      if (++ry == f) {
+        ry = 0;
+        ++qy;
       }
     }
-    if (++ry == f) {
-      ry = 0;
-      ++qy;
+  } else {
+    // natural layouts only: f*blk + r with blk = i and r = d - half is the
+    // unclamped coordinate, which row/col_offset clamp
+    const int n_o = (K + f - 1) / f;
+    for (int dyi = 0; dyi < f; ++dyi) {
+      float part = 0.f;
+      for (int dxi = 0; dxi < f; ++dxi) {
+        for (int dxo = 0; dxo < n_o; ++dxo) {
+          const int dx = dxo * f + dxi;
+          if (dx >= K) break;
+          const T* col = plane + col_offset<LAYOUT>(j, dx - half, f, ow, bs);
+          for (int dyo = 0; dyo < n_o; ++dyo) {
+            const int dy = dyo * f + dyi;
+            if (dy >= K) break;
+            const float v =
+                load_f32(col + row_offset<LAYOUT>(i, dy - half, f, oh, W, bs, 0));
+            const float t = __fmul_rn(kc[dy * K + dx], v);
+            if (MODE == kV1) part = __fadd_rn(part, t);
+            else acc = __fadd_rn(acc, t);
+          }
+        }
+      }
+      if (MODE == kV1) acc = __fadd_rn(acc, part);
     }
   }
   if (NOISE) acc = __fadd_rn(acc, noise[o]);
   out[o] = acc;
 }
 
-template <int LAYOUT, bool NOISE, typename T>
+template <int LAYOUT, int MODE, typename T>
 int launch(const void* x, const float* comp, const float* noise, float* out,
-           int c, int h, int w, int b, int f, int k, cudaStream_t stream) {
-  const size_t smem = (size_t)c * k * k * sizeof(float);
-  auto kern = degrade_stencil_kernel<LAYOUT, NOISE, T>;
+           const Args& a, cudaStream_t stream) {
+  const size_t smem = (size_t)a.C * a.K * a.K * sizeof(float);
+  auto kern = noise ? degrade_stencil_kernel<LAYOUT, MODE, true, T>
+                    : degrade_stencil_kernel<LAYOUT, MODE, false, T>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const int64_t n_out = (int64_t)c * (h / f) * (w / f) * b;
+  const int64_t n_out = (int64_t)a.C * (a.H / a.f) * (a.W / a.f) * a.B;
   const int64_t blocks = (n_out + kThreads - 1) / kThreads;
   kern<<<(unsigned)blocks, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), comp, noise, out, c, h, w, b, f, k);
+      static_cast<const T*>(x), comp, noise, out, a);
   return (int)cudaGetLastError();
 }
 
-template <int LAYOUT, typename T>
-int launch_noise(const void* x, const float* comp, const float* noise,
-                 float* out, int c, int h, int w, int b, int f, int k,
-                 cudaStream_t s) {
-  return noise ? launch<LAYOUT, true, T>(x, comp, noise, out, c, h, w, b, f, k, s)
-               : launch<LAYOUT, false, T>(x, comp, noise, out, c, h, w, b, f, k, s);
-}
-
 template <typename T>
-int launch_layout(int layout, const void* x, const float* comp,
-                  const float* noise, float* out, int c, int h, int w, int b,
-                  int f, int k, cudaStream_t s) {
+int dispatch(int layout, int mode, const void* x, const float* comp,
+             const float* noise, float* out, const Args& a, cudaStream_t s) {
+  if (mode == kV2) {
+    return layout == kNCHW ? launch<kNCHW, kV2, T>(x, comp, noise, out, a, s)
+                           : launch<kCHWB, kV2, T>(x, comp, noise, out, a, s);
+  }
+  if (mode == kV1) return launch<kCHWB, kV1, T>(x, comp, noise, out, a, s);
   switch (layout) {
     case kNCHW:
-      return launch_noise<kNCHW, T>(x, comp, noise, out, c, h, w, b, f, k, s);
+      return launch<kNCHW, kV3, T>(x, comp, noise, out, a, s);
     case kCHWB:
-      return launch_noise<kCHWB, T>(x, comp, noise, out, c, h, w, b, f, k, s);
+      return launch<kCHWB, kV3, T>(x, comp, noise, out, a, s);
+    case kPresplit:
+      return launch<kPresplit, kV3, T>(x, comp, noise, out, a, s);
     default:
-      return launch_noise<kPresplit, T>(x, comp, noise, out, c, h, w, b, f, k, s);
+      return launch<kPresplitHalo, kV3, T>(x, comp, noise, out, a, s);
   }
 }
+
+int floor_div(int a, int b) { return (a - ((a % b) + b) % b) / b; }
 
 }  // namespace
 
 extern "C" {
 
 // Launch the stencil on `stream`. x_dtype: 0 float32, 1 bfloat16. layout:
-// 0 NCHW, 1 CHWB, 2 presplit (see the k* constants). (c, h, w, b) are the
-// image dims, h and w multiples of f; comp is [c, k, k] float32; noise is
-// NULL or float32 in the output's layout. Returns 0, a cudaError_t code
-// from the launch, or -1 for arguments the kernel does not take.
-int kmsr_degrade_stencil(const void* x, int x_dtype, int layout,
+// 0 NCHW, 1 CHWB, 2 presplit, 3 presplit with m baked halo rows (see the
+// k* constants). mode: 0 v3, 1 v2, 2 v1 (tap order; v2 takes the natural
+// layouts 0-1 only, v1 CHWB only). (c, h, w, b) are the image dims, h and w
+// multiples of f; comp is [c, k, k] float32; `half` is the tap offset;
+// noise is NULL or float32 in the output's layout. Returns 0, a cudaError_t
+// code from the launch, or -1 for arguments the kernel does not take
+// (including a halo depth m that a tap would reach past).
+int kmsr_degrade_stencil(const void* x, int x_dtype, int layout, int mode,
                          const float* comp, const float* noise, float* out,
-                         int c, int h, int w, int b, int f, int k,
-                         void* stream) {
+                         int c, int h, int w, int b, int f, int k, int half,
+                         int m, void* stream) {
   if (c <= 0 || h <= 0 || w <= 0 || b <= 0 || f <= 0 || k < f ||
-      h % f || w % f || layout < 0 || layout > 2 || x_dtype < 0 ||
-      x_dtype > 1 || (size_t)c * k * k * sizeof(float) > 227 * 1024) {
+      h % f || w % f || layout < 0 || layout > 3 || mode < 0 || mode > 2 ||
+      (mode == kV2 && layout > kCHWB) || (mode == kV1 && layout != kCHWB) ||
+      x_dtype < 0 || x_dtype > 1 ||
+      (size_t)c * k * k * sizeof(float) > 227 * 1024) {
     return -1;
   }
+  if (layout == kPresplitHalo &&
+      (m < 0 || floor_div(-half, f) < -m || floor_div(k - 1 - half, f) > m)) {
+    return -1;
+  }
+  const Args a{c, h, w, b, f, k, half, layout == kPresplitHalo ? m : 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return x_dtype == 0
-             ? launch_layout<float>(layout, x, comp, noise, out, c, h, w, b, f, k, s)
-             : launch_layout<__nv_bfloat16>(layout, x, comp, noise, out, c, h, w, b, f, k, s);
+             ? dispatch<float>(layout, mode, x, comp, noise, out, a, s)
+             : dispatch<__nv_bfloat16>(layout, mode, x, comp, noise, out, a, s);
 }
 
 const char* kmsr_cuda_error_string(int code) {

@@ -11,11 +11,17 @@ Two input routes, as in the JAX package:
 
 * `.nc` patches (`denoised` group) are read on a background thread,
   stacked NCHW into pinned host memory, copied to the card without
-  blocking and degraded by `degrade_fused` (the v3 stencil kernel);
-* `.npy` patches ([C, H, W] float32) stream through the native loader's
-  dual split gather straight into the halo-free presplit layout, degraded
-  by `degrade_fused_presplit` (the v3psn stencil kernel); the natural
-  batch read alongside is the hr group.
+  blocking and degraded by `degrade_fused`, which picks the kernel as
+  JAX's `degrade_pallas` does: the v3 stencil when the composed span
+  K = k + f - 1 is at most 5f (f >= 3 for a 13x13 blur), else the dense
+  v4 kernel for small patches (out_w a multiple of 8 and
+  out_h*out_w*H*W <= 2^21, e.g. 48x48 at f=2) and the v2 stencil
+  otherwise (e.g. 256x256 at f=2);
+* `.npy` patches ([C, H, W] float32) at K <= 5f stream through the
+  native loader's dual split gather straight into the halo-free presplit
+  layout, degraded by `degrade_fused_presplit` (the v3psn stencil
+  kernel); the natural batch read alongside is the hr group. At K > 5f
+  (`--factor 2`) they take the natural route above, as in JAX.
 
 `--backend conv` runs the plain grouped strided conv + noise instead (the
 JAX `xla` backend); `auto` means `fused`. Noise-pool indices are drawn
@@ -422,12 +428,14 @@ def main(argv=None) -> int:
     p.add_argument("--kernel", required=True, help="single per-band kernel .npy")
     p.add_argument("--noise-pool", required=True)
     p.add_argument("--output-dir", required=True)
-    p.add_argument("--factor", type=int, default=8)
+    p.add_argument("--factor", type=int, default=8,
+                   help="decimation factor; any factor the JAX factory takes "
+                        "(e.g. 2 for KernelGAN's x2)")
     p.add_argument("--in-group", default=GROUP_DENOISED)
     p.add_argument("--batch-size", type=int, default=128)
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--backend", choices=BACKENDS, default="auto",
-                   help="fused: the hand-written CUDA stencil kernel (auto); "
+                   help="fused: the hand-written CUDA degrade kernels (auto); "
                         "conv: grouped strided conv + noise")
     p.add_argument("--input-format", choices=["auto", "nc", "npy"],
                    default="auto",

@@ -176,17 +176,21 @@ def test_value_error_guards_match_jax(rng):
 
 
 def test_unported_versions_raise_not_implemented(rng):
-    x = torch.from_numpy(rng.normal(size=(5, 16, 16, 4)).astype(np.float32))
-    k = torch.from_numpy(rng.uniform(0, 1, (5, 13, 13)).astype(np.float32))
-    for version in (1, 2, 4):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            degrade_fused_chwb(x, k, factor=8, version=version)
+    """Versions 1, 2, 4, spans above 5*factor and baked_halo=True, once
+    refused with NotImplementedError, now run and agree with the JAX XLA
+    conv (odd kernel: every version computes the same function); only a
+    version outside 1..4 still raises."""
+    x, kernel, noise = _chwb_inputs(rng, 2, 13, b=3, h=16)
+    want = _want_chwb(x, kernel, noise, 2)
+    tx, tk, tn = map(torch.from_numpy, (x, kernel, noise))
+    for version in (1, 2, 4, None):
+        got = degrade_fused_chwb(tx, tk, tn, factor=2, version=version)
+        np.testing.assert_allclose(got.numpy(), want, **TOL)
+    got = degrade_fused(tx.permute(3, 0, 1, 2), tk, tn.permute(3, 0, 1, 2), factor=2)
+    np.testing.assert_allclose(got.permute(1, 2, 3, 0).numpy(), want, **TOL)
     with pytest.raises(ValueError, match="version"):
-        degrade_fused_chwb(x, k, factor=8, version=5)
-    # span 14 > 5*2: JAX auto-selects v4/v2 there, which are not ported
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        degrade_fused_chwb(x, k, factor=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        degrade_fused(x.permute(3, 0, 1, 2), k, factor=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        degrade_fused_presplit(phase_split_chwb(x, 8), k, factor=8, baked_halo=True)
+        degrade_fused_chwb(tx, tk, factor=8, version=5)
+    want8 = _want_chwb(x, kernel, None, 8)
+    got = degrade_fused_presplit(phase_split_chwb(tx, 8, halo=True), tk, factor=8,
+                                 baked_halo=True)
+    np.testing.assert_allclose(got.numpy(), want8, **TOL)

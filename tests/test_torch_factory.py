@@ -46,11 +46,17 @@ def _outputs(d):
     return {os.path.basename(p): p for p in glob.glob(os.path.join(d, "*_train.nc"))}
 
 
-@pytest.mark.parametrize("fmt,factor", [("nc", 8), ("npy", 4)])
-def test_factory_matches_jax(tmp_path, rng, fmt, factor):
-    """.nc route (v3) at f=8 (span 20) and .npy presplit route (v3psn) at
-    f=4 (span 16, two-deep tap reach); the port runs 2 batches, JAX one."""
-    src, k, pool, arrays = _make_dir(tmp_path, rng, fmt, factor=factor)
+@pytest.mark.parametrize("fmt,factor,h", [
+    ("nc", 8, 16), ("npy", 4, 16),
+    ("nc", 2, 16),   # span 14 > 5*2 at out_w 8: auto-selects v4
+    ("npy", 2, 24),  # out_w 12: v2; the .npy route goes natural here
+])
+def test_factory_matches_jax(tmp_path, rng, fmt, factor, h):
+    """.nc route (v3) at f=8 (span 20), .npy presplit route (v3psn) at
+    f=4 (span 16, two-deep tap reach), and both routes at f=2, where the
+    composed span exceeds 5*factor and JAX picks v4 or v2 by shape; the
+    port runs 2 batches, JAX one."""
+    src, k, pool, arrays = _make_dir(tmp_path, rng, fmt, h=h, factor=factor)
     jr = j_run_factory(src, k, pool, str(tmp_path / "jax"), factor=factor,
                        seed=5, backend="pallas", progress=False)
     tr = tfactory.run_factory(src, k, pool, str(tmp_path / "port"), factor=factor,
@@ -63,7 +69,7 @@ def test_factory_matches_jax(tmp_path, rng, fmt, factor):
         np.testing.assert_array_equal(hr, j_read(jo[name], GROUP_HR))
         np.testing.assert_array_equal(hr, arrays[name])
         lr = read_band_stack(to[name], GROUP_LR)
-        assert lr.shape == (5, 16 // factor, 16 // factor)
+        assert lr.shape == (5, h // factor, h // factor)
         np.testing.assert_allclose(lr, j_read(jo[name], GROUP_LR), **TOL)
 
 

@@ -10,8 +10,8 @@ from kmsr_tpu_torch import kernels
 from kmsr_tpu_torch.ops.degrade import compose_with_box, normalize_kernel
 from kmsr_tpu_torch.ops.degrade_fused import (
     degrade_fused, degrade_fused_chwb, degrade_fused_chwb_ref,
-    degrade_fused_presplit, degrade_fused_presplit_ref, degrade_fused_ref,
-    phase_split_chwb,
+    col_halo, degrade_fused_presplit, degrade_fused_presplit_ref,
+    degrade_fused_ref, phase_split_chwb, select_version,
 )
 from kmsr_tpu_torch.ops.degrade_scene_fast import (
     degrade_rows_fast, degrade_rows_fast_ref, degrade_slab_fast,
@@ -61,7 +61,103 @@ def test_kernel_matches_plain_every_layout(cuda, factor, dtype):
             degrade_fused_ref(img, kernel, nn, factor=factor), **TOL)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES == {"degrade_v3": 4, "degrade_v3psn": 2,
+                                "degrade_v3ps": 0, "degrade_v2": 0,
+                                "degrade_v1": 0, "degrade_v4": 0,
                                 "colsplit_raw": 0, "colsplit": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("factor,h,ksize", [(2, 64, 13), (8, 64, 13), (2, 32, 12)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_span_kernels_match_plain(cuda, factor, h, ksize, dtype):
+    """CHWB pinned to v1 and v2 bit for bit and to v4 (the dense
+    tensor-core kernel; 64x64 at f=2 is too large for it, so 32x32 then)
+    within the tolerance; NCHW through auto-selection (v2 at 64x64 f=2, v3
+    at f=8, v4 at 32x32 f=2); v3ps bit for bit where K <= 5f; with and
+    without noise, float32 and bfloat16 storage, an even kernel side too;
+    each launch counted under its own name."""
+    x, kernel, noise = _inputs(cuda, factor, b=20, h=h, ksize=ksize)
+    xd = x.to(dtype)
+    img = xd.permute(3, 0, 1, 2).contiguous()
+    auto = select_version(ksize + factor - 1, factor, h, h, dtype, None)
+    assert auto == {(2, 64): 2, (8, 64): 3, (2, 32): 4}[factor, h]
+    kernels.reset_launches()
+    want = {"degrade_v1": 0, "degrade_v2": 0, "degrade_v3": 0, "degrade_v4": 0,
+            "degrade_v3ps": 0}
+    for n in (None, noise):
+        nn = None if n is None else n.permute(3, 0, 1, 2).contiguous()
+        for version in (1, 2):
+            torch.testing.assert_close(
+                degrade_fused_chwb(xd, kernel, n, factor=factor, version=version),
+                degrade_fused_chwb_ref(xd, kernel, n, factor=factor, version=version),
+                rtol=0, atol=0)
+            want[f"degrade_v{version}"] += 1
+        if h * h * (h // factor) ** 2 <= 64 * 64 * 64 * 8:
+            torch.testing.assert_close(
+                degrade_fused_chwb(xd, kernel, n, factor=factor, version=4),
+                degrade_fused_chwb_ref(xd, kernel, n, factor=factor, version=4), **TOL)
+            want["degrade_v4"] += 1
+        torch.testing.assert_close(
+            degrade_fused(img, kernel, nn, factor=factor),
+            degrade_fused_ref(img, kernel, nn, factor=factor),
+            **(TOL if auto == 4 else dict(rtol=0, atol=0)))
+        want[f"degrade_v{auto}"] += 1
+        if ksize + factor - 1 <= 5 * factor:
+            m = col_halo(ksize + factor - 1, factor)
+            xp = phase_split_chwb(xd, factor, halo=True, halo_rows=m).contiguous()
+            got = degrade_fused_presplit(xp, kernel, n, factor=factor, baked_halo=True)
+            torch.testing.assert_close(got, degrade_fused_presplit_ref(
+                xp, kernel, n, factor=factor, baked_halo=True), rtol=0, atol=0)
+            torch.testing.assert_close(
+                got, degrade_fused_chwb(xd, kernel, n, factor=factor), rtol=0, atol=0)
+            want["degrade_v3ps"] += 1
+            want["degrade_v3"] += 1  # the CHWB call it is held against
+    torch.cuda.synchronize()
+    assert {k: kernels.LAUNCHES[k] for k in want} == want
+
+
+@pytest.mark.cuda
+def test_auto_selection_launches_v4_then_v2(cuda):
+    """At f=2 (span 14) a 48x48 batch goes to the dense kernel and a
+    256x256 one to the v2 stencil, whatever the batch."""
+    kernels.reset_launches()
+    for h, name in ((48, "degrade_v4"), (256, "degrade_v2")):
+        x, kernel, noise = _inputs(cuda, 2, b=3, h=h)
+        img = x.permute(3, 0, 1, 2).contiguous()
+        nn = noise.permute(3, 0, 1, 2).contiguous()
+        before = kernels.LAUNCHES[name]
+        got = degrade_fused(img, kernel, nn, factor=2)
+        torch.testing.assert_close(got, degrade_fused_ref(img, kernel, nn, factor=2),
+                                   **TOL)
+        assert kernels.LAUNCHES[name] == before + 1
+
+
+@pytest.mark.cuda
+def test_dense_kernel_rejects_what_it_does_not_take(cuda):
+    x = torch.zeros(2, 16, 16, 4, device=cuda)
+    a = torch.zeros(2, 3, 64, 256, dtype=torch.bfloat16, device=cuda)
+    out = torch.empty(2, 8, 8, 4, device=cuda)
+    with pytest.raises(TypeError, match="dtype"):
+        kernels.degrade_dense(x, a.float(), None, out, layout="chwb")
+    with pytest.raises(ValueError, match="a_terms shape"):
+        kernels.degrade_dense(x, a[:, :, :32].contiguous(), None, out,
+                              layout="chwb")
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.degrade_dense(x.transpose(1, 2), a, None, out, layout="chwb")
+    with pytest.raises(ValueError, match="nchw or chwb"):
+        kernels.degrade_dense(x, a, None, out, layout="presplit")
+    with pytest.raises(ValueError, match="noise shape"):
+        kernels.degrade_dense(x, a, out[..., :2].contiguous(), out, layout="chwb")
+    with pytest.raises(RuntimeError, match="arguments refused"):
+        comp = torch.zeros(5, 20, 20, device=cuda)
+        xs = torch.zeros(5, 64, 64, 4, device=cuda)
+        kernels.degrade_stencil(xs, comp, None, torch.empty(5, 8, 8, 4, device=cuda),
+                                layout="presplit", dims=(5, 64, 64, 4), factor=8,
+                                version=2)
+    with pytest.raises(RuntimeError, match="arguments refused"):  # v1: CHWB only
+        kernels.degrade_stencil(xs.permute(3, 0, 1, 2).contiguous(), comp, None,
+                                torch.empty(4, 5, 8, 8, device=cuda), layout="nchw",
+                                dims=(5, 64, 64, 4), factor=8, version=1)
 
 
 @pytest.mark.cuda
