@@ -55,10 +55,15 @@ and exits non-zero without them. Phases, one line each:
    set to 0 before it: `degrade_fused_chwb(version=1)` at the x2 factory's
    batch and `degrade_fused_presplit(baked_halo=True)` at the x8 one;
 8. timing: CUDA-event medians of 30 runs for each kernel at the main
-   paths' shapes, its plain version and the conv route (for v4 also the
-   f32 `torch.matmul` of the same product), beside the least time the
-   card needs for the degrade's bytes and operations (for v4 also the
-   bound of its dense operands, the stencil matrix's terms included).
+   paths' shapes (beside the profiler's device time of the kernel itself,
+   which leaves out host time between launches), its plain version and
+   the conv route (for v4 also the
+   f32 `torch.matmul` of the dense product and the whole `degrade_fused`
+   call), beside the least time the card needs for the degrade's bytes
+   and operations; for v1/v2 also the FP32-pipe floor of their unfused
+   multiply and add (bit equality forbids FMA), for v4 the bound of the
+   banded product it runs (x, noise, out; its bf16 term products over
+   each tile's band, `kernels.dense_tiles`).
 
 Prints one JSON line {"factory": {...}} (per-route results), one
 {"scene": {...}}, then the card's nvidia-smi line, one JSON line
@@ -82,6 +87,9 @@ RTOL, ATOL = 1e-4, 1e-5
 B, C, HW, KSIZE, FACTOR = 128, 5, 256, 13, 8
 N_FILES, POOL_N, SEED = 256, 64, 0
 TIMING_RUNS = 30
+#: the plain versions repeat the kernels' arithmetic tap by tap (no yardstick
+#: of speed): a few runs give their time
+PLAIN_RUNS = 5
 #: the scene path's full width (bench_scene.py): 5 bands, 8192^2 f32, x8
 SCENE_C, SCENE_HW, SCENE_K = 5, 8192, 13
 UNEVEN_HW = (8003, 7999)
@@ -94,8 +102,8 @@ SOURCES = {
     "degrade_v3": "kmsr_tpu_torch/kernels/degrade_stencil.cu",
     "degrade_v3psn": "kmsr_tpu_torch/kernels/degrade_stencil.cu",
     "degrade_v3ps": "kmsr_tpu_torch/kernels/degrade_stencil.cu",
-    "degrade_v2": "kmsr_tpu_torch/kernels/degrade_stencil.cu",
-    "degrade_v1": "kmsr_tpu_torch/kernels/degrade_stencil.cu",
+    "degrade_v2": "kmsr_tpu_torch/kernels/degrade_wide.cu",
+    "degrade_v1": "kmsr_tpu_torch/kernels/degrade_wide.cu",
     "degrade_v4": "kmsr_tpu_torch/kernels/degrade_dense.cu",
     "colsplit_raw": "kmsr_tpu_torch/kernels/scene_stencil.cu",
     "colsplit": "kmsr_tpu_torch/kernels/scene_stencil.cu",
@@ -132,6 +140,19 @@ def nvidia_smi() -> str:
     )
     return r.stdout.strip().splitlines()[0] if r.returncode == 0 and r.stdout.strip() \
         else f"nvidia-smi failed ({r.returncode}): {r.stderr.strip()}"
+
+
+def max_sm_clock_hz() -> float:
+    """The card's maximum SM clock (nvidia-smi), or 1.98 GHz, the H100
+    SXM's, if it cannot be read."""
+    r = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60,
+    )
+    try:
+        return float(r.stdout.strip().splitlines()[0]) * 1e6
+    except (ValueError, IndexError):
+        return 1.98e9
 
 
 def peaks(name: str) -> tuple[float, float, float]:
@@ -554,7 +575,7 @@ def phase_timing(dev, card: str) -> dict:
         x, n = layout_inputs(img, noise, FACTOR, layout, torch.float32)
         fused, ref = entry(layout)
         ms = cuda_time_ms(lambda: fused(x, kernel, n, factor=FACTOR), runs=TIMING_RUNS)
-        plain = cuda_time_ms(lambda: ref(x, kernel, n, factor=FACTOR), runs=TIMING_RUNS)
+        plain = cuda_time_ms(lambda: ref(x, kernel, n, factor=FACTOR), runs=PLAIN_RUNS)
         k = comp.shape[-1]
         n_out = n.numel()
         nbytes = x.numel() * x.element_size() + 2 * n_out * 4 + comp.numel() * 4
@@ -562,7 +583,8 @@ def phase_timing(dev, card: str) -> dict:
         t_bytes, t_ops = nbytes / bw * 1e3, nflops / flops_peak * 1e3
         rec = {
             "layout": layout, "ms": ms["median_ms"], "ms_min": ms["min_ms"],
-            "ms_max": ms["max_ms"], "plain_ms": plain["median_ms"],
+            "ms_max": ms["max_ms"], **device_time(lambda: fused(x, kernel, n, factor=FACTOR)),
+            "plain_ms": plain["median_ms"],
             "library_ms": library, "conv_only_ms": conv_ms,
             "bytes": nbytes, "flops": nflops,
             "bound_ms": max(t_bytes, t_ops),
@@ -570,7 +592,8 @@ def phase_timing(dev, card: str) -> dict:
         }
         out[(name, layout)] = rec
         log(f"[timing] {name} {layout}: {rec['ms']:.4f} ms (min {rec['ms_min']:.4f}, "
-            f"max {rec['ms_max']:.4f}; median of {TIMING_RUNS}); plain "
+            f"max {rec['ms_max']:.4f}; median of {TIMING_RUNS}; profiler device "
+            f"{rec['device_ms']:.4f} ms); plain "
             f"{rec['plain_ms']:.3f} ms; conv route (F.pad + grouped F.conv2d + "
             f"noise) {library:.4f} ms, of it the grouped F.conv2d alone "
             f"{conv_ms:.4f} ms; moves {nbytes / 1e6:.1f} MB, "
@@ -584,13 +607,17 @@ def phase_wide_timing(dev, card: str) -> dict:
     """Device times of the wide-span kernels at their main paths' shapes
     (B=128, C=5, with noise): v2 at 256x256, x2 (NCHW, the .nc route's
     layout; also CHWB); v1 there on CHWB, the only layout that reaches it;
-    v3ps at 256x256, x8; v4 at 48x48, x2 (NCHW). v4's time is the dense
-    kernel alone on prebuilt A terms (JAX builds them outside its kernel
-    too); the whole `degrade_fused` call, A's build included, is
+    v3ps at 256x256, x8; v4 at 48x48, x2 (NCHW). v4's time is the banded
+    kernel alone on the composed kernels (it generates the stencil
+    matrix's terms per tile on chip); the whole `degrade_fused` call is
     `call_ms`. `bound_ms` is the degrade's own: x, noise and out moved
-    once, 2*K*K fp32 operations an output; v4's `operand_bound_ms` is that
-    of the dense product it runs (A's three bf16 terms read too, six term
-    products at the bf16 tensor-core peak)."""
+    once, 2*K*K fp32 operations an output. v1/v2's `instr_bound_ms` is the
+    FP32 pipe's floor for their separately rounded multiply and add (2
+    lane operations a tap over SMs x 128 lanes x the maximum SM clock).
+    v4's `operand_bound_ms` is that of the banded product it runs: x, noise
+    and out moved once (no A bytes: A is generated on chip), and its bf16
+    term products (6 a pixel pair, 3 for bf16 x) over each tile's band,
+    `kernels.dense_tiles`, at the bf16 tensor-core peak."""
     import torch
 
     from kmsr_tpu_torch import kernels
@@ -599,23 +626,27 @@ def phase_wide_timing(dev, card: str) -> dict:
     from kmsr_tpu_torch.utils.profiling import cuda_time_ms
 
     bw, flops_peak, bf16_peak = peaks(card)
+    lanes_per_s = torch.cuda.get_device_properties(dev).multi_processor_count \
+        * 128 * max_sm_clock_hz()
     gen = torch.Generator().manual_seed(SEED + 8)
     out = {}
 
     def record(name, layout, fused, ref, library, nbytes, nflops, peak, extra=()):
         ms = cuda_time_ms(fused, runs=TIMING_RUNS)
-        plain = cuda_time_ms(ref, runs=5)
+        plain = cuda_time_ms(ref, runs=PLAIN_RUNS)
         t_bytes, t_ops = nbytes / bw * 1e3, nflops / peak * 1e3
         rec = {"layout": layout, "ms": ms["median_ms"], "ms_min": ms["min_ms"],
-               "ms_max": ms["max_ms"], "plain_ms": plain["median_ms"],
+               "ms_max": ms["max_ms"], **device_time(fused),
+               "plain_ms": plain["median_ms"],
                "library_ms": library, "bytes": nbytes, "flops": nflops,
                "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                **dict(extra)}
         out[(name, layout)] = rec
         log(f"[timing] {name} {layout}: {rec['ms']:.4f} ms (min {rec['ms_min']:.4f}, "
-            f"max {rec['ms_max']:.4f}; median of {TIMING_RUNS}); plain "
-            f"{rec['plain_ms']:.3f} ms (median of 5); conv route {library:.4f} ms; "
+            f"max {rec['ms_max']:.4f}; median of {TIMING_RUNS}; profiler device "
+            f"{rec['device_ms']:.4f} ms); plain "
+            f"{rec['plain_ms']:.3f} ms (median of {PLAIN_RUNS}); conv route {library:.4f} ms; "
             + "".join(f"{k} {v:.4f} ms; " for k, v in dict(extra).items())
             + f"moves {nbytes / 1e6:.1f} MB, {nflops / 1e9:.3f} GFLOP -> bound "
             f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}, {bw / 1e12:.2f} TB/s, "
@@ -639,9 +670,11 @@ def phase_wide_timing(dev, card: str) -> dict:
             nbytes = x.numel() * 4 + out_bytes + comp.numel() * 4
             nflops = 2 * n_out * k * k + n_out
             if name != "degrade_v4":
+                extra = ({"instr_bound_ms": 2 * n_out * k * k / lanes_per_s * 1e3}
+                         if version in (1, 2) else {})
                 record(name, layout, lambda: fused(x, kernel, n, factor=factor),
                        lambda: ref(x, kernel, n, factor=factor), library,
-                       nbytes, nflops, flops_peak)
+                       nbytes, nflops, flops_peak, extra.items())
                 continue
             a_terms = df._a_terms(comp, factor, hw, hw)
             dst = torch.empty_like(n)
@@ -652,21 +685,34 @@ def phase_wide_timing(dev, card: str) -> dict:
                 with df._fp32_matmuls():
                     return torch.matmul(a32, xm)
 
-            operand_bytes = a_terms.numel() * 2 + x.numel() * 4 + out_bytes
-            operand_flops = 6 * 2 * a_terms[:, 0].numel() * B + n_out
+            tn, tiles = kernels.dense_tiles(k, factor, hw, hw)
+            band_pixels = int((tiles[:, 3] * tiles[:, 5]).sum())
+            banded_flops = 6 * 2 * band_pixels * tn * B * C + n_out
             record(name, layout,
-                   lambda: kernels.degrade_dense(x, a_terms, n, dst, layout=layout),
+                   lambda: kernels.degrade_dense(x, comp, n, dst, layout=layout,
+                                                 factor=factor),
                    lambda: df.degrade_v4_ref(x, a_terms, n, factor, layout), library,
                    nbytes, nflops, flops_peak,
                    extra={"matmul_ms": cuda_time_ms(matmul, runs=TIMING_RUNS)["median_ms"],
                           "call_ms": cuda_time_ms(lambda: fused(x, kernel, n, factor=factor),
                                                   runs=TIMING_RUNS)["median_ms"],
-                          "operand_bound_ms": max(operand_bytes / bw,
-                                                  operand_flops / bf16_peak) * 1e3
+                          "operand_bound_ms": max(nbytes / bw,
+                                                  banded_flops / bf16_peak) * 1e3
                           }.items())
+            out[(name, layout)]["banded_gflop"] = banded_flops / 1e9
         del img, noise, nn
     torch.cuda.empty_cache()
     return out
+
+
+def device_time(fn) -> dict:
+    """The profiler's device time of the kernels one call of fn launches
+    (`cuda_device_ms`), and their names."""
+    from kmsr_tpu_torch.utils.profiling import cuda_device_ms
+
+    d = cuda_device_ms(fn)
+    return {"device_ms": d["device_ms"],
+            "device_kernels": [k[:80] for k in d["kernels"]]}
 
 
 def conv_route_nchw(img, comp, factor: int):
@@ -931,13 +977,14 @@ def phase_scene_timing(dev, card: str) -> dict:
          x_ext.numel() * 4),
     ):
         ms = cuda_time_ms(fused, runs=TIMING_RUNS)
-        plain = cuda_time_ms(ref, runs=TIMING_RUNS)
+        plain = cuda_time_ms(ref, runs=PLAIN_RUNS)
         nbytes = in_bytes + comp.numel() * 4 + n_out * 4
         nflops = 2 * n_out * ksize * ksize
         t_bytes, t_ops = nbytes / bw * 1e3, nflops / flops_peak * 1e3
         rec = {
             "layout": f"{SCENE_C}x{SCENE_HW}x{SCENE_HW} f32, f={FACTOR}, K={ksize}",
             "ms": ms["median_ms"], "ms_min": ms["min_ms"], "ms_max": ms["max_ms"],
+            **device_time(fused),
             "plain_ms": plain["median_ms"], "library_ms": library["median_ms"],
             "conv_only_ms": conv_ms, "bytes": nbytes, "flops": nflops,
             "bound_ms": max(t_bytes, t_ops),
@@ -946,7 +993,8 @@ def phase_scene_timing(dev, card: str) -> dict:
         out[(name, "scene")] = rec
         log(f"[timing] {name} {rec['layout']}: {rec['ms']:.4f} ms (min "
             f"{rec['ms_min']:.4f}, max {rec['ms_max']:.4f}; median of "
-            f"{TIMING_RUNS}); plain {rec['plain_ms']:.3f} ms; conv route (F.pad "
+            f"{TIMING_RUNS}; profiler device {rec['device_ms']:.4f} ms); plain "
+            f"{rec['plain_ms']:.3f} ms; conv route (F.pad "
             f"+ grouped F.conv2d) {rec['library_ms']:.4f} ms, of it the grouped "
             f"F.conv2d alone {conv_ms:.4f} ms; moves {nbytes / 1e6:.1f} MB, "
             f"{nflops / 1e9:.3f} GFLOP -> bound {rec['bound_ms']:.4f} ms "
@@ -965,6 +1013,7 @@ def main() -> int:
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
     failures: list[str] = []
+    t_start = time.perf_counter()
     try:
         import kmsr_tpu_torch  # noqa: F401  (fails outside the repository)
 
@@ -1026,8 +1075,9 @@ def main() -> int:
             "library_ms": t["library_ms"],
             "library_call": "F.pad(replicate) + grouped strided F.conv2d "
                             "(TF32 off)" + (" + noise add" if layout != "scene" else ""),
-            **{k: t[k] for k in ("conv_only_ms", "matmul_ms", "call_ms",
-                                 "operand_bound_ms") if k in t},
+            **{k: t[k] for k in ("device_ms", "device_kernels", "conv_only_ms",
+                                 "matmul_ms", "call_ms", "operand_bound_ms",
+                                 "banded_gflop", "instr_bound_ms") if k in t},
             "rtol": RTOL, "atol": ATOL, "timed_layout": t.get("layout", layout),
             "cases": mine,
             "other_layouts_ms": {lay: r["ms"] for (n, lay), r in timing.items()
@@ -1036,6 +1086,7 @@ def main() -> int:
     log(json.dumps({"factory": factory_res}))
     log(json.dumps({"scene": scene_res}))
     log(json.dumps({"api": api_res}))
+    log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f}s")
     log(smi)
     log(json.dumps({"kernels": records}))
     log(json.dumps({"ok": True, "device": {

@@ -5,9 +5,12 @@ with a plain C interface, at first use, into `_build/` beside this file
 (listed in .gitignore):
 
 * `degrade_stencil.cu` — the factory's fused degrade stencil
-  (`degrade_stencil`: the v3, v3psn, v3ps, v2 and v1 instantiations);
-* `degrade_dense.cu` — the dense stencil-matrix degrade on the tensor
-  cores (`degrade_dense`, the v4 counterpart);
+  (`degrade_stencil`, versions 3: the v3, v3psn and v3ps instantiations);
+* `degrade_wide.cu` — the wide-span stencil tiled through shared memory
+  (`degrade_stencil`, versions 2 and 1);
+* `degrade_dense.cu` — the banded stencil-matrix degrade on the tensor
+  cores, A generated per tile on chip (`degrade_dense`, the v4
+  counterpart; `dense_tiles` is its tile and band table);
 * `scene_stencil.cu` — the whole-scene slab stencil (`scene_stencil_raw`,
   `scene_stencil_ext`).
 
@@ -26,6 +29,7 @@ kernel it replaces, so a run can show which kernels its path went through
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -37,7 +41,7 @@ import torch
 
 _DIR = Path(__file__).parent
 _BUILD_DIR = _DIR / "_build"
-SOURCES = ("degrade_stencil", "degrade_dense", "scene_stencil")
+SOURCES = ("degrade_stencil", "degrade_wide", "degrade_dense", "scene_stencil")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -60,9 +64,26 @@ LAUNCHES = {"degrade_v3": 0, "degrade_v3psn": 0, "degrade_v3ps": 0,
             "colsplit_raw": 0, "colsplit": 0}
 
 LAYOUTS = {"nchw": 0, "chwb": 1, "presplit": 2, "presplit_halo": 3}
-#: the stencil's tap order, by the JAX version it follows
-MODES = {3: 0, 2: 1, 1: 2}
+#: the wide-span kernel's tap order, by the JAX version it follows
+WIDE_MODES = {2: 1, 1: 2}
+#: output columns per dense-kernel tile: the widest of these dividing w/f
+DENSE_TILE_N = (24, 16, 8)
+#: outputs a wide-span thread sums down one column (degrade_wide.cu's R)
+WIDE_R = 8
+#: a block's shared-memory limit on sm_90, bytes
+SMEM_MAX = 232448
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _call(dev: torch.device, fn, *args) -> int:
+    """fn(*args, stream) with `dev` current and PyTorch's current stream on
+    it (the kernels launch there); the device switch is skipped when `dev`
+    is current already, a few microseconds of host time a launch."""
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if dev.index == torch.cuda.current_device():
+        return fn(*args, stream)
+    with torch.cuda.device(dev):
+        return fn(*args, stream)
 
 
 def reset_launches() -> None:
@@ -115,14 +136,23 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
     if name == "degrade_stencil":
         lib.kmsr_degrade_stencil.restype = ci
         lib.kmsr_degrade_stencil.argtypes = [
-            vp, ci, ci, ci, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, vp,
+            vp, ci, ci, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, vp,
         ]
         lib.kmsr_cuda_error_string.restype = ctypes.c_char_p
         lib.kmsr_cuda_error_string.argtypes = [ci]
+    elif name == "degrade_wide":
+        lib.kmsr_degrade_wide.restype = ci
+        lib.kmsr_degrade_wide.argtypes = [
+            vp, ci, ci, ci, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
+            ci, ci, ci, ci, ci, vp,
+        ]
+        lib.kmsr_wide_cuda_error_string.restype = ctypes.c_char_p
+        lib.kmsr_wide_cuda_error_string.argtypes = [ci]
     elif name == "degrade_dense":
         lib.kmsr_degrade_dense.restype = ci
         lib.kmsr_degrade_dense.argtypes = [
-            vp, ci, vp, vp, vp, ci, ci, ci, ci, cl, cl, cl, cl, cl, cl, vp,
+            vp, ci, vp, vp, ci, ci, ci, vp, vp, ci, ci, ci, ci, ci, ci,
+            cl, cl, cl, cl, cl, cl, vp,
         ]
         lib.kmsr_dense_cuda_error_string.restype = ctypes.c_char_p
         lib.kmsr_dense_cuda_error_string.argtypes = [ci]
@@ -181,19 +211,19 @@ def degrade_stencil(
     "presplit_halo", the last with `halo` replicate rows baked at each end
     of every phase); dims: the image dims (C, H, W, B); comp: [C, K, K]
     float32 composed kernels; version: the JAX kernel whose tap order to
-    follow (3: v3/v3psn/v3ps; 2 on "nchw"/"chwb", 1 on "chwb" only, the
-    layouts that reach them; others are refused); half: the
-    tap offset (default (K - f) // 2, the v3 family's; v1/v2 take the blur
-    kernel's kh // 2); noise: None or float32 shaped like `out`; out:
-    float32 [B, C, H/f, W/f] (nchw) or [C, H/f, W/f, B]. All on one CUDA
-    device and contiguous. Launches on the current stream, does not
-    synchronize.
+    follow (3: v3/v3psn/v3ps, `degrade_stencil.cu`; 2 on "nchw"/"chwb" and
+    1 on "chwb" only, the layouts that reach them, `degrade_wide.cu`;
+    others are refused); half: the tap offset (default (K - f) // 2, the
+    v3 family's; v1/v2 take the blur kernel's kh // 2); noise: None or
+    float32 shaped like `out`; out: float32 [B, C, H/f, W/f] (nchw) or
+    [C, H/f, W/f, B]. All on one CUDA device and contiguous. Launches on
+    the current stream, does not synchronize.
     """
     c, h, w, b = dims
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"degrade_stencil needs CUDA tensors, got {dev}")
-    if layout not in LAYOUTS or version not in MODES:
+    if layout not in LAYOUTS or version not in (3, *WIDE_MODES):
         raise ValueError(f"unknown layout {layout!r} or version {version!r}")
     _check(x, "x", dev, tuple(_DTYPES))
     _check(comp, "comp", dev)
@@ -216,17 +246,24 @@ def degrade_stencil(
             raise ValueError(
                 f"noise shape {tuple(noise.shape)} != {tuple(out.shape)}")
     half = (k - factor) // 2 if half is None else half
-    lib = _lib()
-    with torch.cuda.device(dev):
-        rc = lib.kmsr_degrade_stencil(
-            x.data_ptr(), _DTYPES[x.dtype], LAYOUTS[layout], MODES[version],
-            comp.data_ptr(), None if noise is None else noise.data_ptr(),
-            out.data_ptr(), c, h, w, b, factor, k, half, halo,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+    wide = version in WIDE_MODES
+    lib = _lib("degrade_wide" if wide else "degrade_stencil")
+    n_ptr = None if noise is None else noise.data_ptr()
+    if wide:
+        # the kernel refuses the presplit layouts (and an empty plan)
+        plan = (wide_tiles(layout, k, factor, h)
+                if layout in ("nchw", "chwb") else (0,) * 5)
+        rc = _call(dev, lib.kmsr_degrade_wide, x.data_ptr(), _DTYPES[x.dtype],
+                   LAYOUTS[layout], WIDE_MODES[version], comp.data_ptr(),
+                   n_ptr, out.data_ptr(), c, h, w, b, factor, k, half, *plan)
+    else:
+        rc = _call(dev, lib.kmsr_degrade_stencil, x.data_ptr(),
+                   _DTYPES[x.dtype], LAYOUTS[layout], comp.data_ptr(), n_ptr,
+                   out.data_ptr(), c, h, w, b, factor, k, half, halo)
     if rc != 0:
-        reason = ("arguments refused" if rc < 0
-                  else lib.kmsr_cuda_error_string(rc).decode())
+        errstr = (lib.kmsr_wide_cuda_error_string if wide
+                  else lib.kmsr_cuda_error_string)
+        reason = "arguments refused" if rc < 0 else errstr(rc).decode()
         raise RuntimeError(
             f"degrade_stencil launch failed ({rc}: {reason}) for layout="
             f"{layout}, version={version}, dims={dims}, factor={factor}, "
@@ -235,24 +272,112 @@ def degrade_stencil(
     return out
 
 
+def wide_tiles(layout: str, ksize: int, factor: int,
+               h: int) -> tuple[int, int, int, int, int]:
+    """The wide-span (v1/v2) kernel's tile plan: (ti, tj, rows, cols, noc).
+
+    A block sums ti x tj outputs (NCHW: tj = 32 output columns, a warp;
+    CHWB: tj columns of a 32-wide batch slice), WIDE_R down each thread's
+    column, and stages its input window one row phase dyi at a time:
+    `rows` window rows f*q + dyi and `cols` window columns (NCHW: per
+    column phase x % f), two phases in shared memory beside comp in
+    lattice order. noc row taps share one register window: 7 for the x2
+    lattice (f = 2, ceil(K/f) = 7), which has a compile-time instantiation,
+    else 4, in chunks. The largest tile that fits is taken: NCHW 8, 4, 2
+    or 1 row groups of WIDE_R (no more than the image's h/f output rows
+    need), CHWB 2 x 8, 1 x 8, 1 x 4, 1 x 2 or 1 x 1 (row groups x columns).
+    """
+    n_o = -(-ksize // factor)
+    noc = 7 if (factor, n_o) == (2, 7) else 4
+    n_chunk = -(-n_o // noc) * noc
+    oh = h // factor
+    if layout == "nchw":
+        tries = [(g, 32) for g in (8, 4, 2, 1) if g == 1 or g // 2 * WIDE_R < oh]
+    elif layout == "chwb":
+        tries = [(2, 8), (1, 8), (1, 4), (1, 2), (1, 1)]
+    else:
+        raise ValueError(f"the wide-span kernel takes nchw or chwb, got {layout!r}")
+    table = -(-factor * ksize * (-(-n_chunk // 4) * 4) // 4) * 4  # floats
+    for groups, tj in tries:
+        ti = groups * WIDE_R
+        rows = ti - 1 + n_chunk
+        if layout == "nchw":
+            cols = tj - 1 + n_o
+            phase = rows * factor * cols
+        else:
+            cols = factor * (tj - 1 + n_o)
+            phase = rows * cols * 32
+        if 4 * (table + 2 * phase) <= SMEM_MAX:
+            return ti, tj, rows, cols, noc
+    raise ValueError(f"no wide-span tile fits shared memory at K={ksize}, "
+                     f"factor={factor}")
+
+
+@functools.lru_cache(maxsize=32)
+def _dense_plan(ksize: int, factor: int, h: int, w: int,
+                device: torch.device) -> tuple[int, torch.Tensor, int]:
+    tn, tiles = dense_tiles(ksize, factor, h, w)
+    max_band = int((tiles[:, 3] * tiles[:, 5]).max())
+    return tn, tiles.to(device), max_band
+
+
+def dense_tiles(ksize: int, factor: int, h: int,
+                w: int) -> tuple[int, torch.Tensor]:
+    """The dense (v4) kernel's output tiles and the band each one reads.
+
+    One tile per output row i and run of tn output columns from j0 (tn: the
+    widest of `DENSE_TILE_N` that divides w // factor). Its band is the
+    input rows y0 .. y0+nr-1 and columns x0 .. x0+nc-1 that the tile's taps
+    clamp(f*i + dy - half), clamp(f*j + dx - half) reach, half = (K-f)//2,
+    x0 and nc widened to multiples of 8 (whole 16-byte runs of an image
+    row). The kernel generates the stencil matrix's entries over that band
+    only and contracts over it. Returns (tn, int32 [n_tiles, 6] of
+    (i, j0, y0, nr, x0, nc)) on the CPU.
+    """
+    half = (ksize - factor) // 2
+    oh, ow = h // factor, w // factor
+    if w % 8 or ow % 8 or h % factor or oh < 1:
+        raise ValueError(f"the dense kernel needs w and w // factor multiples "
+                         f"of 8 and h a multiple of factor; got h={h}, w={w}, "
+                         f"factor={factor}")
+    tn = next(t for t in DENSE_TILE_N if ow % t == 0)
+
+    def reach(first: int, last: int, size: int) -> tuple[int, int]:
+        lo = min(max(factor * first - half, 0), size - 1)
+        hi = min(max(factor * last - half + ksize - 1, 0), size - 1)
+        return lo, hi
+
+    rows = []
+    for i in range(oh):
+        y0, y1 = reach(i, i, h)
+        for j0 in range(0, ow, tn):
+            xlo, xhi = reach(j0, j0 + tn - 1, w)
+            x0, x1 = xlo // 8 * 8, min(-(-(xhi + 1) // 8) * 8, w)
+            rows.append((i, j0, y0, y1 - y0 + 1, x0, x1 - x0))
+    return tn, torch.tensor(rows, dtype=torch.int32)
+
+
 def degrade_dense(
     x: torch.Tensor,
-    a_terms: torch.Tensor,
+    comp: torch.Tensor,
     noise: torch.Tensor | None,
     out: torch.Tensor,
     *,
     layout: str,
+    factor: int,
 ) -> torch.Tensor:
-    """Launch the dense degrade (the v4 counterpart) on the tensor cores:
-    out[c] = sum_{i+j<=2} A_i[c] . x_j[c] (+ noise), x split into its bf16
-    terms in the kernel.
+    """Launch the banded degrade (the v4 counterpart) on the tensor cores:
+    out[c] = sum_{i+j<=2} A_i[c] . x_j[c] (+ noise), with the stencil
+    matrix's three bf16 terms A_i generated per output tile in shared
+    memory from `comp`, over the tile's band only (`dense_tiles`), and x
+    split into its bf16 terms in the kernel.
 
     x: float32 or bfloat16, [B, C, h, w] ("nchw") or [C, h, w, B]
-    ("chwb"); a_terms: [C, 3, out_h*out_w, h*w] bfloat16, the stencil
-    matrix's three mantissa-masked terms (h*w a multiple of 8); noise: None
-    or float32 shaped like `out`; out: float32 [B, C, out_h, out_w] (nchw)
-    or [C, out_h, out_w, B]. All on one CUDA device and contiguous.
-    Launches on the current stream, does not synchronize.
+    ("chwb"), w and w // factor multiples of 8; comp: [C, K, K] float32
+    composed kernels; noise: None or float32 shaped like `out`; out:
+    float32 [B, C, h/f, w/f] (nchw) or [C, h/f, w/f, B]. All on one CUDA
+    device and contiguous. Launches on the current stream, does not
+    synchronize.
     """
     dev = x.device
     if dev.type != "cuda":
@@ -260,51 +385,44 @@ def degrade_dense(
     if layout not in ("nchw", "chwb"):
         raise ValueError(f"degrade_dense takes nchw or chwb, got {layout!r}")
     _check(x, "x", dev, tuple(_DTYPES))
-    _check(a_terms, "a_terms", dev, (torch.bfloat16,))
+    _check(comp, "comp", dev)
     _check(out, "out", dev)
-    if x.ndim != 4 or out.ndim != 4 or a_terms.ndim != 4:
-        raise ValueError("x and out must be 4-D and a_terms [C, 3, M, K]")
+    if x.ndim != 4 or out.ndim != 4 or comp.ndim != 3:
+        raise ValueError("x and out must be 4-D and comp [C, K, K]")
     if layout == "nchw":
         b, c, h, w = x.shape
-        oh, ow = out.shape[2:]
-        want_out = (b, c, oh, ow)
+        want_out = (b, c, h // factor, w // factor)
     else:
         c, h, w, b = x.shape
-        oh, ow = out.shape[1:3]
-        want_out = (c, oh, ow, b)
-    m, kd = oh * ow, h * w
+        want_out = (c, h // factor, w // factor, b)
     if tuple(out.shape) != want_out:
         raise ValueError(f"out shape {tuple(out.shape)} != {want_out}")
-    if tuple(a_terms.shape) != (c, 3, m, kd):
-        raise ValueError(f"a_terms shape {tuple(a_terms.shape)} != "
-                         f"{(c, 3, m, kd)}")
-    if kd % 8 or a_terms.data_ptr() % 16:
-        raise ValueError(f"h*w={kd} must be a multiple of 8 and a_terms "
-                         f"16-byte aligned")
+    k = comp.shape[-1]
+    if tuple(comp.shape) != (c, k, k):
+        raise ValueError(f"comp shape {tuple(comp.shape)} != {(c, k, k)}")
     if noise is not None:
         _check(noise, "noise", dev)
         if noise.shape != out.shape:
             raise ValueError(
                 f"noise shape {tuple(noise.shape)} != {tuple(out.shape)}")
+    tn, tiles, max_band = _dense_plan(k, factor, h, w, dev)
+    kd, m = h * w, (h // factor) * (w // factor)
     if layout == "nchw":
         x_strides, o_strides = (kd, 1, c * kd), (m, 1, c * m)
     else:
         x_strides, o_strides = (kd * b, b, 1), (m * b, b, 1)
     lib = _lib("degrade_dense")
-    with torch.cuda.device(dev):
-        rc = lib.kmsr_degrade_dense(
-            x.data_ptr(), _DTYPES[x.dtype], a_terms.data_ptr(),
-            None if noise is None else noise.data_ptr(), out.data_ptr(),
-            c, m, kd, b, *x_strides, *o_strides,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+    rc = _call(dev, lib.kmsr_degrade_dense, x.data_ptr(), _DTYPES[x.dtype],
+               comp.data_ptr(), tiles.data_ptr(), tiles.shape[0], max_band, tn,
+               None if noise is None else noise.data_ptr(), out.data_ptr(),
+               c, h, w, b, factor, k, *x_strides, *o_strides)
     if rc != 0:
         reason = ("arguments refused" if rc < 0
                   else lib.kmsr_dense_cuda_error_string(rc).decode())
         raise RuntimeError(
             f"degrade_dense launch failed ({rc}: {reason}) for layout="
-            f"{layout}, x {tuple(x.shape)}, a_terms {tuple(a_terms.shape)}, "
-            f"dtype={x.dtype}")
+            f"{layout}, x {tuple(x.shape)}, comp {tuple(comp.shape)}, "
+            f"factor={factor}, dtype={x.dtype}")
     LAUNCHES["degrade_v4"] += 1
     return out
 
@@ -341,14 +459,10 @@ def _scene_launch(raw: bool, x, top, bot, comp, out, factor, row0, hs):
     if tuple(out.shape) != want_out:
         raise ValueError(f"out shape {tuple(out.shape)} != {want_out}")
     lib = _lib("scene_stencil")
-    with torch.cuda.device(dev):
-        rc = lib.kmsr_scene_stencil(
-            int(raw), x.data_ptr(), x_cs, x_rs, x_rows,
-            top.data_ptr(), top_cs, top_rs, top.shape[1],
-            bot.data_ptr(), bot_cs, bot_rs, bot.shape[1],
-            comp.data_ptr(), out.data_ptr(), c, hs, w, row0, factor, k,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+    rc = _call(dev, lib.kmsr_scene_stencil, int(raw), x.data_ptr(), x_cs,
+               x_rs, x_rows, top.data_ptr(), top_cs, top_rs, top.shape[1],
+               bot.data_ptr(), bot_cs, bot_rs, bot.shape[1], comp.data_ptr(),
+               out.data_ptr(), c, hs, w, row0, factor, k)
     if rc != 0:
         reason = ("arguments refused" if rc < 0
                   else lib.kmsr_scene_cuda_error_string(rc).decode())

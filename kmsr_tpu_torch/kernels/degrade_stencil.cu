@@ -9,31 +9,16 @@
 //   _degrade_kernel_v3ps  / _degrade_noise_kernel_v3ps   (presplit with m
 //                                                          baked halo rows,
 //                                                          [C, f, H/f+2m, W, B])
-//   _degrade_kernel_v2    / _degrade_noise_kernel_v2     (all phases, v2 order)
-//   _degrade_kernel       / _degrade_noise_kernel        (v1: per-row-phase
-//                                                          partial sums; CHWB,
-//                                                          the only layout
-//                                                          that reaches it)
-// All of them compute
+// (the wide-span v1/v2 kernels live in degrade_wide.cu). All of them compute
 //   out[c,i,j,b] = sum_{dy<K} sum_{dx<K} comp[c,dy,dx]
 //                  * x[c, clamp(f*i+dy-h, 0, H-1), clamp(f*j+dx-h, 0, W-1), b]
 //                  (+ noise[c,i,j,b])
 // with comp = compose_with_box(normalize_kernel(k), f) ([C, K, K], K = k+f-1),
-// replicate padding as clamped indices. The tap offset h is (K-f)/2 for the
-// v3 family and k/2 (the blur kernel's own half width) for v1/v2: the JAX
-// versions differ there when k is even, and each mode keeps its own. Inputs
-// are float32 or bfloat16 (stored), accumulation and output float32.
-//
-// Modes (the order in which taps are summed, as in each TPU kernel):
-//   V3: dy outer, dx inner;
-//   V2: dyi, dxi, dxo, dyo over the ceil(K/f)*f lattice, dy = dyo*f + dyi,
-//       dx = dxo*f + dxi (lattice taps with dy or dx >= K carry a zero
-//       coefficient in the TPU kernel and are skipped);
-//   V1: as V2, but each row phase dyi sums into its own partial, and
-//       out = out + partial is taken in dyi order.
-// The TPU kernels' edge-pad and phase-split pre-pass (v1/v2), column
-// permutation matmuls (v3) and baked halo rows are layout work for the
-// TPU's vector unit; a CUDA thread gathers its clamped taps in place.
+// replicate padding as clamped indices, the tap offset h = (K-f)/2, taps
+// summed dy outer, dx inner. Inputs are float32 or bfloat16 (stored),
+// accumulation and output float32. The TPU kernels' column permutation
+// matmuls and baked halo rows are layout work for the TPU's vector unit; a
+// CUDA thread gathers its clamped taps in place.
 //
 // Design (first, simple version): one thread per output element; the
 // composed kernels of all bands (C*K*K floats, 8 KB at C=5, K=20) are
@@ -46,13 +31,12 @@
 // Bound on an H100: bytes. At the factory shape (B=128, C=5, 256x256,
 // f=8, K=20) one launch must move 167.8 MB of input plus 2 x 2.6 MB of
 // noise and output (~0.05 ms at 3.35 TB/s) for 0.52 GFLOP (~0.008 ms at
-// 67 TFLOP/s fp32); at f=2 (K=14) 167.8 MB + 2 x 41.9 MB (~0.075 ms) for
-// 4.1 GFLOP (~0.061 ms): close to balanced. Each input element is read by
-// up to ceil(K/f)^2 output threads; the neighbours that share it run in
-// the same or nearby blocks, so the re-reads come from L1/L2 and HBM sees
-// the input about once. Index arithmetic, not memory, is what this
-// version spends most of its instructions on; tiling the input through
-// shared memory (TMA) is later work.
+// 67 TFLOP/s fp32). Each input element is read by up to ceil(K/f)^2 output
+// threads; the neighbours that share it run in the same or nearby blocks,
+// so the re-reads come from L1/L2 and HBM sees the input about once. Index
+// arithmetic, not memory, is what this version spends most of its
+// instructions on; tiling the input through shared memory, as
+// degrade_wide.cu does, is later work.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -shared
 // (see kmsr_tpu_torch/kernels/__init__.py); exported as a plain C ABI and
@@ -72,7 +56,6 @@ constexpr int kPresplit = 2;      // x [C, f, H/f, W, B] with columns permuted t
                                   // v = (x % f) * (W/f) + x / f; noise/out CHWB
 constexpr int kPresplitHalo = 3;  // x [C, f, H/f + 2m, W, B]: as kPresplit with
                                   // m replicate rows baked at each end
-constexpr int kV3 = 0, kV2 = 1, kV1 = 2;
 
 struct Args {
   int C, H, W, B, f, K, half, m;
@@ -127,7 +110,7 @@ __device__ __forceinline__ int64_t col_offset(int blk, int r, int f,
   return LAYOUT == kNCHW ? (int64_t)x : (int64_t)x * b;
 }
 
-template <int LAYOUT, int MODE, bool NOISE, typename T>
+template <int LAYOUT, bool NOISE, typename T>
 __global__ void __launch_bounds__(kThreads)
 degrade_stencil_kernel(const T* __restrict__ x, const float* __restrict__ comp,
                        const float* __restrict__ noise,
@@ -177,63 +160,37 @@ degrade_stencil_kernel(const T* __restrict__ x, const float* __restrict__ comp,
   const int half = a.half;
 
   float acc = 0.f;
-  if (MODE == kV3) {
-    // tap d reads image coordinate f*i + d - half = f*(i + q) + r with
-    // (q, r) = divmod(d - half, f) (floor division); walk it incrementally
-    const int r0 = ((-half) % f + f) % f;
-    const int q0 = (-half - r0) / f;
-    int qy = q0, ry = r0;
-    for (int dy = 0; dy < K; ++dy) {
-      const T* row = plane + row_offset<LAYOUT>(i + qy, ry, f, oh, W, bs, a.m);
-      int qx = q0, rx = r0;
-      for (int dx = 0; dx < K; ++dx) {
-        const float v = load_f32(row + col_offset<LAYOUT>(j + qx, rx, f, ow, bs));
-        acc = __fadd_rn(acc, __fmul_rn(kc[dy * K + dx], v));
-        if (++rx == f) {
-          rx = 0;
-          ++qx;
-        }
-      }
-      if (++ry == f) {
-        ry = 0;
-        ++qy;
+  // tap d reads image coordinate f*i + d - half = f*(i + q) + r with
+  // (q, r) = divmod(d - half, f) (floor division); walk it incrementally
+  const int r0 = ((-half) % f + f) % f;
+  const int q0 = (-half - r0) / f;
+  int qy = q0, ry = r0;
+  for (int dy = 0; dy < K; ++dy) {
+    const T* row = plane + row_offset<LAYOUT>(i + qy, ry, f, oh, W, bs, a.m);
+    int qx = q0, rx = r0;
+    for (int dx = 0; dx < K; ++dx) {
+      const float v = load_f32(row + col_offset<LAYOUT>(j + qx, rx, f, ow, bs));
+      acc = __fadd_rn(acc, __fmul_rn(kc[dy * K + dx], v));
+      if (++rx == f) {
+        rx = 0;
+        ++qx;
       }
     }
-  } else {
-    // natural layouts only: f*blk + r with blk = i and r = d - half is the
-    // unclamped coordinate, which row/col_offset clamp
-    const int n_o = (K + f - 1) / f;
-    for (int dyi = 0; dyi < f; ++dyi) {
-      float part = 0.f;
-      for (int dxi = 0; dxi < f; ++dxi) {
-        for (int dxo = 0; dxo < n_o; ++dxo) {
-          const int dx = dxo * f + dxi;
-          if (dx >= K) break;
-          const T* col = plane + col_offset<LAYOUT>(j, dx - half, f, ow, bs);
-          for (int dyo = 0; dyo < n_o; ++dyo) {
-            const int dy = dyo * f + dyi;
-            if (dy >= K) break;
-            const float v =
-                load_f32(col + row_offset<LAYOUT>(i, dy - half, f, oh, W, bs, 0));
-            const float t = __fmul_rn(kc[dy * K + dx], v);
-            if (MODE == kV1) part = __fadd_rn(part, t);
-            else acc = __fadd_rn(acc, t);
-          }
-        }
-      }
-      if (MODE == kV1) acc = __fadd_rn(acc, part);
+    if (++ry == f) {
+      ry = 0;
+      ++qy;
     }
   }
   if (NOISE) acc = __fadd_rn(acc, noise[o]);
   out[o] = acc;
 }
 
-template <int LAYOUT, int MODE, typename T>
+template <int LAYOUT, typename T>
 int launch(const void* x, const float* comp, const float* noise, float* out,
            const Args& a, cudaStream_t stream) {
   const size_t smem = (size_t)a.C * a.K * a.K * sizeof(float);
-  auto kern = noise ? degrade_stencil_kernel<LAYOUT, MODE, true, T>
-                    : degrade_stencil_kernel<LAYOUT, MODE, false, T>;
+  auto kern = noise ? degrade_stencil_kernel<LAYOUT, true, T>
+                    : degrade_stencil_kernel<LAYOUT, false, T>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -247,22 +204,17 @@ int launch(const void* x, const float* comp, const float* noise, float* out,
 }
 
 template <typename T>
-int dispatch(int layout, int mode, const void* x, const float* comp,
-             const float* noise, float* out, const Args& a, cudaStream_t s) {
-  if (mode == kV2) {
-    return layout == kNCHW ? launch<kNCHW, kV2, T>(x, comp, noise, out, a, s)
-                           : launch<kCHWB, kV2, T>(x, comp, noise, out, a, s);
-  }
-  if (mode == kV1) return launch<kCHWB, kV1, T>(x, comp, noise, out, a, s);
+int dispatch(int layout, const void* x, const float* comp, const float* noise,
+             float* out, const Args& a, cudaStream_t s) {
   switch (layout) {
     case kNCHW:
-      return launch<kNCHW, kV3, T>(x, comp, noise, out, a, s);
+      return launch<kNCHW, T>(x, comp, noise, out, a, s);
     case kCHWB:
-      return launch<kCHWB, kV3, T>(x, comp, noise, out, a, s);
+      return launch<kCHWB, T>(x, comp, noise, out, a, s);
     case kPresplit:
-      return launch<kPresplit, kV3, T>(x, comp, noise, out, a, s);
+      return launch<kPresplit, T>(x, comp, noise, out, a, s);
     default:
-      return launch<kPresplitHalo, kV3, T>(x, comp, noise, out, a, s);
+      return launch<kPresplitHalo, T>(x, comp, noise, out, a, s);
   }
 }
 
@@ -274,20 +226,17 @@ extern "C" {
 
 // Launch the stencil on `stream`. x_dtype: 0 float32, 1 bfloat16. layout:
 // 0 NCHW, 1 CHWB, 2 presplit, 3 presplit with m baked halo rows (see the
-// k* constants). mode: 0 v3, 1 v2, 2 v1 (tap order; v2 takes the natural
-// layouts 0-1 only, v1 CHWB only). (c, h, w, b) are the image dims, h and w
+// k* constants). (c, h, w, b) are the image dims, h and w
 // multiples of f; comp is [c, k, k] float32; `half` is the tap offset;
 // noise is NULL or float32 in the output's layout. Returns 0, a cudaError_t
 // code from the launch, or -1 for arguments the kernel does not take
 // (including a halo depth m that a tap would reach past).
-int kmsr_degrade_stencil(const void* x, int x_dtype, int layout, int mode,
+int kmsr_degrade_stencil(const void* x, int x_dtype, int layout,
                          const float* comp, const float* noise, float* out,
                          int c, int h, int w, int b, int f, int k, int half,
                          int m, void* stream) {
   if (c <= 0 || h <= 0 || w <= 0 || b <= 0 || f <= 0 || k < f ||
-      h % f || w % f || layout < 0 || layout > 3 || mode < 0 || mode > 2 ||
-      (mode == kV2 && layout > kCHWB) || (mode == kV1 && layout != kCHWB) ||
-      x_dtype < 0 || x_dtype > 1 ||
+      h % f || w % f || layout < 0 || layout > 3 || x_dtype < 0 || x_dtype > 1 ||
       (size_t)c * k * k * sizeof(float) > 227 * 1024) {
     return -1;
   }
@@ -298,8 +247,8 @@ int kmsr_degrade_stencil(const void* x, int x_dtype, int layout, int mode,
   const Args a{c, h, w, b, f, k, half, layout == kPresplitHalo ? m : 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return x_dtype == 0
-             ? dispatch<float>(layout, mode, x, comp, noise, out, a, s)
-             : dispatch<__nv_bfloat16>(layout, mode, x, comp, noise, out, a, s);
+             ? dispatch<float>(layout, x, comp, noise, out, a, s)
+             : dispatch<__nv_bfloat16>(layout, x, comp, noise, out, a, s);
 }
 
 const char* kmsr_cuda_error_string(int code) {

@@ -21,13 +21,15 @@ v4 (the dense stencil matrix) when its shape rule holds, else v2.
 `degrade_fused`, like `degrade_pallas`, always selects so;
 `degrade_fused_chwb(version=1..4)` pins one (v1 is reached only there).
 A CUDA tensor launches `kernels.degrade_stencil`
-(`kernels/degrade_stencil.cu`: v3, v3psn, v3ps, v2, v1) or
-`kernels.degrade_dense` (`kernels/degrade_dense.cu`: v4), or raises; a
-CPU tensor runs the plain PyTorch version of the same layout and version
-(`degrade_fused_ref`, `degrade_fused_chwb_ref`,
+(`kernels/degrade_stencil.cu`: v3, v3psn, v3ps; `kernels/degrade_wide.cu`:
+v2, v1) or `kernels.degrade_dense` (`kernels/degrade_dense.cu`: v4, which
+generates the stencil matrix on chip from the composed kernels), or
+raises; a CPU tensor runs the plain PyTorch version of the same layout and
+version (`degrade_fused_ref`, `degrade_fused_chwb_ref`,
 `degrade_fused_presplit_ref`, `degrade_v4_ref`: clamped-index gathers and
-an explicit tap sum in the kernel's order, or the six term products).
-Nothing falls back from one to the other.
+an explicit tap sum in the kernel's order, or the six term products on the
+stencil matrix's terms built here). Nothing falls back from one to the
+other.
 
 Dropped TPU-only knobs of the JAX signatures: `batch_tile` (lane tiling),
 `interpret` (Pallas interpret mode), `perm_mode` (precision of the
@@ -85,14 +87,34 @@ def select_version(ksize: int, factor: int, h: int, w: int,
     return version
 
 
+#: the last composition: (kernel tensor, its key, comp)
+_LAST_COMPOSED: tuple | None = None
+
+
 def _composed(kernel: torch.Tensor, factor: int, c: int,
               device: torch.device) -> torch.Tensor:
-    """[C, K, K] float32 composed kernels on `device` (guards: square)."""
+    """[C, K, K] float32 composed kernels on `device` (guards: square).
+
+    The last result is reused while the same kernel tensor comes back
+    unchanged (same object, same in-place version counter) at the same
+    factor, band count and device: the factory degrades every batch with
+    one kernel, and the composition's half a dozen small ops cost more
+    host time than the v4 kernel itself. Inference tensors keep no
+    version counter and are composed anew each call."""
+    global _LAST_COMPOSED
     if kernel.shape[-1] != kernel.shape[-2]:
         raise ValueError(
             f"the fused kernels assume square blur kernels, got "
             f"{kernel.shape[-2]}x{kernel.shape[-1]} (use ops.degrade instead)"
         )
+    try:
+        key = (kernel._version, factor, c, device)
+    except RuntimeError:  # an inference tensor: no version to check
+        key = None
+    last = _LAST_COMPOSED
+    if key is not None and last is not None and last[0] is kernel and last[1] == key:
+        return last[2]
+    src = kernel
     kernel = kernel.to(device=device, dtype=torch.float32)
     if kernel.ndim == 2:
         kernel = kernel[None].expand(c, *kernel.shape)
@@ -100,7 +122,10 @@ def _composed(kernel: torch.Tensor, factor: int, c: int,
         raise ValueError(
             f"kernel shape {tuple(kernel.shape)} does not give one kernel "
             f"per band for {c} bands")
-    return compose_with_box(normalize_kernel(kernel), factor).contiguous()
+    comp = compose_with_box(normalize_kernel(kernel), factor).contiguous()
+    if key is not None:
+        _LAST_COMPOSED = (src, key, comp)
+    return comp
 
 
 def _check_span(ksize: int, factor: int, what: str) -> None:
@@ -331,13 +356,14 @@ def degrade_v4_ref(x: torch.Tensor, a_terms: torch.Tensor,
 
 
 def _dense(x, comp, noise, factor, layout):
-    """v4: build the stencil matrix's three terms (as JAX does outside its
-    kernel), then launch the dense kernel (CUDA) or its plain version (a
-    CPU tensor)."""
-    _, (c, h, w, b) = _dense_operands(x, layout)
-    a_terms = _a_terms(comp, factor, h, w)
+    """v4: launch the banded kernel, which generates the stencil matrix's
+    terms per tile from comp (a CUDA tensor), or run the plain version on
+    the terms built here, as JAX builds them outside its kernel (a CPU
+    tensor)."""
+    b, c, h, w = x.shape if layout == "nchw" else x.permute(3, 0, 1, 2).shape
     if x.device.type == "cpu":
-        return degrade_v4_ref(x, a_terms, noise, factor, layout)
+        return degrade_v4_ref(x, _a_terms(comp, factor, h, w), noise, factor,
+                              layout)
     if x.device.type != "cuda":
         raise ValueError(f"fused degrade runs on cuda or cpu, got {x.device}")
     from ..kernels import degrade_dense
@@ -345,7 +371,8 @@ def _dense(x, comp, noise, factor, layout):
     oh, ow = h // factor, w // factor
     shape = (b, c, oh, ow) if layout == "nchw" else (c, oh, ow, b)
     out = torch.empty(shape, dtype=torch.float32, device=x.device)
-    return degrade_dense(x.contiguous(), a_terms, noise, out, layout=layout)
+    return degrade_dense(x.contiguous(), comp, noise, out, layout=layout,
+                         factor=factor)
 
 
 def _tap_half(kernel: torch.Tensor, version: int) -> int | None:

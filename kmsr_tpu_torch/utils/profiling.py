@@ -4,7 +4,9 @@
   registry as `kmsr_tpu.utils.profiling`, used by the pipeline runners.
 * `cuda_time_ms`: device time of one call, taken with CUDA events — the
   counterpart of the JAX package's `bench_windows` (which fences a remote
-  TPU queue with a host clock and a scalar readback).
+  TPU queue with a host clock and a scalar readback);
+* `cuda_device_ms`: the kernels' own device time per call, from a
+  torch.profiler trace.
 """
 from __future__ import annotations
 
@@ -70,3 +72,34 @@ def cuda_time_ms(fn: Callable[[], object], runs: int = 20) -> dict:
         "max_ms": samples[-1],
         "runs": runs,
     }
+
+
+def cuda_device_ms(fn: Callable[[], object], runs: int = 10) -> dict:
+    """Device time of the CUDA kernels `fn()` launches, in milliseconds per
+    call, from a torch.profiler (CUPTI) trace of `runs` calls after 3
+    untimed ones: the kernels' own durations, without the host time between
+    launches that `cuda_time_ms` also sees when the host is the slower
+    side. Each kernel's mean duration is taken over the records the trace
+    holds, times its launches per call. Returns {"device_ms": their sum,
+    "kernels": {name: ms per call}}. Raises on a host without a card, or
+    if no kernel ran on the device.
+    """
+    if not torch.cuda.is_available():
+        raise RuntimeError("cuda_device_ms needs a CUDA device")
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    kernels = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+        if us > 0 and ev.count:
+            kernels[ev.key] = us / ev.count * max(1, round(ev.count / runs)) / 1e3
+    if not kernels:
+        raise RuntimeError("the profiler saw no kernel on the device")
+    return {"device_ms": sum(kernels.values()), "kernels": kernels}

@@ -175,11 +175,10 @@ def test_value_error_guards_match_jax(rng):
                                                 halo_rows=1))
 
 
-def test_unported_versions_raise_not_implemented(rng):
-    """Versions 1, 2, 4, spans above 5*factor and baked_halo=True, once
-    refused with NotImplementedError, now run and agree with the JAX XLA
-    conv (odd kernel: every version computes the same function); only a
-    version outside 1..4 still raises."""
+def test_every_version_runs_and_agrees_with_jax_conv(rng):
+    """Every version (1, 2, 4 and auto), a span above 5*factor and
+    baked_halo=True run and agree with the JAX XLA conv (odd kernel: every
+    version computes the same function); a version outside 1..4 raises."""
     x, kernel, noise = _chwb_inputs(rng, 2, 13, b=3, h=16)
     want = _want_chwb(x, kernel, noise, 2)
     tx, tk, tn = map(torch.from_numpy, (x, kernel, noise))
@@ -194,3 +193,33 @@ def test_unported_versions_raise_not_implemented(rng):
     got = degrade_fused_presplit(phase_split_chwb(tx, 8, halo=True), tk, factor=8,
                                  baked_halo=True)
     np.testing.assert_allclose(got.numpy(), want8, **TOL)
+
+
+def test_composition_is_reused_until_the_kernel_changes(rng):
+    """`_composed` hands back its last result for the same, unchanged
+    kernel tensor, and composes anew (equal to JAX's composition) after an
+    in-place change, at another factor, or for an inference tensor."""
+    from kmsr_tpu.ops.degrade import compose_with_box as j_compose
+    from kmsr_tpu.ops.degrade import normalize_kernel as j_normalize
+    from kmsr_tpu_torch.ops.degrade_fused import _composed
+
+    k = torch.from_numpy(rng.uniform(0.1, 1, (3, 13, 13)).astype(np.float32))
+    cpu = torch.device("cpu")
+
+    def want(kernel, factor):
+        return np.asarray(j_compose(j_normalize(jnp.asarray(kernel.numpy())), factor))
+
+    first = _composed(k, 2, 3, cpu)
+    assert _composed(k, 2, 3, cpu) is first
+    np.testing.assert_allclose(first.numpy(), want(k, 2), rtol=1e-6, atol=1e-7)
+    k.mul_(2).add_(torch.eye(13))
+    again = _composed(k, 2, 3, cpu)
+    assert again is not first
+    np.testing.assert_allclose(again.numpy(), want(k, 2), rtol=1e-6, atol=1e-7)
+    assert _composed(k, 4, 3, cpu).shape == (3, 16, 16)
+    assert _composed(k.clone(), 2, 3, cpu) is not again
+    with torch.inference_mode():
+        ki = k.clone()
+    got = _composed(ki, 2, 3, cpu)
+    assert _composed(ki, 2, 3, cpu) is not got
+    torch.testing.assert_close(got, again, rtol=0, atol=0)

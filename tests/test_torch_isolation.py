@@ -102,8 +102,8 @@ def test_kernel_wrapper_refuses_cpu_tensors():
         degrade_stencil(x, torch.zeros(5, 20, 20), None, torch.zeros(5, 2, 2, 2),
                         layout="chwb", dims=(5, 16, 16, 2), factor=8)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        degrade_dense(x, torch.zeros(5, 3, 64, 256, dtype=torch.bfloat16), None,
-                      torch.zeros(5, 8, 8, 2), layout="chwb")
+        degrade_dense(x, torch.zeros(5, 14, 14), None, torch.zeros(5, 8, 8, 2),
+                      layout="chwb", factor=2)
     x, comp, out = torch.zeros(5, 16, 16), torch.zeros(5, 20, 20), torch.zeros(5, 2, 2)
     with pytest.raises(ValueError, match="CUDA tensors"):
         scene_stencil_raw(x, x[:, :6], x[:, :6], comp, out, factor=8)

@@ -9,9 +9,10 @@ import torch
 from kmsr_tpu_torch import kernels
 from kmsr_tpu_torch.ops.degrade import compose_with_box, normalize_kernel
 from kmsr_tpu_torch.ops.degrade_fused import (
-    degrade_fused, degrade_fused_chwb, degrade_fused_chwb_ref,
-    col_halo, degrade_fused_presplit, degrade_fused_presplit_ref,
-    degrade_fused_ref, phase_split_chwb, select_version,
+    _a_terms, _dense, _stencil, _stencil_ref, degrade_fused, degrade_fused_chwb,
+    degrade_fused_chwb_ref, col_halo, degrade_fused_presplit,
+    degrade_fused_presplit_ref, degrade_fused_ref, degrade_v4_ref,
+    phase_split_chwb, select_version,
 )
 from kmsr_tpu_torch.ops.degrade_scene_fast import (
     degrade_rows_fast, degrade_rows_fast_ref, degrade_slab_fast,
@@ -29,11 +30,12 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(dev, factor, b=32, h=64, c=5, ksize=13, seed=0):
+def _inputs(dev, factor, b=32, h=64, c=5, ksize=13, seed=0, w=None):
+    w = h if w is None else w
     g = torch.Generator().manual_seed(seed)
-    x = (torch.randn(c, h, h, b, generator=g) * 2 + 5).to(dev)
+    x = (torch.randn(c, h, w, b, generator=g) * 2 + 5).to(dev)
     kernel = torch.rand(c, ksize, ksize, generator=g).to(dev)
-    noise = (torch.randn(c, h // factor, h // factor, b, generator=g) * 0.1).to(dev)
+    noise = (torch.randn(c, h // factor, w // factor, b, generator=g) * 0.1).to(dev)
     return x, kernel, noise
 
 
@@ -133,21 +135,87 @@ def test_auto_selection_launches_v4_then_v2(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("h,w,factor,ksize,b", [
+    (72, 72, 2, 13, 3),     # H, W not multiples of the tile
+    (40, 104, 2, 13, 20),
+    (136, 136, 8, 12, 20),  # f=8 (K = 19), even kernel
+    (64, 64, 8, 12, 3),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_kernel_odd_shapes(cuda, h, w, factor, ksize, b, dtype):
+    """The tiled v1/v2 kernel bit for bit against its plain version where
+    tiles are ragged, batches are 3 or 20 wide, at f=8 and with an even
+    kernel (tap offset k//2): v2 on NCHW and CHWB, v1 on CHWB, +- noise."""
+    x, kernel, noise = _inputs(cuda, factor, b=b, h=h, w=w, ksize=ksize)
+    comp = compose_with_box(normalize_kernel(kernel), factor).contiguous()
+    xd, half = x.to(dtype), ksize // 2
+    dims = (5, h, w, b)
+    kernels.reset_launches()
+    for n in (None, noise):
+        for layout, version in (("nchw", 2), ("chwb", 2), ("chwb", 1)):
+            xl, nl = xd, n
+            if layout == "nchw":
+                xl = xd.permute(3, 0, 1, 2).contiguous()
+                nl = None if n is None else n.permute(3, 0, 1, 2).contiguous()
+            got = _stencil(xl, comp, nl, factor, layout, dims, version, half)
+            want = _stencil_ref(xl, comp, nl, factor, layout, version, half)
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["degrade_v2"] == 4 and kernels.LAUNCHES["degrade_v1"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,factor,ksize,b", [
+    (48, 48, 2, 13, 3),    # the x2 factory's v4 shape, a 3-wide batch
+    (16, 80, 2, 13, 20),   # tiles of 8 output columns, non-square
+    (64, 64, 8, 12, 3),    # f=8 (K = 19), even kernel
+    (32, 32, 2, 12, 130),  # two batch passes over one generated window
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_kernel_odd_shapes(cuda, h, w, factor, ksize, b, dtype):
+    """The banded v4 kernel (stencil matrix generated on chip) against its
+    plain version on the wrapper-built matrix terms, NCHW and CHWB, +-
+    noise, within the tolerance."""
+    x, kernel, noise = _inputs(cuda, factor, b=b, h=h, w=w, ksize=ksize)
+    comp = compose_with_box(normalize_kernel(kernel), factor).contiguous()
+    xd = x.to(dtype)
+    a_terms = _a_terms(comp, factor, h, w)
+    kernels.reset_launches()
+    for n in (None, noise):
+        for layout in ("nchw", "chwb"):
+            xl, nl = xd, n
+            if layout == "nchw":
+                xl = xd.permute(3, 0, 1, 2).contiguous()
+                nl = None if n is None else n.permute(3, 0, 1, 2).contiguous()
+            torch.testing.assert_close(
+                _dense(xl, comp, nl, factor, layout),
+                degrade_v4_ref(xl, a_terms, nl, factor, layout), **TOL)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["degrade_v4"] == 4
+
+
+@pytest.mark.cuda
 def test_dense_kernel_rejects_what_it_does_not_take(cuda):
     x = torch.zeros(2, 16, 16, 4, device=cuda)
-    a = torch.zeros(2, 3, 64, 256, dtype=torch.bfloat16, device=cuda)
+    comp = torch.zeros(2, 14, 14, device=cuda)
     out = torch.empty(2, 8, 8, 4, device=cuda)
     with pytest.raises(TypeError, match="dtype"):
-        kernels.degrade_dense(x, a.float(), None, out, layout="chwb")
-    with pytest.raises(ValueError, match="a_terms shape"):
-        kernels.degrade_dense(x, a[:, :, :32].contiguous(), None, out,
-                              layout="chwb")
+        kernels.degrade_dense(x, comp.bfloat16(), None, out, layout="chwb", factor=2)
+    with pytest.raises(ValueError, match="comp shape"):
+        kernels.degrade_dense(x, comp[:, :, :13].contiguous(), None, out,
+                              layout="chwb", factor=2)
     with pytest.raises(ValueError, match="contiguous"):
-        kernels.degrade_dense(x.transpose(1, 2), a, None, out, layout="chwb")
+        kernels.degrade_dense(x.transpose(1, 2), comp, None, out, layout="chwb",
+                              factor=2)
     with pytest.raises(ValueError, match="nchw or chwb"):
-        kernels.degrade_dense(x, a, None, out, layout="presplit")
+        kernels.degrade_dense(x, comp, None, out, layout="presplit", factor=2)
     with pytest.raises(ValueError, match="noise shape"):
-        kernels.degrade_dense(x, a, out[..., :2].contiguous(), out, layout="chwb")
+        kernels.degrade_dense(x, comp, out[..., :2].contiguous(), out,
+                              layout="chwb", factor=2)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        kernels.degrade_dense(torch.zeros(2, 16, 12, 4, device=cuda), comp, None,
+                              torch.empty(2, 8, 6, 4, device=cuda), layout="chwb",
+                              factor=2)
     with pytest.raises(RuntimeError, match="arguments refused"):
         comp = torch.zeros(5, 20, 20, device=cuda)
         xs = torch.zeros(5, 64, 64, 4, device=cuda)
