@@ -15,8 +15,9 @@ and exits non-zero without them. Phases, one line each:
    CHWB for the v3 kernel, halo-free presplit for v3psn; with and without
    noise; f=8 span 20 and f=4 span 16; float32, plus bfloat16 storage at
    f=8) against its plain PyTorch version on the card at the factory's
-   full width (B=128, C=5, 256x256, 13x13 blur), within rtol 1e-4 /
-   atol 1e-5; and against the grouped strided F.conv2d route (TF32 off);
+   full width (B=128, C=5, 256x256, 13x13 blur), bit for bit in float32
+   (`bit_equal`) and within rtol 1e-4 / atol 1e-5 in bfloat16; and
+   against the grouped strided F.conv2d route (TF32 off) at the tolerance;
    then the wide-span kernels the same way, with and without noise,
    float32 and bfloat16 storage: v1 (CHWB) and v2 (CHWB; NCHW where
    auto-selection picks it) at f=2 (span 14) and f=8, the baked-halo
@@ -30,7 +31,7 @@ and exits non-zero without them. Phases, one line each:
    plain versions and the F.pad + grouped strided F.conv2d route at the
    scene path's full width (5x8192x8192, f=8, 13x13 blur, K=20) and at
    5x2048x2048, f=4 (K=16); the raw one with edge halos and as two slabs
-   fed each other's real rows;
+   fed each other's real rows; each bit for bit (`bit_equal`);
 5. factory: the factory's device path over 256 synthetic 5x256x256 .npy
    patches (two full batches of 128) with a seeded [64, 5, 32, 32] noise
    pool, through both routes — `factory_batches` (.npy input: native split
@@ -60,10 +61,14 @@ and exits non-zero without them. Phases, one line each:
    the conv route (for v4 also the
    f32 `torch.matmul` of the dense product and the whole `degrade_fused`
    call), beside the least time the card needs for the degrade's bytes
-   and operations; for v1/v2 also the FP32-pipe floor of their unfused
-   multiply and add (bit equality forbids FMA), for v4 the bound of the
+   and operations; for v1/v2, the v3 family and the scene kernels also
+   the FP32-pipe floor of their unfused multiply and add (bit equality
+   forbids FMA; `instr_bound_ms`), for v4 the bound of the
    banded product it runs (x, noise, out; its bf16 term products over
-   each tile's band, `kernels.dense_tiles`).
+   each tile's band, `kernels.dense_tiles`); and v3 (CHWB) and
+   colsplit_raw at f=4 (K=16), a shape their run-time walk takes (f=8,
+   K=20 has a compile-time instantiation), listed under
+   `other_layouts_ms`.
 
 Prints one JSON line {"factory": {...}} (per-route results), one
 {"scene": {...}}, then the card's nvidia-smi line, one JSON line
@@ -153,6 +158,15 @@ def max_sm_clock_hz() -> float:
         return float(r.stdout.strip().splitlines()[0]) * 1e6
     except (ValueError, IndexError):
         return 1.98e9
+
+
+def fp32_lanes_per_s(dev) -> float:
+    """FP32-pipe lane operations a second: SMs x 128 lanes x the maximum
+    SM clock."""
+    import torch
+
+    return torch.cuda.get_device_properties(dev).multi_processor_count \
+        * 128 * max_sm_clock_hz()
 
 
 def peaks(name: str) -> tuple[float, float, float]:
@@ -269,8 +283,10 @@ def phase_kernels(dev, failures: list) -> list:
                         "layout": layout, "factor": factor, "span": KSIZE + factor - 1,
                         "noise": with_noise, "dtype": str(dtype).replace("torch.", ""),
                         **errors(got, want),
+                        "bit_equal": bool(torch.equal(got, want)),
                     }
-                    if dtype == torch.float32:
+                    if dtype == torch.float32:  # same taps, order, rounding
+                        case["ok"] = case["ok"] and case["bit_equal"]
                         want_conv = conv if n is None else conv + to_nchw(n, layout)
                         e = errors(to_nchw(got, layout), want_conv)
                         case["vs_conv_max_abs_err"] = e["max_abs_err"]
@@ -280,7 +296,8 @@ def phase_kernels(dev, failures: list) -> list:
                     log(f"[kernels] {case['kernel']} {layout} f={factor} "
                         f"noise={with_noise} {case['dtype']}: {tag} "
                         f"max_abs={case['max_abs_err']:.3g} "
-                        f"max_rel={case['max_rel_err']:.3g}"
+                        f"max_rel={case['max_rel_err']:.3g} "
+                        f"bit_equal={case['bit_equal']}"
                         + (f" vs_conv_max_abs={case['vs_conv_max_abs_err']:.3g}"
                            if "vs_conv_max_abs_err" in case else ""))
                     if not case["ok"]:
@@ -550,6 +567,7 @@ def phase_timing(dev, card: str) -> dict:
     from kmsr_tpu_torch.utils.profiling import cuda_time_ms
 
     bw, flops_peak, _ = peaks(card)
+    lanes_per_s = fp32_lanes_per_s(dev)
     gen = torch.Generator().manual_seed(SEED + 1)
     img, kernel, noise = make_inputs(FACTOR, gen, dev)
     comp = compose_with_box(normalize_kernel(kernel), FACTOR)
@@ -589,6 +607,7 @@ def phase_timing(dev, card: str) -> dict:
             "bytes": nbytes, "flops": nflops,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "instr_bound_ms": 2 * n_out * k * k / lanes_per_s * 1e3,
         }
         out[(name, layout)] = rec
         log(f"[timing] {name} {layout}: {rec['ms']:.4f} ms (min {rec['ms_min']:.4f}, "
@@ -599,8 +618,37 @@ def phase_timing(dev, card: str) -> dict:
             f"{conv_ms:.4f} ms; moves {nbytes / 1e6:.1f} MB, "
             f"{nflops / 1e9:.3f} GFLOP -> bound {rec['bound_ms']:.4f} ms "
             f"({rec['bound_by']}, {bw / 1e12:.2f} TB/s, {flops_peak / 1e12:.0f} "
-            f"TFLOP/s fp32); launches per 128-file factory batch: 1")
+            f"TFLOP/s fp32); FP32-pipe floor {rec['instr_bound_ms']:.4f} ms; "
+            f"{rec['device_ms'] / rec['bound_ms']:.2f}x the bound by device time; "
+            f"launches per 128-file factory batch: 1")
+    # a shape off the compile-time instantiation (f=4, K=16: the x4 route)
+    img4, kernel4, noise4 = make_inputs(4, gen, dev)
+    x, n = layout_inputs(img4, noise4, 4, "chwb", torch.float32)
+    fused, _ = entry("chwb")
+    k4 = KSIZE + 3
+    out[("degrade_v3", "chwb f=4 (run-time walk)")] = runtime_record(
+        "degrade_v3 chwb f=4, K=16", lambda: fused(x, kernel4, n, factor=4),
+        x.numel() * 4 + 2 * n.numel() * 4, n.numel(), k4, bw, flops_peak,
+        lanes_per_s)
     return out
+
+
+def runtime_record(label, fused, nbytes, n_out, k, bw, flops_peak,
+                   lanes_per_s) -> dict:
+    """Times of a ring kernel at a shape its run-time walk takes (no
+    compile-time instantiation), beside its byte bound and FP32 floor."""
+    from kmsr_tpu_torch.utils.profiling import cuda_time_ms
+
+    ms = cuda_time_ms(fused, runs=TIMING_RUNS)
+    nflops = 2 * n_out * k * k
+    rec = {"ms": ms["median_ms"], **device_time(fused),
+           "bound_ms": max(nbytes / bw, nflops / flops_peak) * 1e3,
+           "instr_bound_ms": nflops / lanes_per_s * 1e3}
+    log(f"[timing] {label} (run-time walk): {rec['ms']:.4f} ms (median of "
+        f"{TIMING_RUNS}; profiler device {rec['device_ms']:.4f} ms); bound "
+        f"{rec['bound_ms']:.4f} ms; FP32-pipe floor {rec['instr_bound_ms']:.4f} "
+        f"ms; {rec['device_ms'] / rec['bound_ms']:.2f}x the bound by device time")
+    return rec
 
 
 def phase_wide_timing(dev, card: str) -> dict:
@@ -626,8 +674,7 @@ def phase_wide_timing(dev, card: str) -> dict:
     from kmsr_tpu_torch.utils.profiling import cuda_time_ms
 
     bw, flops_peak, bf16_peak = peaks(card)
-    lanes_per_s = torch.cuda.get_device_properties(dev).multi_processor_count \
-        * 128 * max_sm_clock_hz()
+    lanes_per_s = fp32_lanes_per_s(dev)
     gen = torch.Generator().manual_seed(SEED + 8)
     out = {}
 
@@ -670,8 +717,7 @@ def phase_wide_timing(dev, card: str) -> dict:
             nbytes = x.numel() * 4 + out_bytes + comp.numel() * 4
             nflops = 2 * n_out * k * k + n_out
             if name != "degrade_v4":
-                extra = ({"instr_bound_ms": 2 * n_out * k * k / lanes_per_s * 1e3}
-                         if version in (1, 2) else {})
+                extra = {"instr_bound_ms": 2 * n_out * k * k / lanes_per_s * 1e3}
                 record(name, layout, lambda: fused(x, kernel, n, factor=factor),
                        lambda: ref(x, kernel, n, factor=factor), library,
                        nbytes, nflops, flops_peak, extra.items())
@@ -707,12 +753,20 @@ def phase_wide_timing(dev, card: str) -> dict:
 
 def device_time(fn) -> dict:
     """The profiler's device time of the kernels one call of fn launches
-    (`cuda_device_ms`), and their names."""
-    from kmsr_tpu_torch.utils.profiling import cuda_device_ms
+    (`cuda_device_ms`), and their names. Where no profiler trace holds a
+    kernel record, the CUDA-event median of the call stands in, and
+    `device_ms_from` says so."""
+    from kmsr_tpu_torch.utils.profiling import cuda_device_ms, cuda_time_ms
 
-    d = cuda_device_ms(fn)
+    try:
+        d = cuda_device_ms(fn)
+    except RuntimeError as e:
+        log(f"[timing] {e}: CUDA-event median in its place")
+        return {"device_ms": cuda_time_ms(fn, runs=TIMING_RUNS)["median_ms"],
+                "device_kernels": [], "device_ms_from": "cuda events"}
     return {"device_ms": d["device_ms"],
-            "device_kernels": [k[:80] for k in d["kernels"]]}
+            "device_kernels": [k[:80] for k in d["kernels"]],
+            "device_ms_from": "profiler"}
 
 
 def conv_route_nchw(img, comp, factor: int):
@@ -789,13 +843,14 @@ def phase_scene_kernels(dev, failures: list) -> list:
             e = errors(got, conv)
             case = {"kernel": name, "halos": halos, "shape": [SCENE_C, hw, hw],
                     "factor": factor, "span": ksize, **errors(got, want),
+                    "bit_equal": bool(torch.equal(got, want)),
                     "vs_conv_max_abs_err": e["max_abs_err"]}
-            case["ok"] = case["ok"] and e["ok"]
+            case["ok"] = case["ok"] and e["ok"] and case["bit_equal"]
             cases.append(case)
             log(f"[scene-kernels] {name} {halos} {SCENE_C}x{hw}x{hw} f={factor} "
                 f"K={ksize}: {'ok' if case['ok'] else 'MISMATCH'} "
                 f"max_abs={case['max_abs_err']:.3g} "
-                f"max_rel={case['max_rel_err']:.3g} "
+                f"max_rel={case['max_rel_err']:.3g} bit_equal={case['bit_equal']} "
                 f"vs_conv_max_abs={case['vs_conv_max_abs_err']:.3g}")
             if not case["ok"]:
                 failures.append(f"scene kernel case {case}")
@@ -946,11 +1001,12 @@ def phase_scene_timing(dev, card: str) -> dict:
     import torch.nn.functional as F
 
     from kmsr_tpu_torch.ops import degrade_scene_fast as sf
-    from kmsr_tpu_torch.ops.degrade import fp32_convs
+    from kmsr_tpu_torch.ops.degrade import compose_with_box, fp32_convs, normalize_kernel
     from kmsr_tpu_torch.utils.profiling import cuda_time_ms
 
     bw, flops_peak, _ = peaks(card)
-    x, _, comp = scene_inputs(SCENE_HW, FACTOR, SEED + 5, dev)
+    lanes_per_s = fp32_lanes_per_s(dev)
+    x, kernel, comp = scene_inputs(SCENE_HW, FACTOR, SEED + 5, dev)
     ksize = comp.shape[-1]
     half = (ksize - FACTOR) // 2
     th, bh = sf.halo_rows(FACTOR, ksize)
@@ -989,6 +1045,7 @@ def phase_scene_timing(dev, card: str) -> dict:
             "conv_only_ms": conv_ms, "bytes": nbytes, "flops": nflops,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "instr_bound_ms": nflops / lanes_per_s * 1e3,
         }
         out[(name, "scene")] = rec
         log(f"[timing] {name} {rec['layout']}: {rec['ms']:.4f} ms (min "
@@ -999,7 +1056,17 @@ def phase_scene_timing(dev, card: str) -> dict:
             f"F.conv2d alone {conv_ms:.4f} ms; moves {nbytes / 1e6:.1f} MB, "
             f"{nflops / 1e9:.3f} GFLOP -> bound {rec['bound_ms']:.4f} ms "
             f"({rec['bound_by']}, {bw / 1e12:.2f} TB/s, {flops_peak / 1e12:.0f} "
-            f"TFLOP/s fp32); {rec['ms'] / rec['bound_ms']:.2f}x the bound")
+            f"TFLOP/s fp32); FP32-pipe floor {rec['instr_bound_ms']:.4f} ms; "
+            f"{rec['ms'] / rec['bound_ms']:.2f}x the bound")
+    # a shape off the compile-time instantiation (f=4, K=16)
+    comp4 = compose_with_box(normalize_kernel(kernel), 4).contiguous()
+    th4, bh4 = sf.halo_rows(4, comp4.shape[-1])
+    top4, bot4 = x[:, :1].expand(-1, th4, -1), x[:, -1:].expand(-1, bh4, -1)
+    out[("colsplit_raw", "scene f=4 (run-time walk)")] = runtime_record(
+        f"colsplit_raw {SCENE_C}x{SCENE_HW}x{SCENE_HW} f=4, K=16",
+        lambda: sf.degrade_rows_fast(x, comp4, 4, top4, bot4),
+        x.numel() * 4 + (th4 + bh4) * row_bytes + n_out * 4 * 4,
+        n_out * 4, comp4.shape[-1], bw, flops_peak, lanes_per_s)
     del x, x_ext
     torch.cuda.empty_cache()
     return out
@@ -1075,9 +1142,10 @@ def main() -> int:
             "library_ms": t["library_ms"],
             "library_call": "F.pad(replicate) + grouped strided F.conv2d "
                             "(TF32 off)" + (" + noise add" if layout != "scene" else ""),
-            **{k: t[k] for k in ("device_ms", "device_kernels", "conv_only_ms",
-                                 "matmul_ms", "call_ms", "operand_bound_ms",
-                                 "banded_gflop", "instr_bound_ms") if k in t},
+            **{k: t[k] for k in ("device_ms", "device_ms_from", "device_kernels",
+                                 "conv_only_ms", "matmul_ms", "call_ms",
+                                 "operand_bound_ms", "banded_gflop",
+                                 "instr_bound_ms") if k in t},
             "rtol": RTOL, "atol": ATOL, "timed_layout": t.get("layout", layout),
             "cases": mine,
             "other_layouts_ms": {lay: r["ms"] for (n, lay), r in timing.items()

@@ -5,17 +5,23 @@ with a plain C interface, at first use, into `_build/` beside this file
 (listed in .gitignore):
 
 * `degrade_stencil.cu` — the factory's fused degrade stencil
-  (`degrade_stencil`, versions 3: the v3, v3psn and v3ps instantiations);
+  (`degrade_stencil`, versions 3: the v3, v3psn and v3ps instantiations),
+  its input rows streamed through a shared-memory ring, each thread
+  keeping the outputs still open in its column, at most ceil(K/f)
+  (`stencil_tiles` is its plan);
 * `degrade_wide.cu` — the wide-span stencil tiled through shared memory
-  (`degrade_stencil`, versions 2 and 1);
+  (`degrade_stencil`, versions 2 and 1; `wide_tiles` is its plan);
 * `degrade_dense.cu` — the banded stencil-matrix degrade on the tensor
   cores, A generated per tile on chip (`degrade_dense`, the v4
   counterpart; `dense_tiles` is its tile and band table);
 * `scene_stencil.cu` — the whole-scene slab stencil (`scene_stencil_raw`,
-  `scene_stencil_ext`).
+  `scene_stencil_ext`), the same row ring on a [C, rows, W] plane
+  (`scene_tiles` is its plan).
 
-A library's name carries a hash of its source and the flags, so an edited
-source rebuilds and a stale build is never loaded; each source builds in
+A library's name carries a hash of its source, the `*.cuh` headers beside
+it (`stencil_ring.cuh`, the ring walk the v3 and scene kernels share) and
+the flags, so an edited source or header rebuilds and a stale build is
+never loaded; each source builds in
 its own nvcc process, so callers may build them in parallel. The libraries are called through ctypes with
 `data_ptr()`s and PyTorch's current CUDA stream; each launch's
 `cudaGetLastError()` comes back as the return code, and a nonzero code
@@ -72,6 +78,10 @@ DENSE_TILE_N = (24, 16, 8)
 WIDE_R = 8
 #: a block's shared-memory limit on sm_90, bytes
 SMEM_MAX = 232448
+#: row buffers of the v3 and scene kernels' ring, and the accumulators a
+#: thread keeps at run-time shapes (stencil_ring.cuh's kRing and kSlots)
+RING = 4
+RING_SLOTS = 8
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -101,23 +111,33 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def build(name: str = "degrade_stencil") -> Path:
+def _source_tag(name: str, flags: tuple[str, ...] = NVCC_FLAGS) -> str:
+    """Hash of `<name>.cu`, every `*.cuh` header beside it (a source
+    includes them by name) and the flags."""
+    h = hashlib.sha256((_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(flags).encode())
+    return h.hexdigest()[:16]
+
+
+def build(name: str = "degrade_stencil", defines: tuple[str, ...] = ()) -> Path:
     """Compile `<name>.cu` (if not already built) and return the shared
-    library's path. The compiler's output, including ptxas's register and
-    shared-memory report, is kept beside it as `<library>.log`.
+    library's path. `defines` ("NAME=VALUE") go to nvcc as -D flags and
+    into the library's tag, for building a variant beside the default. The
+    compiler's output, including ptxas's register and shared-memory
+    report, is kept beside it as `<library>.log`.
     """
     if name not in SOURCES:
         raise ValueError(f"unknown kernel source {name!r}; one of {SOURCES}")
     src = _DIR / f"{name}.cu"
-    tag = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    so_path = _BUILD_DIR / f"lib{name}_{tag}.so"
+    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+    so_path = _BUILD_DIR / f"lib{name}_{_source_tag(name, flags)}.so"
     if so_path.exists():
         return so_path
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so_path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    cmd = [_nvcc(), *flags, "-o", str(tmp), str(src)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     so_path.with_suffix(".log").write_text(
         " ".join(cmd) + "\n" + proc.stdout + proc.stderr
@@ -136,7 +156,8 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
     if name == "degrade_stencil":
         lib.kmsr_degrade_stencil.restype = ci
         lib.kmsr_degrade_stencil.argtypes = [
-            vp, ci, ci, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, vp,
+            vp, ci, ci, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci,
+            ci, ci, ci, ci, vp,
         ]
         lib.kmsr_cuda_error_string.restype = ctypes.c_char_p
         lib.kmsr_cuda_error_string.argtypes = [ci]
@@ -160,7 +181,7 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.kmsr_scene_stencil.restype = ci
         lib.kmsr_scene_stencil.argtypes = [
             ci, vp, cl, cl, ci, vp, cl, cl, ci, vp, cl, cl, ci,
-            vp, vp, ci, ci, ci, ci, ci, ci, vp,
+            vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, vp,
         ]
         lib.kmsr_scene_cuda_error_string.restype = ctypes.c_char_p
         lib.kmsr_scene_cuda_error_string.argtypes = [ci]
@@ -259,7 +280,8 @@ def degrade_stencil(
     else:
         rc = _call(dev, lib.kmsr_degrade_stencil, x.data_ptr(),
                    _DTYPES[x.dtype], LAYOUTS[layout], comp.data_ptr(), n_ptr,
-                   out.data_ptr(), c, h, w, b, factor, k, half, halo)
+                   out.data_ptr(), c, h, w, b, factor, k, half, halo,
+                   *stencil_tiles(layout, k, factor, h, w, b))
     if rc != 0:
         errstr = (lib.kmsr_wide_cuda_error_string if wide
                   else lib.kmsr_cuda_error_string)
@@ -311,6 +333,94 @@ def wide_tiles(layout: str, ksize: int, factor: int,
             return ti, tj, rows, cols, noc
     raise ValueError(f"no wide-span tile fits shared memory at K={ksize}, "
                      f"factor={factor}")
+
+
+#: output rows a v3 block walks down each column (`stencil_tiles`)
+STENCIL_TI = 8
+#: output rows a scene block walks down each column (`scene_tiles`)
+SCENE_TI = 16
+
+
+def _phase_cols(n: int, factor: int) -> int:
+    """Staged columns per column phase of a phase-split window row: at
+    least n, and, where f divides 32, congruent to 32/f mod 32, so the 32
+    consecutive columns a warp stores land in 32 distinct banks."""
+    if 32 % factor == 0:
+        n += (32 // factor - n) % 32
+    return n
+
+
+def ring_smem(ksize: int, row: int, span: int, tables: int) -> int:
+    """Shared-memory bytes of a ring kernel's block: comp[c] (K rows of K
+    floats, each padded to a multiple of 4), RING row buffers of `row`
+    floats and `tables` int column tables of `span` entries."""
+    return 4 * (ksize * (-(-ksize // 4) * 4) + RING * row + tables * span)
+
+
+def _ring_plan(what: str, phase_split: bool, ksize: int, factor: int,
+               oh: int, ow: int, ti: int,
+               tj: int | None) -> tuple[int, int, int, int]:
+    """(ti, tj, cols, row) of a ring kernel's block: ti output rows (no
+    more than oh, nor than RING_SLOTS where ceil(K/f) is larger) x tj
+    output columns. phase_split: a lane a column, tj = 128, 64 or 32 (no
+    more than ow needs), `cols` window columns per column phase
+    (`_phase_cols`); else a warp a column of a 32-wide batch slice, tj =
+    4, 2 or 1, `cols` = f*(tj-1) + K window columns of 32 entries. The
+    first tj whose block fits shared memory is taken, or `tj` if given."""
+    if oh < 1 or ow < 1:
+        raise ValueError(f"empty {what} output: {oh} x {ow}")
+    n_o = -(-ksize // factor)
+    ti = min(ti, oh) if n_o <= RING_SLOTS else min(ti, oh, RING_SLOTS)
+    unit = 32 if phase_split else 1
+    tries = [tj] if tj else [unit * n for n in (4, 2, 1)
+                             if n == 1 or unit * (n // 2) < ow]
+    for tj in tries:
+        span = factor * (tj - 1) + ksize
+        if phase_split:
+            cols = _phase_cols(tj - 1 + n_o, factor)
+            row, tables = -(-factor * cols // 4) * 4, 2
+        else:
+            cols, row, tables = span, span * 32, 1
+        if ring_smem(ksize, row, span, tables) <= SMEM_MAX:
+            return ti, tj, cols, row
+    raise ValueError(f"no {what} tile fits shared memory at K={ksize}, "
+                     f"factor={factor}")
+
+
+def stencil_tiles(layout: str, ksize: int, factor: int, h: int, w: int,
+                  b: int, ti: int = STENCIL_TI,
+                  tj: int | None = None) -> tuple[int, int, int, int]:
+    """The v3-family kernel's tile plan: (ti, tj, cols, row).
+
+    A block owns ti output rows x tj output columns of one channel and
+    streams the f*(ti-1) + K input rows they read, f*(tj-1) + K columns
+    wide, through a ring of RING row buffers of `row` floats; each thread
+    keeps the outputs still open in its column. Batch-minor maps ("chwb",
+    "presplit", "presplit_halo"): tj columns of a 32-wide batch slice, one
+    warp a column (4, the fastest of 2, 4 and 8 at the factory's shape by
+    `scripts/torch_stencil_sweep.py`), `cols` window columns of 32 batch
+    entries. "nchw": tj = 32, 64 or 128 columns of one image, a lane a
+    column, `cols` window columns per column phase. ti is STENCIL_TI,
+    fewer where h/f is smaller or ceil(K/f) exceeds RING_SLOTS; the last
+    row and column tiles and the last batch slice are masked, so any h, w
+    (multiples of f) and any batch b >= 1 is covered. ti and tj may be
+    given (the sweep's other plans).
+    """
+    if layout not in LAYOUTS:
+        raise ValueError(f"unknown layout {layout!r}")
+    if b < 1:
+        raise ValueError(f"empty batch: b={b}")
+    return _ring_plan("v3", layout == "nchw", ksize, factor, h // factor,
+                      w // factor, ti, tj)
+
+
+def scene_tiles(ksize: int, factor: int, hs: int, w: int, ti: int = SCENE_TI,
+                tj: int | None = None) -> tuple[int, int, int, int]:
+    """The scene kernel's tile plan: (ti, tj, cols, row), the NCHW walk of
+    `stencil_tiles` on one [C, rows, W] plane with ti = SCENE_TI output
+    rows (or fewer, as there) a block. Partial tiles are masked."""
+    return _ring_plan("scene", True, ksize, factor, hs // factor, w // factor,
+                      ti, tj)
 
 
 @functools.lru_cache(maxsize=32)
@@ -462,7 +572,8 @@ def _scene_launch(raw: bool, x, top, bot, comp, out, factor, row0, hs):
     rc = _call(dev, lib.kmsr_scene_stencil, int(raw), x.data_ptr(), x_cs,
                x_rs, x_rows, top.data_ptr(), top_cs, top_rs, top.shape[1],
                bot.data_ptr(), bot_cs, bot_rs, bot.shape[1], comp.data_ptr(),
-               out.data_ptr(), c, hs, w, row0, factor, k)
+               out.data_ptr(), c, hs, w, row0, factor, k,
+               *scene_tiles(k, factor, hs, w))
     if rc != 0:
         reason = ("arguments refused" if rc < 0
                   else lib.kmsr_scene_cuda_error_string(rc).decode())

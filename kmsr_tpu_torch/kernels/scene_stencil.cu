@@ -16,27 +16,38 @@
 //   EXT: x_ext[c, row0 + y] with row0 = TOP of the slab_halo contract.
 // Every tensor is a row-major view with unit column stride; its channel
 // and row strides are passed in, so a row slab of a scene (or a W-cropped
-// scene) is read in place. All offsets are int64 (5 x 8192^2 = 3.4e8).
+// scene, or a halo `expand`ed to row stride 0) is read in place. All
+// offsets are int64 (5 x 8192^2 = 3.4e8). Taps accumulate in the plain
+// PyTorch version's order (dy outer, dx inner, from 0) with separately
+// rounded multiply and add (__fmul_rn / __fadd_rn), so the two agree bit
+// for bit. The TPU path's column phase split pre-pass (`col_split`: Mosaic
+// has no strided lane slice), its sublane tile pickers and its strip convs
+// for the edge rows and border columns have no counterpart: the row map
+// and the column clamp give the edges while a row is staged.
 //
-// Design (first, simple version): one thread per output element, like the
-// factory's degrade_stencil.cu; the composed kernels (C*K*K floats, 8 KB
-// at C=5, K=20) are staged once per block in shared memory, where every
-// thread of a warp reads the same tap (a broadcast). Taps accumulate in the
-// plain PyTorch version's order (dy outer, dx inner) with separately
-// rounded multiply and add, so the two agree bit for bit. The TPU path's
-// column phase split pre-pass (`col_split`: Mosaic has no strided lane
-// slice), its sublane tile pickers and its strip convs for the edge rows
-// and border columns have no counterpart: a thread gathers its strided,
-// clamped columns directly and the row map gives the halo rows.
+// Design: the walk of degrade_stencil.cu's NCHW map on a [C, rows, W]
+// plane. A block owns TI output rows x TJ output columns of one channel, a
+// lane one column; it walks the f*(TI-1) + K slab rows its outputs read,
+// f*(TJ-1) + K columns wide, through a ring of shared-memory row buffers,
+// and each thread keeps an accumulator for each output still open in its
+// column, at most ceil(K/f) (`ring::walk`, stencil_ring.cuh). A row is staged by 4-byte cp.async (a
+// cropped view's rows need not be 16-byte aligned, and a stride-0 halo is
+// the same row again), the RAW/EXT row map and the column clamp applied
+// while loading, through a per-block table of source columns, its columns
+// phase-split (column x at (x % f, x / f)) so lane j reading column
+// f*j + dx hits consecutive words. No clamp, divide or global load in the
+// tap loop. f = 8, K = 20 (the scene path's x8 with a 13x13 blur) is a
+// compile-time instantiation; other shapes run the same walk with
+// run-time bounds and ring::kSlots accumulators, a block taking at most
+// kSlots output rows where ceil(K/f) is larger, so any span is taken.
 //
-// Bound on an H100: bytes. At the full scene width (C=5, 8192x8192 f32,
-// f=8, K=20) one launch must read 1342 MB and write 21 MB (~0.41 ms at
-// 3.35 TB/s) for 4.2 GFLOP (~0.06 ms at 67 TFLOP/s fp32). Neighbouring
-// threads read columns f apart, so each 32-byte sector a warp touches
-// serves f consecutive dx taps through L1, and each input row is read by
-// ceil(K/f) output rows through L2. Index arithmetic and the L1 traffic of
-// the strided gathers, not HBM, are what this version spends its time on;
-// tiling rows through shared memory (TMA) is later work.
+// Bound on an H100 at the full scene width (C=5, 8192x8192 f32, f=8,
+// K=20): one launch must read 1342 MB and write 21 MB, 0.4075 ms at
+// 3.35 TB/s; 5.24 M outputs x 400 taps x 2 lane operations on the FP32
+// pipe (no FMA: bit equality) over 132 SMs x 128 lanes x 1.98 GHz is
+// 0.125 ms. The bytes bind. A block (TI = 16, TJ = 128) stages
+// 140 x 1036 pixels for 128 x 1024 of its own, 1.11x; the neighbours'
+// overlap comes from L2.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -shared
 // (see kmsr_tpu_torch/kernels/__init__.py); exported as a plain C ABI and
@@ -46,9 +57,14 @@
 
 #include <stdint.h>
 
+#include "stencil_ring.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
+using ring::kLanes;
+using ring::kRing;
+
+constexpr int kSmemMax = 232448;
 
 struct Rows {
   const float* ptr;
@@ -56,73 +72,116 @@ struct Rows {
   int64_t row_stride;
 };
 
-template <bool RAW>
-__global__ void __launch_bounds__(kThreads)
+struct Tile {
+  int C, hs, W, th, row0, f, K, half;
+  int oh, ow, n_o;  // output rows, columns; ceil(K/f)
+  int TI, TJ;       // outputs a block: TI rows x TJ columns (32 a warp)
+  int cols;         // staged columns of a window row, per column phase
+  int row;          // floats of a ring buffer
+  int span;         // window columns, f*(TJ-1) + K
+  int kk;           // floats of the block's comp copy, K rows padded to 4
+};
+
+// F, KC: the compile-time shape (8, 20), or 0, 0 for any other.
+template <bool RAW, int F, int KC>
+__global__ void __launch_bounds__(256)
 scene_stencil_kernel(Rows x, Rows top, Rows bot, const float* __restrict__ comp,
-                     float* __restrict__ out, int C, int hs, int W, int th,
-                     int row0, int f, int K) {
-  extern __shared__ float s_comp[];
-  const int kk = K * K;
-  for (int t = threadIdx.x; t < C * kk; t += blockDim.x) s_comp[t] = comp[t];
+                     float* __restrict__ out, Tile t) {
+  constexpr int NS = KC ? (KC + F - 1) / (F ? F : 1) : ring::kSlots;
+  extern __shared__ __align__(16) float smem[];
+  float* kc = smem;                                           // comp[c], rows padded
+  float* rbuf = smem + t.kk;                                  // kRing rows
+  int* s_src = reinterpret_cast<int*>(rbuf + kRing * t.row);  // clamped column
+  int* s_dst = s_src + t.span;                                // phase-split slot
+
+  const int f = F ? F : t.f, K = KC ? KC : t.K;
+  const int W = t.W, hs = t.hs, oh = t.oh, ow = t.ow;
+  const int lane = threadIdx.x, wy = threadIdx.y;
+  const int tid = wy * kLanes + lane, nthreads = kLanes * blockDim.y;
+
+  // flat block index: column tile fastest, then row tile, then channel
+  const int n_ct = (ow + t.TJ - 1) / t.TJ, n_rt = (oh + t.TI - 1) / t.TI;
+  const int jt = blockIdx.x % n_ct, it = (blockIdx.x / n_ct) % n_rt;
+  const int c = blockIdx.x / n_ct / n_rt;
+  const int jl = wy * kLanes + lane;
+  const int i0 = it * t.TI, j0 = jt * t.TJ;
+  const int y_base = f * i0 - t.half, x_base = f * j0 - t.half;
+
+  ring::stage_coefficients(kc, comp + (int64_t)c * K * K, K, tid, nthreads);
+  for (int wc = tid; wc < t.span; wc += nthreads) {
+    s_src[wc] = min(max(x_base + wc, 0), W - 1);
+    s_dst[wc] = (wc % f) * t.cols + wc / f;
+  }
   __syncthreads();
 
-  const int oh = hs / f, ow = W / f;
-  const int64_t n_out = (int64_t)C * oh * ow;
-  const int64_t o = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (o >= n_out) return;
-  const int j = (int)(o % ow);
-  const int64_t r = o / ow;
-  const int i = (int)(r % oh);
-  const int c = (int)(r / oh);
-
-  const int half = (K - f) / 2;
-  const int y0 = f * i - half;  // slab row of tap dy = 0
-  const int x0 = f * j - half;  // column of tap dx = 0, before the clamp
   const float* xc = x.ptr + (int64_t)c * x.channel_stride;
-  const float* kc = s_comp + c * kk;
-
-  float acc = 0.f;
-  for (int dy = 0; dy < K; ++dy) {
-    const int y = y0 + dy;
-    const float* row;
+  // window row q (slab row y_base + q) into ring buffer `dst`
+  auto load_row = [&](int q, float* dst) {
+    const int y = y_base + q;
+    const float* src;
     if (RAW) {
       if (y < 0) {
-        row = top.ptr + (int64_t)c * top.channel_stride +
-              (int64_t)(th + y) * top.row_stride;
+        src = top.ptr + (int64_t)c * top.channel_stride + (int64_t)(t.th + y) * top.row_stride;
       } else if (y >= hs) {
-        row = bot.ptr + (int64_t)c * bot.channel_stride +
-              (int64_t)(y - hs) * bot.row_stride;
+        src = bot.ptr + (int64_t)c * bot.channel_stride + (int64_t)(y - hs) * bot.row_stride;
       } else {
-        row = xc + (int64_t)y * x.row_stride;
+        src = xc + (int64_t)y * x.row_stride;
       }
     } else {
-      row = xc + (int64_t)(row0 + y) * x.row_stride;
+      src = xc + (int64_t)(t.row0 + y) * x.row_stride;
     }
-    const float* k_row = kc + dy * K;
-    for (int dx = 0; dx < K; ++dx) {
-      int col = x0 + dx;
-      col = col < 0 ? 0 : (col >= W ? W - 1 : col);
-      acc = __fadd_rn(acc, __fmul_rn(k_row[dx], __ldg(row + col)));
-    }
-  }
-  out[o] = acc;
+    for (int wc = tid; wc < t.span; wc += nthreads)
+      ring::cp_async4(dst + s_dst[wc], src + s_src[wc], true);
+  };
+
+  const int j = j0 + jl;
+  auto emit = [&](int r, float v) {
+    if (j < ow) out[((int64_t)c * oh + i0 + r) * ow + j] = v;
+  };
+  ring::walk<true, F, KC, NS>(rbuf, t.row, jl, kc, ring::Geom{f, K, t.n_o, t.cols},
+                              min(t.TI, oh - i0), load_row, emit);
+}
+
+size_t smem_bytes(const Tile& t) {
+  return 4 * ((size_t)t.kk + (size_t)kRing * t.row + 2 * (size_t)t.span);
+}
+
+// The tile plan (`kmsr_tpu_torch.kernels.scene_tiles` chooses it) must
+// give every tap its staged window column, keep its open outputs in the
+// walk's slots, and fit.
+bool plan_ok(Tile& t) {
+  if (t.TI <= 0 || t.TJ <= 0 || t.TJ % kLanes || t.TJ > 8 * kLanes ||
+      (t.n_o > ring::kSlots && t.TI > ring::kSlots))
+    return false;
+  t.span = t.f * (t.TJ - 1) + t.K;
+  t.kk = t.K * ((t.K + 3) / 4 * 4);
+  if (t.cols < t.TJ - 1 + t.n_o || t.row < t.f * t.cols || t.row % 4) return false;
+  return smem_bytes(t) <= kSmemMax;
+}
+
+template <bool RAW, int F, int KC>
+int launch(Rows x, Rows top, Rows bot, const float* comp, float* out,
+           const Tile& t, cudaStream_t stream) {
+  const size_t smem = smem_bytes(t);
+  auto kern = scene_stencil_kernel<RAW, F, KC>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int64_t blocks = (int64_t)((t.ow + t.TJ - 1) / t.TJ) *
+                         ((t.oh + t.TI - 1) / t.TI) * t.C;
+  if (blocks > INT32_MAX) return -1;
+  dim3 block(kLanes, t.TJ / kLanes);
+  kern<<<(unsigned)blocks, block, smem, stream>>>(x, top, bot, comp, out, t);
+  return (int)cudaGetLastError();
 }
 
 template <bool RAW>
-int launch(Rows x, Rows top, Rows bot, const float* comp, float* out, int c,
-           int hs, int w, int th, int row0, int f, int k, cudaStream_t stream) {
-  const size_t smem = (size_t)c * k * k * sizeof(float);
-  auto kern = scene_stencil_kernel<RAW>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int64_t n_out = (int64_t)c * (hs / f) * (w / f);
-  const int64_t blocks = (n_out + kThreads - 1) / kThreads;
-  kern<<<(unsigned)blocks, kThreads, smem, stream>>>(x, top, bot, comp, out,
-                                                     c, hs, w, th, row0, f, k);
-  return (int)cudaGetLastError();
+int by_shape(Rows x, Rows top, Rows bot, const float* comp, float* out,
+             const Tile& t, cudaStream_t s) {
+#if KMSR_RING_SPECIALIZE
+  if (t.f == 8 && t.K == 20) return launch<RAW, 8, 20>(x, top, bot, comp, out, t, s);
+#endif
+  return launch<RAW, 0, 0>(x, top, bot, comp, out, t, s);
 }
 
 }  // namespace
@@ -134,30 +193,49 @@ extern "C" {
 // the EXT map (x is the [c, x_rows, w] extended slab, row y at x_rows
 // index row0 + y; top/bot unused). *_cs / *_rs are channel / row strides
 // in elements (column stride 1); comp is [c, k, k] float32 contiguous, out
-// [c, hs/f, w/f] float32 contiguous. Returns 0, a cudaError_t code from
-// the launch, or -1 for arguments the kernel does not take (dims not
-// multiples of f, or halos that do not cover the taps' reach).
+// [c, hs/f, w/f] float32 contiguous. (ti, tj, cols, row) is the tile plan:
+// ti x tj outputs a block (tj a multiple of 32), staged columns of a window
+// row per column phase, floats of a ring buffer. Returns 0, a cudaError_t
+// code from the launch, or -1 for arguments the kernel does not take (dims
+// not multiples of f, halos that do not cover the taps' reach, a plan
+// that does not cover the taps or fit shared memory).
 int kmsr_scene_stencil(int raw, const float* x, int64_t x_cs, int64_t x_rs,
                        int x_rows, const float* top, int64_t top_cs,
                        int64_t top_rs, int th, const float* bot,
                        int64_t bot_cs, int64_t bot_rs, int bh,
                        const float* comp, float* out, int c, int hs, int w,
-                       int row0, int f, int k, void* stream) {
+                       int row0, int f, int k, int ti, int tj, int cols,
+                       int row, void* stream) {
   const int half = (k - f) / 2;
   const int reach = k - half - f;  // rows read past the slab's last row
-  if (c <= 0 || hs <= 0 || w <= 0 || f <= 0 || k < f || hs % f || w % f ||
-      (int64_t)c * (hs / f) * (w / f) > (int64_t)INT32_MAX * kThreads ||
-      (size_t)c * k * k * sizeof(float) > 227 * 1024) {
+  if (c <= 0 || hs <= 0 || w <= 0 || f <= 0 || k < f || hs % f || w % f) {
     return -1;
   }
   if (raw ? (x_rows != hs || th < half || bh < reach)
           : (row0 < half || row0 + hs + reach > x_rows)) {
     return -1;
   }
+  Tile t{};
+  t.C = c;
+  t.hs = hs;
+  t.W = w;
+  t.th = th;
+  t.row0 = raw ? 0 : row0;
+  t.f = f;
+  t.K = k;
+  t.half = half;
+  t.oh = hs / f;
+  t.ow = w / f;
+  t.n_o = (k + f - 1) / f;
+  t.TI = ti;
+  t.TJ = tj;
+  t.cols = cols;
+  t.row = row;
+  if (!plan_ok(t)) return -1;
   Rows xr{x, x_cs, x_rs}, tr{top, top_cs, top_rs}, br{bot, bot_cs, bot_rs};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return raw ? launch<true>(xr, tr, br, comp, out, c, hs, w, th, 0, f, k, s)
-             : launch<false>(xr, tr, br, comp, out, c, hs, w, 0, row0, f, k, s);
+  return raw ? by_shape<true>(xr, tr, br, comp, out, t, s)
+             : by_shape<false>(xr, tr, br, comp, out, t, s);
 }
 
 const char* kmsr_scene_cuda_error_string(int code) {

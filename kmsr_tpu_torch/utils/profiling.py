@@ -74,15 +74,17 @@ def cuda_time_ms(fn: Callable[[], object], runs: int = 20) -> dict:
     }
 
 
-def cuda_device_ms(fn: Callable[[], object], runs: int = 10) -> dict:
+def cuda_device_ms(fn: Callable[[], object], runs: int = 10,
+                   attempts: int = 3) -> dict:
     """Device time of the CUDA kernels `fn()` launches, in milliseconds per
     call, from a torch.profiler (CUPTI) trace of `runs` calls after 3
     untimed ones: the kernels' own durations, without the host time between
     launches that `cuda_time_ms` also sees when the host is the slower
     side. Each kernel's mean duration is taken over the records the trace
     holds, times its launches per call. Returns {"device_ms": their sum,
-    "kernels": {name: ms per call}}. Raises on a host without a card, or
-    if no kernel ran on the device.
+    "kernels": {name: ms per call}}. A trace that holds no kernel record
+    (CUPTI now and then delivers none) is taken again, up to `attempts`
+    traces. Raises on a host without a card, or if no trace saw a kernel.
     """
     if not torch.cuda.is_available():
         raise RuntimeError("cuda_device_ms needs a CUDA device")
@@ -91,15 +93,16 @@ def cuda_device_ms(fn: Callable[[], object], runs: int = 10) -> dict:
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    kernels = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
-        if us > 0 and ev.count:
-            kernels[ev.key] = us / ev.count * max(1, round(ev.count / runs)) / 1e3
-    if not kernels:
-        raise RuntimeError("the profiler saw no kernel on the device")
-    return {"device_ms": sum(kernels.values()), "kernels": kernels}
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        kernels = {}
+        for ev in prof.key_averages():
+            us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+            if us > 0 and ev.count:
+                kernels[ev.key] = us / ev.count * max(1, round(ev.count / runs)) / 1e3
+        if kernels:
+            return {"device_ms": sum(kernels.values()), "kernels": kernels}
+    raise RuntimeError(f"the profiler saw no kernel on the device in {attempts} traces")

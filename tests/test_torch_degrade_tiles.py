@@ -1,4 +1,4 @@
-"""The geometry the redesigned wide-span kernels read, checked on the CPU.
+"""The geometry the redesigned stencil kernels read, checked on the CPU.
 
 The dense (v4) kernel never builds the stencil matrix in device memory: a
 block generates the entries of its output tile over the tile's band only
@@ -8,20 +8,35 @@ per-entry generation rule must equal the matching block of JAX's matrix,
 of the port's `stencil_matrix` and of their `bf16_terms`, bit for bit,
 border tiles included. The v1/v2 kernel stages its input window one row
 phase at a time (`kernels.wide_tiles`); every clamped tap of `_tap_order`
-must find its pixel in the staged window. No Pallas call: each case takes
+must find its pixel in the staged window. The v3-family and scene kernels
+stream the input rows a tile reads through a ring and keep an
+accumulator for each output still open in a column (`kernels.stencil_tiles`,
+`kernels.scene_tiles`); every tap of every output must then read, from
+the window row and column a mirror of the kernel's staging gives it, the
+pixel the plain version reads, through each layout's row and column map,
+with the tiles covering each output once. No Pallas call: each case takes
 well under a second.
 """
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from kmsr_tpu.ops.degrade_pallas import _stencil_matrix
-from kmsr_tpu_torch.kernels import SMEM_MAX, WIDE_R, dense_tiles, wide_tiles
+from kmsr_tpu_torch import kernels
+from kmsr_tpu_torch.kernels import (
+    RING, RING_SLOTS, SMEM_MAX, WIDE_R, dense_tiles, ring_smem, scene_tiles,
+    stencil_tiles, wide_tiles,
+)
 from kmsr_tpu_torch.ops.degrade import compose_with_box, normalize_kernel
 from kmsr_tpu_torch.ops.degrade_fused import (
-    _tap_order, bf16_terms, select_version, stencil_matrix,
+    _tap_order, bf16_terms, col_halo, phase_split_chwb, select_version,
+    stencil_matrix,
 )
+from kmsr_tpu_torch.ops.degrade_scene_fast import halo_rows, slab_halo
 
 C = 2
 #: (h, w, factor) where v4's shape rule holds: every square side of
@@ -166,3 +181,175 @@ def test_wide_tiles_refuses_other_layouts():
         wide_tiles("presplit", 14, 2, 64)
     with pytest.raises(ValueError, match="multiples of 8"):
         dense_tiles(14, 2, 48, 44)
+
+
+def _rolling_taps(oh, ow, ti, tj, factor, kside):
+    """Mirror of the ring kernels' walk: for every output (i, j) and tap
+    (dy, dx), its block's first output (i0, j0), the window row q and the
+    window column wc it reads, after checking that q lies among the rows
+    the block streams, that the slot v = r - lo holding the block's output
+    r (lo: the oldest output still open in row q's group g) is one of the
+    min(ceil(K/f), rows of the block) <= RING_SLOTS the walk keeps, and
+    that the output's last tap falls in the group at whose end the walk
+    writes slot 0."""
+    n_o = -(-kside // factor)
+    i = np.arange(oh)[:, None]
+    j = np.arange(ow)[None, :]
+    i0, j0 = i // ti * ti, j // tj * tj
+    r, jl = i - i0, j - j0
+    tiv = np.minimum(ti, oh - i0)
+    rows = factor * (tiv - 1) + kside                   # rows the block streams
+    assert (r < tiv).all() and (jl < tj).all()
+    assert (np.minimum(n_o, tiv) <= RING_SLOTS).all()
+    for dy in range(kside):
+        q = factor * r + dy
+        g = q // factor
+        lo = np.maximum(0, g - n_o + 1)
+        v = r - lo
+        assert ((q < rows) & (0 <= v) & (v <= np.minimum(g, tiv - 1) - lo)).all()
+        assert (v < np.minimum(n_o, tiv)).all()
+        assert (dy == q % factor + factor * (g - lo - v)).all()
+        if dy == kside - 1:  # complete at the end of group r + n_o - 1, slot 0
+            assert ((g == r + n_o - 1) & (v == 0)).all()
+            assert (g <= (rows - 1) // factor).all()
+        for dx in range(kside):
+            yield dy, dx, i, j, i0, j0, q, factor * jl + dx
+
+
+def _check_phase_split(wc, factor, cols, row):
+    """NCHW / scene storage: window column wc at (wc % f, wc // f) of a
+    row of f phases x cols; a warp's 32 consecutive columns hit 32 banks
+    where f divides 32."""
+    assert (wc // factor < cols).all()
+    assert ((wc % factor) * cols + wc // factor < row).all()
+    if 32 % factor == 0:
+        lanes = np.arange(32)
+        assert len(set(((lanes % factor) * cols + lanes // factor) % 32)) == 32
+
+
+def _plan_rows(ti_default, oh, kside, factor):
+    """The output rows a ring block takes: ti_default, no more than oh,
+    nor than RING_SLOTS where ceil(K/f) exceeds them."""
+    n_o = -(-kside // factor)
+    return min(ti_default, oh) if n_o <= RING_SLOTS else min(ti_default, oh, RING_SLOTS)
+
+
+def _check_stencil_plan(layout, factor, kside, h, w, b):
+    half = (kside - factor) // 2
+    oh, ow = h // factor, w // factor
+    ti, tj, cols, row = stencil_tiles(layout, kside, factor, h, w, b)
+    assert ti == _plan_rows(8, oh, kside, factor)
+    span = factor * (tj - 1) + kside
+    assert ring_smem(kside, row, span, 2 if layout == "nchw" else 1) <= SMEM_MAX
+    img = np.arange(h * w).reshape(h, w)              # pixel ids
+    m = col_halo(kside, factor) if layout == "presplit_halo" else 0
+    if layout.startswith("presplit"):
+        xp = phase_split_chwb(torch.from_numpy(img)[None, :, :, None], factor,
+                              halo=bool(m), halo_rows=max(m, 1))
+        plane = xp.reshape(-1, w).numpy()            # [f * (oh + 2m), W]
+    else:
+        plane = img
+    for dy, dx, i, j, i0, j0, q, wc in _rolling_taps(oh, ow, ti, tj, factor, kside):
+        y = factor * i0 - half + q                    # the kernel's row map
+        if layout == "presplit_halo":
+            p = y % factor
+            prow = p * (oh + 2 * m) + m + (y - p) // factor
+        else:
+            yc = _clamp(y, h)
+            prow = (yc % factor) * oh + yc // factor if layout == "presplit" else yc
+        xc = _clamp(factor * j0 - half + wc, w)       # the kernel's column map
+        pcol = (xc % factor) * ow + xc // factor if layout.startswith("presplit") else xc
+        want = img[_clamp(factor * i + dy - half, h), _clamp(factor * j + dx - half, w)]
+        assert (plane[prow, pcol] == want).all(), (dy, dx)
+        if layout == "nchw":
+            _check_phase_split(wc, factor, cols, row)
+        else:
+            assert (wc < cols).all() and cols == span and row == cols * 32
+
+
+#: (h, w, b): the factory's patch; ragged tiles (h/f below a tile, w/f not
+#: a multiple of the column tile) with batches of 1, 3 or 33
+STENCIL_SHAPES = [(256, 256, 128), (40, 72, 3), (24, 296, 33), (16, 8, 1)]
+LAYOUTS = ["nchw", "chwb", "presplit", "presplit_halo"]
+
+
+@pytest.mark.parametrize("h,w,b", STENCIL_SHAPES)
+@pytest.mark.parametrize("factor", [8, 4])
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_stencil_window_covers_every_tap(layout, factor, h, w, b):
+    """Every tap of every output reads, through the kernel's row map
+    (clamp; presplit phase and block; baked-halo rows unclamped) and
+    column map (clamp; permuted presplit column) applied while staging,
+    the clamped pixel of the image; the plan fits shared memory."""
+    kside = 13 + factor - 1                       # K = 20 at f=8, 16 at f=4
+    if layout == "presplit_halo":
+        assert col_halo(kside, factor) == {8: 1, 4: 2}[factor]
+    _check_stencil_plan(layout, factor, kside, h, w, b)
+
+
+@pytest.mark.parametrize("h,w,b", [(64, 72, 3), (24, 40, 1)])
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_stencil_window_covers_wide_spans(layout, h, w, b):
+    """A span beyond the walk's run-time slots (f=2, K=20: ceil(K/f) = 10
+    > RING_SLOTS), which the C ABI takes as it did before the ring: the
+    plan holds a block to RING_SLOTS output rows, and every tap still
+    reads the plain version's pixel."""
+    assert -(-20 // 2) > RING_SLOTS
+    _check_stencil_plan(layout, 2, 20, h, w, b)
+
+
+@pytest.mark.parametrize("raw", [True, False])
+@pytest.mark.parametrize("hs,w,factor,ksize", [
+    (64, 8192, 8, 13),   # the scene path's width (K = 20)
+    (64, 7992, 8, 13),   # the uneven scene's width: w/f = 999
+    (16, 8192, 8, 13),   # a 16-row slab, thinner than the 2K rows of a tile
+    (48, 200, 4, 13),    # f=4 (K = 16)
+    (36, 36, 3, 5),      # f=3 (K = 7): no bank padding
+    (64, 96, 2, 33),     # f=2, a 33x33 blur (K = 34): 17 open outputs > slots
+    (40, 72, 1, 17),     # f=1 (K = 17): 17 open outputs
+])
+def test_scene_window_covers_every_tap(raw, hs, w, factor, ksize):
+    """Every tap of every output of the scene kernel's plan reads the slab
+    row of the plain version (RAW: top halo, slab or bottom halo; EXT: the
+    extended slab from row TOP) and the clamped column, from a staged
+    phase-split window that fits shared memory."""
+    kside = ksize + factor - 1
+    half = (kside - factor) // 2
+    oh, ow = hs // factor, w // factor
+    ti, tj, cols, row = scene_tiles(kside, factor, hs, w)
+    assert ti == _plan_rows(16, oh, kside, factor) and tj % 32 == 0
+    span = factor * (tj - 1) + kside
+    assert ring_smem(kside, row, span, 2) <= SMEM_MAX
+    th, bh = halo_rows(factor, kside)
+    top, bot = slab_halo(factor, kside)
+    for dy, dx, i, j, i0, j0, q, wc in _rolling_taps(oh, ow, ti, tj, factor, kside):
+        y = factor * i0 - half + q                    # slab row staged
+        assert (y == factor * i + dy - half).all()
+        if raw:
+            assert ((y >= -th) & (y < hs + bh)).all()
+        else:
+            assert ((top + y >= 0) & (top + y < top + hs + bot)).all()
+        xc = _clamp(factor * j0 - half + wc, w)
+        assert (xc == _clamp(factor * j + dx - half, w)).all()
+        _check_phase_split(wc, factor, cols, row)
+
+
+def test_ring_plans_refuse_what_they_cannot_cover():
+    with pytest.raises(ValueError, match="unknown layout"):
+        stencil_tiles("nhwc", 20, 8, 64, 64, 4)
+    with pytest.raises(ValueError, match="empty"):
+        stencil_tiles("chwb", 20, 8, 64, 64, 0)
+    with pytest.raises(ValueError, match="empty"):
+        scene_tiles(20, 8, 0, 64)
+
+
+def test_ring_constants_match_the_kernels():
+    """The plans' RING, RING_SLOTS and SMEM_MAX are the values the CUDA
+    sources compile with (kRing, kSlots, kSmemMax)."""
+    src = Path(kernels.__file__).parent
+    ring = (src / "stencil_ring.cuh").read_text()
+    assert re.search(r"constexpr int kRing = (\d+);", ring)[1] == str(RING)
+    assert re.search(r"constexpr int kSlots = (\d+);", ring)[1] == str(RING_SLOTS)
+    for name in ("degrade_stencil.cu", "scene_stencil.cu"):
+        text = (src / name).read_text()
+        assert re.search(r"constexpr int kSmemMax = (\d+);", text)[1] == str(SMEM_MAX)

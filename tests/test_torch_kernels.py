@@ -245,6 +245,92 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
                                 dims=(5, 64, 64, 4), factor=8)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,factor,b", [
+    (40, 72, 8, 1),      # h/f = 5 below a row tile, w/f = 9 not a column tile
+    (24, 296, 8, 33),    # w/f = 37: ragged 32-column NCHW tile; two batch slices
+    (48, 80, 4, 3),      # f=4 (K = 16), the run-time shape
+    (256, 256, 8, 3),    # the factory's patch, a 3-wide batch (4-byte staging)
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_v3_kernel_odd_shapes(cuda, h, w, factor, b, dtype):
+    """The ring-staged v3 family on every map (NCHW, CHWB, presplit,
+    baked-halo presplit) where tiles, 32-wide batch slices and 16-byte
+    runs are ragged, +- noise: bit for bit against the plain versions in
+    float32, within the tolerance in bfloat16; each launch counted."""
+    x, kernel, noise = _inputs(cuda, factor, b=b, h=h, w=w)
+    xd = x.to(dtype)
+    tol = dict(rtol=0, atol=0) if dtype == torch.float32 else TOL
+    m = col_halo(13 + factor - 1, factor)
+    kernels.reset_launches()
+    for n in (None, noise):
+        nn = None if n is None else n.permute(3, 0, 1, 2).contiguous()
+        img = xd.permute(3, 0, 1, 2).contiguous()
+        xp = phase_split_chwb(xd, factor).contiguous()
+        xh = phase_split_chwb(xd, factor, halo=True, halo_rows=m).contiguous()
+        for got, want in (
+            (degrade_fused(img, kernel, nn, factor=factor),
+             degrade_fused_ref(img, kernel, nn, factor=factor)),
+            (degrade_fused_chwb(xd, kernel, n, factor=factor),
+             degrade_fused_chwb_ref(xd, kernel, n, factor=factor)),
+            (degrade_fused_presplit(xp, kernel, n, factor=factor),
+             degrade_fused_presplit_ref(xp, kernel, n, factor=factor)),
+            (degrade_fused_presplit(xh, kernel, n, factor=factor, baked_halo=True),
+             degrade_fused_presplit_ref(xh, kernel, n, factor=factor,
+                                        baked_halo=True)),
+        ):
+            torch.testing.assert_close(got, want, **tol)
+    torch.cuda.synchronize()
+    assert {k: kernels.LAUNCHES[k] for k in ("degrade_v3", "degrade_v3psn",
+                                             "degrade_v3ps")} == \
+        {"degrade_v3": 4, "degrade_v3psn": 2, "degrade_v3ps": 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,b", [(64, 72, 3), (48, 48, 33)])
+def test_v3_kernel_spans_beyond_the_slots(cuda, h, w, b):
+    """The v3 kernel's C ABI at a span wider than the walk's run-time slots
+    (f=2, K=20: ceil(K/f) = 10), which it took before the ring and still
+    takes, on every map, +- noise: bit for bit against the plain version."""
+    factor, ksize = 2, 19
+    x, kernel, noise = _inputs(cuda, factor, b=b, h=h, w=w, ksize=ksize)
+    comp = compose_with_box(normalize_kernel(kernel), factor).contiguous()
+    assert -(-comp.shape[-1] // factor) > kernels.RING_SLOTS
+    m = col_halo(comp.shape[-1], factor)
+    dims = (5, h, w, b)
+    kernels.reset_launches()
+    for n in (None, noise):
+        nn = None if n is None else n.permute(3, 0, 1, 2).contiguous()
+        for layout, xl, nl, halo in (
+            ("nchw", x.permute(3, 0, 1, 2).contiguous(), nn, 0),
+            ("chwb", x, n, 0),
+            ("presplit", phase_split_chwb(x, factor).contiguous(), n, 0),
+            ("presplit_halo", phase_split_chwb(x, factor, halo=True,
+                                               halo_rows=m).contiguous(), n, m),
+        ):
+            got = _stencil(xl, comp, nl, factor, layout, dims, halo=halo)
+            want = _stencil_ref(xl, comp, nl, factor, layout, halo=halo)
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.cuda.synchronize()
+    assert {k: kernels.LAUNCHES[k] for k in ("degrade_v3", "degrade_v3psn",
+                                             "degrade_v3ps")} == \
+        {"degrade_v3": 4, "degrade_v3psn": 2, "degrade_v3ps": 2}
+
+
+def test_build_tag_covers_shared_headers(tmp_path, monkeypatch):
+    """An edited header the kernels include (stencil_ring.cuh) changes the
+    library's name, so a stale build is never loaded; runs without a
+    card (no nvcc call)."""
+    for name in ("scene_stencil.cu", "stencil_ring.cuh"):
+        (tmp_path / name).write_bytes((kernels._DIR / name).read_bytes())
+    monkeypatch.setattr(kernels, "_DIR", tmp_path)
+    before = kernels._source_tag("scene_stencil")
+    assert kernels._source_tag("scene_stencil") == before
+    with open(tmp_path / "stencil_ring.cuh", "a") as fh:
+        fh.write("// edited\n")
+    assert kernels._source_tag("scene_stencil") != before
+
+
 def _scene(dev, c, h, w, factor, ksize=13, seed=0):
     g = torch.Generator().manual_seed(seed)
     x = (torch.randn(c, h, w, generator=g) * 2 + 5).to(dev)
@@ -256,6 +342,8 @@ def _scene(dev, c, h, w, factor, ksize=13, seed=0):
 @pytest.mark.parametrize("c,h,w,factor,ksize", [
     (5, 256, 192, 8, 13), (3, 128, 128, 4, 13), (2, 36, 36, 3, 5),
     (2, 8, 96, 8, 13),  # a slab thinner than the blur's reach
+    (2, 64, 96, 2, 33),  # f=2, a 33x33 blur (K = 34): 17 open outputs a column
+    (2, 40, 72, 1, 17),  # f=1 (K = 17)
 ])
 def test_scene_kernels_match_plain(cuda, c, h, w, factor, ksize):
     """Both scene stencil instantiations (raw rows + halos, extended slab)
@@ -321,3 +409,34 @@ def test_scene_kernel_rejects_what_it_does_not_take(cuda):
         kernels.scene_stencil_raw(x, top[:, :2], bot, comp, out, factor=8)
     with pytest.raises(ValueError, match="impl='plain' needs a CPU"):
         degrade_rows_fast(x, comp, 8, top, bot, impl="plain")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("factor", [8, 4])
+def test_scene_raw_strided_views(cuda, factor):
+    """The ring-staged scene kernel on a W-cropped view whose row stride
+    (203) is odd, so its rows are not 16-byte aligned, with stride-0
+    `expand`ed edge halos, whole and as four 16-row slabs fed each
+    other's rows: bit for bit against the plain versions."""
+    x, comp = _scene(cuda, 5, 64, 203, factor)
+    x = x[:, :, :200]
+    assert x.stride(1) == 203
+    th, bh = halo_rows(factor, comp.shape[-1])
+    top = x[:, :1].expand(-1, th, -1)
+    bot = x[:, -1:].expand(-1, bh, -1)
+    assert top.stride(1) == 0 and bot.stride(1) == 0
+    kernels.reset_launches()
+    want = degrade_rows_fast_ref(x, comp, factor, top, bot)
+    assert torch.equal(degrade_rows_fast(x, comp, factor, top, bot), want)
+    slabs = [x[:, k * 16:(k + 1) * 16] for k in range(4)]
+    got = torch.cat([
+        degrade_rows_fast(s, comp, factor,
+                          slabs[k - 1][:, -th:] if k else top,
+                          slabs[k + 1][:, :bh] if k < 3 else bot)
+        for k, s in enumerate(slabs)], dim=1)
+    assert torch.equal(got, want)
+    x_ext = extend_rows_edge(x, factor, comp.shape[-1])
+    assert torch.equal(degrade_slab_fast(x_ext, comp, factor),
+                       degrade_slab_fast_ref(x_ext, comp, factor))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["colsplit_raw"] == 5 and kernels.LAUNCHES["colsplit"] == 1
