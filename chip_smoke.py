@@ -68,13 +68,32 @@ and exits non-zero without them. Phases, one line each:
    each tile's band, `kernels.dense_tiles`); and v3 (CHWB) and
    colsplit_raw at f=4 (K=16), a shape their run-time walk takes (f=8,
    K=20 has a compile-time instantiation), listed under
-   `other_layouts_ms`.
+   `other_layouts_ms`;
+9. kernelgan: single-kernel KernelGAN training (`train.single_kernel`) at
+   the repo's default widths (G mid_ch 32, 5 bands, 13x13, x8; D 64x4;
+   batch 16 of 5x256x256 HR against 32x32 real) on a seeded in-memory
+   `synthetic_pool` of 64 patches (the card's machine has no h5py for
+   `.nc` patch folders): (a) chain forward, host-sampled batches, 20
+   iterations; (b) compose forward (`--fast-forward`), device pool, 10
+   steps a call, 40 iterations; (c) real_is_lr against a 64x5x32x32
+   lr_pool, raw_sum_reg 0.1, compose, 20 iterations. Each run must write
+   `iters` finite CSV rows and a non-negative [5,13,13]
+   `kernel_per_band.npy` whose bands sum to 1 (1e-5), its band mean as
+   `kernel_merged.npy`, move G's weights and launch none of the degrade
+   kernels. One `make_base_step` at full widths (batch 2, real_is_lr, no
+   random draw) and the `entry()` forward (G, then D with train=False) at
+   [8,5,256,256], from the same weights in the JAX layout, are held
+   against the port's CPU path (rtol 1e-4 / atol 1e-5, TF32 off). For (a)
+   and (b): iterations/s (median of 5 synchronized windows of >= 10
+   iterations after warm-up), the profiler's device time per iteration
+   (`utils.profiling.cuda_device_ms`), the device's busy share and the
+   top device operations with their input shapes.
 
 Prints one JSON line {"factory": {...}} (per-route results), one
-{"scene": {...}}, then the card's nvidia-smi line, one JSON line
-{"kernels": [...]} and, last, {"ok": true, "device": {...}}. Any mismatch
-or error in any phase, timing included, exits non-zero before that last
-line.
+{"scene": {...}}, one {"api": {...}}, one {"kernelgan": {...}}, then the
+card's nvidia-smi line, one JSON line {"kernels": [...]} and, last,
+{"ok": true, "device": {...}}. Any mismatch or error in any phase, timing
+included, exits non-zero before that last line.
 """
 from __future__ import annotations
 
@@ -1072,6 +1091,269 @@ def phase_scene_timing(dev, card: str) -> dict:
     return out
 
 
+#: KernelGAN phase: the pool (64 x 5x256x256, 84 MB), the runs' iterations
+#: and the timing windows (iterations per window >= 10)
+KG_POOL_N, KG_WINDOWS, KG_WINDOW_ITERS = 64, 5, 10
+#: G's weight gradients sum a mean-5 activation against a near zero-mean
+#: upstream gradient over 2 x 5 x 65536 pixels: float32 alone leaves
+#: 1.4e-3 (CPU) and 3.8e-3 (card) of grad_norm_G against a float64 step
+#: (scripts/torch_kernelgan_ab.py), so the card is held to the CPU there at
+KG_GRAD_G_RTOL = 1e-2
+
+
+def kernelgan_configs(tmp: str) -> dict:
+    """name -> (SingleKernelConfig, uses the lr_pool) of the three runs."""
+    from kmsr_tpu_torch.models import GeneratorConfig
+    from kmsr_tpu_torch.train import SingleKernelConfig
+
+    def cfg(name, **kw):
+        return SingleKernelConfig(outdir=os.path.join(tmp, name), log_every=10,
+                                  kernel_log_every=10, verbose=False, seed=SEED, **kw)
+
+    compose = GeneratorConfig(forward_mode="compose")
+    return {
+        "chain": (cfg("chain", iters=20, device_pool=False), False),
+        "compose": (cfg("compose", iters=40, device_pool=True, steps_per_call=10,
+                        generator=compose), False),
+        "real_is_lr": (cfg("real_is_lr", iters=20, real_is_lr=True, raw_sum_reg=0.1,
+                           generator=compose), True),
+    }
+
+
+def check_kernelgan_run(cfg, out, failures: list, label: str) -> dict:
+    """The run's artifacts: `iters` finite CSV rows under LOG_HEADER, a
+    non-negative [5,13,13] kernel_per_band.npy with bands summing to 1,
+    kernel_merged.npy its band mean, and G's weights moved off the init."""
+    import numpy as np
+    import torch
+
+    from kmsr_tpu_torch.models.generator import init_generator
+    from kmsr_tpu_torch.train.single_kernel import LOG_HEADER
+
+    rows = open(os.path.join(cfg.outdir, "training_log.txt")).read().splitlines()
+    vals = np.array([[float(v) for v in r.split(",")] for r in rows[1:]])
+    k = np.load(os.path.join(cfg.outdir, "kernel_per_band.npy"))
+    merged = np.load(os.path.join(cfg.outdir, "kernel_merged.npy"))
+    init = init_generator(cfg.generator, device=out["state"].rng.device)["layers"]
+    moved = max(float((w.detach() - w0).abs().max())
+                for w, w0 in zip(out["state"].g_params["layers"], init))
+    checks = {
+        "header": rows[0] == LOG_HEADER.strip(),
+        "rows": vals.shape[0] == cfg.iters
+                and vals[:, 0].tolist() == list(range(1, cfg.iters + 1)),
+        "finite": bool(np.isfinite(vals).all()),
+        "kernel_shape": k.shape == (5, 13, 13),
+        "kernel_nonneg": bool((k >= 0).all()),
+        "band_sums": bool(np.abs(k.sum(axis=(1, 2)) - 1).max() <= 1e-5),
+        "merged": bool(np.allclose(merged, k.mean(axis=0), rtol=0, atol=1e-7)),
+        "g_moved": moved > 0,
+    }
+    bad = [name for name, ok in checks.items() if not ok]
+    if bad:
+        failures.append(f"kernelgan {label}: failed checks {bad}")
+    return {"checks_failed": bad, "last_row": rows[-1], "g_max_move": moved,
+            "band_sums": k.sum(axis=(1, 2)).tolist(),
+            "steps": out["state"].step}
+
+
+def kernelgan_parity(dev, failures: list) -> dict:
+    """One `make_base_step` (batch 2, real_is_lr: no random draw) and the
+    `entry()` forward (G, then D with train=False, [8,5,256,256]) at the
+    default widths, on the card and on the CPU, from the same weights in
+    the JAX layout (numpy pytrees, as `convert` takes them; G perturbed off
+    its Gaussian/identity init), TF32 off; the card also runs the step in
+    float64, the yardstick of both float32 runs' rounding."""
+    import numpy as np
+    import torch
+
+    from kmsr_tpu_torch import convert
+    from kmsr_tpu_torch.models import (DiscriminatorConfig, GeneratorConfig,
+                                       discriminator_forward, generator_forward,
+                                       init_discriminator, init_generator)
+    from kmsr_tpu_torch.train import SingleKernelConfig, init_gan_state, make_base_step
+    from kmsr_tpu_torch.train.state import make_gan_optimizers, tree_map
+
+    rng = np.random.default_rng(SEED + 9)
+    g_np = {"layers": [w.numpy() + rng.normal(0, 0.005, w.shape).astype(np.float32)
+                       for w in init_generator(GeneratorConfig(), device="cpu")["layers"]]}
+    d_np = tree_map(lambda t: t.numpy(),
+                    init_discriminator(DiscriminatorConfig(), seed=SEED, device="cpu"))
+    hr = torch.from_numpy(rng.normal(5, 2, (2, C, HW, HW)).astype(np.float32))
+    real = torch.from_numpy(rng.normal(5, 2, (2, C, 32, 32)).astype(np.float32))
+    x = torch.from_numpy(rng.normal(5, 2, (8, C, HW, HW)).astype(np.float32))
+    cfg = SingleKernelConfig(batch_size=2, real_is_lr=True, outdir="unused")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    got = []  # [CPU f32, card f32, card f64]
+    for d, dt in ((torch.device("cpu"), torch.float32), (dev, torch.float32),
+                  (dev, torch.float64)):
+        cast = lambda t: t.to(dt)  # noqa: E731
+        g = tree_map(cast, convert.generator_from_jax(g_np, device=d))
+        dp, ds = (tree_map(cast, t) for t in convert.discriminator_from_jax(*d_np, device=d))
+        with torch.no_grad():
+            fake = generator_forward(g, cast(x.to(d)))
+            score, _ = discriminator_forward(dp, ds, fake, train=False)
+        tx = make_gan_optimizers()
+        state = init_gan_state(torch.Generator(device=d).manual_seed(SEED), g, dp, ds, tx, tx)
+        _, m = make_base_step(cfg)(state, cast(hr.to(d)), cast(real.to(d)))
+        got.append({**{k: m[k].cpu().double() for k in (
+            "loss_D", "loss_G_adv", "loss_reg", "grad_norm_D", "grad_norm_G", "kernels")},
+            "entry_fake": fake.cpu().double(), "entry_score": score.cpu().double()})
+    result = {}
+    for k, want in got[0].items():
+        rtol = KG_GRAD_G_RTOL if k == "grad_norm_G" else RTOL
+        diff = (got[1][k] - want).abs()
+        ok = bool(torch.allclose(got[1][k], want, rtol=rtol, atol=ATOL))
+        ref = got[2][k].abs().clamp_min(ATOL)
+        result[k] = {"max_abs_err": float(diff.max()),
+                     "max_rel_err": float((diff / want.abs().clamp_min(ATOL)).max()),
+                     "rtol": rtol, "ok": ok,
+                     "cpu_vs_f64_rel": float(((want - got[2][k]).abs() / ref).max()),
+                     "card_vs_f64_rel": float(((got[1][k] - got[2][k]).abs() / ref).max()),
+                     **({"cpu": float(want)} if want.numel() == 1 else {})}
+        if not ok:
+            failures.append(f"kernelgan card vs CPU {k}: {result[k]}")
+    log(f"[kernelgan] card vs CPU (rtol={RTOL}, grad_norm_G rtol={KG_GRAD_G_RTOL}, "
+        f"atol={ATOL}, TF32 off): " + ", ".join(
+            f"{k} max_abs {v['max_abs_err']:.3g} (vs a float64 step: CPU "
+            f"{v['cpu_vs_f64_rel']:.2g}, card {v['card_vs_f64_rel']:.2g})"
+            for k, v in result.items()))
+    return result
+
+
+def kernelgan_part(op: str, shapes) -> str:
+    """Which part of the step an aten op belongs to: the optimizers'
+    foreach updates, G on the HR side (an input of side >= 64: the chain or
+    compose convs, forward and backward), or the rest (D's three forwards
+    and their backward at 32x32, the losses, the kernel composition and
+    extraction, the gradient clipping). Copies count with the part their
+    shapes name (the chain's batch upload with G)."""
+    if op.startswith("aten::_foreach"):
+        return "optimizer (foreach Adam)"
+    if any(len(s) == 4 and min(s[2:]) >= 64 for s in shapes if isinstance(s, list)):
+        return "G at HR (convs, pads, block mean; forward + backward)"
+    return "D x3 + losses + extraction + clipping"
+
+
+def kernelgan_timing(cfg, pool, dev) -> dict:
+    """Iterations/s of one config at full width (median of KG_WINDOWS
+    synchronized windows after warm-up), the profiler's device time per
+    iteration, the busy share, and the top device operations."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from kmsr_tpu_torch.train.single_kernel import (init_training, make_batch_source,
+                                                    make_train_step)
+    from kmsr_tpu_torch.utils.profiling import cuda_device_ms
+
+    k = cfg.steps_per_call
+    step_fn = make_train_step(cfg, device_pool=bool(cfg.device_pool))
+    state = init_training(cfg, dev)
+    draw = make_batch_source(cfg, pool, None, bool(cfg.device_pool),
+                             np.random.default_rng(cfg.seed), dev)
+
+    def one_call():
+        nonlocal state
+        state, _ = step_fn(state, *draw())
+
+    calls = -(-KG_WINDOW_ITERS // k)
+    for _ in range(3):
+        one_call()
+    walls = []
+    for _ in range(KG_WINDOWS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            one_call()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) / (calls * k))
+    wall = sorted(walls)[len(walls) // 2]
+    dev_ms = cuda_device_ms(one_call, runs=calls)["device_ms"] / k
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        for _ in range(calls):
+            one_call()
+        torch.cuda.synchronize()
+    ops, parts = [], {}
+    for ev in prof.key_averages(group_by_input_shape=True):
+        us = getattr(ev, "self_device_time_total", None)
+        us = us if us is not None else getattr(ev, "self_cuda_time_total", 0)
+        if us <= 0 or not ev.key.startswith("aten::"):
+            continue  # kernel and copy records repeat their aten op's device time
+        ms = us / 1e3 / (calls * k)
+        part = kernelgan_part(ev.key, ev.input_shapes)
+        parts[part] = parts.get(part, 0.0) + ms
+        ops.append({"op": ev.key, "part": part, "shapes": str(ev.input_shapes)[:160],
+                    "device_ms_per_iter": ms, "calls_per_iter": ev.count / (calls * k)})
+    ops.sort(key=lambda o: -o["device_ms_per_iter"])
+    return {"iters_per_s": 1.0 / wall, "wall_ms_per_iter": wall * 1e3,
+            "wall_ms_per_iter_windows": [w * 1e3 for w in walls],
+            "window_iters": calls * k, "device_ms_per_iter": dev_ms,
+            "busy_share": dev_ms / (wall * 1e3), "parts_ms_per_iter": parts,
+            "top_ops": ops[:12],
+            "profiled_ops": len(ops)}
+
+
+def phase_kernelgan(dev, failures: list) -> dict:
+    """The three training runs through `train_single_kernel` (launch counts
+    set to 0 before and read after: this path runs no degrade kernel), the
+    card-vs-CPU checks and the timing of (a) and (b)."""
+    import numpy as np
+    import torch
+
+    from kmsr_tpu_torch import kernels
+    from kmsr_tpu_torch.data import synthetic_pool
+    from kmsr_tpu_torch.train import train_single_kernel
+
+    rng = np.random.default_rng(SEED)
+    t0 = time.perf_counter()
+    pool = synthetic_pool(rng, n=KG_POOL_N, c=C, size=HW)
+    lr_pool = synthetic_pool(rng, n=KG_POOL_N, c=C, size=32)
+    log(f"[kernelgan] pools {pool.shape} ({pool.patches.nbytes / 1e6:.0f} MB) and "
+        f"{lr_pool.shape} made in {time.perf_counter() - t0:.1f}s")
+    tmp = tempfile.mkdtemp(prefix="kmsr_chip_kernelgan_")
+    result = {"runs": {}, "timing": {}}
+    try:
+        configs = kernelgan_configs(tmp)
+        for name, (cfg, with_lr) in configs.items():
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            out = train_single_kernel(pool, cfg, progress=False, device=dev,
+                                      lr_pool=lr_pool if with_lr else None)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launched = {k: n for k, n in kernels.LAUNCHES.items() if n}
+            if launched:
+                failures.append(f"kernelgan {name}: launched degrade kernels {launched}")
+            rec = check_kernelgan_run(cfg, out, failures, name)
+            rec.update({"iters": cfg.iters, "seconds_with_setup": secs,
+                        "forward_mode": cfg.generator.forward_mode,
+                        "device_pool": cfg.device_pool, "steps_per_call": cfg.steps_per_call})
+            result["runs"][name] = rec
+            log(f"[kernelgan] {name}: {'ok' if not rec['checks_failed'] else 'FAILED'} "
+                f"{cfg.iters} iterations in {secs:.2f}s (setup and artifacts included); "
+                f"last row {rec['last_row']}; band sums {rec['band_sums']}")
+        result["card_vs_cpu"] = kernelgan_parity(dev, failures)
+        for name in ("chain", "compose"):
+            rec = kernelgan_timing(configs[name][0], pool, dev)
+            result["timing"][name] = rec
+            log(f"[kernelgan] timing {name}: {rec['iters_per_s']:.2f} it/s (median of "
+                f"{KG_WINDOWS} windows of {rec['window_iters']} iterations, "
+                f"{rec['wall_ms_per_iter']:.3f} ms/it, windows "
+                f"{[round(w, 3) for w in rec['wall_ms_per_iter_windows']]}); device "
+                f"{rec['device_ms_per_iter']:.3f} ms/it (profiler), busy share "
+                f"{rec['busy_share']:.3f}; device ms/it by part "
+                + str({p: round(v, 3) for p, v in rec["parts_ms_per_iter"].items()})
+                + "; top ops: "
+                + "; ".join(f"{o['op']} {o['shapes'][:60]} {o['device_ms_per_iter']:.3f} ms"
+                            for o in rec["top_ops"][:6]))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -1107,6 +1389,9 @@ def main() -> int:
         timing = phase_timing(dev, card)
         timing.update(phase_wide_timing(dev, card))
         timing.update(phase_scene_timing(dev, card))
+        kernelgan_res = phase_kernelgan(dev, failures)
+        kernelgan_res["nvidia_smi"] = smi
+        log(f"[kernelgan] {'ok' if not failures else 'FAILED'}")
     except Exception:
         traceback.print_exc()
         return 1
@@ -1154,6 +1439,7 @@ def main() -> int:
     log(json.dumps({"factory": factory_res}))
     log(json.dumps({"scene": scene_res}))
     log(json.dumps({"api": api_res}))
+    log(json.dumps({"kernelgan": kernelgan_res}))
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f}s")
     log(smi)
     log(json.dumps({"kernels": records}))

@@ -23,7 +23,10 @@ Ported so far: the single-kernel fused train-data factory
 (`pipeline.factory`), its `.nc` route (v3 stencil kernel) and its `.npy`
 route (halo-free presplit kernel fed by the native split loader); the
 whole-scene degrade (`pipeline.degrade_scene` -> `parallel.spatial` ->
-`ops.degrade_scene_fast`, the scene stencil kernel over row slabs).
+`ops.degrade_scene_fast`, the scene stencil kernel over row slabs);
+single-kernel KernelGAN training (`pipeline.train_single_kernel_cli` ->
+`train.single_kernel` -> `models`, `losses`; plain PyTorch, as the JAX
+path is XLA convolutions, no Pallas kernel).
 """
 
 __version__ = "0.1.0"

@@ -9,8 +9,13 @@ On the factory path that state is two arrays, both plain numpy on disk:
 
 The whole-scene degrade path (`pipeline.degrade_scene`) carries nothing
 more: its only state is the same kernel artifact, so `kernel_from_jax`
-serves it too. Generator, discriminator and MoE parameters come with their
-own slices.
+serves it too.
+
+KernelGAN's generator and discriminator parameters (and the
+discriminator's spectral-norm / BatchNorm state) are pytrees of the same
+layout in both packages: `generator_from_jax` and `discriminator_from_jax`
+take them as numpy arrays (`jax.device_get` on the JAX side) and copy them
+leaf for leaf. MoE parameters come with their own slice.
 """
 from __future__ import annotations
 
@@ -49,3 +54,29 @@ def noise_pool_from_jax(
     dev = resolve_device(device)
     pool, _ = _array(arr_or_path, "noise pool")
     return torch.from_numpy(validate_noise_pool(pool)).to(dev)
+
+
+def _tree_to(tree, dev: torch.device):
+    """numpy leaves of nested dicts / lists -> float32 tensors on dev."""
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_to(v, dev) for v in tree]
+    return torch.from_numpy(np.array(tree, np.float32)).to(dev)
+
+
+def generator_from_jax(g_params: dict, device: str | torch.device = "cuda") -> dict:
+    """JAX generator params ({"layers": [[band, out, in, k, k]], and
+    "log_sigma" [band] when present}, numpy leaves) as the port's params
+    on `device`."""
+    return _tree_to(g_params, resolve_device(device))
+
+
+def discriminator_from_jax(
+    d_params: dict, d_state: dict, device: str | torch.device = "cuda"
+) -> tuple[dict, dict]:
+    """JAX discriminator params (conv "w" / "b", "bn_scale", "bn_bias") and
+    state ("u", "bn_mean", "bn_var"), numpy leaves, as the port's
+    (params, state) on `device`."""
+    dev = resolve_device(device)
+    return _tree_to(d_params, dev), _tree_to(d_state, dev)

@@ -1,3 +1,13 @@
-"""Host-side data: patch file listing and the noise pool."""
+"""Host-side data: patch pools and samplers, patch file listing and the
+noise pool."""
 from .noise_pool import add_noise_np, load_noise_pool, validate_noise_pool
-from .sampler import list_patch_files
+from .sampler import (
+    NaNPatchError,
+    PatchPool,
+    StreamingPatchPool,
+    gradient_weight_map,
+    list_patch_files,
+    load_scene_bands,
+    sample_scene_patches,
+    synthetic_pool,
+)

@@ -1,7 +1,8 @@
 """Shared pipeline-runner plumbing: per-file failure isolation + accounting.
 
 The port's copy of the parts of `kmsr_tpu.pipeline.common` the factory
-uses: `RunReport`, `run_per_file`, `DeviceSyncGuard` and `chunked_reader`.
+and the trainer CLI use: `RunReport`, `run_per_file`, `DeviceSyncGuard`,
+`chunked_reader` and `maybe_trace`.
 Every reference batch driver wraps its per-file work in try/except-continue
 with success/failure counting (`A_00_patch_cutter_universal.py:409-419`,
 `E_make_train_data.py:264-272`, `denoise/batch_denoise.py:60-93`) so one
@@ -9,7 +10,9 @@ bad file never kills a run; this module centralizes that contract.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
 import time
 import traceback
 from typing import Callable, Iterable, Optional
@@ -156,3 +159,26 @@ def chunked_reader(
         if item is None:
             return
         yield item
+
+
+@contextlib.contextmanager
+def maybe_trace(log_dir: Optional[str]):
+    """Wrap a stage body in a torch.profiler trace (host ops, and the
+    card's kernels when one is present) when log_dir is set (CLI `--trace
+    DIR`); no-op otherwise. Writes a Chrome trace, `log_dir/trace.json`
+    (chrome://tracing or Perfetto)."""
+    if not log_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    path = os.path.join(log_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    print(f"[trace] timeline written to {path}")

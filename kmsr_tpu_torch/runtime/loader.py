@@ -6,9 +6,11 @@ beside this file (listed in .gitignore; the library's name carries a hash
 of the source), so it never shares a library with the JAX package's
 `~/.cache/kmsr_tpu`. Without a toolchain the caller falls back to numpy.
 
-The dual split gather writes into caller-owned buffers: the factory
-passes numpy views of pinned host tensors, so the gathered batch goes to
-the card with a non-blocking copy and no staging copy.
+Two kinds of gather: the plain one (`gather`, `prefetch` / `wait`) returns
+a natural [B, *shape] batch, for `data.sampler.StreamingPatchPool`; the
+dual split gather writes into caller-owned buffers: the factory passes
+numpy views of pinned host tensors, so the gathered batch goes to the card
+with a non-blocking copy and no staging copy.
 """
 from __future__ import annotations
 
@@ -63,6 +65,11 @@ def _get_lib() -> ctypes.CDLL:
                 ctypes.POINTER(ctypes.c_char_p), ctypes.c_int,
                 ctypes.c_int64, ctypes.c_int,
             ]
+            idx_args = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64),
+                        ctypes.c_int, ctypes.POINTER(ctypes.c_float)]
+            for fn in (lib.kmsr_loader_gather, lib.kmsr_loader_prefetch):
+                fn.restype = ctypes.c_int
+                fn.argtypes = idx_args
             dual_args = [
                 ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64),
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -85,6 +92,10 @@ def _f32_ptr(a: np.ndarray):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
 
 
+def _i64_ptr(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
+
+
 def _check_buffer(buf: np.ndarray, shape: tuple, what: str) -> None:
     if (buf.shape != shape or buf.dtype != np.float32
             or not buf.flags.c_contiguous or not buf.flags.writeable):
@@ -98,6 +109,9 @@ class NativePatchLoader:
 
     Usage (double buffering):
         loader = NativePatchLoader(paths, shape=(5, 256, 256))
+        loader.prefetch(idx0)
+        batch = loader.wait()                       # [B, 5, 256, 256]
+    or, for the factory's presplit route:
         loader.prefetch_split_dual(idx0, 8, out0, nat0)
         split, natural = loader.wait()              # the idx0 batch
         loader.prefetch_split_dual(idx1, 8, out1, nat1)  # overlaps the step
@@ -122,6 +136,29 @@ class NativePatchLoader:
 
     def _err(self) -> str:
         return self._lib.kmsr_loader_last_error(self._handle).decode()
+
+    def gather(self, indices: np.ndarray) -> np.ndarray:
+        """Read patches `indices` into a new [B, *shape] float32 array."""
+        indices = np.ascontiguousarray(indices, dtype=np.int64)
+        out = np.empty((len(indices), *self.shape), np.float32)
+        rc = self._lib.kmsr_loader_gather(
+            self._handle, _i64_ptr(indices), len(indices), _f32_ptr(out))
+        if rc != 0:
+            raise IOError(f"native gather failed: {self._err()}")
+        return out
+
+    def prefetch(self, indices: np.ndarray) -> None:
+        """Start `gather(indices)` on the loader's threads; `wait()`
+        returns the batch."""
+        if self._pending is not None:
+            raise RuntimeError("a prefetch is already in flight")
+        indices = np.ascontiguousarray(indices, dtype=np.int64)
+        out = np.empty((len(indices), *self.shape), np.float32)
+        rc = self._lib.kmsr_loader_prefetch(
+            self._handle, _i64_ptr(indices), len(indices), _f32_ptr(out))
+        if rc != 0:
+            raise IOError(f"native prefetch failed (rc={rc}): {self._err()}")
+        self._pending = (indices, out)
 
     def prefetch_split_dual(
         self, indices: np.ndarray, factor: int, out: np.ndarray,
@@ -158,7 +195,9 @@ class NativePatchLoader:
             )
         self._pending = (indices, (out, nat))
 
-    def wait(self) -> tuple[np.ndarray, np.ndarray]:
+    def wait(self):
+        """The batch of the prefetch in flight: an array after `prefetch`,
+        (out, nat) after `prefetch_split_dual`."""
         if self._pending is None:
             raise RuntimeError("no prefetch in flight")
         rc = self._lib.kmsr_loader_wait(self._handle)

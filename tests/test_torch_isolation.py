@@ -5,6 +5,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -36,7 +37,7 @@ def test_port_sources_import_no_jax_and_no_kmsr_tpu():
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
-            if top in ("jax", "jaxlib", "kmsr_tpu"):
+            if top in ("jax", "jaxlib", "optax", "orbax", "kmsr_tpu"):
                 bad.append(f"{path.relative_to(REPO)}: import {mod}")
     assert not bad, bad
 
@@ -46,9 +47,14 @@ def test_importing_the_factory_loads_no_jax():
         "import sys; import kmsr_tpu_torch.pipeline.factory, "
         "kmsr_tpu_torch.convert, kmsr_tpu_torch.kernels, "
         "kmsr_tpu_torch.pipeline.degrade_scene, "
-        "kmsr_tpu_torch.parallel.spatial; "
+        "kmsr_tpu_torch.parallel.spatial, "
+        "kmsr_tpu_torch.pipeline.train_single_kernel_cli, "
+        "kmsr_tpu_torch.train, kmsr_tpu_torch.models, kmsr_tpu_torch.losses, "
+        "kmsr_tpu_torch.analysis, kmsr_tpu_torch.data, "
+        "kmsr_tpu_torch.ops.kernel_algebra; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'kmsr_tpu')]; print(bad); sys.exit(1 if bad else 0)"
+        "('jax', 'jaxlib', 'optax', 'orbax', 'kmsr_tpu')]; print(bad); "
+        "sys.exit(1 if bad else 0)"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(REPO)
@@ -60,9 +66,11 @@ def test_importing_the_factory_loads_no_jax():
 def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device; the check is for hosts without")
-    from kmsr_tpu_torch.pipeline import degrade_scene
+    from kmsr_tpu_torch.data import synthetic_pool
+    from kmsr_tpu_torch.pipeline import degrade_scene, train_single_kernel_cli
     from kmsr_tpu_torch.pipeline.apply_kernel import apply_kernel_to_folder
     from kmsr_tpu_torch.pipeline.factory import main, run_factory
+    from kmsr_tpu_torch.train import SingleKernelConfig, init_training, train_single_kernel
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         run_factory(str(tmp_path), "k.npy", "pool.npy", str(tmp_path / "out"))
@@ -76,6 +84,14 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         degrade_scene.main(["--input", str(tmp_path), "--kernel", "k.npy",
                             "--output-dir", str(tmp_path / "o")])
+    pool = synthetic_pool(np.random.default_rng(0), n=2, size=16)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_single_kernel(pool, SingleKernelConfig(outdir=str(tmp_path / "out")))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_training(SingleKernelConfig())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_single_kernel_cli.main(["--patch-dir", str(tmp_path),
+                                      "--outdir", str(tmp_path / "o")])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         resolve_device()
     # raised before touching anything
