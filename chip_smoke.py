@@ -87,10 +87,34 @@ and exits non-zero without them. Phases, one line each:
    and (b): iterations/s (median of 5 synchronized windows of >= 10
    iterations after warm-up), the profiler's device time per iteration
    (`utils.profiling.cuda_device_ms`), the device's busy share and the
-   top device operations with their input shapes.
+   top device operations with their input shapes;
+10. denoise: the denoise -> noise pool -> factory chain at full width
+   (the DAG's defaults: h_factor 1.0, 8 files a chunk, pool crops 32x32,
+   5 a file, seed 42) on 32 seeded in-memory 5x256x256 "files" (a smooth
+   radiance-like field plus per-band Gaussian noise of known sigma; NaN
+   holes in three files, one all-NaN band). `batch_denoise` runs as a user
+   runs it, its file reads and writes swapped for the in-memory stacks
+   (no h5py there): four chunks, one-deep pipeline. Checks: every file
+   out, no per-file fallback, no degrade kernel; NaNs restored at exactly
+   the input's cells; the dead band passed through bit for bit with sigma
+   0.0; every sigma finite and within 25 % of the noise sigma that made
+   it; the pipelined run equal to one `denoise_batch` a chunk; one file
+   against the port's CPU run (rtol 1e-4 / atol 1e-5, sigma rel 1e-5);
+   the three goldens of tests/fixtures/denoise_golden with
+   tests/test_denoise.py's bounds. Chain: the noise pool [160, 5, 32, 32]
+   from raw - denoised through the port's `noise_crops`, bit-equal to a
+   plain host build of the same draws, then the x8 factory's .npy route
+   (v3psn) on 256 seeded patches with that pool, every lr against the
+   plain degrade(hr) + pool[idx], one launch a 128-patch batch. Timing of
+   one chunk (median of 5 synchronized windows: Mpix/s of band pixels,
+   the host's dispatch time; the profiler's device time, busy share and
+   launches; the sigma pass's share; peak device memory; the byte bound
+   of the NLM's spelling and a fused sweep's compute floor), and the whole
+   32-file pipelined run with its stage timers.
 
 Prints one JSON line {"factory": {...}} (per-route results), one
-{"scene": {...}}, one {"api": {...}}, one {"kernelgan": {...}}, then the
+{"scene": {...}}, one {"api": {...}}, one {"kernelgan": {...}}, one
+{"denoise": {...}}, then the
 card's nvidia-smi line, one JSON line {"kernels": [...]} and, last,
 {"ok": true, "device": {...}}. Any mismatch or error in any phase, timing
 included, exits non-zero before that last line.
@@ -430,7 +454,9 @@ def drive(batches, files, kernel, pool, noise_of, dev, check: bool,
           failures: list, label: str, factor: int = FACTOR) -> dict:
     """Consume a factory generator as run_factory does (sync batch k after
     batch k+1 was dispatched); with check, hold every lr against the plain
-    degrade(hr) + pool[idx] and every hr against its file."""
+    degrade(hr) + pool[idx] and every hr against its file. A pool built
+    from denoised bands with holes holds NaN cells: lr must carry them at
+    exactly the plain version's cells and be finite elsewhere."""
     import numpy as np
     import torch
 
@@ -449,6 +475,11 @@ def drive(batches, files, kernel, pool, noise_of, dev, check: bool,
             return
         want = degrade(torch.from_numpy(hr).to(dev), kernel, factor=factor).cpu() \
             + torch.from_numpy(pool[[noise_of[p] for p in paths]])
+        if lr.shape == want.shape:
+            holes = torch.isnan(want)  # a pool entry's NaN cells, carried into lr
+            if not torch.equal(torch.isnan(lr), holes):
+                failures.append(f"{label}: lr NaN cells differ from the plain version's")
+            lr, want = lr[~holes], want[~holes]
         if not bool(torch.isfinite(lr).all()) or lr.shape != want.shape:
             failures.append(f"{label}: non-finite or misshapen lr {tuple(lr.shape)}")
         e = errors(lr, want)
@@ -1354,6 +1385,388 @@ def phase_kernelgan(dev, failures: list) -> dict:
     return result
 
 
+#: the denoise phase (the defaults of kmsr_tpu/pipeline/run_all.py:78-84):
+#: 32 in-memory "files" of 5x256x256, 8 a chunk, h_factor 1.0; the pool
+#: of 32x32 crops, 5 a file, seed 42
+DN_FILES, DN_BATCH, DN_H_FACTOR = 32, 8, 1.0
+DN_POOL_PATCH, DN_SAMPLES, DN_POOL_SEED = 32, 5, 42
+DN_WINDOWS = 5
+#: file -> its NaN holes: a rectangle in every band, a disk in bands 0-2,
+#: 1 % scattered pixels; and the all-NaN (dead) band
+DN_RECT, DN_DISK, DN_SCATTER, DN_DEAD = 1, 2, 3, (4, 3)
+#: card vs the port's CPU run, per pixel; sigma relative
+DN_SIGMA_REL = 1e-5
+#: FP32 operations a pixel-shift of a fused sweep would need: squared
+#: difference 2, running box sums 4, weight argument 3, exp 1, mask 1,
+#: weighted accumulation 4
+DN_FUSED_OPS = 15
+GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "tests", "fixtures", "denoise_golden")
+
+
+def denoise_data():
+    """DN_FILES seeded band stacks [5, 256, 256]: a smooth radiance-like
+    field (per band a level and a long-period wave) plus Gaussian noise of a
+    known sigma per band, with the NaN holes and the dead band above.
+    Returns (stacks [N, 5, 256, 256] float32, noise sigmas [N, 5])."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 10)
+    yy, xx = np.meshgrid(np.linspace(0, 1, HW), np.linspace(0, 1, HW), indexing="ij")
+    sig = rng.uniform(0.02, 0.1, (DN_FILES, C))
+    stacks = np.empty((DN_FILES, C, HW, HW), np.float32)
+    for i in range(DN_FILES):
+        level = rng.uniform(0.5, 4.0, (C, 1, 1))
+        fx, fy, ph = rng.uniform(0.5, 2.0, (3, C, 1, 1))
+        clean = level * (1 + 0.3 * np.sin(2 * np.pi * (fx * xx + fy * yy) + ph))
+        stacks[i] = clean + sig[i][:, None, None] * rng.standard_normal((C, HW, HW))
+    stacks[DN_RECT, :, 40:100, 60:140] = np.nan
+    stacks[DN_DISK, :3][:, (yy * HW - 180) ** 2 + (xx * HW - 70) ** 2 < 30 ** 2] = np.nan
+    scatter = rng.random((HW, HW)) < 0.01
+    stacks[DN_SCATTER][:, scatter] = np.nan
+    stacks[DN_DEAD] = np.nan
+    return stacks, sig
+
+
+class InMemoryDenoiseIO:
+    """Swaps the denoise CLI's file reads and writes for a dict of stacks
+    (the card's machine has no h5py), so `batch_denoise` — its chunking,
+    one-deep pipeline, fallback and accounting — runs as a user runs it."""
+
+    def __init__(self, stacks):
+        self.inputs = {f"mem/p{i:03d}.nc": s for i, s in enumerate(stacks)}
+        self.outputs = {}
+
+    def __enter__(self):
+        from kmsr_tpu_torch.pipeline import denoise_cli
+
+        self._saved = {k: getattr(denoise_cli, k) for k in
+                       ("list_patch_files", "read_band_stack", "_write_denoised")}
+        denoise_cli.list_patch_files = lambda d, pattern: sorted(self.inputs)
+        denoise_cli.read_band_stack = lambda path, group: self.inputs[path]
+        denoise_cli._write_denoised = self._write
+        return self
+
+    def _write(self, path, output_dir, stack, denoised, sigmas, h_factor, **_):
+        self.outputs[path] = (denoised, [float(s) for s in sigmas])
+        return path
+
+    def __exit__(self, *exc):
+        from kmsr_tpu_torch.pipeline import denoise_cli
+
+        for k, v in self._saved.items():
+            setattr(denoise_cli, k, v)
+
+    def results(self):
+        import numpy as np
+
+        keys = sorted(self.inputs)
+        return (np.stack([self.outputs[k][0] for k in keys]),
+                np.array([self.outputs[k][1] for k in keys], np.float32))
+
+
+def run_batch_denoise(stacks, dev):
+    """`batch_denoise` over the in-memory stacks at the DAG's settings:
+    (report, denoised [N, 5, H, W], sigmas [N, 5], seconds, stage timers)."""
+    import torch
+
+    from kmsr_tpu_torch.pipeline.denoise_cli import batch_denoise
+    from kmsr_tpu_torch.utils.profiling import timing_report
+
+    timing_report(reset=True)
+    with InMemoryDenoiseIO(stacks) as io:
+        t0 = time.perf_counter()
+        report = batch_denoise("mem", "unused", h_factor=DN_H_FACTOR,
+                               device_batch=DN_BATCH, progress=False, device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    stages = {k: v["total_s"] for k, v in timing_report(reset=True).items()}
+    if report.n_ok != len(stacks):
+        return report, None, None, secs, stages
+    return (report, *io.results(), secs, stages)
+
+
+def nlm_spelling_bytes(n_img: int, hgt: int, wid: int, ps: int, pd: int) -> int:
+    """HBM bytes `ops.nlm.nlm_denoise_2d` moves when each of its operations
+    reads each input once and writes its output once. Per lattice row: the
+    squared difference (subtract into the buffer, square in place), the
+    7x7 patch mean, four weight passes, the border mask (one byte an
+    entry), the weighted product, two sums over the shifts and two
+    accumulations; float32, the padded image read once a row."""
+    o, s = ps // 2, 2 * pd + 1
+    hb, wb, wp = hgt + 2 * o, wid + 2 * o, wid + 2 * (pd + o)
+    img, big, buf = n_img * hgt * wid, n_img * s * hgt * wid, n_img * s * hb * wb
+    floats = (
+        n_img * hb * (wb + wp) + buf + 2 * buf    # subtract, square
+        + buf + big                               # patch mean
+        + 4 * 2 * big + 2 * big                   # sub, clamp, div, exp; mask
+        + big + n_img * hgt * (wid + 2 * pd) + big  # w * shifted
+        + 2 * (big + img) + 2 * 3 * img           # two sums, two adds
+    )
+    return s * (4 * floats + s * hgt * wid)
+
+
+def profile_device(fn, runs: int = 3) -> dict:
+    """Per call of fn (`cuda_device_ms`): device ms of the kernels and of
+    the copies, kernel launches, and the kernels with the most time."""
+    from kmsr_tpu_torch.utils.profiling import cuda_device_ms
+
+    d = cuda_device_ms(fn, runs=runs)
+    copies = [k for k in d["kernels"] if k.startswith(("Memcpy", "Memset"))]
+    kern = {k: ms for k, ms in d["kernels"].items() if k not in copies}
+    top = sorted(kern, key=kern.get, reverse=True)[:6]
+    return {"kernel_ms": sum(kern.values()), "copy_ms": d["device_ms"] - sum(kern.values()),
+            "device_ms": d["device_ms"],
+            "launches": sum(n for k, n in d["launches"].items() if k not in copies),
+            "top_kernels": [{"kernel": k[:70], "ms": kern[k], "launches": d["launches"][k]}
+                            for k in top]}
+
+
+def denoise_timing(chunk, dev, card: str) -> dict:
+    """One chunk (DN_BATCH files) through dispatch + finalize: median of
+    DN_WINDOWS synchronized windows, the host's dispatch time, the
+    profiler's device time, busy share and launches, the sigma pass's share,
+    peak device memory, and the spelling's byte bound beside a fused
+    sweep's compute floor."""
+    import numpy as np
+    import torch
+
+    from kmsr_tpu_torch.ops.nlm import (PATCH_DISTANCE, PATCH_SIZE, denoise_batch_dispatch,
+                                        denoise_batch_finalize, nlm_denoise_2d)
+    from kmsr_tpu_torch.ops.sigma import estimate_sigma
+
+    def one_chunk():
+        return denoise_batch_finalize(denoise_batch_dispatch(chunk, DN_H_FACTOR, dev))
+
+    one_chunk()
+    walls, dispatch = [], []
+    torch.cuda.reset_peak_memory_stats(dev)
+    for _ in range(DN_WINDOWS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        handle = denoise_batch_dispatch(chunk, DN_H_FACTOR, dev)
+        t1 = time.perf_counter()
+        denoise_batch_finalize(handle)
+        walls.append(time.perf_counter() - t0)
+        dispatch.append(t1 - t0)
+    peak = torch.cuda.max_memory_allocated(dev)
+    wall = sorted(walls)[len(walls) // 2]
+    whole = profile_device(one_chunk)
+    x = torch.from_numpy(np.nan_to_num(chunk.reshape(-1, HW, HW), nan=1.0)).to(dev)
+    sig = estimate_sigma(x)
+    sigma_pass = profile_device(lambda: estimate_sigma(x))
+    sweep = profile_device(lambda: nlm_denoise_2d(x, sig * DN_H_FACTOR, sig))
+    n_img = x.shape[0]
+    pix = n_img * HW * HW
+    bw, fp32, _ = peaks(card)
+    nbytes = nlm_spelling_bytes(n_img, HW, HW, PATCH_SIZE, PATCH_DISTANCE)
+    pixel_shifts = pix * (2 * PATCH_DISTANCE + 1) ** 2
+    return {
+        "chunk": list(chunk.shape), "band_pixels": pix,
+        "mpix_per_s": pix / wall / 1e6, "wall_ms": wall * 1e3,
+        "wall_ms_windows": [w * 1e3 for w in walls],
+        "dispatch_ms": sorted(dispatch)[len(dispatch) // 2] * 1e3,
+        "device_ms": whole["device_ms"], "kernel_ms": whole["kernel_ms"],
+        "copy_ms": whole["copy_ms"], "busy_share": whole["device_ms"] / (wall * 1e3),
+        "launches_per_chunk": whole["launches"], "top_kernels": whole["top_kernels"],
+        "sigma_ms": sigma_pass["kernel_ms"], "sigma_launches": sigma_pass["launches"],
+        "sigma_share": sigma_pass["kernel_ms"] / whole["kernel_ms"],
+        "sweep_ms": sweep["kernel_ms"], "sweep_launches": sweep["launches"],
+        "peak_mem_gb": peak / 1e9,
+        "spelling_gb": nbytes / 1e9, "spelling_bound_ms": nbytes / bw * 1e3,
+        "pixel_shifts": pixel_shifts,
+        "fused_floor_ms": max(pixel_shifts * DN_FUSED_OPS / fp32,
+                              2 * 4 * pix / bw) * 1e3,
+        "fused_floor_by": "operations" if pixel_shifts * DN_FUSED_OPS / fp32
+                          > 2 * 4 * pix / bw else "bytes",
+    }
+
+
+def denoise_goldens(dev, failures: list) -> dict:
+    """The three skimage goldens on the card, with tests/test_denoise.py's
+    assertions: sigma rel 1e-3, RMSE/scale < 1e-3 against the exact-exp
+    result and < 3e-3 against skimage's internals."""
+    import glob
+
+    import numpy as np
+    import torch
+
+    from kmsr_tpu_torch.ops.nlm import nlm_denoise_2d
+    from kmsr_tpu_torch.ops.sigma import estimate_sigma
+
+    out = {}
+    paths = sorted(glob.glob(os.path.join(GOLDEN_DIR, "*.npz")))
+    if len(paths) < 3:
+        failures.append(f"denoise goldens: {len(paths)} found in {GOLDEN_DIR}")
+    for path in paths:
+        z = np.load(path)
+        img = torch.from_numpy(z["img"].astype(np.float32)).to(dev)
+        sig = float(estimate_sigma(img))
+        den = nlm_denoise_2d(img, float(z["h"]), float(z["sigma"]),
+                             int(z["patch_size"]), int(z["patch_distance"])).cpu().numpy()
+        scale = float(np.std(z["img"])) or 1.0
+        rec = {"sigma_rel": abs(sig / float(z["sigma"]) - 1),
+               "rmse_exact": float(np.sqrt(np.mean((den - z["denoised_exact"]) ** 2))) / scale,
+               "rmse_skimage": float(np.sqrt(np.mean((den - z["denoised_skimage"]) ** 2)))
+               / scale}
+        rec["ok"] = rec["sigma_rel"] <= 1e-3 and rec["rmse_exact"] < 1e-3 \
+            and rec["rmse_skimage"] < 3e-3
+        if not rec["ok"]:
+            failures.append(f"denoise golden {os.path.basename(path)}: {rec}")
+        out[os.path.basename(path)] = rec
+    return out
+
+
+def denoise_chain(stacks, den, dev, failures: list) -> dict:
+    """The noise pool from raw - denoised of every file (the port's
+    `noise_crops`, DN_SAMPLES crops a file, seed DN_POOL_SEED), held bit for
+    bit against a plain host build of the same draws; then the x8 factory's
+    .npy route (v3psn) on 256 seeded patches with that pool, every lr
+    against the plain degrade(hr) + pool[idx] (NaN cells of the pool's
+    holes included), one launch a 128-patch batch."""
+    import numpy as np
+
+    from kmsr_tpu_torch import kernels
+    from kmsr_tpu_torch.data.noise_pool import noise_crops
+    from kmsr_tpu_torch.pipeline import factory
+
+    rng = np.random.default_rng(DN_POOL_SEED)
+    pool = np.stack([c for s, d in zip(stacks, den) for c in
+                     noise_crops(rng, s, d, DN_POOL_PATCH, DN_SAMPLES)]).astype(np.float32)
+    rng = np.random.default_rng(DN_POOL_SEED)
+    plain = np.empty_like(pool)
+    for i, (s, d) in enumerate(zip(stacks, den)):
+        for j in range(DN_SAMPLES):
+            top = rng.integers(0, HW - DN_POOL_PATCH + 1)
+            left = rng.integers(0, HW - DN_POOL_PATCH + 1)
+            plain[i * DN_SAMPLES + j] = (s - d)[:, top:top + DN_POOL_PATCH,
+                                                left:left + DN_POOL_PATCH]
+    pool_equal = pool.shape == (DN_FILES * DN_SAMPLES, C, DN_POOL_PATCH, DN_POOL_PATCH) \
+        and np.array_equal(pool, plain, equal_nan=True)
+    if not pool_equal:
+        failures.append(f"denoise chain: pool {pool.shape} differs from the plain build")
+    tmp = tempfile.mkdtemp(prefix="kmsr_chip_denoise_")
+    try:
+        prng = np.random.default_rng(SEED + 11)
+        files = []
+        for i in range(N_FILES):
+            files.append(os.path.join(tmp, f"scene_{i:04d}.npy"))
+            np.save(files[-1], prng.normal(5, 2, (C, HW, HW)).astype(np.float32))
+        k_path, pool_path = os.path.join(tmp, "kernel.npy"), os.path.join(tmp, "pool.npy")
+        np.save(k_path, prng.uniform(0.1, 1, (C, KSIZE, KSIZE)).astype(np.float32))
+        np.save(pool_path, pool)
+        kernel, host_pool, noise_of = factory.factory_inputs(files, k_path, pool_path,
+                                                             seed=42, device=dev)
+        kernels.reset_launches()
+        res = drive(factory.factory_batches(files, k_path, pool_path, factor=FACTOR,
+                                            batch_size=128, seed=42, backend="auto",
+                                            input_format="npy", device=dev),
+                    files, kernel, host_pool, noise_of, dev, True, failures,
+                    "denoise chain")
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    batches = -(-N_FILES // 128)
+    degrades = sum(n for k, n in launches.items() if k.startswith("degrade_"))
+    if launches["degrade_v3psn"] != batches or degrades != batches:
+        failures.append(f"denoise chain: launches {launches}, want degrade_v3psn once "
+                        f"per batch ({batches}) and nothing else")
+    nan_entries = int(np.isnan(pool).any(axis=(1, 2, 3)).sum())
+    return {"pool_shape": list(pool.shape), "pool_bit_equal_plain": pool_equal,
+            "pool_entries_with_nan": nan_entries, "launches": launches, **res}
+
+
+def phase_denoise(dev, card: str, failures: list) -> dict:
+    """Denoise -> noise pool -> factory on the card at full width (module
+    docstring, phase 10)."""
+    import numpy as np
+    import torch
+
+    from kmsr_tpu_torch import kernels
+    from kmsr_tpu_torch.ops.nlm import denoise_batch, denoise_stack
+
+    t0 = time.perf_counter()
+    stacks, noise_sig = denoise_data()
+    log(f"[denoise] {DN_FILES} stacks {tuple(stacks.shape[1:])} made in "
+        f"{time.perf_counter() - t0:.1f}s")
+    kernels.reset_launches()
+    report, den, sig, secs, stages = run_batch_denoise(stacks, dev)
+    launched = {k: n for k, n in kernels.LAUNCHES.items() if n}
+    checks = {"files_ok": report.n_ok == DN_FILES and report.n_fail == 0,
+              "fallbacks_0": report.fallbacks == 0, "no_degrade_kernel": not launched}
+    if den is not None:
+        dead = np.zeros(sig.shape, bool)
+        dead[DN_DEAD] = True
+        ratio = sig[~dead] / noise_sig[~dead]
+        checks.update({
+            "nan_cells_restored": bool(np.array_equal(np.isnan(den), np.isnan(stacks))),
+            "dead_band_identical": bool(np.array_equal(den[DN_DEAD], stacks[DN_DEAD],
+                                                       equal_nan=True))
+                                   and float(sig[DN_DEAD]) == 0.0,
+            "sigma_within_25pct": bool(np.isfinite(sig).all()
+                                       and np.abs(ratio - 1).max() <= 0.25),
+        })
+        chunked = [denoise_batch(stacks[s:s + DN_BATCH], DN_H_FACTOR, dev)
+                   for s in range(0, DN_FILES, DN_BATCH)]
+        den_c = np.concatenate([d for d, _ in chunked])
+        sig_c = np.concatenate([s for _, s in chunked])
+        pipelined_bit_equal = bool(np.array_equal(den_c, den, equal_nan=True)
+                                   and np.array_equal(sig_c, sig))
+        checks["pipelined_equals_per_chunk"] = pipelined_bit_equal or bool(
+            np.allclose(den_c, den, rtol=1e-6, atol=1e-7, equal_nan=True)
+            and np.allclose(sig_c, sig, rtol=1e-6))
+        cpu_den, cpu_sig = denoise_stack(stacks[DN_RECT], DN_H_FACTOR, device="cpu")
+        card_vs_cpu = {
+            "max_abs_err": float(np.nanmax(np.abs(cpu_den - den[DN_RECT]))),
+            "sigma_max_rel": float(np.max(np.abs(np.array(cpu_sig) / sig[DN_RECT] - 1))),
+        }
+        checks["card_vs_cpu"] = bool(
+            np.allclose(den[DN_RECT], cpu_den, rtol=RTOL, atol=ATOL, equal_nan=True)
+            and card_vs_cpu["sigma_max_rel"] <= DN_SIGMA_REL)
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        failures.append(f"denoise: failed checks {bad} (report {report.summary()}, "
+                        f"fallbacks {report.fallbacks}, launched {launched})")
+    result = {"checks": checks, "checks_failed": bad, "seconds_first_run": secs,
+              "stages_first_run_s": stages, "fallbacks": report.fallbacks}
+    if den is None:
+        return result
+    result.update({
+        "sigma_over_noise_sigma": [float(ratio.min()), float(ratio.max())],
+        "card_vs_cpu": card_vs_cpu, "pipelined_bit_equal_per_chunk": pipelined_bit_equal,
+        "goldens": denoise_goldens(dev, failures)})
+    log(f"[denoise] batch_denoise: {report.summary()}, fallbacks {report.fallbacks}; "
+        f"checks {'ok' if not bad else bad}; sigma/noise sigma "
+        f"{result['sigma_over_noise_sigma']}; card vs CPU {card_vs_cpu}; goldens "
+        + str({k: {m: f"{v:.3g}" for m, v in r.items() if m != "ok"}
+               for k, r in result["goldens"].items()}))
+    result["chain"] = denoise_chain(stacks, den, dev, failures)
+    log(f"[denoise] chain: pool {result['chain']['pool_shape']} (bit-equal to the plain "
+        f"build: {result['chain']['pool_bit_equal_plain']}, "
+        f"{result['chain']['pool_entries_with_nan']} entries with NaN), factory x8 .npy "
+        f"{result['chain']['patches']} patches, launches {result['chain']['launches']}, "
+        f"lr max_abs_err {result['chain']['max_abs_err']:.3g}")
+    timing = denoise_timing(stacks[:DN_BATCH], dev, card)
+    _, _, _, secs2, stages2 = run_batch_denoise(stacks, dev)
+    timing.update({"pipelined_run_s": secs2, "pipelined_stages_s": stages2,
+                   "pipelined_mpix_per_s": DN_FILES * C * HW * HW / secs2 / 1e6})
+    result["timing"] = timing
+    log(f"[denoise] timing ({card}): chunk {timing['chunk']}: {timing['mpix_per_s']:.2f} "
+        f"Mpix/s, wall {timing['wall_ms']:.3f} ms (windows "
+        f"{[round(w, 3) for w in timing['wall_ms_windows']]}), dispatch "
+        f"{timing['dispatch_ms']:.3f} ms, device {timing['device_ms']:.3f} ms (kernels "
+        f"{timing['kernel_ms']:.3f}, copies {timing['copy_ms']:.3f}), busy share "
+        f"{timing['busy_share']:.3f}, {timing['launches_per_chunk']:.0f} launches a chunk, "
+        f"sigma pass {timing['sigma_ms']:.3f} ms ({timing['sigma_share']:.3%}), sweep "
+        f"{timing['sweep_ms']:.3f} ms; spelling {timing['spelling_gb']:.1f} GB -> bound "
+        f"{timing['spelling_bound_ms']:.3f} ms; fused floor {timing['fused_floor_ms']:.4f} "
+        f"ms ({timing['fused_floor_by']}); peak memory {timing['peak_mem_gb']:.2f} GB; "
+        f"whole {DN_FILES}-file pipelined run {secs2:.3f} s = "
+        f"{timing['pipelined_mpix_per_s']:.2f} Mpix/s, stages {stages2}")
+    torch.cuda.empty_cache()
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -1392,6 +1805,11 @@ def main() -> int:
         kernelgan_res = phase_kernelgan(dev, failures)
         kernelgan_res["nvidia_smi"] = smi
         log(f"[kernelgan] {'ok' if not failures else 'FAILED'}")
+        t_dn = time.perf_counter()
+        denoise_res = phase_denoise(dev, card, failures)
+        denoise_res["nvidia_smi"] = smi
+        log(f"[denoise] {'ok' if not failures else 'FAILED'} in "
+            f"{time.perf_counter() - t_dn:.1f}s")
     except Exception:
         traceback.print_exc()
         return 1
@@ -1440,6 +1858,7 @@ def main() -> int:
     log(json.dumps({"scene": scene_res}))
     log(json.dumps({"api": api_res}))
     log(json.dumps({"kernelgan": kernelgan_res}))
+    log(json.dumps({"denoise": denoise_res}))
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f}s")
     log(smi)
     log(json.dumps({"kernels": records}))

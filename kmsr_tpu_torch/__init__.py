@@ -26,7 +26,13 @@ whole-scene degrade (`pipeline.degrade_scene` -> `parallel.spatial` ->
 `ops.degrade_scene_fast`, the scene stencil kernel over row slabs);
 single-kernel KernelGAN training (`pipeline.train_single_kernel_cli` ->
 `train.single_kernel` -> `models`, `losses`; plain PyTorch, as the JAX
-path is XLA convolutions, no Pallas kernel).
+path is XLA convolutions, no Pallas kernel); the front half of the data
+DAG: NLM denoising (`pipeline.denoise_cli` -> `ops.nlm`, `ops.sigma`;
+plain PyTorch, as the JAX NLM is an XLA shift sweep), the noise pool
+(`pipeline.noise_pool_cli` -> `data.noise_pool`), the patch cutter
+(`pipeline.cut` -> `data.patches`, `data.mask`) and the shape gate
+(`pipeline.check_shapes`), so every stage of the default single-kernel
+DAG runs through the port's own CLIs.
 """
 
 __version__ = "0.1.0"

@@ -1,8 +1,8 @@
 """Shared pipeline-runner plumbing: per-file failure isolation + accounting.
 
-The port's copy of the parts of `kmsr_tpu.pipeline.common` the factory
-and the trainer CLI use: `RunReport`, `run_per_file`, `DeviceSyncGuard`,
-`chunked_reader` and `maybe_trace`.
+The port's copy of the parts of `kmsr_tpu.pipeline.common` the factory,
+the denoise and cut stages and the trainer CLI use: `RunReport`,
+`run_per_file`, `DeviceSyncGuard`, `chunked_reader` and `maybe_trace`.
 Every reference batch driver wraps its per-file work in try/except-continue
 with success/failure counting (`A_00_patch_cutter_universal.py:409-419`,
 `E_make_train_data.py:264-272`, `denoise/batch_denoise.py:60-93`) so one
@@ -23,6 +23,9 @@ class RunReport:
     succeeded: list
     failed: list            # (item, error string)
     seconds: float
+    #: files a batched stage sent down its per-file path instead (odd
+    #: shapes, or a failed batch); 0 where a stage has no such path
+    fallbacks: int = 0
 
     @property
     def n_ok(self) -> int:

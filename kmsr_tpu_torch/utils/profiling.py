@@ -82,7 +82,8 @@ def cuda_device_ms(fn: Callable[[], object], runs: int = 10,
     launches that `cuda_time_ms` also sees when the host is the slower
     side. Each kernel's mean duration is taken over the records the trace
     holds, times its launches per call. Returns {"device_ms": their sum,
-    "kernels": {name: ms per call}}. A trace that holds no kernel record
+    "kernels": {name: ms per call}, "launches": {name: records per
+    call}}; copies count as kernels here. A trace that holds no kernel record
     (CUPTI now and then delivers none) is taken again, up to `attempts`
     traces. Raises on a host without a card, or if no trace saw a kernel.
     """
@@ -98,11 +99,13 @@ def cuda_device_ms(fn: Callable[[], object], runs: int = 10,
             for _ in range(runs):
                 fn()
             torch.cuda.synchronize()
-        kernels = {}
+        kernels, launches = {}, {}
         for ev in prof.key_averages():
             us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
             if us > 0 and ev.count:
                 kernels[ev.key] = us / ev.count * max(1, round(ev.count / runs)) / 1e3
+                launches[ev.key] = ev.count / runs
         if kernels:
-            return {"device_ms": sum(kernels.values()), "kernels": kernels}
+            return {"device_ms": sum(kernels.values()), "kernels": kernels,
+                    "launches": launches}
     raise RuntimeError(f"the profiler saw no kernel on the device in {attempts} traces")

@@ -63,6 +63,48 @@ def test_importing_the_factory_loads_no_jax():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+def test_importing_the_data_dag_stages_loads_no_jax():
+    """The denoise / noise-pool / cut / check_shapes stages and the modules
+    they reach (sigma, NLM, mask, patches, the denoise figure)."""
+    code = (
+        "import sys; import kmsr_tpu_torch.pipeline.denoise_cli, "
+        "kmsr_tpu_torch.pipeline.noise_pool_cli, kmsr_tpu_torch.pipeline.cut, "
+        "kmsr_tpu_torch.pipeline.check_shapes, kmsr_tpu_torch.ops, "
+        "kmsr_tpu_torch.ops.nlm, kmsr_tpu_torch.ops.sigma, "
+        "kmsr_tpu_torch.data.mask, kmsr_tpu_torch.data.patches, "
+        "kmsr_tpu_torch.data.noise_pool, kmsr_tpu_torch.analysis.visualize; "
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'optax', 'orbax', 'kmsr_tpu', 'matplotlib')]; print(bad); "
+        "sys.exit(1 if bad else 0)"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_denoise_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the check is for machines without one")
+    from kmsr_tpu_torch.ops import nlm
+    from kmsr_tpu_torch.pipeline import denoise_cli
+
+    stack = np.ones((2, 16, 16), np.float32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        nlm.denoise_stack(stack)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        nlm.denoise_batch_dispatch(stack[None])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        denoise_cli.batch_denoise(str(tmp_path), str(tmp_path / "out"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        denoise_cli.main(["--batch", str(tmp_path), "--output", str(tmp_path / "o")])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        denoise_cli.main(["--batch", str(tmp_path), "--output", str(tmp_path / "o"),
+                          "--device-batch", "1"])
+    assert not (tmp_path / "out").exists() and not (tmp_path / "o").exists()
+
+
 def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device; the check is for hosts without")
