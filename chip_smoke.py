@@ -111,10 +111,48 @@ and exits non-zero without them. Phases, one line each:
    launches; the sigma pass's share; peak device memory; the byte bound
    of the NLM's spelling and a fused sweep's compute floor), and the whole
    32-file pipelined run with its stage timers.
+11. moe-dynamic: the two other kernel estimators and their routes, none of
+   which launches a kernel of the table (JAX's are XLA: cuDNN convs and
+   aten ops here; the eight launch counts are set to 0 before each route
+   and must read 0 after it). (a) configs/quality_x4_moe.json's factory
+   stage: `moe_batches` (the `--moe` route of `run_factory`, .npy input)
+   at x4, batch 128, seed 42, on 256 seeded 5x256x256 patches with a
+   [64, 5, 64, 64] pool and the committed model
+   quality_run_r4/work_x4/kernel_run in eval mode; every lr against the
+   port's CPU path with the card's experts (rtol 1e-4 / atol 1e-5), the
+   experts equal to the CPU's except where the top-2 logit margin is
+   under 1e-4 (each batch's smallest margin printed); `--moe-noise
+   sigma`: finite, and the noise's std per (expert, band) within 10 % of
+   softplus(sigma_bank); apply_kernel's device function (`make_degrader`)
+   on one batch equal to the factory's lr minus its pool noise; a timed
+   pass (patches/s, stage timers, peak memory). (b) `train_moe` at the
+   config's widths (10 experts, 13x13, x4, batch 8, HR 256, real crops 64,
+   the default D) on a seeded in-memory pool of 64 patches: 20 iterations
+   with host batches, 40 with the device pool and 20 steps a call; finite
+   losses, parameters moved, selections summing to 8, ten non-negative
+   kernel_i.npy whose bands sum to 1 (1e-5), positive sigma_i.npy,
+   moe_model.npz's names equal to the committed file's, the factory's
+   loader reading it back. (c) `train_dynamic` at the defaults (mid_ch 32,
+   ks 7,5,3,1,1,1, x8, batch 8, real crops 32): 20 iterations with host
+   batches, 40 with 10 steps a call; finite CSV rows under DYN_LOG_HEADER,
+   a non-negative [5,13,13] kernel_per_band.npy whose bands sum to 1 (or
+   are all zero: a band the clamp zeroed, as the reference's extraction
+   leaves it), kernel_merged.npy, one bulk-extracted kernel a pool entry;
+   and the device time of G's forward + backward with the chain's
+   activations channels_last and NCHW. For (b) and (c): iterations/s
+   (median of 5 synchronized windows), the profiler's device time an
+   iteration, busy share and the top device operations (K=1 runs). (d)
+   one train step of each at full widths (batch 2) on the card, on the
+   CPU and on the card in float64, from the same weights in the JAX
+   layout with the same fixed draws: losses,
+   selections / sigma / kernels (rtol 1e-4 / atol 1e-5), gradients (the
+   scaled rule, or no further from the float64 step than twice the
+   CPU's float32 distance from it) and the updated parameters (Adam's
+   first-step bound, `adam_step_excess`).
 
 Prints one JSON line {"factory": {...}} (per-route results), one
 {"scene": {...}}, one {"api": {...}}, one {"kernelgan": {...}}, one
-{"denoise": {...}}, then the
+{"denoise": {...}}, one {"moe_dynamic": {...}}, then the
 card's nvidia-smi line, one JSON line {"kernels": [...]} and, last,
 {"ok": true, "device": {...}}. Any mismatch or error in any phase, timing
 included, exits non-zero before that last line.
@@ -1767,6 +1805,643 @@ def phase_denoise(dev, card: str, failures: list) -> dict:
     return result
 
 
+#: the MoE / dynamic phase (configs/quality_x4_moe.json's stages): the
+#: committed x4 model, 256 seeded 5x256x256 patches in 128-patch batches,
+#: a [64, 5, 64, 64] pool; training at the config's widths (10 experts,
+#: 13x13, x4, batch 8, HR 256, real crops 64) and the dynamic model at its
+#: defaults (mid_ch 32, ks 7,5,3,1,1,1, x8, batch 8, real crops 32), each
+#: on a seeded in-memory pool of 64 patches
+MOE_MODEL = os.path.join(os.path.dirname(os.path.abspath(__file__)), "quality_run_r4",
+                         "work_x4", "kernel_run")
+MOE_FACTOR, MOE_FILES, MOE_POOL_N, MOE_SEED = 4, 256, 64, 42
+MD_POOL_N, MD_WINDOWS, MD_WINDOW_ITERS, MD_OPS_ITERS = 64, 5, 5, 1
+#: two experts whose logits lie closer than this may swap between devices
+MOE_MARGIN_TIE = 1e-4
+#: --moe-noise sigma: the noise's std per (expert, band) vs softplus(sigma_bank)
+MOE_SIGMA_STD_REL = 0.10
+
+
+def moe_patch_files(tmp: str) -> tuple[list, str]:
+    """MOE_FILES seeded .npy patches, each band with its own contrast and
+    offset (so the selector spreads them over several experts), and the
+    noise pool."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 11)
+    files = []
+    for i in range(MOE_FILES):
+        path = os.path.join(tmp, f"patch_{i:04d}.npy")
+        a = rng.normal(0, 1, (C, HW, HW)) * rng.uniform(0.2, 3, (C, 1, 1)) \
+            + rng.uniform(0, 10, (C, 1, 1))
+        np.save(path, a.astype(np.float32))
+        files.append(path)
+    pool_path = os.path.join(tmp, "pool.npy")
+    oh = HW // MOE_FACTOR
+    np.save(pool_path, rng.normal(0, 0.1, (MOE_POOL_N, C, oh, oh)).astype(np.float32))
+    return files, pool_path
+
+
+def drain(batches, on_batch) -> float:
+    """Consume a factory generator as run_factory does (batch k synchronized
+    after batch k+1 was dispatched), calling on_batch(paths, hr, lr,
+    experts) with lr and experts on the host; returns the seconds."""
+    import torch
+
+    from kmsr_tpu_torch.utils.profiling import stage_timer
+
+    def sync(paths, hr, lr, experts):
+        with stage_timer("factory.device_sync"):
+            lr, experts = lr.cpu(), experts.cpu()
+        on_batch(paths, hr, lr, experts)
+
+    t0 = time.perf_counter()
+    pending = None
+    for paths, hr, lr, experts, fails in batches:
+        if fails:
+            raise RuntimeError(f"per-file failures {fails}")
+        if pending is not None:
+            sync(*pending)
+        pending = (paths, hr, lr, experts)
+    if pending is not None:
+        sync(*pending)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def no_kernel_launched(label: str, failures: list) -> None:
+    from kmsr_tpu_torch import kernels
+
+    launched = {k: n for k, n in kernels.LAUNCHES.items() if n}
+    if launched:
+        failures.append(f"{label}: launched degrade kernels {launched}")
+
+
+def moe_factory(dev, failures: list) -> dict:
+    """(a): the x4 factory's MoE route with the committed model (eval mode),
+    every lr against the port's CPU path, the sigma-noise route's
+    statistics, apply_kernel's device function, and the timing."""
+    import numpy as np
+    import torch
+
+    from kmsr_tpu_torch import kernels
+    from kmsr_tpu_torch.models.moe import effective_kernels, effective_sigmas
+    from kmsr_tpu_torch.ops.degrade import degrade_batch_kernels
+    from kmsr_tpu_torch.pipeline import apply_kernel, factory
+    from kmsr_tpu_torch.utils.profiling import timing_report
+
+    tmp = tempfile.mkdtemp(prefix="kmsr_chip_moe_")
+    try:
+        t0 = time.perf_counter()
+        files, pool_path = moe_patch_files(tmp)
+        log(f"[moe-dynamic] wrote {len(files)} patches in {time.perf_counter() - t0:.1f}s")
+        pool, noise_of = factory.noise_inputs(files, pool_path, seed=MOE_SEED)
+        model = factory.load_moe_for_factory(MOE_MODEL, dev)
+        cpu_model = factory.load_moe_for_factory(MOE_MODEL, "cpu")
+        cpu_banks = effective_kernels(cpu_model[0])
+        if not (model[2] and cpu_model[2]):
+            failures.append("moe factory: the committed model did not load in eval mode")
+
+        def make(moe_noise):
+            return factory.moe_batches(files, model, pool, noise_of, factor=MOE_FACTOR,
+                                       batch_size=B, seed=MOE_SEED, moe_noise=moe_noise,
+                                       input_format="npy", device=dev)
+
+        res = {"patches": len(files), "batch": B, "factor": MOE_FACTOR,
+               "pool": list(pool.shape), "eval_mode": bool(model[2]),
+               "min_top2_margin": [], "experts_differ": 0, "experts_differ_at_ties": 0,
+               "expert_counts": [0] * int(cpu_banks.shape[0]), "max_abs_err": 0.0}
+        first = {}
+
+        def check(paths, hr, lr, experts):
+            hr_c = torch.from_numpy(hr)
+            logits = factory.moe_logits(cpu_model, hr_c)
+            top2 = logits.topk(2, dim=-1).values
+            margin = top2[:, 0] - top2[:, 1]
+            res["min_top2_margin"].append(float(margin.min()))
+            differ = experts != logits.argmax(-1)
+            res["experts_differ"] += int(differ.sum())
+            res["experts_differ_at_ties"] += int((differ & (margin < MOE_MARGIN_TIE)).sum())
+            for e in experts.tolist():
+                res["expert_counts"][e] += 1
+            # the CPU blur with the card's experts (a tie may pick either)
+            want = degrade_batch_kernels(hr_c, cpu_banks[experts], factor=MOE_FACTOR,
+                                         decimate=False, padding="replicate") \
+                + torch.from_numpy(pool[[noise_of[p] for p in paths]])
+            e = errors(lr, want)
+            res["max_abs_err"] = max(res["max_abs_err"], e["max_abs_err"])
+            if not e["ok"] or not bool(torch.isfinite(lr).all()):
+                failures.append(f"moe factory: lr vs the CPU path {e}")
+            if not first:
+                first.update(hr=hr, lr=lr, experts=experts, paths=paths)
+
+        kernels.reset_launches()
+        drain(make("pool"), check)
+        no_kernel_launched("moe factory (pool noise)", failures)
+        if res["experts_differ"] != res["experts_differ_at_ties"]:
+            failures.append(f"moe factory: experts differ from the CPU's off ties: {res}")
+
+        # apply_kernel --moe's device function on the first batch
+        fn, _ = apply_kernel.make_degrader(None, MOE_MODEL, MOE_FACTOR, dev)
+        kernels.reset_launches()
+        out_a, ex_a = fn(torch.from_numpy(first["hr"]).to(dev))
+        no_kernel_launched("apply_kernel --moe", failures)
+        noise = torch.from_numpy(pool[[noise_of[p] for p in first["paths"]]])
+        e = errors(out_a.cpu(), first["lr"] - noise)
+        res["apply_kernel_vs_factory"] = e
+        if not e["ok"] or not torch.equal(ex_a.cpu(), first["experts"]):
+            failures.append(f"apply_kernel --moe vs the factory's noise-free lr: {e}")
+
+        # --moe-noise sigma: finite; the noise's std per (expert, band)
+        sig = effective_sigmas(model[0]).detach().cpu().double()
+        sq = torch.zeros_like(sig)
+        cnt = torch.zeros(sig.shape[0], dtype=torch.float64)
+
+        def sigma_check(paths, hr, lr, experts):
+            if not bool(torch.isfinite(lr).all()):
+                failures.append("moe factory sigma: non-finite lr")
+            clean, _ = factory.moe_degrade(model, torch.from_numpy(hr).to(dev), MOE_FACTOR)
+            r = (lr - clean.cpu()).double()
+            sq.index_add_(0, experts, r.pow(2).sum(dim=(2, 3)))
+            cnt.index_add_(0, experts, torch.full((len(paths),), float(r[0, 0].numel()),
+                                                  dtype=torch.float64))
+
+        kernels.reset_launches()
+        drain(make("sigma"), sigma_check)
+        no_kernel_launched("moe factory (sigma noise)", failures)
+        used = cnt > 0
+        ratio = (sq[used] / cnt[used, None]).sqrt() / sig[used]
+        res["sigma_std_over_sigma"] = [float(ratio.min()), float(ratio.max())]
+        if float((ratio - 1).abs().max()) > MOE_SIGMA_STD_REL:
+            failures.append(f"moe factory sigma: std / sigma {res['sigma_std_over_sigma']}")
+
+        # timing: one unchecked pass, stage timers, peak memory
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        timing_report(reset=True)
+        secs = drain(make("pool"), lambda *a: None)
+        res["timing"] = {
+            "seconds": secs, "patches_per_s": len(files) / secs,
+            "stages_s": {k: r["total_s"] for k, r in timing_report(reset=True).items()},
+            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+        hr_dev = torch.from_numpy(first["hr"]).to(dev)
+        blur = lambda: factory.moe_degrade(model, hr_dev, MOE_FACTOR)  # noqa: E731
+        res["timing"]["batch_device"] = device_time(blur)
+        log(f"[moe-dynamic] (a) factory x{MOE_FACTOR} --moe {MOE_MODEL} (eval mode "
+            f"{res['eval_mode']}): {len(files)} patches, lr vs CPU max_abs_err "
+            f"{res['max_abs_err']:.3g}, experts {res['expert_counts']}, differ "
+            f"{res['experts_differ']} (at ties {res['experts_differ_at_ties']}), "
+            f"smallest top-2 margin per batch {[round(m, 6) for m in res['min_top2_margin']]}; "
+            f"apply_kernel vs factory {res['apply_kernel_vs_factory']['max_abs_err']:.3g}; "
+            f"sigma noise std/sigma {res['sigma_std_over_sigma']}; timed pass "
+            f"{secs:.3f}s = {res['timing']['patches_per_s']:.1f} patches/s, stages "
+            f"{res['timing']['stages_s']}, peak {res['timing']['peak_mem_gb']:.2f} GB; one "
+            f"batch's selection + blur {res['timing']['batch_device']}")
+        return res
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def training_timing(one_call, k: int, top_ops: bool = True) -> dict:
+    """Iterations/s of a train-step closure (k steps a call; median of
+    MD_WINDOWS synchronized windows of >= MD_WINDOW_ITERS iterations after
+    one warm-up call), the profiler's device time an iteration over one
+    window, the busy share and, with top_ops, the top device operations of
+    MD_OPS_ITERS iterations; with the seconds each part took."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from kmsr_tpu_torch.utils.profiling import cuda_device_ms
+
+    calls = -(-MD_WINDOW_ITERS // k)
+    t_start = time.perf_counter()
+    one_call()
+    walls = []
+    for _ in range(MD_WINDOWS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            one_call()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) / (calls * k))
+    wall = sorted(walls)[len(walls) // 2]
+    t_windows = time.perf_counter()
+    dev_ms = cuda_device_ms(one_call, runs=calls, warmup=0)["device_ms"] / k
+    t_device = time.perf_counter()
+    ops = []
+    if top_ops:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            for _ in range(MD_OPS_ITERS):
+                one_call()
+            torch.cuda.synchronize()
+        for ev in prof.key_averages(group_by_input_shape=True):
+            us = getattr(ev, "self_device_time_total", None)
+            us = us if us is not None else getattr(ev, "self_cuda_time_total", 0)
+            if us > 0 and ev.key.startswith("aten::"):
+                ops.append({"op": ev.key, "shapes": str(ev.input_shapes)[:160],
+                            "device_ms_per_iter": us / 1e3 / (MD_OPS_ITERS * k),
+                            "calls_per_iter": ev.count / (MD_OPS_ITERS * k)})
+        ops.sort(key=lambda o: -o["device_ms_per_iter"])
+    return {"iters_per_s": 1.0 / wall, "wall_ms_per_iter": wall * 1e3,
+            "wall_ms_per_iter_windows": [w * 1e3 for w in walls],
+            "window_iters": calls * k, "device_ms_per_iter": dev_ms,
+            "busy_share": dev_ms / (wall * 1e3), "top_ops": ops[:10],
+            "seconds": {"windows": t_windows - t_start, "device_ms": t_device - t_windows,
+                        "top_ops": time.perf_counter() - t_device}}
+
+
+def timing_line(label: str, t: dict) -> str:
+    return (f"{label}: {t['iters_per_s']:.2f} it/s (median of {MD_WINDOWS} windows of "
+            f"{t['window_iters']}, {t['wall_ms_per_iter']:.3f} ms/it, windows "
+            f"{[round(w, 3) for w in t['wall_ms_per_iter_windows']]}), device "
+            f"{t['device_ms_per_iter']:.3f} ms/it, busy {t['busy_share']:.3f}; seconds "
+            f"{ {p: round(v, 1) for p, v in t['seconds'].items()} }; top ops: "
+            + "; ".join(f"{o['op']} {o['shapes'][:50]} {o['device_ms_per_iter']:.3f} ms"
+                        for o in t["top_ops"][:5]))
+
+
+def moe_training(pool, dev, failures: list) -> dict:
+    """(b): `train_moe` at the x4 config's widths, host batches (K=1) and
+    the device pool with 20 steps a call; artifacts checked, then timed."""
+    import numpy as np
+    import torch
+
+    from kmsr_tpu_torch import kernels
+    from kmsr_tpu_torch.pipeline.factory import load_moe_for_factory
+    from kmsr_tpu_torch.train.moe import (MoETrainConfig, init_moe_training,
+                                          make_moe_train_step, train_moe)
+    from kmsr_tpu_torch.train.single_kernel import make_batch_source
+    from kmsr_tpu_torch.train.state import tree_leaves
+
+    committed = np.load(os.path.join(MOE_MODEL, "moe_model.npz"))
+    committed_names = [str(committed[f]) for f in sorted(committed.files)
+                       if f.startswith("name_")]
+    tmp = tempfile.mkdtemp(prefix="kmsr_chip_moe_train_")
+    res = {"runs": {}, "timing": {}}
+    try:
+        cfgs = {
+            "host_k1": MoETrainConfig(iters=20, device_pool=False, log_every=10,
+                                      outdir=os.path.join(tmp, "host"), verbose=False,
+                                      seed=SEED),
+            "pool_k20": MoETrainConfig(iters=40, device_pool=True, steps_per_call=20,
+                                       log_every=20, outdir=os.path.join(tmp, "pool"),
+                                       verbose=False, seed=SEED),
+        }
+        for name, cfg in cfgs.items():
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            out = train_moe(pool, cfg, progress=False, device=dev)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            no_kernel_launched(f"moe training {name}", failures)
+            init = init_moe_training(cfg, device=dev)
+            moved = max(float((a.detach() - b.detach()).abs().max()) for a, b in zip(
+                tree_leaves(out["state"].g_params), tree_leaves(init.g_params)))
+            ks = [np.load(os.path.join(cfg.outdir, f"kernel_{i}.npy")) for i in range(10)]
+            sg = [np.load(os.path.join(cfg.outdir, f"sigma_{i}.npy")) for i in range(10)]
+            saved = np.load(os.path.join(cfg.outdir, "moe_model.npz"))
+            names = [str(saved[f]) for f in sorted(saved.files) if f.startswith("name_")]
+            loaded = load_moe_for_factory(cfg.outdir, dev)
+            checks = {
+                "losses_finite": all(np.isfinite(d) for _, d, _ in out["history"]),
+                "params_moved": moved > 0,
+                "selection_sums": all(int(s.sum()) == cfg.batch_size
+                                      for _, _, s in out["history"]),
+                "kernels": all(k.shape == (C, KSIZE, KSIZE) and (k >= 0).all()
+                               and np.abs(k.sum(axis=(1, 2)) - 1).max() <= 1e-5 for k in ks),
+                "sigmas": all(s.shape == (C,) and (s > 0).all() for s in sg),
+                "npz_names_as_committed": names == committed_names,
+                "factory_loader_reads_it": bool(loaded[2]) and tuple(
+                    loaded[0]["kernel_bank"].shape) == (10, C, KSIZE, KSIZE),
+            }
+            bad = [k for k, ok in checks.items() if not ok]
+            if bad:
+                failures.append(f"moe training {name}: failed checks {bad}")
+            res["runs"][name] = {"iters": cfg.iters, "seconds_with_setup": secs,
+                                 "checks_failed": bad, "max_param_move": moved,
+                                 "history": [(i, d, s.tolist()) for i, d, s in out["history"]]}
+            log(f"[moe-dynamic] (b) moe training {name}: "
+                f"{'ok' if not bad else 'FAILED ' + str(bad)} {cfg.iters} iterations in "
+                f"{secs:.2f}s; history {res['runs'][name]['history']}")
+        for name, cfg in cfgs.items():
+            k = cfg.steps_per_call
+            step_fn = make_moe_train_step(cfg, device_pool=bool(cfg.device_pool))
+            state = init_moe_training(cfg, device=dev)
+            draw = make_batch_source(cfg, pool, None, bool(cfg.device_pool),
+                                     np.random.default_rng(cfg.seed), dev)
+            temps = np.linspace(cfg.temp_start, cfg.temp_end, cfg.iters).astype(np.float32)
+
+            def one_call():
+                nonlocal state
+                state, _ = step_fn(state, *draw(), temps[:k] if k > 1 else temps[0])
+
+            res["timing"][name] = training_timing(one_call, k, top_ops=k == 1)
+            log("[moe-dynamic] (b) timing " + timing_line(name, res["timing"][name]))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
+def dynamic_training(pool, dev, failures: list) -> dict:
+    """(c): `train_dynamic` at the defaults, host batches (K=1) and the
+    device pool with 10 steps a call; artifacts and bulk extraction
+    checked; both activation layouts timed."""
+    import numpy as np
+    import torch
+
+    from kmsr_tpu_torch import kernels
+    from kmsr_tpu_torch.models import dynamic
+    from kmsr_tpu_torch.ops.degrade import fp32_convs
+    from kmsr_tpu_torch.train.dynamic import (DYN_LOG_HEADER, DynamicTrainConfig,
+                                              bulk_extract_kernels,
+                                              init_dynamic_training,
+                                              make_dynamic_train_step, train_dynamic)
+    from kmsr_tpu_torch.train.single_kernel import make_batch_source
+    from kmsr_tpu_torch.utils.profiling import cuda_device_ms
+
+    tmp = tempfile.mkdtemp(prefix="kmsr_chip_dynamic_")
+    res = {"runs": {}, "timing": {}}
+    try:
+        cfgs = {
+            "host_k1": DynamicTrainConfig(iters=20, device_pool=False, log_every=10,
+                                          kernel_log_every=10, verbose=False, seed=SEED,
+                                          outdir=os.path.join(tmp, "host")),
+            "pool_k10": DynamicTrainConfig(iters=40, device_pool=True, steps_per_call=10,
+                                           log_every=10, kernel_log_every=10, verbose=False,
+                                           seed=SEED, outdir=os.path.join(tmp, "pool")),
+        }
+        for name, cfg in cfgs.items():
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            out = train_dynamic(pool, cfg, progress=False, device=dev)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            per_patch = bulk_extract_kernels(out["state"].g_params, pool,
+                                             os.path.join(cfg.outdir, "per_patch"), cfg.model)
+            no_kernel_launched(f"dynamic training {name}", failures)
+            rows = open(out["log_file"]).read().splitlines()
+            vals = np.array([[float(v) for v in r.split(",")] for r in rows[1:]])
+            k = np.load(os.path.join(cfg.outdir, "final_results", "kernel_per_band.npy"))
+            merged = os.path.join(cfg.outdir, "final_results", "kernel_merged.npy")
+            checks = {
+                "header": rows[0] == DYN_LOG_HEADER.strip(),
+                "rows": vals.shape[0] == cfg.iters
+                        and vals[:, 0].tolist() == list(range(1, cfg.iters + 1)),
+                "finite": bool(np.isfinite(vals).all()),
+                "kernel_shape": k.shape == (C, KSIZE, KSIZE),
+                "kernel_nonneg": bool((k >= 0).all()),
+                # a band the clamp zeroed stays all zero (the reference's
+                # extraction); every other band sums to 1
+                "band_sums": bool(all(abs(t - 1) <= 1e-5 or (t == 0 and not band.any())
+                                      for t, band in zip(k.sum(axis=(1, 2)), k))),
+                "merged": os.path.exists(merged) and bool(np.allclose(
+                    np.load(merged), k.mean(axis=0), rtol=0, atol=1e-7)),
+                "bulk_extract": len(per_patch) == len(pool) and all(
+                    np.load(p).shape == (C, KSIZE, KSIZE) for p in per_patch[:3]),
+            }
+            bad = [c for c, ok in checks.items() if not ok]
+            if bad:
+                failures.append(f"dynamic training {name}: failed checks {bad}")
+            res["runs"][name] = {"iters": cfg.iters, "seconds_with_setup": secs,
+                                 "checks_failed": bad, "last_row": rows[-1],
+                                 "band_sums": k.sum(axis=(1, 2)).tolist(),
+                                 "bands_zeroed_by_the_clamp": int((k.sum(axis=(1, 2)) == 0).sum())}
+            log(f"[moe-dynamic] (c) dynamic training {name}: "
+                f"{'ok' if not bad else 'FAILED ' + str(bad)} {cfg.iters} iterations in "
+                f"{secs:.2f}s; last row {rows[-1]}; band sums "
+                f"{res['runs'][name]['band_sums']}; {len(per_patch)} per-patch kernels")
+        for name, cfg in cfgs.items():
+            k = cfg.steps_per_call
+            step_fn = make_dynamic_train_step(cfg, device_pool=bool(cfg.device_pool))
+            state = init_dynamic_training(cfg, device=dev)
+            draw = make_batch_source(cfg, pool, None, bool(cfg.device_pool),
+                                     np.random.default_rng(cfg.seed), dev)
+
+            def one_call():
+                nonlocal state
+                state, _ = step_fn(state, *draw())
+
+            res["timing"][name] = training_timing(one_call, k, top_ops=k == 1)
+            log("[moe-dynamic] (c) timing " + timing_line(name, res["timing"][name]))
+        # the chain's activation layout: device ms of G's forward + backward
+        # at the training batch, each way
+        cfg = cfgs["host_k1"]
+        g = init_dynamic_training(cfg, device=dev).g_params["generator"]
+        hr = torch.from_numpy(pool.patches[:cfg.batch_size]).to(dev)
+        layouts = {}
+        for cl in (True, False):
+            def g_step():
+                with fp32_convs():
+                    dynamic.dynamic_generator_forward(g, hr, cfg.model,
+                                                      channels_last=cl).sum().backward()
+
+            layouts["channels_last" if cl else "nchw"] = cuda_device_ms(g_step, runs=5)[
+                "device_ms"]
+        res["layout_g_fwd_bwd_device_ms"] = layouts
+        log(f"[moe-dynamic] (c) chain layout, device ms of G forward + backward: "
+            f"{layouts}; the port runs channels_last")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
+class FixedDraws:
+    """Stands in for the trainers' draw hooks with fixed draws made from a
+    seed (random crop offsets, Gumbel uniforms, normals), served in call
+    order on the caller's device and dtype, so a step on the card and on
+    the CPU see the same draws."""
+
+    def __init__(self, seed: int):
+        import numpy as np
+
+        self.rng = np.random.default_rng(seed)
+        self.made: list = []
+        self.i = 0
+
+    def _next(self, make):
+        if self.i == len(self.made):
+            self.made.append(make())
+        out = self.made[self.i]
+        self.i += 1
+        return out
+
+    def rewind(self) -> None:
+        self.i = 0
+
+    def random_crops(self, gen, src, crop):
+        import torch
+
+        b, _, h, w = src.shape
+        ys, xs = self._next(lambda: (self.rng.integers(0, h - crop + 1, b),
+                                     self.rng.integers(0, w - crop + 1, b)))
+        return torch.stack([src[i, :, y:y + crop, x:x + crop]
+                            for i, (y, x) in enumerate(zip(ys, xs))])
+
+    def gumbel_uniform(self, gen, shape, device):
+        import torch
+
+        u = self._next(lambda: self.rng.uniform(1e-10, 1.0, tuple(shape)))
+        return torch.as_tensor(u, dtype=torch.float32, device=device)
+
+    def standard_normal(self, gen, like):
+        import torch
+
+        n = self._next(lambda: self.rng.standard_normal(tuple(like.shape)))
+        return torch.as_tensor(n, dtype=like.dtype, device=like.device)
+
+
+def adam_step_excess(got, want, grads, lr: float) -> float:
+    """Parameters after Adam's first step (update -lr * g / (|g| + eps)),
+    got vs want: the largest excess over the bound TOL + lr * min(2,
+    tol_g / (|g| + eps)), tol_g the scaled gradient tolerance (rtol 1e-4,
+    atol 1e-5 of the largest gradient); <= 0 passes. A gradient near eps
+    takes a sign-like step that rounding can flip."""
+    import torch
+
+    scale = max(float(g.abs().max()) for g in grads)
+    worst = -1.0
+    for p, q, g in zip(got, want, grads):
+        g = g.abs()
+        bound = ATOL + RTOL * q.abs() + lr * torch.clamp(
+            (1e-5 * scale + 1e-4 * g) / (g + 1e-8), max=2.0)
+        worst = max(worst, float(((p - q).abs() - bound).max()))
+    return worst
+
+
+def step_parity(kind: str, dev, failures: list) -> dict:
+    """(d): one train step at full widths (batch 2) on the CPU, on the card
+    and on the card in float64, from the same weights in the JAX layout
+    with the same fixed draws: losses, selection / sigma / kernels,
+    gradients (scaled rule) and the updated parameters (Adam's first-step
+    bound) of the card against the CPU; float64 is the yardstick of both."""
+    import numpy as np
+    import torch
+
+    from kmsr_tpu_torch import convert
+    from kmsr_tpu_torch.models import discriminator, dynamic, moe
+    from kmsr_tpu_torch.train import dynamic as tdyn
+    from kmsr_tpu_torch.train import moe as tmoe
+    from kmsr_tpu_torch.train.state import (init_gan_state, make_gan_optimizers,
+                                            tree_leaves, tree_map)
+
+    rng = np.random.default_rng(SEED + 13)
+    to_np = lambda tree: tree_map(lambda t: t.numpy(), tree)  # noqa: E731
+    d_np = to_np(discriminator.init_discriminator(seed=SEED, device="cpu"))
+    hr = rng.normal(5, 2, (2, C, HW, HW)).astype(np.float32)
+    crop = rng.normal(5, 2, (2, C, HW, HW)).astype(np.float32)
+    if kind == "moe":
+        cfg = tmoe.MoETrainConfig(batch_size=2, outdir="unused")
+        g_np = to_np(moe.init_moe(cfg.model, seed=SEED, device="cpu"))
+        make_step, mod, hooks = tmoe.make_moe_base_step, tmoe, (tmoe, moe)
+        keys = ("loss_D", "loss_G_adv", "loss_reg", "loss_balance", "selection")
+    else:
+        cfg = tdyn.DynamicTrainConfig(batch_size=2, outdir="unused")
+        g_np = to_np(dynamic.init_degradation_model(cfg.model, seed=SEED, device="cpu"))
+        make_step, mod, hooks = tdyn.make_dynamic_base_step, tdyn, (tdyn, dynamic)
+        keys = ("loss_D", "loss_G_adv", "loss_reg", "loss_noise_reg", "sigma", "kernels")
+    draws = FixedDraws(SEED + 17)
+    saved = [(m, n, getattr(m, n)) for m in hooks
+             for n in ("random_crops", "gumbel_uniform", "standard_normal") if hasattr(m, n)]
+    got = []  # [CPU f32, card f32, card f64]
+    try:
+        for m, n, _ in saved:
+            setattr(m, n, getattr(draws, n))
+        for d, dt in ((torch.device("cpu"), torch.float32), (dev, torch.float32),
+                      (dev, torch.float64)):
+            draws.rewind()
+            cast = lambda t: t.to(dt)  # noqa: E731
+            if kind == "moe":
+                gp, ms = (tree_map(cast, t) for t in convert.moe_from_jax(*g_np, device=d))
+            else:
+                gp = tree_map(cast, convert.dynamic_from_jax(g_np, device=d))
+            dp, ds = (tree_map(cast, t) for t in convert.discriminator_from_jax(*d_np, device=d))
+            tx = make_gan_optimizers(cfg.lr_rate, grad_clip_norm=None)
+            state = init_gan_state(torch.Generator(device=d).manual_seed(SEED), gp, dp,
+                                   {"disc": ds, "moe": ms} if kind == "moe" else ds, tx, tx)
+            new, m = make_step(cfg)(state, cast(torch.from_numpy(hr).to(d)),
+                                    cast(torch.from_numpy(crop).to(d)),
+                                    *((1.0,) if kind == "moe" else ()))
+            host = lambda ts: [t.detach().cpu().double() for t in ts]  # noqa: E731
+            got.append({"metrics": {k: m[k].detach().cpu().double() for k in keys},
+                        "grads_G": host(tree_leaves(m["grads_G"])),
+                        "grads_D": host(tree_leaves(m["grads_D"])),
+                        "G": host(tree_leaves(new.g_params)),
+                        "D": host(tree_leaves(new.d_params))})
+    finally:
+        for m, n, f in saved:
+            setattr(m, n, f)
+    cpu, card, f64 = got
+    result = {}
+    for k in keys:
+        want, have = cpu["metrics"][k], card["metrics"][k]
+        ok = bool(torch.equal(have, want)) if k == "selection" else bool(
+            torch.allclose(have, want, rtol=RTOL, atol=ATOL))
+        ref = f64["metrics"][k].abs().clamp_min(ATOL)
+        result[k] = {"max_abs_err": float((have - want).abs().max()), "ok": ok,
+                     "cpu_vs_f64_rel": float(((want - f64["metrics"][k]).abs() / ref).max()),
+                     "card_vs_f64_rel": float(((have - f64["metrics"][k]).abs() / ref).max())}
+    for k in ("grads_G", "grads_D"):
+        scale = max(float(g.abs().max()) for g in cpu[k])
+        excess = max(float(((h - w).abs() - (1e-5 * scale + RTOL * w.abs())).max())
+                     for h, w in zip(card[k], cpu[k]))
+        f64_scale = max(float(g.abs().max()) for g in f64[k])
+        cpu_f64, card_f64 = (max(float((a - b).abs().max()) for a, b in zip(side[k], f64[k]))
+                             / f64_scale for side in (cpu, card))
+        # float32 keeps a gradient summed over many pixels only to ~1e-3 of
+        # the largest (either device, against the float64 step): the card
+        # is held to the scaled rule, or to no more than twice the CPU's
+        # own distance from the float64 step
+        ok = excess <= 0 or card_f64 <= 2 * max(cpu_f64, 1e-5)
+        result[k] = {"ok": ok, "excess_over_scaled_tol": excess, "scale": scale,
+                     "cpu_vs_f64_scaled": cpu_f64, "card_vs_f64_scaled": card_f64}
+    for k, gk in (("G", "grads_G"), ("D", "grads_D")):
+        excess = adam_step_excess(card[k], cpu[k], cpu[gk], cfg.lr_rate)
+        result[f"updated_{k}"] = {"ok": excess <= 0, "excess_over_adam_bound": excess}
+    bad = [k for k, r in result.items() if not r["ok"]]
+    if bad:
+        failures.append(f"{kind} step card vs CPU: {bad}: "
+                        + json.dumps({k: result[k] for k in bad}))
+    log(f"[moe-dynamic] (d) {kind} step card vs CPU (rtol={RTOL}, atol={ATOL}; gradients "
+        f"scaled; updated parameters by Adam's first-step bound; TF32 off): "
+        + ", ".join(f"{k} {'ok' if r['ok'] else 'FAILED'} "
+                    + " ".join(f"{m}={v:.3g}" for m, v in r.items() if m != "ok")
+                    for k, r in result.items()))
+    return result
+
+
+def phase_moe_dynamic(dev, failures: list) -> dict:
+    """Phase 11 (module docstring): the MoE factory route, MoE and dynamic
+    training, and one step of each card vs CPU; the eight kernels' launch
+    counts set to 0 before each route and read after it."""
+    import numpy as np
+    import torch
+
+    from kmsr_tpu_torch.data import synthetic_pool
+
+    t0 = time.perf_counter()
+    secs = {}
+
+    def part(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        secs[name] = time.perf_counter() - t
+        return out
+
+    res = {"factory": part("factory", moe_factory, dev, failures)}
+    pool = synthetic_pool(np.random.default_rng(SEED + 12), n=MD_POOL_N, c=C, size=HW)
+    res["moe_training"] = part("moe_training", moe_training, pool, dev, failures)
+    res["dynamic_training"] = part("dynamic_training", dynamic_training, pool, dev, failures)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res["card_vs_cpu"] = {kind: part(f"{kind}_step_parity", step_parity, kind, dev, failures)
+                          for kind in ("moe", "dynamic")}
+    res["part_seconds"] = secs
+    log(f"[moe-dynamic] seconds by part: { {k: round(v, 1) for k, v in secs.items()} }")
+    res["seconds"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -1810,6 +2485,10 @@ def main() -> int:
         denoise_res["nvidia_smi"] = smi
         log(f"[denoise] {'ok' if not failures else 'FAILED'} in "
             f"{time.perf_counter() - t_dn:.1f}s")
+        moe_dynamic_res = phase_moe_dynamic(dev, failures)
+        moe_dynamic_res["nvidia_smi"] = smi
+        log(f"[moe-dynamic] {'ok' if not failures else 'FAILED'} in "
+            f"{moe_dynamic_res['seconds']:.1f}s")
     except Exception:
         traceback.print_exc()
         return 1
@@ -1859,6 +2538,7 @@ def main() -> int:
     log(json.dumps({"api": api_res}))
     log(json.dumps({"kernelgan": kernelgan_res}))
     log(json.dumps({"denoise": denoise_res}))
+    log(json.dumps({"moe_dynamic": moe_dynamic_res}))
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f}s")
     log(smi)
     log(json.dumps({"kernels": records}))

@@ -32,7 +32,13 @@ plain PyTorch, as the JAX NLM is an XLA shift sweep), the noise pool
 (`pipeline.noise_pool_cli` -> `data.noise_pool`), the patch cutter
 (`pipeline.cut` -> `data.patches`, `data.mask`) and the shape gate
 (`pipeline.check_shapes`), so every stage of the default single-kernel
-DAG runs through the port's own CLIs.
+DAG runs through the port's own CLIs; and the two other kernel estimators
+with their routes: the MoE kernel bank (`pipeline.train_moe_cli` ->
+`train.moe` -> `models.moe`; the factory's and apply_kernel's `--moe`
+routes; `.npz` model files in the JAX layout, `utils.params_io`, and the
+reference's `moe_model.pth`, `utils.torch_import`) and the dynamic
+degradation model (`pipeline.train_dynamic_cli` -> `train.dynamic` ->
+`models.dynamic`), plain PyTorch as JAX's are XLA.
 """
 
 __version__ = "0.1.0"

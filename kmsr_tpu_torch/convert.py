@@ -15,7 +15,11 @@ KernelGAN's generator and discriminator parameters (and the
 discriminator's spectral-norm / BatchNorm state) are pytrees of the same
 layout in both packages: `generator_from_jax` and `discriminator_from_jax`
 take them as numpy arrays (`jax.device_get` on the JAX side) and copy them
-leaf for leaf. MoE parameters come with their own slice.
+leaf for leaf. The MoE model (selector, kernel and sigma banks, and the
+selector's BatchNorm state) and the dynamic degradation model (modulated
+chain, condition encoder, noise estimator) carry across the same way:
+`moe_from_jax`, `dynamic_from_jax`. Their `.npz` model files need no
+conversion: `utils.params_io` reads and writes JAX's layout.
 """
 from __future__ import annotations
 
@@ -80,3 +84,20 @@ def discriminator_from_jax(
     (params, state) on `device`."""
     dev = resolve_device(device)
     return _tree_to(d_params, dev), _tree_to(d_state, dev)
+
+
+def moe_from_jax(
+    params: dict, state: dict, device: str | torch.device = "cuda"
+) -> tuple[dict, dict]:
+    """JAX MoE params ({"selector": {...}, "kernel_bank", "sigma_bank"}) and
+    state ({"selector": {"bn_mean", "bn_var"}}), numpy leaves, as the
+    port's (params, state) on `device`."""
+    dev = resolve_device(device)
+    return _tree_to(params, dev), _tree_to(state, dev)
+
+
+def dynamic_from_jax(params: dict, device: str | torch.device = "cuda") -> dict:
+    """JAX dynamic degradation-model params ({"generator": {"layers",
+    "encoder"}, "noise": {"log_sigma"}}, or the generator dict alone),
+    numpy leaves, as the port's params on `device`."""
+    return _tree_to(params, resolve_device(device))

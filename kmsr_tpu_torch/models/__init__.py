@@ -1,5 +1,7 @@
-"""KernelGAN models: the multi-band linear generator and the
-spectral-norm patch discriminator, as functions on dicts of tensors."""
+"""The degradation models and the discriminator, as functions on dicts of
+tensors: KernelGAN's multi-band linear generator, the spectral-norm patch
+discriminator, the MoE kernel bank (`models.moe`) and the content-
+conditioned dynamic generator (`models.dynamic`)."""
 from .generator import (
     GeneratorConfig,
     init_generator,

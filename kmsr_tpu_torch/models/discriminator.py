@@ -92,7 +92,7 @@ def _spectral_normalize(w: torch.Tensor, u: torch.Tensor, update: bool):
     return w_sn, (u_new.detach() if update else u)
 
 
-def _batch_norm(x, scale, bias, mean_run, var_run, train: bool):
+def batch_norm(x, scale, bias, mean_run, var_run, train: bool):
     """BN over (B, H, W): normalize with the biased batch variance, update
     the running variance with the unbiased one; running stats detached."""
     if train:
@@ -126,7 +126,7 @@ def discriminator_forward(
 
     h = F.leaky_relu(sn_conv(0, x, 3), LEAKY_SLOPE)
     for i in range(len(params["bn_scale"])):
-        h, m, v = _batch_norm(
+        h, m, v = batch_norm(
             sn_conv(1 + i, h, 0), params["bn_scale"][i], params["bn_bias"][i],
             state["bn_mean"][i], state["bn_var"][i], train)
         new_state["bn_mean"].append(m)

@@ -5,9 +5,8 @@ renormalization, replicate padding, depthwise cross-correlation, x`factor`
 block mean). The JAX package lowers these to XLA convolutions; here they
 are grouped `F.conv2d` calls, run in full float32: cuDNN's TF32 default
 keeps ~3 decimal digits, and the JAX path asks for Precision.HIGHEST.
-
-`degrade_batch_kernels` (per-sample kernels, the MoE factory route) is not
-ported yet; see ROADMAP.md.
+`degrade_batch_kernels` (per-sample kernels: the MoE model and the MoE
+factory route) is one batch-as-groups conv.
 """
 from __future__ import annotations
 
@@ -134,3 +133,42 @@ def degrade_strided(
     x = replicate_pad(img, kh // 2, kw // 2)
     out = depthwise_conv2d(x, comp, stride=factor)
     return out[0] if squeeze else out
+
+
+def degrade_batch_kernels(
+    img: torch.Tensor,
+    kernels: torch.Tensor,
+    factor: int = 8,
+    decimate: bool = False,
+    padding: str = "same",
+) -> torch.Tensor:
+    """Per-sample per-band kernels: img [B,C,H,W], kernels [B,C,kH,kW].
+
+    One grouped F.conv2d with the batch folded into the channels (groups =
+    B*C), the reference's batch-as-groups spelling; the JAX package's
+    patch einsum needs a batch chunk to bound its im2col, this spelling
+    builds none and runs the whole batch at once.
+
+    padding: "same" zero-pads (kH//2, kW//2), the MoE model's semantics;
+    "replicate" edge-pads instead (the factory's and apply_kernel's MoE
+    routes). The two differ on a kH//2 rim and are never unified.
+    decimate=True keeps every `factor`-th output of the SAME-size blur (the
+    MoE model's ::f), computed as a stride-f conv, which evaluates exactly
+    those outputs; decimate=False block-means the full blur (the factory).
+    """
+    b, c, h, w = img.shape
+    kh, kw = kernels.shape[-2:]
+    if padding == "replicate":
+        img = F.pad(img, (kw // 2, kw // 2, kh // 2, kh // 2), mode="replicate")
+        pad = (0, 0)
+    elif padding == "same":
+        pad = (kh // 2, kw // 2)
+    else:
+        raise ValueError(f"padding must be same|replicate, got {padding!r}")
+    stride = factor if decimate else 1
+    with fp32_convs():
+        out = F.conv2d(img.reshape(1, b * c, *img.shape[2:]),
+                       kernels.reshape(b * c, 1, kh, kw).to(img.dtype),
+                       stride=stride, padding=pad, groups=b * c)
+    out = out.reshape(b, c, *out.shape[2:])
+    return out if decimate else block_mean(out, factor)

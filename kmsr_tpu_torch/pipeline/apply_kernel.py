@@ -4,12 +4,16 @@ Counterpart of `kmsr_tpu.pipeline.apply_kernel` (single-kernel route):
 contract parity with `C_30apply_kernel_to_landsat.py:127-213` (reads
 `denoised`, appends a `blurred` group to a copied file). Files are stacked
 into device batches and degraded with one strided grouped conv
-(`ops.degrade.degrade_strided`) per batch. The `--moe` and `--kernel-root`
-routes come with their slices (ROADMAP.md).
+(`ops.degrade.degrade_strided`) per batch. `--moe MODEL` routes each patch
+to its selector's argmax expert and blurs it with that expert's kernel
+(the factory's `moe_degrade`, no noise), recording the expert as the
+`moe_expert` attribute of the written group; it runs on one device. Still
+refused: `--kernel-root` (per-scene kernels, ROADMAP.md queue 1 item 5) and
+the batch data parallelism over several local devices (queue 1 item 7).
 
 Usage:
     python -m kmsr_tpu_torch.pipeline.apply_kernel --input-dir PATCHES \
-        --kernel kernel_per_band.npy --output-dir OUT \
+        (--kernel kernel_per_band.npy | --moe KERNEL_RUN) --output-dir OUT \
         [--factor 8] [--in-group denoised] [--out-group blurred] \
         [--suffix _blurred] [--batch-size 64] [--device cuda|cpu]
 """
@@ -60,9 +64,25 @@ def load_kernel(kernel_path: str, n_bands: int = 5) -> np.ndarray:
     return kernel_bands(np.load(kernel_path), n_bands, kernel_path)
 
 
+def make_degrader(kernel_path: str | None, moe_path: str | None, factor: int,
+                  dev: torch.device):
+    """(fn(batch [B,C,H,W] on dev) -> (degraded, experts [B] or None), the
+    name recorded as `kernel_file`): the strided conv with one kernel, or
+    the factory's MoE blur (`factory.moe_degrade`, no noise)."""
+    if moe_path is None:
+        kernel = torch.from_numpy(load_kernel(kernel_path)).to(dev)
+        return (lambda batch: (degrade_strided(batch, kernel, factor=factor), None),
+                os.path.basename(kernel_path))
+    from .factory import load_moe_for_factory, moe_degrade
+
+    model = load_moe_for_factory(moe_path, dev)
+    return (lambda batch: moe_degrade(model, batch, factor),
+            os.path.basename(os.path.normpath(moe_path)))
+
+
 def apply_kernel_to_folder(
     input_dir: str,
-    kernel_path: str,
+    kernel_path: str | None,
     output_dir: str,
     factor: int = 8,
     in_group: str = GROUP_DENOISED,
@@ -73,14 +93,27 @@ def apply_kernel_to_folder(
     progress: bool = True,
     files: list[str] | None = None,
     device: str | torch.device = "cuda",
+    moe_path: str | None = None,
+    kernel_root: str | None = None,
 ) -> RunReport:
-    """Degrade every patch file; write `out_group` into a copy (or in place)."""
+    """Degrade every patch file; write `out_group` into a copy (or in place).
+
+    Exactly one of kernel_path and moe_path (content-adaptive routing, the
+    factory's `--moe` blur without its noise) is taken; kernel_root
+    (per-scene kernels) is not ported and raises ValueError."""
+    from .factory import KERNEL_ROOT_REFUSAL
+
     dev = resolve_device(device)
     t0 = time.time()
+    if sum(p is not None for p in (kernel_path, moe_path, kernel_root)) != 1:
+        raise ValueError(
+            "exactly one of kernel_path / moe_path / kernel_root is required"
+        )
+    if kernel_root is not None:
+        raise ValueError(KERNEL_ROOT_REFUSAL)
     if files is None:
         files = list_patch_files(input_dir, "*.nc")
-    kernel = torch.from_numpy(load_kernel(kernel_path)).to(dev)
-    kernel_src = os.path.basename(kernel_path)
+    fn, kernel_src = make_degrader(kernel_path, moe_path, factor, dev)
     os.makedirs(output_dir, exist_ok=True)
 
     ok, fail = [], []
@@ -98,7 +131,7 @@ def apply_kernel_to_folder(
 
     sync_guard = DeviceSyncGuard()
 
-    def _writeback(valid, degraded_dev):
+    def _writeback(valid, degraded_dev, experts_dev):
         # sync batch k after batch k+1 was dispatched: device compute +
         # D2H overlap the host-side file copies and .nc writes. CUDA work
         # is asynchronous, so a device-side failure surfaces HERE — fail
@@ -106,12 +139,14 @@ def apply_kernel_to_folder(
         # guard sees the device is persistently wedged: abort loudly).
         try:
             degraded = degraded_dev.cpu().numpy()
+            experts = ([None] * len(valid) if experts_dev is None
+                       else experts_dev.cpu().tolist())
             sync_guard.succeeded()
         except Exception as e:  # per-group failure isolation
             fail.extend((p, f"{type(e).__name__}: {e}") for p in valid)
             sync_guard.failed(e)
             return
-        for path, lr in zip(valid, degraded):
+        for path, lr, expert in zip(valid, degraded, experts):
             try:
                 base = os.path.splitext(os.path.basename(path))[0]
                 if in_place:
@@ -129,6 +164,7 @@ def apply_kernel_to_folder(
                     group_attrs={
                         "history": f"blur kernel applied, {factor}x downsampled",
                         "kernel_file": kernel_src,
+                        **({} if expert is None else {"moe_expert": int(expert)}),
                     },
                 )
                 ok.append(out_path)
@@ -149,13 +185,13 @@ def apply_kernel_to_folder(
             paths = [p for p, _ in items]
             try:
                 batch = torch.from_numpy(np.stack([s for _, s in items])).to(dev)
-                degraded_dev = degrade_strided(batch, kernel, factor=factor)
+                degraded_dev, experts_dev = fn(batch)
             except Exception as e:  # per-group failure isolation
                 fail.extend((p, f"{type(e).__name__}: {e}") for p in paths)
                 continue
             if pending is not None:
                 _writeback(*pending)
-            pending = (paths, degraded_dev)
+            pending = (paths, degraded_dev, experts_dev)
     if pending is not None:
         _writeback(*pending)
     report = RunReport(succeeded=ok, failed=fail, seconds=time.time() - t0)
@@ -166,8 +202,14 @@ def apply_kernel_to_folder(
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Apply blur kernel + downsample")
     p.add_argument("--input-dir", required=True)
-    p.add_argument("--kernel", required=True,
-                   help="kernel .npy ([kH,kW], [C,kH,kW] or [B,C,kH,kW] batch-mean)")
+    src = p.add_mutually_exclusive_group(required=True)
+    src.add_argument("--kernel",
+                     help="kernel .npy ([kH,kW], [C,kH,kW] or [B,C,kH,kW] batch-mean)")
+    src.add_argument("--moe", help="content-adaptive mode: MoE model dir / .npz / "
+                                   "reference .pth")
+    src.add_argument("--kernel-root",
+                     help="per-scene kernels: not ported yet (ROADMAP.md "
+                          "queue 1 item 5): refused")
     p.add_argument("--output-dir", required=True)
     p.add_argument("--factor", type=int, default=8)
     p.add_argument("--in-group", default=GROUP_DENOISED)
@@ -181,6 +223,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     a = build_parser().parse_args(argv)
+    if a.kernel_root:
+        from .factory import KERNEL_ROOT_REFUSAL
+
+        raise SystemExit(KERNEL_ROOT_REFUSAL)
     report = apply_kernel_to_folder(
         a.input_dir,
         a.kernel,
@@ -192,6 +238,7 @@ def main(argv=None) -> int:
         batch_size=a.batch_size,
         in_place=a.in_place,
         device=a.device,
+        moe_path=a.moe,
     )
     return 0 if report.n_fail == 0 else 1
 

@@ -26,14 +26,26 @@ Two input routes, as in the JAX package:
 `--backend conv` runs the plain grouped strided conv + noise instead (the
 JAX `xla` backend); `auto` means `fused`. Noise-pool indices are drawn
 per file, up front, with `numpy.random.default_rng(seed).integers`, so
-each lr file equals the JAX factory's for the same seed. Not ported yet
-(ROADMAP.md): `--moe`, `--moe-noise`, `--kernel-root`, and the `.npy`
-route's data parallelism over several local devices.
+each lr file equals the JAX factory's for the same seed.
+
+`--moe MODEL` is the content-adaptive route (both input formats take the
+natural route, as in JAX): the trained selector routes each HR patch to
+its expert (argmax of the logits; eval-mode BatchNorm when
+`moe_state.npz` sits beside the model, batch statistics otherwise), the
+patch is blurred with THAT expert's kernel (replicate padding, full-size
+blur, x`factor` block mean: `ops.degrade.degrade_batch_kernels`, a cuDNN
+grouped conv, as JAX's route is XLA) and gets the pool draw
+(`--moe-noise pool`) or a normal draw scaled by the expert's learned
+per-band sigma (`--moe-noise sigma`); the `lr` group carries the
+`moe_expert` attribute. Still refused: `--kernel-root` (per-scene kernels,
+ROADMAP.md queue 1 item 5) and the data parallelism over several local
+devices (queue 1 item 7).
 
 Usage:
     python -m kmsr_tpu_torch.pipeline.factory --input-dir DENOISED \
-        --kernel kernel_per_band.npy --noise-pool pool.npy \
-        --output-dir TRAIN [--factor 8] [--batch-size 128] [--seed 42] \
+        (--kernel kernel_per_band.npy | --moe KERNEL_RUN) \
+        --noise-pool pool.npy --output-dir TRAIN [--factor 8] \
+        [--moe-noise pool|sigma] [--batch-size 128] [--seed 42] \
         [--backend auto|conv|fused] [--device cuda|cpu]
 """
 from __future__ import annotations
@@ -52,18 +64,32 @@ from ..data.sampler import list_patch_files
 from ..device import resolve_device
 from ..io.ncio import read_band_stack, read_nav
 from ..io.schema import GROUP_DENOISED
-from ..ops.degrade import degrade_strided
+from ..models.moe import (
+    MoEConfig,
+    effective_kernels,
+    effective_sigmas,
+    init_moe,
+    selector_forward,
+)
+from ..ops.degrade import degrade_batch_kernels, degrade_strided
 from ..ops.degrade_fused import degrade_fused, degrade_fused_presplit
+from ..utils.params_io import load_params
 from ..utils.profiling import stage_timer
 from .apply_kernel import load_kernel
 from .common import DeviceSyncGuard, RunReport, chunked_reader
 from .make_train_data import save_training_sample
 
 BACKENDS = ("auto", "conv", "fused")
+KERNEL_ROOT_REFUSAL = (
+    "--kernel-root (per-scene kernels from a fleet run) is not ported: it is "
+    "ROADMAP.md queue 1 item 5 (fleet); pass --kernel or --moe")
 
 #: one factory batch: (paths, hr [b, C, H, W] host array, lr [b, C, h, w]
 #: device tensor — dispatched, not yet synchronized, failures)
 Batch = tuple[list, np.ndarray, torch.Tensor, list]
+#: one batch of the MoE route: (paths, hr, lr, experts [b] device tensor,
+#: failures)
+MoEBatch = tuple[list, np.ndarray, torch.Tensor, torch.Tensor, list]
 
 
 def _backend(backend: str) -> str:
@@ -90,24 +116,14 @@ def degrade_with_noise(
     return degrade_strided(batch, kernel, factor=factor) + noise
 
 
-def natural_batches(
-    files: list[str],
-    kernel: torch.Tensor,
-    pool: np.ndarray,
-    noise_of: dict,
-    *,
-    factor: int = 8,
-    batch_size: int = 128,
-    backend: str = "auto",
-    input_format: str = "nc",
-    in_group: str = GROUP_DENOISED,
-    device: str | torch.device = "cuda",
-) -> Iterator[Batch]:
+def _natural(files, pool, noise_of, device_fn, *, batch_size, input_format,
+             in_group, dev) -> Iterator[tuple]:
     """The natural-layout route: read each chunk of files on a background
     thread (per-file failure isolation), stack it NCHW into pinned memory,
-    copy it to the device and dispatch `degrade_with_noise` on it.
-    noise_of maps each path to its noise-pool index."""
-    dev = resolve_device(device)
+    copy it and its noise-pool draws to the device and dispatch
+    device_fn(hr, noise, paths) on them. noise_of maps each path to its
+    noise-pool index. Yields (paths, hr host array, device_fn's result,
+    failures)."""
 
     def _read(p):
         if input_format == "npy":
@@ -128,11 +144,31 @@ def natural_batches(
             noise = _host_empty((len(valid), *pool.shape[1:]), dev)
             np.take(pool, [noise_of[p] for p in valid], axis=0,
                     out=noise.numpy())
-            lr = degrade_with_noise(
-                hr.to(dev, non_blocking=True), kernel,
-                noise.to(dev, non_blocking=True), factor, backend,
-            )
-        yield valid, hr.numpy(), lr, chunk_fail
+            out = device_fn(hr.to(dev, non_blocking=True),
+                            noise.to(dev, non_blocking=True), valid)
+        yield valid, hr.numpy(), out, chunk_fail
+
+
+def natural_batches(
+    files: list[str],
+    kernel: torch.Tensor,
+    pool: np.ndarray,
+    noise_of: dict,
+    *,
+    factor: int = 8,
+    batch_size: int = 128,
+    backend: str = "auto",
+    input_format: str = "nc",
+    in_group: str = GROUP_DENOISED,
+    device: str | torch.device = "cuda",
+) -> Iterator[Batch]:
+    """The natural-layout route of the single kernel: each chunk stacked
+    NCHW and degraded by `degrade_with_noise` on the device (`_natural`)."""
+    return _natural(
+        files, pool, noise_of,
+        lambda hr, noise, _: degrade_with_noise(hr, kernel, noise, factor, backend),
+        batch_size=batch_size, input_format=input_format, in_group=in_group,
+        dev=resolve_device(device))
 
 
 def _npy_split_batches(files, batch_size, shape, factor, dev):
@@ -275,6 +311,18 @@ def _presplit_shape(files, kernel, factor, backend, input_format):
         return None
 
 
+def noise_inputs(files: list[str], noise_pool_path: str,
+                 seed: int = 42) -> tuple[np.ndarray, dict]:
+    """(noise pool [N, C, h, w] on the host, {path: noise-pool index}). The
+    indices are drawn per FILE up front (position-indexed), so every
+    route/backend/chunking — and per-file failures — produces the same lr
+    for the same seed, in this package and in the JAX one."""
+    pool = load_noise_pool(noise_pool_path)
+    rng = np.random.default_rng(seed)
+    noise_idx = rng.integers(0, pool.shape[0], size=len(files))
+    return pool, dict(zip(files, noise_idx.tolist()))
+
+
 def factory_inputs(
     files: list[str],
     kernel_path: str,
@@ -282,17 +330,114 @@ def factory_inputs(
     seed: int = 42,
     device: str | torch.device = "cuda",
 ) -> tuple[torch.Tensor, np.ndarray, dict]:
-    """(kernel [C, kh, kw] on `device`, noise pool [N, C, h, w] on the host,
-    {path: noise-pool index}). The indices are drawn per FILE up front
-    (position-indexed), so every route/backend/chunking — and per-file
-    failures — produces the same lr for the same seed, in this package
-    and in the JAX one."""
+    """(kernel [C, kh, kw] on `device`, and `noise_inputs`)."""
     dev = resolve_device(device)
-    pool = load_noise_pool(noise_pool_path)
-    rng = np.random.default_rng(seed)
-    noise_idx = rng.integers(0, pool.shape[0], size=len(files))
+    pool, noise_of = noise_inputs(files, noise_pool_path, seed)
     kernel = torch.from_numpy(load_kernel(kernel_path)).to(dev)
-    return kernel, pool, dict(zip(files, noise_idx.tolist()))
+    return kernel, pool, noise_of
+
+
+# ------------------------------------------------------------ the MoE route
+def load_moe_for_factory(moe_path: str, device: str | torch.device = "cuda"):
+    """A trained MoE degradation model for content-adaptive runs, on
+    `device`. moe_path: a directory holding `moe_model.npz` (either
+    package's, with an optional `moe_state.npz` of BN running stats beside
+    it), that .npz itself, or the reference's torch `moe_model.pth`; the
+    config is inferred from the kernel bank. Returns (params, state,
+    eval_mode): eval_mode is True when BN running stats were found
+    (selection independent of the batch); otherwise selection uses the
+    batch's statistics."""
+    dev = resolve_device(device)
+    if moe_path.endswith(".pth"):
+        from ..utils.torch_import import load_moe_torch_checkpoint
+
+        params, state = load_moe_torch_checkpoint(moe_path, cfg=None, device=dev)
+        return params, state, True
+    npz = moe_path if moe_path.endswith(".npz") else os.path.join(moe_path, "moe_model.npz")
+    data = np.load(npz)
+    bank = None
+    for k in data.files:
+        if k.startswith("name_") and "kernel_bank" in str(data[k]):
+            bank = data["arr_" + k[len("name_"):]]
+    if bank is None:
+        raise ValueError(f"{npz} has no kernel_bank leaf — not a MoE model")
+    cfg = MoEConfig(n_kernels=bank.shape[0], n_channels=bank.shape[1],
+                    kernel_size=bank.shape[2])
+    template, state0 = init_moe(cfg, device=dev)
+    params = load_params(npz, template, dev)
+    state_path = os.path.join(os.path.dirname(npz), "moe_state.npz")
+    if os.path.exists(state_path):
+        return params, load_params(state_path, state0, dev), True
+    return params, state0, False
+
+
+@torch.no_grad()
+def moe_logits(model: tuple, hr: torch.Tensor) -> torch.Tensor:
+    """The selector's logits [B, K] for an HR batch; model is
+    `load_moe_for_factory`'s (params, state, eval_mode)."""
+    params, state, eval_mode = model
+    logits, _ = selector_forward(params["selector"], state["selector"], hr,
+                                 train=not eval_mode)
+    return logits
+
+
+@torch.no_grad()
+def moe_degrade(model: tuple, hr: torch.Tensor, factor: int):
+    """(lr [B, C, H/f, W/f] without noise, experts [B]): each patch blurred
+    with the kernel of its argmax expert, replicate padding, block mean.
+    The factory and apply_kernel's MoE routes share it."""
+    experts = moe_logits(model, hr).argmax(dim=-1)
+    banks = effective_kernels(model[0])
+    return degrade_batch_kernels(hr, banks[experts], factor=factor, decimate=False,
+                                 padding="replicate"), experts
+
+
+def sigma_noise_seed(seed: int, first_pos: int) -> int:
+    """The `--moe-noise sigma` generator's seed for the chunk that starts at
+    file position first_pos: the run's seed and the position, as JAX folds
+    the position into its seed key (so the draws do not depend on the
+    chunking). The bits are torch's, not jax.random's: the two packages'
+    sigma noise differs, with the same statistics. 32 bits, mixed from both
+    (a CPU generator keeps only the low 32 bits of its seed)."""
+    return int(np.random.SeedSequence([seed, first_pos]).generate_state(1)[0])
+
+
+def moe_batches(
+    files: list[str],
+    model: tuple,
+    pool: np.ndarray,
+    noise_of: dict,
+    *,
+    factor: int = 4,
+    batch_size: int = 128,
+    seed: int = 42,
+    moe_noise: str = "pool",
+    input_format: str = "nc",
+    in_group: str = GROUP_DENOISED,
+    device: str | torch.device = "cuda",
+) -> Iterator[MoEBatch]:
+    """The MoE route, batch by batch: `moe_degrade` on each natural batch,
+    plus its noise-pool draws (moe_noise="pool") or a standard normal
+    scaled by each patch's expert sigma per band ("sigma")."""
+    if moe_noise not in ("pool", "sigma"):
+        raise ValueError(f"moe_noise must be pool|sigma, got {moe_noise!r}")
+    file_pos = {p: i for i, p in enumerate(files)}
+    sigmas = effective_sigmas(model[0]).detach()
+
+    def fn(hr, noise, paths):
+        lr, experts = moe_degrade(model, hr, factor)
+        if moe_noise == "sigma":
+            gen = torch.Generator(device=hr.device).manual_seed(
+                sigma_noise_seed(seed, file_pos[paths[0]]))
+            noise = torch.randn(lr.shape, generator=gen, device=lr.device) \
+                * sigmas[experts][:, :, None, None]
+        return lr + noise, experts
+
+    for paths, hr, out, fails in _natural(
+            files, pool, noise_of, fn, batch_size=batch_size,
+            input_format=input_format, in_group=in_group, dev=resolve_device(device)):
+        lr, experts = out if out is not None else (None, None)
+        yield paths, hr, lr, experts, fails
 
 
 def factory_batches(
@@ -326,7 +471,7 @@ def factory_batches(
 
 def run_factory(
     input_dir: str,
-    kernel_path: str,
+    kernel_path: str | None,
     noise_pool_path: str,
     output_dir: str,
     factor: int = 8,
@@ -338,8 +483,15 @@ def run_factory(
     input_format: str = "auto",
     files: list[str] | None = None,
     device: str | torch.device = "cuda",
+    moe_path: str | None = None,
+    moe_noise: str = "pool",
+    kernel_root: str | None = None,
 ) -> RunReport:
     """Degrade every patch in `input_dir` and write `<name>_train.nc` pairs.
+
+    Exactly one of kernel_path (one per-band kernel) and moe_path (the
+    content-adaptive route, see the module docstring) is taken;
+    kernel_root (per-scene kernels) is not ported and raises ValueError.
 
     input_format: 'nc' (grouped NetCDF patches), 'npy' (raw [C, H, W]
     float32 patch dirs) or 'auto' (npy iff the dir holds .npy files and no
@@ -351,6 +503,12 @@ def run_factory(
     dev = resolve_device(device)
     t0 = time.time()
     backend = _backend(backend)
+    if sum(p is not None for p in (kernel_path, moe_path, kernel_root)) != 1:
+        raise ValueError(
+            "exactly one of kernel_path / moe_path / kernel_root is required"
+        )
+    if kernel_root is not None:
+        raise ValueError(KERNEL_ROOT_REFUSAL)
     if input_format == "auto":
         has_npy = bool(glob.glob(os.path.join(input_dir, "*.npy")))
         has_nc = bool(glob.glob(os.path.join(input_dir, "*.nc")))
@@ -362,11 +520,19 @@ def run_factory(
             input_dir, "*.npy" if input_format == "npy" else "*.nc"
         )
     os.makedirs(output_dir, exist_ok=True)
-    batches = factory_batches(
-        files, kernel_path, noise_pool_path, factor=factor,
-        batch_size=batch_size, seed=seed, backend=backend,
-        input_format=input_format, in_group=in_group, device=dev,
-    )
+    if moe_path is None:
+        batches = ((paths, hr, lr, None, fails) for paths, hr, lr, fails in factory_batches(
+            files, kernel_path, noise_pool_path, factor=factor,
+            batch_size=batch_size, seed=seed, backend=backend,
+            input_format=input_format, in_group=in_group, device=dev,
+        ))
+    else:
+        pool, noise_of = noise_inputs(files, noise_pool_path, seed)
+        batches = moe_batches(
+            files, load_moe_for_factory(moe_path, dev), pool, noise_of,
+            factor=factor, batch_size=batch_size, seed=seed, moe_noise=moe_noise,
+            input_format=input_format, in_group=in_group, device=dev,
+        )
     if progress:
         try:
             from tqdm import tqdm
@@ -381,7 +547,7 @@ def run_factory(
     ok, fail = [], []
     sync_guard = DeviceSyncGuard()
 
-    def _writeback(paths, hr_batch, lr_dev):
+    def _writeback(paths, hr_batch, lr_dev, experts_dev):
         # the device-to-host copy syncs batch k AFTER batch k+1 was
         # dispatched: device compute + D2H overlap the host-side nav reads
         # and zlib .nc writes. Device-side runtime failures surface at this
@@ -391,41 +557,57 @@ def run_factory(
         try:
             with stage_timer("factory.device_sync"):
                 lr_batch = lr_dev.cpu().numpy()
+                experts = ([None] * len(paths) if experts_dev is None
+                           else experts_dev.cpu().tolist())
             sync_guard.succeeded()
         except Exception as e:  # per-batch failure isolation
             fail.extend((p, f"{type(e).__name__}: {e}") for p in paths)
             sync_guard.failed(e)
             return
         with stage_timer("factory.host_write"):
-            for path, hr, lr in zip(paths, hr_batch, lr_batch):
+            for path, hr, lr, expert in zip(paths, hr_batch, lr_batch, experts):
                 try:
                     base = os.path.splitext(os.path.basename(path))[0]
                     out_path = os.path.join(output_dir, f"{base}_train.nc")
                     nav = read_nav(path) if input_format == "nc" else None
-                    save_training_sample(out_path, hr, lr, nav or None)
+                    save_training_sample(
+                        out_path, hr, lr, nav or None,
+                        lr_attrs=None if expert is None else {"moe_expert": int(expert)})
                     ok.append(out_path)
                 except Exception as e:
                     fail.append((path, str(e)))
 
     pending = None
-    for paths, hr_batch, lr_dev, chunk_fail in batches:
+    for paths, hr_batch, lr_dev, experts_dev, chunk_fail in batches:
         fail.extend(chunk_fail)
         if lr_dev is None:
             continue
         if pending is not None:
             _writeback(*pending)
-        pending = (paths, hr_batch, lr_dev)
+        pending = (paths, hr_batch, lr_dev, experts_dev)
     if pending is not None:
         _writeback(*pending)
     report = RunReport(succeeded=ok, failed=fail, seconds=time.time() - t0)
-    print(f"factory[{backend}, {input_format}]: {report.summary()} -> {output_dir}")
+    route = backend if moe_path is None else f"moe, noise {moe_noise}"
+    print(f"factory[{route}, {input_format}]: {report.summary()} -> {output_dir}")
     return report
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="Fused hr/lr train-data factory")
     p.add_argument("--input-dir", required=True)
-    p.add_argument("--kernel", required=True, help="single per-band kernel .npy")
+    src = p.add_mutually_exclusive_group(required=True)
+    src.add_argument("--kernel", help="single per-band kernel .npy")
+    src.add_argument("--moe", help="content-adaptive mode: MoE model dir / "
+                                   "moe_model.npz / reference moe_model.pth — "
+                                   "each patch degrades with its selector-"
+                                   "routed expert kernel")
+    src.add_argument("--kernel-root",
+                     help="per-scene kernels: not ported yet (ROADMAP.md "
+                          "queue 1 item 5): refused")
+    p.add_argument("--moe-noise", choices=["pool", "sigma"], default="pool",
+                   help="pool: empirical noise-pool sample; sigma: the "
+                        "expert's learned per-band Gaussian")
     p.add_argument("--noise-pool", required=True)
     p.add_argument("--output-dir", required=True)
     p.add_argument("--factor", type=int, default=8,
@@ -443,11 +625,13 @@ def main(argv=None) -> int:
                         "native split loader into the presplit kernel")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     a = p.parse_args(argv)
+    if a.kernel_root:
+        raise SystemExit(KERNEL_ROOT_REFUSAL)
     report = run_factory(
         a.input_dir, a.kernel, a.noise_pool, a.output_dir,
         factor=a.factor, in_group=a.in_group, batch_size=a.batch_size,
         seed=a.seed, backend=a.backend, input_format=a.input_format,
-        device=a.device,
+        device=a.device, moe_path=a.moe, moe_noise=a.moe_noise,
     )
     return 0 if report.n_fail == 0 else 1
 

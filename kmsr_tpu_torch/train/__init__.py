@@ -1,5 +1,6 @@
-"""Trainers: single-kernel KernelGAN and its state / optimizer /
-checkpoint plumbing."""
+"""Trainers: single-kernel KernelGAN, the MoE kernel bank (`train.moe`),
+the dynamic degradation model (`train.dynamic`) and their shared state /
+optimizer / checkpoint plumbing."""
 from .state import (
     GANTrainState,
     make_gan_optimizers,

@@ -197,23 +197,33 @@ def latest_checkpoint_step(ckpt_dir: str) -> Optional[int]:
 
 
 # -------------------------------------------------- shared trainer plumbing
+def batch_indices(gen: torch.Generator, n_pool: int, batch_size: int,
+                  device: torch.device) -> torch.Tensor:
+    """One batch of pool indices drawn on the device (a K-step chunk draws
+    the HR batch's, then the real-crop batch's)."""
+    return torch.randint(0, n_pool, (batch_size,), generator=gen, device=device)
+
+
 def make_chunk_step(step: Callable, batch_size: int, steps_per_call: int,
-                    stacked_keys: tuple) -> Callable:
+                    stacked_keys: tuple, scan_xs: bool = False) -> Callable:
     """K train steps in one Python call: each draws its HR and real-crop
     batch indices on the device from the state's generator and gathers
     them from the device-resident pool, so nothing in the chunk waits for
     the host (the JAX package's lax.scan). Returns chunk(state, pool_dev)
     -> (state, metrics), `stacked_keys` of the metrics stacked over the K
-    steps, the rest the last step's."""
+    steps, the rest the last step's. With scan_xs the chunk takes one more
+    argument, a sequence of per-step inputs (the MoE temperature
+    schedule): chunk(state, pool_dev, xs) runs len(xs) steps and passes
+    xs[i] to step i as its last argument."""
 
-    def chunk_step(state: GANTrainState, pool_dev: torch.Tensor):
+    def chunk_step(state: GANTrainState, pool_dev: torch.Tensor, *xs):
         n_pool = pool_dev.shape[0]
         rows = []
-        for _ in range(steps_per_call):
-            hr_idx, cr_idx = (
-                torch.randint(0, n_pool, (batch_size,), generator=state.rng,
-                              device=pool_dev.device) for _ in range(2))
-            state, m = step(state, pool_dev[hr_idx], pool_dev[cr_idx])
+        for x in (xs[0] if scan_xs else range(steps_per_call)):
+            hr_idx, cr_idx = (batch_indices(state.rng, n_pool, batch_size, pool_dev.device)
+                              for _ in range(2))
+            state, m = step(state, pool_dev[hr_idx], pool_dev[cr_idx],
+                            *((x,) if scan_xs else ()))
             rows.append(m)
         metrics = dict(rows[-1])
         metrics.update({k: torch.stack([m[k] for m in rows]) for k in stacked_keys})

@@ -1,1 +1,2 @@
-"""Host utilities (profiling)."""
+"""Host utilities: profiling, `.npz` model files (`params_io`) and the
+reference's torch checkpoints (`torch_import`)."""

@@ -75,10 +75,10 @@ def cuda_time_ms(fn: Callable[[], object], runs: int = 20) -> dict:
 
 
 def cuda_device_ms(fn: Callable[[], object], runs: int = 10,
-                   attempts: int = 3) -> dict:
+                   attempts: int = 3, warmup: int = 3) -> dict:
     """Device time of the CUDA kernels `fn()` launches, in milliseconds per
-    call, from a torch.profiler (CUPTI) trace of `runs` calls after 3
-    untimed ones: the kernels' own durations, without the host time between
+    call, from a torch.profiler (CUPTI) trace of `runs` calls after
+    `warmup` untimed ones: the kernels' own durations, without the host time between
     launches that `cuda_time_ms` also sees when the host is the slower
     side. Each kernel's mean duration is taken over the records the trace
     holds, times its launches per call. Returns {"device_ms": their sum,
@@ -91,7 +91,7 @@ def cuda_device_ms(fn: Callable[[], object], runs: int = 10,
         raise RuntimeError("cuda_device_ms needs a CUDA device")
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     for _ in range(attempts):

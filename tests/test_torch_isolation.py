@@ -167,3 +167,63 @@ def test_kernel_wrapper_refuses_cpu_tensors():
         scene_stencil_raw(x, x[:, :6], x[:, :6], comp, out, factor=8)
     with pytest.raises(ValueError, match="CUDA tensors"):
         scene_stencil_ext(x, comp, out[:, :1], factor=8, top=8)
+
+
+def test_importing_the_moe_and_dynamic_stages_loads_no_jax():
+    """The MoE and dynamic trainers, their CLIs and models, and the model
+    file modules."""
+    code = (
+        "import sys; import kmsr_tpu_torch.pipeline.train_moe_cli, "
+        "kmsr_tpu_torch.pipeline.train_dynamic_cli, kmsr_tpu_torch.train.moe, "
+        "kmsr_tpu_torch.train.dynamic, kmsr_tpu_torch.models.moe, "
+        "kmsr_tpu_torch.models.dynamic, kmsr_tpu_torch.utils.params_io, "
+        "kmsr_tpu_torch.utils.torch_import; "
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'optax', 'orbax', 'kmsr_tpu')]; print(bad); "
+        "sys.exit(1 if bad else 0)"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_moe_and_dynamic_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device; the check is for hosts without")
+    from kmsr_tpu_torch import convert
+    from kmsr_tpu_torch.data import synthetic_pool
+    from kmsr_tpu_torch.models import dynamic, moe
+    from kmsr_tpu_torch.pipeline import (apply_kernel, factory, train_dynamic_cli,
+                                         train_moe_cli)
+    from kmsr_tpu_torch.train import dynamic as tdyn
+    from kmsr_tpu_torch.train import moe as tmoe
+    from kmsr_tpu_torch.utils import torch_import
+
+    out = str(tmp_path / "out")
+    pool = synthetic_pool(np.random.default_rng(0), n=2, size=16)
+    calls = [
+        lambda: train_moe_cli.main(["--patch-dir", str(tmp_path), "--outdir", out]),
+        lambda: train_dynamic_cli.main(["--patch-dir", str(tmp_path), "--outdir", out]),
+        lambda: tmoe.train_moe(pool, tmoe.MoETrainConfig(outdir=out)),
+        lambda: tdyn.train_dynamic(pool, tdyn.DynamicTrainConfig(outdir=out)),
+        lambda: tmoe.init_moe_training(tmoe.MoETrainConfig()),
+        lambda: tdyn.init_dynamic_training(tdyn.DynamicTrainConfig()),
+        lambda: moe.init_moe(),
+        lambda: dynamic.init_degradation_model(),
+        lambda: factory.run_factory(str(tmp_path), None, "pool.npy", out, moe_path="m"),
+        lambda: factory.main(["--input-dir", str(tmp_path), "--moe", "m",
+                              "--noise-pool", "pool.npy", "--output-dir", out]),
+        lambda: factory.load_moe_for_factory("m"),
+        lambda: apply_kernel.apply_kernel_to_folder(str(tmp_path), None, out, moe_path="m"),
+        lambda: apply_kernel.main(["--input-dir", str(tmp_path), "--moe", "m",
+                                   "--output-dir", out]),
+        lambda: torch_import.load_moe_torch_checkpoint("m.pth"),
+        lambda: convert.moe_from_jax({}, {}),
+        lambda: convert.dynamic_from_jax({}),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    assert not (tmp_path / "out").exists()
