@@ -150,9 +150,42 @@ and exits non-zero without them. Phases, one line each:
    CPU's float32 distance from it) and the updated parameters (Adam's
    first-step bound, `adam_step_excess`).
 
+12. sr: the SR family, which launches no kernel of the table either
+   (JAX's SR is XLA convolutions and einsums: cuDNN / cuBLAS here; the
+   eight launch counts are set to 0 before each route and must read 0
+   after it), at configs/quality_x8.json's sr_train widths (x8, width 64,
+   8 blocks, progressive). (a) The committed model
+   quality_run_r4/work/sr_run/sr_model.npz at bench_sr.py's batch (128 x
+   5x32x32 LR, 8.39 Mpix out) in bf16 and f32: f32 against the port's CPU
+   forward on 2 samples (rtol 1e-4 / atol 1e-5, TF32 off; or no further
+   from a float64 forward on the card than twice the CPU is), bf16 no
+   further from the CPU's f32 than twice the CPU's own bf16 and within
+   tests/test_sr.py's median relative bound (0.05); Mpix/s out (median of
+   5 synchronized windows, with each window), the profiler's device time,
+   busy share, top ops, peak memory, the conv FLOPs and the bound against
+   the card's bf16 / f32 peak and HBM rate; the trunk's device time
+   channels_last vs NCHW; oneshot at width 64 from a seeded init, timed.
+   (b) `sr_scene` (tile 64, chunk 32, bf16) on an in-memory 5x1024x1024
+   LR scene with NaN holes (5x8192x8192 out, 1.34 GB), one warm-up and
+   two timed runs (Mpix/s out end to end, seconds by stage); the NaN
+   footprint exact; a 5x96x160 NaN scene tiled vs untiled on the card in
+   f32 (atol 2e-5 / rtol 1e-5, tests/test_sr_scene.py's), NaN cells
+   identical. (c) `sr_infer`'s device loop (`run_batches`) on 256 seeded
+   in-memory pairs in chunks of 128: every pair out, preds equal to a
+   direct forward, PSNR/SSIM against the CPU's on two samples a chunk
+   (rtol 1e-5 / atol 1e-5), a timed pass. (d) `train_sr` at the config's
+   widths (batch 32, bf16, LR 32^2 -> HR 256^2) on 64 in-memory pairs,
+   holdout 8, 20 iterations: the CSV, parameters moved, `sr_model.npz`'s
+   names equal to the committed file's; iterations/s, device time, busy
+   share, top ops, peak memory and the wall of a 20,000-iteration run; one
+   full-width f32 step (batch 2, committed weights) card vs CPU, with the
+   card's float64 gradients as the yardstick (loss rtol 1e-4, gradients
+   the scaled rule or <= 2x the CPU's distance from float64, parameters
+   Adam's first-step bound).
+
 Prints one JSON line {"factory": {...}} (per-route results), one
 {"scene": {...}}, one {"api": {...}}, one {"kernelgan": {...}}, one
-{"denoise": {...}}, one {"moe_dynamic": {...}}, then the
+{"denoise": {...}}, one {"moe_dynamic": {...}}, one {"sr": {...}}, then the
 card's nvidia-smi line, one JSON line {"kernels": [...]} and, last,
 {"ok": true, "device": {...}}. Any mismatch or error in any phase, timing
 included, exits non-zero before that last line.
@@ -2442,6 +2475,512 @@ def phase_moe_dynamic(dev, failures: list) -> dict:
     return res
 
 
+#: the SR phase: configs/quality_x8.json:31-42 (x8, width 64, 8 blocks,
+#: progressive; sr_train batch 32, holdout 24 of the factory's pairs), the
+#: committed x8 model behind docs/QUALITY.md, bench_sr.py's batch (128 x
+#: 5x32^2 LR, 8.39 Mpix out); a 5x1024^2 LR scene (5x8192^2 out, 1.34 GB)
+SR_MODEL = os.path.join(os.path.dirname(os.path.abspath(__file__)), "quality_run_r4",
+                        "work", "sr_run", "sr_model.npz")
+SR_BATCH, SR_LR, SR_SUB, SR_SEED = 128, 32, 2, 7
+SR_SCENE_HW, SR_EXACT_HW, SR_SCENE_RUNS = 1024, (96, 160), 2
+SR_PAIRS, SR_INFER_BATCH = 256, 128
+SR_TRAIN_BATCH, SR_TRAIN_POOL, SR_TRAIN_HOLDOUT, SR_TRAIN_ITERS = 32, 64, 8, 20
+SR_PRODUCTION_ITERS = 20_000
+#: tests/test_sr.py:74's median relative bf16 distance; the tiled scene's
+#: tolerance (tests/test_sr_scene.py)
+SR_MEDIAN_REL, SR_TILED_ATOL, SR_TILED_RTOL = 0.05, 2e-5, 1e-5
+
+
+def sr_config(upsampler: str = "progressive"):
+    from kmsr_tpu_torch.models.sr import SRConfig
+
+    return SRConfig(width=64, n_blocks=8, factor=8, upsampler=upsampler)
+
+
+def sr_macs_per_lr_px(cfg) -> int:
+    """Multiply-adds of the convs per LR pixel (the bilinear skip's dense
+    matmuls, < 1 % at x8, are left out)."""
+    w, c, f = cfg.width, cfg.in_ch, cfg.factor
+    trunk = 9 * c * w + (2 * cfg.n_blocks + 1) * 9 * w * w
+    if cfg.upsampler == "oneshot":
+        return trunk + 9 * w * c * f * f
+    n_up = f.bit_length() - 1
+    ups = sum(9 * w * 4 * w * 4**i for i in range(n_up - 1))
+    return trunk + ups + 9 * w * c * 4 * 4 ** (n_up - 1)
+
+
+def sr_bound(cfg, lr_px: int, io_bytes: int, param_bytes: int, dtype_peak: float,
+             card: str) -> dict:
+    """The least time of a forward: max(FLOPs / the dtype's peak, bytes
+    (input and output once, parameters once) / HBM rate)."""
+    bw = peaks(card)[0]
+    flops = 2 * sr_macs_per_lr_px(cfg) * lr_px
+    t_ops, t_bytes = flops / dtype_peak * 1e3, (io_bytes + param_bytes) / bw * 1e3
+    return {"gflop": flops / 1e9, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "ops_ms": t_ops, "bytes_ms": t_bytes}
+
+
+def sr_timing_line(label: str, t: dict, mpix: float) -> str:
+    return (f"{label}: {mpix / t['wall_ms_per_iter'] * 1e3:.1f} Mpix/s out (median of "
+            f"{MD_WINDOWS} windows of {t['window_iters']}; windows "
+            f"{[round(mpix / w * 1e3, 1) for w in t['wall_ms_per_iter_windows']]}), "
+            f"{t['wall_ms_per_iter']:.3f} ms a call, device {t['device_ms_per_iter']:.3f} ms, "
+            f"busy {t['busy_share']:.3f}; top ops: "
+            + "; ".join(f"{o['op']} {o['shapes'][:40]} {o['device_ms_per_iter']:.3f} ms"
+                        for o in t["top_ops"][:4]))
+
+
+def sr_forward_part(dev, card: str, failures: list) -> dict:
+    """(a): the committed x8 model at batch 128 in bf16 and f32 against the
+    CPU on a sub-batch; throughput, device time, busy share, top ops, peak
+    memory and the bound; the trunk's layouts; oneshot at width 64."""
+    import numpy as np
+    import torch
+
+    from kmsr_tpu_torch import kernels
+    from kmsr_tpu_torch.models.sr import count_params, init_sr, sr_forward
+    from kmsr_tpu_torch.pipeline.sr_infer import load_sr_model
+    from kmsr_tpu_torch.train.state import tree_map
+    from kmsr_tpu_torch.utils.profiling import cuda_device_ms
+
+    cfg = sr_config()
+    params = load_sr_model(SR_MODEL, cfg, dev)
+    cpu_params = load_sr_model(SR_MODEL, cfg, "cpu")
+    rng = np.random.default_rng(SR_SEED)
+    x = torch.from_numpy(rng.normal(3.0, 1.0, (SR_BATCH, C, SR_LR, SR_LR)).astype(np.float32))
+    x_dev = x.to(dev)
+    kernels.reset_launches()
+    y16 = sr_forward(params, x_dev)
+    y32 = sr_forward(params, x_dev, cfg, compute_dtype=torch.float32)
+    torch.cuda.synchronize()
+    no_kernel_launched("sr forward", failures)
+    out_shape = (SR_BATCH, C, SR_LR * cfg.factor, SR_LR * cfg.factor)
+    res = {"batch": SR_BATCH, "lr": SR_LR, "model": SR_MODEL, "out_shape": list(out_shape)}
+    if tuple(y16.shape) != out_shape or not bool(torch.isfinite(y16).all()) \
+            or not bool(torch.isfinite(y32).all()):
+        failures.append(f"sr forward: shape {tuple(y16.shape)} or non-finite output")
+    cpu32 = sr_forward(cpu_params, x[:SR_SUB], cfg, compute_dtype=torch.float32)
+    cpu16 = sr_forward(cpu_params, x[:SR_SUB], cfg)
+    f64 = sr_forward(tree_map(lambda t: t.double(), params), x_dev[:SR_SUB].double(), cfg,
+                     compute_dtype=torch.float64).cpu()
+    e = errors(y32[:SR_SUB].cpu(), cpu32)
+    # float32 through 23 convs keeps ~1e-5 of the output's scale on either
+    # device: the card passes at the tolerance, or no further from a
+    # float64 forward than twice the CPU is
+    dist = {side: float((t.double() - f64).abs().max())
+            for side, t in (("card", y32[:SR_SUB].cpu()), ("cpu", cpu32))}
+    e.update({"card_vs_f64": dist["card"], "cpu_vs_f64": dist["cpu"],
+              "ok": e["ok"] or dist["card"] <= 2 * max(dist["cpu"], ATOL)})
+    res["f32_card_vs_cpu"] = e
+    cpu_own = float((cpu16 - cpu32).abs().max())
+    card_dist = float((y16[:SR_SUB].cpu() - cpu32).abs().max())
+    rel = ((y16 - y32).abs() / (y32.abs() + 1e-3)).median()
+    res["bf16"] = {"card_vs_cpu_f32_max": card_dist, "cpu_bf16_vs_f32_max": cpu_own,
+                   "median_rel_vs_card_f32": float(rel),
+                   "ok": card_dist <= 2 * cpu_own and float(rel) < SR_MEDIAN_REL}
+    if not res["f32_card_vs_cpu"]["ok"]:
+        failures.append(f"sr forward f32 card vs CPU: {res['f32_card_vs_cpu']}")
+    if not res["bf16"]["ok"]:
+        failures.append(f"sr forward bf16 bound: {res['bf16']}")
+    mpix = SR_BATCH * (SR_LR * cfg.factor) ** 2 / 1e6
+    lr_px = SR_BATCH * SR_LR * SR_LR
+    io = x.numel() * 4 + int(np.prod(out_shape)) * 4
+    timing = {}
+    for label, dt, peak in (("bf16", torch.bfloat16, peaks(card)[2]),
+                            ("f32", torch.float32, peaks(card)[1])):
+        def call(dt=dt):
+            sr_forward(params, x_dev, cfg, compute_dtype=dt)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t = training_timing(call, 1)
+        t["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        t["mpix_per_s"] = mpix / t["wall_ms_per_iter"] * 1e3
+        t["mpix_per_s_windows"] = [mpix / w * 1e3 for w in t["wall_ms_per_iter_windows"]]
+        t.update(sr_bound(cfg, lr_px, io, count_params(params) * 4, peak, card))
+        t["bound_mpix_per_s"] = mpix / t["bound_ms"] * 1e3
+        timing[label] = t
+        log(f"[sr] (a) x8 progressive {label} " + sr_timing_line(label, t, mpix)
+            + f"; peak {t['peak_mem_gb']:.2f} GB; {t['gflop']:.1f} GFLOP, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}) = {t['bound_mpix_per_s']:.0f} Mpix/s")
+    res["timing"] = timing
+    layouts = {}
+    for name, cl in (("channels_last", True), ("nchw", False)):
+        layouts[name] = cuda_device_ms(lambda cl=cl: sr_forward(params, x_dev, cfg,
+                                                                channels_last=cl),
+                                       runs=3)["device_ms"]
+    res["layout_bf16_device_ms"] = layouts
+    one_cfg = sr_config("oneshot")
+    one_params = init_sr(one_cfg, seed=SR_SEED, device=dev)
+    kernels.reset_launches()
+    y1 = sr_forward(one_params, x_dev, one_cfg)
+    torch.cuda.synchronize()
+    no_kernel_launched("sr forward oneshot", failures)
+    if tuple(y1.shape) != out_shape or not bool(torch.isfinite(y1).all()):
+        failures.append("sr oneshot forward: wrong shape or non-finite")
+    t = training_timing(lambda: sr_forward(one_params, x_dev, one_cfg), 1)
+    t["mpix_per_s"] = mpix / t["wall_ms_per_iter"] * 1e3
+    t.update(sr_bound(one_cfg, lr_px, io, count_params(one_params) * 4, peaks(card)[2], card))
+    res["oneshot_bf16"] = t
+    log("[sr] (a) x8 oneshot bf16 (seeded init) " + sr_timing_line("bf16", t, mpix)
+        + f"; bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+    log(f"[sr] (a) {SR_MODEL}: f32 card vs CPU ({SR_SUB} samples) "
+        f"{res['f32_card_vs_cpu']}; bf16 card vs CPU f32 {card_dist:.4g} (CPU bf16 "
+        f"{cpu_own:.4g}), median rel vs f32 {float(rel):.4g}; trunk layout, bf16 device ms "
+        f"{ {k: round(v, 3) for k, v in layouts.items()} }")
+    return res
+
+
+def sr_scene_part(params, dev, failures: list) -> dict:
+    """(b): `sr_scene` on an in-memory 5x1024^2 LR scene with NaN holes
+    (the CLI's defaults: tile 64, chunk 32, bf16), timed end to end and by
+    stage; exactness on a smaller NaN scene: tiled vs untiled on the card
+    in f32, NaN cells identical."""
+    import numpy as np
+    import torch
+
+    from kmsr_tpu_torch import kernels
+    from kmsr_tpu_torch.models.sr import sr_forward
+    from kmsr_tpu_torch.pipeline.sr_scene import _band_filled, receptive_halo, sr_scene
+    from kmsr_tpu_torch.utils.profiling import timing_report
+
+    cfg = sr_config()
+    f = cfg.factor
+    rng = np.random.default_rng(SR_SEED + 1)
+
+    def nan_scene(h, w):
+        s = rng.normal(3.0, 1.0, (C, h, w)).astype(np.float32)
+        s[:, h // 4:h // 4 + 9, w // 3:w // 3 + 17] = np.nan   # a hole in every band
+        s[1, -5:, :7] = np.nan                                  # a corner of one band
+        return s
+
+    res = {"tile": 64, "chunk": 32, "halo": receptive_halo(cfg)}
+    # exactness: tiled (shifted last tiles, clamped slabs) vs the untiled forward
+    small = nan_scene(*SR_EXACT_HW)
+    kernels.reset_launches()
+    tiled = sr_scene(params, small, cfg, compute_dtype=torch.float32, chunk=4, device=dev)
+    filled = torch.from_numpy(_band_filled(small, np.isfinite(small)))[None].to(dev)
+    whole = sr_forward(params, filled, cfg, compute_dtype=torch.float32)[0].cpu().numpy()
+    no_kernel_launched("sr_scene (exactness)", failures)
+    want_nan = np.isnan(small).repeat(f, axis=1).repeat(f, axis=2)
+    ok = ~want_nan
+    exact = {"shape": list(small.shape), "nan_cells_identical":
+             bool(np.array_equal(np.isnan(tiled), want_nan)),
+             "max_abs_err": float(np.abs(tiled[ok] - whole[ok]).max()),
+             "close": bool(np.allclose(tiled[ok], whole[ok], atol=SR_TILED_ATOL,
+                                       rtol=SR_TILED_RTOL))}
+    res["exactness_f32"] = exact
+    if not (exact["nan_cells_identical"] and exact["close"]):
+        failures.append(f"sr_scene tiled vs untiled: {exact}")
+    # the full-size scene: one warm-up, then timed runs
+    scene = nan_scene(SR_SCENE_HW, SR_SCENE_HW)
+    valid = np.isfinite(scene)
+    out_px = (SR_SCENE_HW * f) ** 2
+    runs = []
+    for i in range(1 + SR_SCENE_RUNS):
+        kernels.reset_launches()
+        timing_report(reset=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sr_scene(params, scene, cfg, device=dev)
+        secs = time.perf_counter() - t0
+        no_kernel_launched("sr_scene", failures)
+        stages = {k: r["total_s"] for k, r in timing_report(reset=True).items()
+                  if k.startswith("sr_scene.")}
+        if i:
+            runs.append({"seconds": secs, "mpix_per_s_out": out_px / secs / 1e6,
+                         "stages_s": stages,
+                         "mpix_per_s_by_stage": {k: out_px / v / 1e6
+                                                 for k, v in stages.items() if v > 0}})
+    blocks = np.isnan(out).reshape(C, SR_SCENE_HW, f, SR_SCENE_HW, f)
+    checks = {"shape": out.shape == (C, SR_SCENE_HW * f, SR_SCENE_HW * f),
+              "nan_footprint": bool((blocks == ~valid[:, :, None, :, None]).all()),
+              "no_inf": not bool(np.isinf(out).any())}
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        failures.append(f"sr_scene {SR_SCENE_HW}^2: failed checks {bad}")
+    res.update({"scene": [C, SR_SCENE_HW, SR_SCENE_HW], "out_gb": out.nbytes / 1e9,
+                "runs": runs, "checks_failed": bad})
+    best = min(runs, key=lambda r: r["seconds"])
+    log(f"[sr] (b) sr_scene 5x{SR_SCENE_HW}^2 -> 5x{SR_SCENE_HW * f}^2 ({out.nbytes / 1e9:.2f}"
+        f" GB): {'ok' if not bad else 'FAILED ' + str(bad)}; runs "
+        + "; ".join(f"{r['seconds']:.3f}s = {r['mpix_per_s_out']:.1f} Mpix/s, stages "
+                    f"{ {k[9:]: round(v, 4) for k, v in r['stages_s'].items()} }"
+                    for r in runs)
+        + f"; exactness f32 {SR_EXACT_HW}: {exact}; best {best['mpix_per_s_out']:.1f} Mpix/s")
+    del out, blocks
+    return res
+
+
+def sr_pairs(n: int, rng):
+    """n seeded (lr [n,5,32,32], hr [n,5,256,256]) pairs: hr a blocky field
+    plus noise, lr its x8 block mean (the factory's pairs without blur)."""
+    import numpy as np
+
+    f = 8
+    base = rng.normal(3.0, 1.0, (n, C, SR_LR, SR_LR)).astype(np.float32)
+    hr = base.repeat(f, axis=2).repeat(f, axis=3)
+    hr += 0.05 * rng.standard_normal(hr.shape, dtype=np.float32)
+    lr = hr.reshape(n, C, SR_LR, f, SR_LR, f).mean(axis=(3, 5))
+    return lr, hr
+
+
+def sr_infer_part(params, pairs, dev, failures: list) -> dict:
+    """(c): `sr_infer`'s device loop (`run_batches`) on in-memory pairs in
+    chunks of 128 (the CLI's batch), with PSNR/SSIM against hr; each
+    batch's preds against a direct forward, two samples' metrics against
+    the CPU's, the bilinear baseline's PSNR beside the model's."""
+    import numpy as np
+    import torch
+
+    from kmsr_tpu_torch import kernels
+    from kmsr_tpu_torch.models.sr import bilinear_upsample, sr_forward
+    from kmsr_tpu_torch.ops.metrics import psnr, ssim
+    from kmsr_tpu_torch.pipeline.sr_infer import run_batches
+    from kmsr_tpu_torch.utils.profiling import timing_report
+
+    cfg = sr_config()
+    lr, hr = pairs
+    paths = [f"pair_{i:04d}" for i in range(len(lr))]
+    chunks = [(paths[i:i + SR_INFER_BATCH],
+               [(lr[j], hr[j]) for j in range(i, min(i + SR_INFER_BATCH, len(lr)))], [])
+              for i in range(0, len(lr), SR_INFER_BATCH)]
+    got = {"metrics": [], "max_abs_vs_direct": 0.0, "metric_checks": []}
+
+    def check(p, preds, mets):
+        i0 = paths.index(p[0])
+        direct = sr_forward(params, torch.from_numpy(lr[i0:i0 + len(p)]).to(dev), cfg).cpu()
+        got["max_abs_vs_direct"] = max(got["max_abs_vs_direct"],
+                                       float((torch.from_numpy(preds) - direct).abs().max()))
+        got["metrics"].append(mets)
+        for k in (0, len(p) - 1):
+            h = torch.from_numpy(hr[i0 + k])
+            dr = float(h.max() - h.min()) or 1.0
+            pr = torch.from_numpy(preds[k])
+            got["metric_checks"].append(bool(np.allclose(
+                mets[k], [float(psnr(pr, h, dr)), float(ssim(pr, h, dr))],
+                rtol=1e-5, atol=1e-5)))
+
+    kernels.reset_launches()
+    fails = run_batches(chunks, params, cfg, check, dev)
+    no_kernel_launched("sr_infer", failures)
+    mets = np.concatenate(got["metrics"])
+    bil = [float(psnr(bilinear_upsample(torch.from_numpy(lr[i:i + 1]).to(dev), 8)[0],
+                      torch.from_numpy(hr[i]).to(dev),
+                      float(hr[i].max() - hr[i].min()) or 1.0)) for i in range(min(8, len(lr)))]
+    checks = {"no_failures": not fails, "all_pairs": len(mets) == len(lr),
+              "finite": bool(np.isfinite(mets).all()),
+              "preds_equal_direct": got["max_abs_vs_direct"] <= ATOL,
+              "metrics_equal_cpu": all(got["metric_checks"])}
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        failures.append(f"sr_infer loop: failed checks {bad} {fails[:3]}")
+    # timed: one more pass, stage timers
+    timing_report(reset=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_batches(chunks, params, cfg, lambda *a: None, dev)
+    secs = time.perf_counter() - t0
+    stages = {k: r["total_s"] for k, r in timing_report(reset=True).items()
+              if k.startswith("sr_infer.")}
+    out_px = len(lr) * (SR_LR * 8) ** 2
+    res = {"pairs": len(lr), "batch": SR_INFER_BATCH, "checks_failed": bad,
+           "psnr_mean": float(mets[:, 0].mean()), "ssim_mean": float(mets[:, 1].mean()),
+           "bilinear_psnr_mean_first8": float(np.mean(bil)),
+           "max_abs_vs_direct": got["max_abs_vs_direct"], "seconds": secs,
+           "mpix_per_s_out": out_px / secs / 1e6, "stages_s": stages}
+    log(f"[sr] (c) sr_infer loop, {len(lr)} in-memory pairs in chunks of {SR_INFER_BATCH}: "
+        f"{'ok' if not bad else 'FAILED ' + str(bad)}; PSNR {res['psnr_mean']:.3f} dB, SSIM "
+        f"{res['ssim_mean']:.4f} (bilinear PSNR {res['bilinear_psnr_mean_first8']:.3f} on 8); "
+        f"preds vs direct forward {got['max_abs_vs_direct']:.3g}; timed pass {secs:.3f}s = "
+        f"{res['mpix_per_s_out']:.1f} Mpix/s out, stages "
+        f"{ {k: round(v, 4) for k, v in stages.items()} }")
+    return res
+
+
+def sr_step_parity(pairs, dev, failures: list) -> dict:
+    """(d): one full-width f32 train step (batch 2, from the committed
+    model) on the CPU and on the card, and the card's float64 gradients as
+    the yardstick: loss rtol 1e-4, gradients by the scaled rule (or no
+    further from float64 than twice the CPU), updated parameters within
+    Adam's first-step bound."""
+    import numpy as np
+    import torch
+
+    from kmsr_tpu_torch.models.sr import sr_forward
+    from kmsr_tpu_torch.pipeline.sr_infer import load_sr_model
+    from kmsr_tpu_torch.train import sr as tsr
+    from kmsr_tpu_torch.train.state import _trainable, tree_leaves, tree_map
+
+    cfg = tsr.SRTrainConfig(batch_size=2, compute_dtype="float32", model=sr_config(),
+                            outdir="unused")
+    lr, hr = (torch.from_numpy(a[:2]) for a in pairs)
+    got = []
+    for d in ("cpu", dev):
+        params = _trainable(load_sr_model(SR_MODEL, cfg.model, d))
+        state = tsr.SRTrainState(0, params, tsr.make_optimizer(cfg).init(params))
+        state, m = tsr.make_sr_train_step(cfg)[0](state, lr.to(d), hr.to(d))
+        got.append({"loss": float(m["l1"]),
+                    "grads": [g.detach().cpu().double() for g in tree_leaves(m["grads"])],
+                    "params": [p.detach().cpu().double() for p in tree_leaves(state.params)]})
+    p64 = tree_map(lambda t: t.double().requires_grad_(True),
+                   load_sr_model(SR_MODEL, cfg.model, dev))
+    pred = sr_forward(p64, lr.to(dev).double(), cfg.model, compute_dtype=torch.float64)
+    loss64 = (pred - hr.to(dev).double()).abs().mean()
+    g64 = [g.cpu() for g in torch.autograd.grad(loss64, tree_leaves(p64))]
+    loss64 = loss64.item()
+    cpu, card = got
+    scale = max(float(g.abs().max()) for g in cpu["grads"])
+    excess = max(float(((h - w).abs() - (1e-5 * scale + RTOL * w.abs())).max())
+                 for h, w in zip(card["grads"], cpu["grads"]))
+    s64 = max(float(g.abs().max()) for g in g64)
+    cpu_f64, card_f64 = (max(float((a - b).abs().max()) for a, b in zip(side["grads"], g64))
+                         / s64 for side in (cpu, card))
+    upd = adam_step_excess(card["params"], cpu["params"], cpu["grads"], cfg.lr_rate)
+    res = {"loss": {"card": card["loss"], "cpu": cpu["loss"], "f64": loss64,
+                    "ok": abs(card["loss"] - cpu["loss"]) <= RTOL * abs(cpu["loss"])},
+           "grads": {"excess_over_scaled_tol": excess, "scale": scale,
+                     "cpu_vs_f64_scaled": cpu_f64, "card_vs_f64_scaled": card_f64,
+                     "ok": excess <= 0 or card_f64 <= 2 * max(cpu_f64, 1e-5)},
+           "updated": {"excess_over_adam_bound": upd, "ok": upd <= 0}}
+    bad = [k for k, r in res.items() if not r["ok"]]
+    if bad:
+        failures.append(f"sr step card vs CPU: {bad}: {json.dumps(res)}")
+    log(f"[sr] (d) full-width f32 step card vs CPU (batch 2, committed weights): "
+        + ", ".join(f"{k} {'ok' if r['ok'] else 'FAILED'} "
+                    + " ".join(f"{m}={v:.4g}" for m, v in r.items() if m != "ok")
+                    for k, r in res.items()))
+    return res
+
+
+def sr_training_part(pairs, dev, failures: list) -> dict:
+    """(d): `train_sr` at the config's widths (batch 32, bf16, LR 32^2 ->
+    HR 256^2) on an in-memory pool with a holdout tail, device pool:
+    CSV, parameters moved, `sr_model.npz` names as committed; then a step's
+    it/s, device time, busy share and top ops, and the wall a 20,000-
+    iteration run would take; one full-width f32 step card vs CPU."""
+    import numpy as np
+    import torch
+
+    from kmsr_tpu_torch import kernels
+    from kmsr_tpu_torch.pipeline.sr_infer import load_sr_model
+    from kmsr_tpu_torch.train import sr as tsr
+    from kmsr_tpu_torch.train.state import tree_leaves
+    from kmsr_tpu_torch.utils.params_io import _named_leaves
+
+    lr, hr = (a[:SR_TRAIN_POOL] for a in pairs)
+    committed = np.load(SR_MODEL)
+    committed_names = [str(committed[k]) for k in sorted(committed.files)
+                       if k.startswith("name_")]
+    tmp = tempfile.mkdtemp(prefix="kmsr_chip_sr_train_")
+    try:
+        cfg = tsr.SRTrainConfig(iters=SR_TRAIN_ITERS, batch_size=SR_TRAIN_BATCH,
+                                model=sr_config(), holdout=SR_TRAIN_HOLDOUT, eval_every=10,
+                                log_every=5, outdir=tmp)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = tsr.train_sr((lr, hr), cfg, progress=False, device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        no_kernel_launched("sr training", failures)
+        init = tsr.init_sr_training(cfg, dev)
+        moved = max(float((a.detach() - b.detach()).abs().max())
+                    for a, b in zip(tree_leaves(out["state"].params), tree_leaves(init.params)))
+        with open(out["csv_path"], encoding="utf-8") as fh:
+            rows = [ln.strip().split(",") for ln in fh]
+        saved = np.load(out["model_path"])
+        names = [str(saved[k]) for k in sorted(saved.files) if k.startswith("name_")]
+        reloaded = load_sr_model(out["model_path"], cfg.model, dev)
+        checks = {
+            "csv_header": rows[0] == ["Iteration", "Loss_L1", "Eval_PSNR", "Eval_SSIM"],
+            "csv_rows": [r[0] for r in rows[1:]] == [str(i) for i in
+                                                     range(5, SR_TRAIN_ITERS + 1, 5)],
+            "csv_finite": all(np.isfinite(float(v)) for r in rows[1:] for v in r if v),
+            "evals": sum(1 for r in rows[1:] if r[2]) == SR_TRAIN_ITERS // 10,
+            "final_eval": np.isfinite(out["final_eval"]["psnr"]),
+            "params_moved": moved > 0,
+            "npz_names_as_committed": names == committed_names,
+            "reloads": all(torch.equal(a.detach(), b) for (_, a), (_, b) in zip(
+                _named_leaves(out["state"].params), _named_leaves(reloaded))),
+        }
+        bad = [k for k, ok in checks.items() if not ok]
+        if bad:
+            failures.append(f"sr training: failed checks {bad}")
+        res = {"iters": cfg.iters, "seconds_with_setup": secs, "checks_failed": bad,
+               "max_param_move": moved, "log": out["log"], "final_eval": out["final_eval"]}
+        log(f"[sr] (d) train_sr {cfg.iters} iterations (batch {cfg.batch_size}, bf16, "
+            f"holdout {cfg.holdout}, device pool): {'ok' if not bad else 'FAILED ' + str(bad)}"
+            f" in {secs:.2f}s; log {[(i, round(v, 5)) for i, v in out['log']]}; final eval "
+            f"{out['final_eval']}")
+        # timing: the step on device-pool batches drawn as train_sr draws them
+        step_fn, _ = tsr.make_sr_train_step(cfg)
+        state = tsr.init_sr_training(cfg, dev)
+        lr_dev, hr_dev = torch.from_numpy(lr).to(dev), torch.from_numpy(hr).to(dev)
+        host_rng = np.random.default_rng(cfg.seed)
+
+        def one_call():
+            nonlocal state
+            i = torch.from_numpy(host_rng.integers(0, len(lr) - cfg.holdout, cfg.batch_size))
+            if dev.type == "cuda":
+                i = i.pin_memory().to(dev, non_blocking=True)
+            state, _ = step_fn(state, lr_dev[i], hr_dev[i])
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t = training_timing(one_call, 1)
+        t["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        t["production_run_hours"] = SR_PRODUCTION_ITERS / t["iters_per_s"] / 3600
+        res["timing"] = t
+        log("[sr] (d) timing " + timing_line("bf16 step, batch 32", t)
+            + f"; peak {t['peak_mem_gb']:.2f} GB; a {SR_PRODUCTION_ITERS}-iteration run "
+            f"{t['production_run_hours'] * 60:.1f} min")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res["card_vs_cpu"] = sr_step_parity((lr, hr), dev, failures)
+    return res
+
+
+def phase_sr(dev, card: str, smi: str, failures: list) -> dict:
+    """Phase 12 (module docstring): SR inference at bench_sr.py's batch,
+    whole-scene SR, the sr_infer loop and SR training at the x8 config's
+    widths; the eight kernels' launch counts set to 0 before each route
+    and read after it."""
+    import numpy as np
+    import torch
+
+    from kmsr_tpu_torch.pipeline.sr_infer import load_sr_model
+
+    t0 = time.perf_counter()
+    secs = {}
+    # cuDNN's default (phase 11 turned TF32 off): the f32 path must set it itself
+    torch.backends.cudnn.allow_tf32 = True
+
+    def part(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        secs[name] = time.perf_counter() - t
+        return out
+
+    res = {"forward": part("forward", sr_forward_part, dev, card, failures)}
+    params = load_sr_model(SR_MODEL, sr_config(), dev)
+    res["scene"] = part("scene", sr_scene_part, params, dev, failures)
+    pairs = part("pairs", sr_pairs, SR_PAIRS, np.random.default_rng(SR_SEED + 2))
+    res["infer"] = part("infer", sr_infer_part, params, pairs, dev, failures)
+    res["training"] = part("training", sr_training_part, pairs, dev, failures)
+    res["part_seconds"] = secs
+    fwd, scene = res["forward"]["timing"], res["scene"]["runs"]
+    log(f"[sr] on {smi}: x8 inference bf16 {fwd['bf16']['mpix_per_s']:.1f} Mpix/s "
+        f"(progressive), {res['forward']['oneshot_bf16']['mpix_per_s']:.1f} (oneshot), f32 "
+        f"{fwd['f32']['mpix_per_s']:.1f}; scene {max(r['mpix_per_s_out'] for r in scene):.1f}"
+        f" Mpix/s out; sr_infer loop {res['infer']['mpix_per_s_out']:.1f} Mpix/s out; "
+        f"training {res['training']['timing']['iters_per_s']:.2f} it/s")
+    log(f"[sr] seconds by part: { {k: round(v, 1) for k, v in secs.items()} }")
+    res["seconds"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -2489,6 +3028,9 @@ def main() -> int:
         moe_dynamic_res["nvidia_smi"] = smi
         log(f"[moe-dynamic] {'ok' if not failures else 'FAILED'} in "
             f"{moe_dynamic_res['seconds']:.1f}s")
+        sr_res = phase_sr(dev, card, smi, failures)
+        sr_res["nvidia_smi"] = smi
+        log(f"[sr] {'ok' if not failures else 'FAILED'} in {sr_res['seconds']:.1f}s")
     except Exception:
         traceback.print_exc()
         return 1
@@ -2539,6 +3081,7 @@ def main() -> int:
     log(json.dumps({"kernelgan": kernelgan_res}))
     log(json.dumps({"denoise": denoise_res}))
     log(json.dumps({"moe_dynamic": moe_dynamic_res}))
+    log(json.dumps({"sr": sr_res}))
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f}s")
     log(smi)
     log(json.dumps({"kernels": records}))

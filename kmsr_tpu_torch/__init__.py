@@ -38,7 +38,12 @@ with their routes: the MoE kernel bank (`pipeline.train_moe_cli` ->
 routes; `.npz` model files in the JAX layout, `utils.params_io`, and the
 reference's `moe_model.pth`, `utils.torch_import`) and the dynamic
 degradation model (`pipeline.train_dynamic_cli` -> `train.dynamic` ->
-`models.dynamic`), plain PyTorch as JAX's are XLA.
+`models.dynamic`), plain PyTorch as JAX's are XLA; and the SR family:
+the SR CNN (`models.sr`, JAX's parameter tree and `.npz` files), PSNR/SSIM
+(`ops.metrics`), inference over pairs (`pipeline.sr_infer`), whole scenes
+through exact halo tiling (`pipeline.sr_scene`) and SR training
+(`pipeline.train_sr_cli` -> `train.sr`), plain PyTorch (cuDNN / cuBLAS) as
+JAX's SR is XLA convolutions and einsums.
 """
 
 __version__ = "0.1.0"

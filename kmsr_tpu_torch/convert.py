@@ -18,7 +18,8 @@ take them as numpy arrays (`jax.device_get` on the JAX side) and copy them
 leaf for leaf. The MoE model (selector, kernel and sigma banks, and the
 selector's BatchNorm state) and the dynamic degradation model (modulated
 chain, condition encoder, noise estimator) carry across the same way:
-`moe_from_jax`, `dynamic_from_jax`. Their `.npz` model files need no
+`moe_from_jax`, `dynamic_from_jax`, and so does the SR network's
+parameter tree: `sr_from_jax`. Their `.npz` model files need no
 conversion: `utils.params_io` reads and writes JAX's layout.
 """
 from __future__ import annotations
@@ -100,4 +101,11 @@ def dynamic_from_jax(params: dict, device: str | torch.device = "cuda") -> dict:
     """JAX dynamic degradation-model params ({"generator": {"layers",
     "encoder"}, "noise": {"log_sigma"}}, or the generator dict alone),
     numpy leaves, as the port's params on `device`."""
+    return _tree_to(params, resolve_device(device))
+
+
+def sr_from_jax(params: dict, device: str | torch.device = "cuda") -> dict:
+    """JAX SR params ({"head", "blocks": [{"c1", "c2"}], "body_tail",
+    "ups", "tail"}, each {"w": HWIO, "b"}; numpy leaves) as the port's
+    params on `device` (the same tree: the port keeps HWIO)."""
     return _tree_to(params, resolve_device(device))

@@ -1,0 +1,255 @@
+"""Stage: SR inference over a folder of .nc files.
+
+Counterpart of `kmsr_tpu.pipeline.sr_infer`, with the same flags plus
+`--device` (cuda by default; without a card it raises unless `--device
+cpu`). It reads the `lr` group of each file (and its `hr` group where
+there is one) in chunks on a background thread, runs the SR CNN in
+bfloat16 per shape group, writes an `sr` group (dims y_sr / x_sr, attrs
+`model_file` and `factor`) into a copy of each file, and reports
+PSNR/SSIM against `hr` (data range nanmax - nanmin of each file's hr).
+
+The device loop (`run_batches`) takes any source of chunks, so it runs on
+in-memory stacks too. It keeps a one-deep pipeline: group k+1 is staged
+(pinned memory), uploaded and dispatched before group k is synchronized,
+and each group's predictions and metrics come back through pinned memory
+on the same stream, so the host's file writes overlap the next forward.
+A failed group fails its files only; `DeviceSyncGuard` aborts the run
+when the device keeps failing. The JAX package's local-device data
+parallelism is not ported: the stage runs on one device.
+
+Usage:
+    python -m kmsr_tpu_torch.pipeline.sr_infer --input-dir TRAIN_DATA \
+        --model sr_model.npz --output-dir OUT [--factor 8] [--batch-size 128] \
+        [--device cuda|cpu]
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import time
+from typing import Callable, Iterable, Optional
+
+import numpy as np
+import torch
+
+from ..data.sampler import list_patch_files
+from ..device import resolve_device
+from ..io.ncio import NCFile, copy_file_with_groups, read_band_stack, write_band_stack
+from ..io.schema import GROUP_HR, GROUP_LR
+from ..models.sr import SRConfig, init_sr, sr_forward
+from ..ops.metrics import psnr, ssim
+from ..utils.params_io import load_params
+from ..utils.profiling import stage_timer
+from .common import DeviceSyncGuard, RunReport, chunked_reader
+
+#: one chunk of input: (paths, [(lr [C,h,w], hr [C,H,W] or None)], failures)
+Chunk = tuple[list, list, list]
+
+
+def load_sr_model(model_path: str, cfg: SRConfig,
+                  device: str | torch.device = "cuda") -> dict:
+    """The `.npz` model at model_path (either package's), on `device`."""
+    dev = resolve_device(device)
+    return load_params(model_path, init_sr(cfg, device="cpu"), dev)
+
+
+def _staged(arrays: list, dev: torch.device) -> torch.Tensor:
+    """np.stack(arrays) on `dev`, through pinned memory when dev is a card."""
+    host = torch.empty((len(arrays), *arrays[0].shape), dtype=torch.float32,
+                       pin_memory=dev.type == "cuda")
+    np.stack(arrays, axis=0, out=host.numpy())
+    return host.to(dev, non_blocking=True)
+
+
+def to_host(t: torch.Tensor) -> torch.Tensor:
+    """A host copy of `t`, queued (pinned, non-blocking) when t is on a card."""
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=t.is_cuda)
+    return host.copy_(t, non_blocking=True)
+
+
+def queued_event(dev: torch.device) -> Optional[torch.cuda.Event]:
+    """An event recorded behind the work queued so far on a card (None on
+    the CPU, where every copy has already happened)."""
+    if dev.type != "cuda":
+        return None
+    done = torch.cuda.Event()
+    done.record()
+    return done
+
+
+def data_range(hr: torch.Tensor) -> torch.Tensor:
+    """nanmax - nanmin of each [C, H, W] sample, 1.0 where it is 0 (the
+    JAX stage's `float(np.nanmax(hr) - np.nanmin(hr)) or 1.0`)."""
+    nan = torch.isnan(hr)
+    hi = torch.where(nan, -torch.inf, hr).amax(dim=(1, 2, 3))
+    lo = torch.where(nan, torch.inf, hr).amin(dim=(1, 2, 3))
+    dr = hi - lo
+    return torch.where(dr == 0, 1.0, dr)
+
+
+def dispatch(params: dict, lrs: list, hrs: Optional[list], cfg: SRConfig,
+             dev: torch.device) -> tuple:
+    """Queue one shape group on `dev`: upload, bfloat16 forward, PSNR/SSIM
+    against hrs (when given) on the device, and the copies back. Returns
+    (preds host tensor, metrics host tensor [b, 2] or None, done event or
+    None); the host tensors are valid once the event has completed."""
+    pred = sr_forward(params, _staged(lrs, dev), cfg)
+    metrics = None
+    if hrs is not None:
+        hr = _staged(hrs, dev)
+        if hr.shape != pred.shape:
+            raise ValueError(f"{GROUP_HR} {tuple(hr.shape[1:])} != sr "
+                             f"{tuple(pred.shape[1:])}")
+        dr = data_range(hr)
+        metrics = to_host(torch.stack([psnr(pred, hr, dr), ssim(pred, hr, dr)], dim=1))
+    return to_host(pred), metrics, queued_event(dev)
+
+
+def run_batches(
+    chunks: Iterable[Chunk],
+    params: dict,
+    cfg: SRConfig,
+    on_batch: Callable[[list, np.ndarray, Optional[np.ndarray]], None],
+    device: str | torch.device = "cuda",
+) -> list:
+    """The device loop: each chunk split into groups of one (lr, hr)
+    shape, each group dispatched, and on_batch(paths, preds [b, C, H, W],
+    metrics [b, 2] (psnr, ssim) or None) called once it is on the host,
+    after the next group was dispatched. Returns the failures [(path,
+    error)] of the chunks and of failed groups."""
+    dev = resolve_device(device)
+    fail: list = []
+    sync_guard = DeviceSyncGuard()
+
+    def finish(paths, preds, metrics, done):
+        # device-side failures surface at this sync: fail the group, not
+        # the run (unless the guard sees the device persistently wedged)
+        try:
+            with stage_timer("sr_infer.device_sync"):
+                if done is not None:
+                    done.synchronize()
+            sync_guard.succeeded()
+        except Exception as e:  # per-group failure isolation
+            fail.extend((p, f"{type(e).__name__}: {e}") for p in paths)
+            sync_guard.failed(e)
+            return
+        on_batch(paths, preds.numpy(), None if metrics is None else metrics.numpy())
+
+    pending = None
+    for paths, items, chunk_fail in chunks:
+        fail.extend(chunk_fail)
+        # per-shape groups: mixed-size inputs must not kill the run
+        groups: dict = {}
+        for p, (lr, hr) in zip(paths, items):
+            key = (lr.shape, None if hr is None else hr.shape)
+            groups.setdefault(key, []).append((p, lr, hr))
+        for (_, hr_shape), items_g in groups.items():
+            paths_g = [p for p, _, _ in items_g]
+            try:
+                with stage_timer("sr_infer.dispatch"):
+                    out = dispatch(params, [lr for _, lr, _ in items_g],
+                                   None if hr_shape is None else [hr for _, _, hr in items_g],
+                                   cfg, dev)
+            except Exception as e:  # per-group failure isolation
+                fail.extend((p, f"{type(e).__name__}: {e}") for p in paths_g)
+                continue
+            if pending is not None:
+                finish(*pending)
+            pending = (paths_g, *out)
+    if pending is not None:
+        finish(*pending)
+    return fail
+
+
+def _read_pair(path: str, in_group: str, ref_group: str) -> tuple:
+    lr = read_band_stack(path, in_group)
+    with NCFile(path, "r") as f:
+        has_ref = f.has_group(ref_group)
+    return lr, read_band_stack(path, ref_group) if has_ref else None
+
+
+def sr_infer_folder(
+    input_dir: str,
+    model_path: str,
+    output_dir: str,
+    cfg: SRConfig = SRConfig(),
+    in_group: str = GROUP_LR,
+    ref_group: str = GROUP_HR,
+    batch_size: int = 32,
+    progress: bool = True,
+    device: str | torch.device = "cuda",
+) -> RunReport:
+    t0 = time.time()
+    dev = resolve_device(device)
+    params = load_sr_model(model_path, cfg, dev)
+    files = list_patch_files(input_dir, "*.nc")
+    os.makedirs(output_dir, exist_ok=True)
+    ok, fail, metrics = [], [], []
+
+    reader = chunked_reader(files, batch_size, lambda p: _read_pair(p, in_group, ref_group))
+    if progress:
+        try:
+            from tqdm import tqdm
+
+            reader = tqdm(reader, desc="SR inference", unit="batch",
+                          total=-(-len(files) // batch_size))
+        except ImportError:
+            pass
+
+    def write(paths, preds, mets):
+        for i, (path, pred) in enumerate(zip(paths, preds)):
+            try:
+                with stage_timer("sr_infer.host_write"):
+                    base = os.path.splitext(os.path.basename(path))[0]
+                    out_path = os.path.join(output_dir, f"{base}_sr.nc")
+                    copy_file_with_groups(path, out_path)
+                    write_band_stack(
+                        out_path, "sr", pred, dims=("y_sr", "x_sr"), mode="a",
+                        group_attrs={"model_file": os.path.basename(model_path),
+                                     "factor": cfg.factor},
+                    )
+                if mets is not None:
+                    metrics.append(mets[i])
+                ok.append(out_path)
+            except Exception as e:
+                fail.append((path, str(e)))
+
+    fail.extend(run_batches(reader, params, cfg, write, dev))
+    report = RunReport(succeeded=ok, failed=fail, seconds=time.time() - t0)
+    msg = f"sr_infer: {report.summary()} -> {output_dir}"
+    if metrics:
+        arr = np.asarray(metrics, np.float64)
+        msg += f" | PSNR {arr[:, 0].mean():.2f} dB, SSIM {arr[:, 1].mean():.4f}"
+    print(msg)
+    return report
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description="SR inference over .nc folder")
+    p.add_argument("--input-dir", required=True)
+    p.add_argument("--model", required=True)
+    p.add_argument("--output-dir", required=True)
+    p.add_argument("--factor", type=int, default=8)
+    p.add_argument("--width", type=int, default=64)
+    p.add_argument("--n-blocks", type=int, default=8)
+    p.add_argument(
+        "--upsampler", choices=["progressive", "oneshot"], default="progressive"
+    )
+    p.add_argument("--in-group", default=GROUP_LR)
+    p.add_argument("--ref-group", default=GROUP_HR)
+    p.add_argument("--batch-size", type=int, default=128)
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    a = p.parse_args(argv)
+    cfg = SRConfig(
+        width=a.width, n_blocks=a.n_blocks, factor=a.factor, upsampler=a.upsampler
+    )
+    report = sr_infer_folder(
+        a.input_dir, a.model, a.output_dir, cfg,
+        in_group=a.in_group, ref_group=a.ref_group, batch_size=a.batch_size,
+        device=a.device,
+    )
+    return 0 if report.n_fail == 0 else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -64,11 +64,13 @@ class ClippedAdam:
     * mu = (1-b1) g + b1 mu, nu = (1-b2) g^2 + b2 nu, update
       -lr * (mu / (1-b1^t)) / (sqrt(nu / (1-b2^t)) + eps).
 
-    The count lives on the host (the step count is known there), so a step
-    never waits for the device.
+    `lr` is a number or a schedule: a callable of the count before this
+    step's increment, as optax calls a schedule (the SR trainer's cosine
+    decay). The count lives on the host (the step count is known there),
+    so a step never waits for the device.
     """
 
-    lr: float
+    lr: float | Callable[[int], float]
     b1: float = 0.5
     b2: float = 0.999
     eps: float = 1e-8
@@ -91,6 +93,7 @@ class ClippedAdam:
             torch._foreach_mul_(scaled, self.max_norm)
             keep = g_norm < self.max_norm
             grads = [torch.where(keep, g, s) for g, s in zip(grads, scaled)]
+        lr = self.lr(opt_state["count"]) if callable(self.lr) else self.lr
         count = opt_state["count"] + 1
         mu, nu = opt_state["mu"], opt_state["nu"]
         torch._foreach_mul_(mu, self.b1)
@@ -103,7 +106,7 @@ class ClippedAdam:
         torch._foreach_add_(denom, self.eps)
         upd = torch._foreach_div(mu, 1 - self.b1**count)
         torch._foreach_div_(upd, denom)
-        torch._foreach_mul_(upd, -self.lr)
+        torch._foreach_mul_(upd, -lr)
         torch._foreach_add_(tree_leaves(params), upd)
         opt_state["count"] = count
         return g_norm
@@ -161,30 +164,37 @@ def init_gan_state(
 
 
 # ------------------------------------------------------------ checkpointing
-def save_checkpoint(ckpt_dir: str, state: GANTrainState, step: int) -> None:
-    """torch.save the whole state to `ckpt_dir/step_N` (atomically)."""
+def save_checkpoint(ckpt_dir: str, state, step: int) -> None:
+    """torch.save the whole state (a dataclass: `GANTrainState`, the SR
+    trainer's state) to `ckpt_dir/step_N` (atomically)."""
     os.makedirs(ckpt_dir, exist_ok=True)
     blob = {f.name: getattr(state, f.name) for f in dataclasses.fields(state)}
-    blob["rng"] = state.rng.get_state()
+    if "rng" in blob:
+        blob["rng"] = state.rng.get_state()
     path = os.path.join(ckpt_dir, f"step_{step}")
     torch.save(blob, path + ".tmp")
     os.replace(path + ".tmp", path)
 
 
-def restore_checkpoint(ckpt_dir: str, step: int, template: GANTrainState) -> GANTrainState:
-    """The state saved at `step`, on the device of `template`'s generator."""
+def restore_checkpoint(ckpt_dir: str, step: int, template):
+    """The state saved at `step`, on the device of `template`'s parameters;
+    its parameter trees (the fields named *params) require grad."""
     path = os.path.join(ckpt_dir, f"step_{step}")
     if os.path.isdir(path):
         raise ValueError(
             f"{path} is a directory (an orbax checkpoint of the JAX package?); "
             "this package reads only its own torch.save checkpoints")
-    dev = template.rng.device
+    names = [f.name for f in dataclasses.fields(template)]
+    trees = [n for n in names if n.endswith("params")]
+    dev = tree_leaves(getattr(template, trees[0]))[0].device
     blob = torch.load(path, map_location=dev, weights_only=True)
-    rng = torch.Generator(device=dev)
-    rng.set_state(blob.pop("rng").cpu())
-    state = type(template)(**blob, rng=rng)
-    _trainable(state.g_params)
-    _trainable(state.d_params)
+    if "rng" in blob:
+        rng = torch.Generator(device=dev)
+        rng.set_state(blob["rng"].cpu())
+        blob["rng"] = rng
+    state = type(template)(**blob)
+    for n in trees:
+        _trainable(getattr(state, n))
     return state
 
 

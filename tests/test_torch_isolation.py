@@ -227,3 +227,54 @@ def test_moe_and_dynamic_entry_points_default_to_cuda_and_raise_without_it(tmp_p
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
     assert not (tmp_path / "out").exists()
+
+
+def test_importing_the_sr_stages_loads_no_jax():
+    """The SR network, metrics, trainer and the three SR stages."""
+    code = (
+        "import sys; import kmsr_tpu_torch.pipeline.sr_infer, "
+        "kmsr_tpu_torch.pipeline.sr_scene, kmsr_tpu_torch.pipeline.train_sr_cli, "
+        "kmsr_tpu_torch.train.sr, kmsr_tpu_torch.models.sr, "
+        "kmsr_tpu_torch.ops.metrics, kmsr_tpu_torch.convert; "
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'optax', 'orbax', 'kmsr_tpu')]; print(bad); "
+        "sys.exit(1 if bad else 0)"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_sr_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device; the check is for hosts without")
+    from kmsr_tpu_torch import convert
+    from kmsr_tpu_torch.models import sr
+    from kmsr_tpu_torch.pipeline import sr_infer, sr_scene, train_sr_cli
+    from kmsr_tpu_torch.train import sr as tsr
+
+    out = str(tmp_path / "out")
+    model = str(tmp_path / "m.npz")
+    pairs = (np.zeros((2, 5, 4, 4), np.float32), np.zeros((2, 5, 32, 32), np.float32))
+    calls = [
+        lambda: sr.init_sr(),
+        lambda: convert.sr_from_jax({}),
+        lambda: sr_infer.load_sr_model(model, sr.SRConfig()),
+        lambda: sr_infer.sr_infer_folder(str(tmp_path), model, out),
+        lambda: sr_infer.main(["--input-dir", str(tmp_path), "--model", model,
+                               "--output-dir", out]),
+        lambda: sr_infer.run_batches([], {}, sr.SRConfig(), print),
+        lambda: sr_scene.sr_scene({}, np.zeros((5, 8, 8), np.float32)),
+        lambda: sr_scene.sr_scene_folder(str(tmp_path), model, out),
+        lambda: sr_scene.main(["--input", str(tmp_path), "--model", model,
+                               "--output-dir", out]),
+        lambda: tsr.init_sr_training(tsr.SRTrainConfig()),
+        lambda: tsr.train_sr(pairs, tsr.SRTrainConfig(outdir=out)),
+        lambda: train_sr_cli.main(["--train-dir", str(tmp_path), "--outdir", out]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    assert not (tmp_path / "out").exists()
