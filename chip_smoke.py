@@ -25,13 +25,19 @@ and exits non-zero without them. Phases, one line each:
    to their plain versions; and the dense v4 kernel (tensor cores; CHWB,
    and NCHW where auto-selection picks it) at f=2 on 32x32 and 48x48 and
    at f=8 on 64x64 (CHWB), within the tolerance; every NCHW case must
-   launch the kernel named;
+   launch the kernel named; then one span past each old shared-memory
+   limit that JAX's guards accept (`SPAN_CASES`: v3 NCHW at f=48, K=240;
+   v3, v3psn and v3ps at f=40, K=200; v2 NCHW at f=2, K=152; v2 and v1
+   CHWB at f=2, K=34), each planned as its kernel's global-read
+   instantiation, launched once and bit-equal to its plain version;
 4. scene-kernels: both instantiations of the scene stencil (raw rows +
    halos, `colsplit_raw`; halo-extended slab, `colsplit`) against their
    plain versions and the F.pad + grouped strided F.conv2d route at the
    scene path's full width (5x8192x8192, f=8, 13x13 blur, K=20) and at
    5x2048x2048, f=4 (K=16); the raw one with edge halos and as two slabs
-   fed each other's real rows; each bit for bit (`bit_equal`);
+   fed each other's real rows; each bit for bit (`bit_equal`); and both
+   at f=4 with a 237x237 blur (K = 240, past the ring's old limit) on a
+   5x64x256 slab through the global-read instantiation, bit for bit;
 5. factory: the factory's device path over 256 synthetic 5x256x256 .npy
    patches (two full batches of 128) with a seeded [64, 5, 32, 32] noise
    pool, through both routes — `factory_batches` (.npy input: native split
@@ -183,15 +189,43 @@ and exits non-zero without them. Phases, one line each:
    the scaled rule or <= 2x the CPU's distance from float64, parameters
    Adam's first-step bound).
 
+13. fleet: one KernelGAN per scene (`train.fleet`), which launches no
+   kernel of the table (JAX's fleet is XLA; the eight counts are set to 0
+   before each run and must read 0 after it). (a) configs/
+   quality_x8_real_lr.json's train_kernel block through `train_fleet`
+   (compose, real_is_lr, K = 20, batch 16, lr crops 32, raw_sum_reg 0.1,
+   seed 0, sigma from `train_fleet_cli.fake_noise_sigma`, the CLI's
+   `--fake-noise auto`) on 4 scenes of 64 seeded 5x256x256 HR and 64
+   5x32x32 native-LR patches, 40 of its 2,000 iterations: every scene's
+   files under the JAX package's names, 40 finite CSV rows, kernels >= 0
+   with bands summing to 1 (or zeroed by the clamp); each scene equal to a
+   1-scene fleet at seed s (kernels and CSV rows, rtol 1e-4 / atol 1e-5,
+   torch's deterministic algorithms for these runs). (b)
+   `train_fleet_cli.main --patch-root DIR --format npy` at the CLI's
+   defaults (chain, K = 1, batch 16) on 2 scene dirs of 64 .npy patches,
+   20 iterations, each scene equal to the port's standalone
+   `train_single_kernel` at seed s. (c) `run_factory(kernel_root=(a)'s
+   outdir)` on 5 scenes x 64 .npy patches `<scene>_<gi>_<gj>.npy` (the
+   fifth without a kernel), pool [64, 5, 32, 32], x8, batch 128, its .nc
+   writes captured in memory (no h5py there): one `degrade_v3psn` launch
+   a scene batch and no other degrade kernel, every lr against the plain
+   degrade(hr, kernel_s) + pool[idx] with idx from `scene_seed(42, s)`
+   (rtol 1e-4 / atol 1e-5), the fifth scene failed as a unit. Timing: the
+   fleet loop (`train.fleet.make_fleet_advance`) at S = 1, 2, 4 for (a)
+   and S = 2 for (b): scene-iterations/s (median of 5 synchronized
+   windows), device ms an iteration of all scenes, busy share, peak
+   memory.
+
 Prints one JSON line {"factory": {...}} (per-route results), one
 {"scene": {...}}, one {"api": {...}}, one {"kernelgan": {...}}, one
-{"denoise": {...}}, one {"moe_dynamic": {...}}, one {"sr": {...}}, then the
-card's nvidia-smi line, one JSON line {"kernels": [...]} and, last,
+{"denoise": {...}}, one {"moe_dynamic": {...}}, one {"sr": {...}}, one
+{"fleet": {...}}, then the card's nvidia-smi line, one JSON line {"kernels": [...]} and, last,
 {"ok": true, "device": {...}}. Any mismatch or error in any phase, timing
 included, exits non-zero before that last line.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -331,8 +365,9 @@ def make_inputs(factor: int, gen, dev, hw: int = HW):
     return img, kernel, noise
 
 
-def layout_inputs(img, noise, factor, layout, dtype):
-    """(x, noise) for one entry point's layout."""
+def layout_inputs(img, noise, factor, layout, dtype, kside=None):
+    """(x, noise) for one entry point's layout; kside, the composed span,
+    sets the baked-halo layout's halo depth (default: a 13x13 blur's)."""
     from kmsr_tpu_torch.ops.degrade_fused import col_halo, phase_split_chwb
 
     x = img.to(dtype)
@@ -342,7 +377,7 @@ def layout_inputs(img, noise, factor, layout, dtype):
     if layout == "presplit":
         x = phase_split_chwb(x, factor).contiguous()
     elif layout == "presplit_halo":
-        m = col_halo(KSIZE + factor - 1, factor)
+        m = col_halo(kside or KSIZE + factor - 1, factor)
         x = phase_split_chwb(x, factor, halo=True, halo_rows=m).contiguous()
     return x, noise
 
@@ -492,6 +527,63 @@ def phase_wide_kernels(dev, failures: list) -> list:
                 del x, got, want
         del img, conv
     torch.cuda.empty_cache()
+    return cases
+
+
+#: spans past the shared-memory plans (each planner's old refusal), which
+#: JAX's guards accept (v3: K <= 5f; v2/v1: any span; the scene:
+#: `_check_span`): (kernel, version, layout, factor, blur side, patch
+#: side, batch), each taking its kernel's global-read instantiation
+SPAN_CASES = [
+    ("degrade_v3", None, "nchw", 48, 193, 96, 4),              # K = 240 > 236
+    ("degrade_v3", 3, "chwb", 40, 161, 80, 8),                 # K = 200 > 184
+    ("degrade_v3psn", None, "presplit", 40, 161, 80, 8),
+    ("degrade_v3ps", None, "presplit_halo", 40, 161, 240, 8),
+    ("degrade_v2", None, "nchw", 2, 151, 64, 4),               # K = 152 > 150
+    ("degrade_v2", 2, "chwb", 2, 33, 64, 8),                   # K = 34 > 32
+    ("degrade_v1", 1, "chwb", 2, 33, 64, 8),
+]
+
+
+def phase_span_kernels(dev, failures: list) -> list:
+    """One span past each old shared-memory limit of the ring and wide
+    kernels: the planner returns the global-read plan, the entry point
+    launches the kernel named once, and the output is bit-equal to its
+    plain version (float32, with noise)."""
+    import torch
+
+    from kmsr_tpu_torch import kernels
+
+    gen = torch.Generator().manual_seed(SEED + 13)
+    cases = []
+    for name, version, layout, factor, k, hw, b in SPAN_CASES:
+        img = (torch.randn(b, C, hw, hw, generator=gen) * 2 + 5).to(dev)
+        kernel = (torch.rand(C, k, k, generator=gen) * 0.9 + 0.1).to(dev)
+        noise = (torch.randn(C, hw // factor, hw // factor, b, generator=gen) * 0.1).to(dev)
+        kside = k + factor - 1
+        plan = (kernels.wide_tiles(layout, kside, factor, hw) if name in
+                ("degrade_v2", "degrade_v1")
+                else kernels.stencil_tiles(layout, kside, factor, hw, hw, b))
+        x, n = layout_inputs(img, noise, factor, layout, torch.float32, kside)
+        fused, ref = entry(layout, version)
+        kernels.reset_launches()
+        got = fused(x, kernel, n, factor=factor)
+        launched = dict(kernels.LAUNCHES)
+        want = ref(x, kernel, n, factor=factor)
+        torch.cuda.synchronize()
+        case = {"kernel": name, "layout": layout, "factor": factor, "span": kside,
+                "shape": [b, C, hw, hw], "noise": True, "dtype": "float32",
+                "plan": list(plan), **errors(got, want),
+                "bit_equal": bool(torch.equal(got, want)), "span_case": True}
+        direct = tuple(plan) in (kernels.RING_DIRECT, kernels.WIDE_DIRECT)
+        once = launched[name] == 1 and sum(launched.values()) == 1
+        case["ok"] = case["ok"] and case["bit_equal"] and direct and once
+        cases.append(case)
+        log(f"[kernels] span {name} {layout} f={factor} K={kside} {b}x{C}x{hw}x{hw}: "
+            f"{'ok' if case['ok'] else 'MISMATCH'} plan={plan} launches={launched} "
+            f"max_abs={case['max_abs_err']:.3g} bit_equal={case['bit_equal']}")
+        if not case["ok"]:
+            failures.append(f"span case {case}")
     return cases
 
 
@@ -978,6 +1070,54 @@ def phase_scene_kernels(dev, failures: list) -> list:
             del got, want
         del x, x_ext, conv, lo, hi, top, bot
         torch.cuda.empty_cache()
+    return cases + scene_span_cases(dev, failures)
+
+
+def scene_span_cases(dev, failures: list) -> list:
+    """A span past the scene ring's old shared-memory limit (f=4, a 237x237
+    blur: K = 240 > 236, which JAX's `_check_span` accepts) on a 5x64x256
+    slab, raw rows and extended slab: the global-read plan, one launch
+    each, bit-equal to the plain version."""
+    import torch
+
+    from kmsr_tpu_torch import kernels
+    from kmsr_tpu_torch.ops import degrade_scene_fast as sf
+    from kmsr_tpu_torch.ops.degrade import compose_with_box, normalize_kernel
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    factor, hs, w, k = 4, 64, 256, 237
+    x = torch.randn(SCENE_C, hs, w, generator=gen, device=dev) * 2 + 5
+    comp = compose_with_box(normalize_kernel(
+        torch.rand(SCENE_C, k, k, generator=gen, device=dev) * 0.9 + 0.1), factor).contiguous()
+    ksize = comp.shape[-1]
+    th, bh = sf.halo_rows(factor, ksize)
+    top, bot = x[:, :1].expand(-1, th, -1), x[:, -1:].expand(-1, bh, -1)
+    x_ext = sf.extend_rows_edge(x, factor, ksize)
+    plan = kernels.scene_tiles(ksize, factor, hs, w)
+    cases = []
+    for name, fused, ref in (
+            ("colsplit_raw", lambda: sf.degrade_rows_fast(x, comp, factor, top, bot),
+             lambda: sf.degrade_rows_fast_ref(x, comp, factor, top, bot)),
+            ("colsplit", lambda: sf.degrade_slab_fast(x_ext, comp, factor),
+             lambda: sf.degrade_slab_fast_ref(x_ext, comp, factor))):
+        kernels.reset_launches()
+        got = fused()
+        launched = dict(kernels.LAUNCHES)
+        want = ref()
+        torch.cuda.synchronize()
+        case = {"kernel": name, "halos": "span case", "shape": [SCENE_C, hs, w],
+                "factor": factor, "span": ksize, "plan": list(plan),
+                **errors(got, want), "bit_equal": bool(torch.equal(got, want)),
+                "span_case": True}
+        once = launched[name] == 1 and sum(launched.values()) == 1
+        case["ok"] = (case["ok"] and case["bit_equal"] and once
+                      and tuple(plan) == kernels.RING_DIRECT)
+        cases.append(case)
+        log(f"[scene-kernels] span {name} {SCENE_C}x{hs}x{w} f={factor} K={ksize}: "
+            f"{'ok' if case['ok'] else 'MISMATCH'} plan={plan} launches={launched} "
+            f"max_abs={case['max_abs_err']:.3g} bit_equal={case['bit_equal']}")
+        if not case["ok"]:
+            failures.append(f"scene span case {case}")
     return cases
 
 
@@ -2981,7 +3121,373 @@ def phase_sr(dev, card: str, smi: str, failures: list) -> dict:
     return res
 
 
+#: the fleet phase: configs/quality_x8_real_lr.json's train_kernel block
+#: (compose, real_is_lr, K = 20, batch 16, lr crops 32, fake noise auto,
+#: raw_sum_reg 0.1, seed 0) on 4 scenes of 64 HR patches 5x256x256 and 64
+#: native-LR patches 5x32x32 each, 40 of its 2,000 iterations; the CLI's
+#: defaults (chain, K = 1) on 2 scene dirs of 64 .npy patches, 20
+#: iterations; the per-scene factory on 4 + 1 scenes of 64 .npy patches
+FLEET_SCENES, FLEET_N, FLEET_ITERS, FLEET_K, FLEET_CLI_ITERS = 4, 64, 40, 20, 20
+
+
+def fleet_scene_pools(s: int, dev):
+    """Scene s's (HR pool [64, 5, 256, 256], native-LR pool [64, 5, 32, 32])
+    as host PatchPools, made on the card from seed SEED + 100 + s: a smooth
+    radiance-like field (3x3 box mean of N(5, 2)); the LR side the x8 block
+    mean of another such field plus N(0, 0.05) sensor noise."""
+    import torch
+    import torch.nn.functional as F
+
+    from kmsr_tpu_torch.data.sampler import PatchPool
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 100 + s)
+
+    def field(n):
+        x = torch.randn(n, C, HW, HW, generator=gen, device=dev) * 2 + 5
+        return F.avg_pool2d(x, 3, stride=1, padding=1, count_include_pad=False)
+
+    hr = field(FLEET_N)
+    lr = F.avg_pool2d(field(FLEET_N), FACTOR) + 0.05 * torch.randn(
+        FLEET_N, C, HW // FACTOR, HW // FACTOR, generator=gen, device=dev)
+    return PatchPool(hr.cpu().numpy()), PatchPool(lr.cpu().numpy())
+
+
+def check_fleet_scene(outdir: str, iters: int, dumps: tuple, failures: list,
+                      label: str) -> dict:
+    """One scene's artifacts: the JAX package's file names, `iters` finite
+    CSV rows under LOG_HEADER, a non-negative [5,13,13] kernel_per_band.npy
+    whose bands sum to 1 (or were zeroed by the clamp), its band mean as
+    kernel_merged.npy, and each dump's kernel_iter{N} the band mean of its
+    kernel_per_band_iter{N}."""
+    import numpy as np
+
+    from kmsr_tpu_torch.train.single_kernel import LOG_HEADER
+
+    names = {"training_log.txt", "kernel_per_band.npy", "kernel_merged.npy"}
+    names |= {f"kernel{p}_iter{n}.npy" for n in dumps for p in ("", "_per_band")}
+    rows = open(os.path.join(outdir, "training_log.txt")).read().splitlines()
+    vals = np.array([[float(v) for v in r.split(",")] for r in rows[1:]])
+    k = np.load(os.path.join(outdir, "kernel_per_band.npy"))
+    sums = k.sum(axis=(1, 2))
+    checks = {
+        "files": set(os.listdir(outdir)) == names,
+        "header": rows[0] == LOG_HEADER.strip(),
+        "rows": vals.shape[0] == iters and vals[:, 0].tolist() == list(range(1, iters + 1)),
+        "finite": bool(np.isfinite(vals).all()),
+        "kernel_nonneg": k.shape == (5, 13, 13) and bool((k >= 0).all()),
+        "band_sums": bool(((np.abs(sums - 1) <= 1e-5) | (sums == 0)).all()),
+        "merged": bool(np.allclose(np.load(os.path.join(outdir, "kernel_merged.npy")),
+                                   k.mean(axis=0), rtol=0, atol=1e-7)),
+        "dumps": all(np.allclose(np.load(os.path.join(outdir, f"kernel_iter{n}.npy")),
+                                 np.load(os.path.join(outdir, f"kernel_per_band_iter{n}.npy"))
+                                 .mean(axis=0), rtol=0, atol=1e-7) for n in dumps),
+    }
+    bad = [name for name, ok in checks.items() if not ok]
+    if bad:
+        failures.append(f"fleet {label}: failed checks {bad}")
+    return {"checks_failed": bad, "band_sums": sums.tolist(), "last_row": rows[-1]}
+
+
+def compare_runs(got_dir: str, want_dir: str, failures: list, label: str) -> dict:
+    """Kernels and CSV rows of two runs of one scene, at the KernelGAN
+    tolerance (rtol 1e-4, atol 1e-5)."""
+    import numpy as np
+
+    def rows(d):
+        lines = open(os.path.join(d, "training_log.txt")).read().splitlines()[1:]
+        return np.array([[float(v) for v in r.split(",")] for r in lines])
+
+    rg, rw = rows(got_dir), rows(want_dir)
+    kg, kw = (np.load(os.path.join(d, "kernel_per_band.npy")) for d in (got_dir, want_dir))
+    res = {"rows_max_abs": float(np.abs(rg - rw).max()) if rg.shape == rw.shape else None,
+           "kernel_max_abs": float(np.abs(kg - kw).max()),
+           "ok": rg.shape == rw.shape and bool(np.allclose(rg, rw, rtol=RTOL, atol=ATOL))
+                 and bool(np.allclose(kg, kw, rtol=RTOL, atol=ATOL))}
+    if not res["ok"]:
+        failures.append(f"fleet {label}: differs from its reference {res}")
+    return res
+
+
+@contextlib.contextmanager
+def deterministic():
+    """PyTorch's deterministic algorithms (cuDNN's and cuBLAS's included),
+    so that two runs of one scene's step sequence can be held to each
+    other: with cuDNN's deterministic flag alone, a chain-mode fleet scene
+    and its standalone twin differ on the card, and a GAN's steps amplify
+    any difference. cuBLAS needs CUBLAS_WORKSPACE_CONFIG set before its
+    first use (`main` sets it)."""
+    import torch
+
+    prev = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+            torch.are_deterministic_algorithms_enabled())
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = prev[:2]
+        torch.use_deterministic_algorithms(prev[2])
+
+
+def fleet_timing(cfg, pools, lr_pools, dev) -> dict:
+    """Scene-iterations/s of the fleet loop (`train.fleet.make_fleet_advance`,
+    what `train_fleet` calls each iteration) at S = len(pools): the median of
+    MD_WINDOWS synchronized windows, the profiler's device time an
+    iteration of all S scenes, the busy share and peak device memory."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from kmsr_tpu_torch.train import fleet
+
+    s_n = len(pools)
+    states = [fleet.init_training(dataclasses.replace(cfg, seed=cfg.seed + s), dev)
+              for s in range(s_n)]
+    pools_dev, crop_dev = fleet.device_pools(pools, lr_pools, dev)
+    rngs = [np.random.default_rng(cfg.seed + s) for s in range(s_n)]
+    advance = fleet.make_fleet_advance(cfg, states, pools_dev, crop_dev, rngs)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = training_timing(advance, cfg.steps_per_call, top_ops=False)
+    t["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    t["scenes"] = s_n
+    t["scene_iters_per_s"] = s_n * t["iters_per_s"]
+    del states, pools_dev, crop_dev
+    torch.cuda.empty_cache()
+    return t
+
+
+def fleet_line(label: str, t: dict) -> str:
+    return (f"{label}: S={t['scenes']} {t['scene_iters_per_s']:.2f} scene-it/s "
+            f"({t['iters_per_s']:.2f} fleet it/s, {t['wall_ms_per_iter']:.2f} ms an "
+            f"iteration of all scenes, windows "
+            f"{[round(w, 2) for w in t['wall_ms_per_iter_windows']]}), device "
+            f"{t['device_ms_per_iter']:.3f} ms, busy {t['busy_share']:.3f}, peak "
+            f"{t['peak_mem_gb']:.2f} GB")
+
+
+def fleet_library(tmp: str, dev, failures: list) -> tuple[dict, str]:
+    """(a): the real_lr config's train_kernel block through `train_fleet`
+    on 4 scenes; every scene's artifacts; each scene against a 1-scene
+    fleet at seed + s; timing at S = 1, 2, 4. Returns the result and the
+    4-scene run's outdir (the kernel root of (c))."""
+    import dataclasses
+
+    from kmsr_tpu_torch import kernels
+    from kmsr_tpu_torch.models import GeneratorConfig
+    from kmsr_tpu_torch.pipeline.train_fleet_cli import fake_noise_sigma
+    from kmsr_tpu_torch.train import SingleKernelConfig, train_fleet
+
+    t0 = time.perf_counter()
+    scenes = [fleet_scene_pools(s, dev) for s in range(FLEET_SCENES)]
+    pools, lr_pools = [p for p, _ in scenes], [q for _, q in scenes]
+    sigma = fake_noise_sigma(lr_pools)
+    t_data = time.perf_counter() - t0
+    outdir = os.path.join(tmp, "fleet_a")
+    cfg = SingleKernelConfig(
+        iters=FLEET_ITERS, batch_size=16, lr_crop_size=32, real_is_lr=True,
+        steps_per_call=FLEET_K, seed=0, fake_noise_sigma=sigma, raw_sum_reg=0.1,
+        log_every=FLEET_K, kernel_log_every=FLEET_K, outdir=outdir, verbose=False,
+        generator=GeneratorConfig(forward_mode="compose"))
+    res = {"sigma": [float(v) for v in sigma], "data_seconds": t_data}
+    kernels.reset_launches()
+    with deterministic():
+        t0 = time.perf_counter()
+        out = train_fleet(pools, cfg, lr_pools=lr_pools, progress=False, device=dev)
+        res["run_seconds"] = time.perf_counter() - t0
+        no_kernel_launched("fleet (a)", failures)
+        names = out["scene_names"]
+        res["scenes"] = {n: check_fleet_scene(os.path.join(outdir, n), FLEET_ITERS,
+                                              (FLEET_K, FLEET_ITERS), failures, f"(a) {n}")
+                         for n in names}
+        for s, n in enumerate(names):
+            one = dataclasses.replace(cfg, seed=s, outdir=os.path.join(tmp, f"fleet_a1_{s}"))
+            train_fleet([pools[s]], one, scene_names=[n], lr_pools=[lr_pools[s]],
+                        progress=False, device=dev)
+            res["scenes"][n]["vs_one_scene_fleet"] = compare_runs(
+                os.path.join(outdir, n), os.path.join(one.outdir, n), failures,
+                f"(a) {n} vs a 1-scene fleet at seed {s}")
+    no_kernel_launched("fleet (a)", failures)
+    log(f"[fleet] (a) {FLEET_SCENES} scenes x {FLEET_ITERS} iterations (compose, "
+        f"real_is_lr, K={FLEET_K}, sigma {[round(float(v), 4) for v in sigma]}) in "
+        f"{res['run_seconds']:.1f}s: "
+        + "; ".join(f"{n} checks {'ok' if not r['checks_failed'] else r['checks_failed']}"
+                    f", vs 1-scene fleet {'ok' if r['vs_one_scene_fleet']['ok'] else 'FAILED'}"
+                    f" (rows {r['vs_one_scene_fleet']['rows_max_abs']:.3g}, kernel "
+                    f"{r['vs_one_scene_fleet']['kernel_max_abs']:.3g})"
+                    for n, r in res["scenes"].items()))
+    res["timing"] = {}
+    for s_n in (1, 2, 4):
+        t = fleet_timing(cfg, pools[:s_n], lr_pools[:s_n], dev)
+        res["timing"][f"S={s_n}"] = t
+        log(f"[fleet] (a) " + fleet_line("compose real_is_lr K=20", t))
+    no_kernel_launched("fleet (a) timing", failures)
+    return res, outdir
+
+
+def fleet_cli(tmp: str, dev, failures: list) -> dict:
+    """(b): `train_fleet_cli.main --patch-root DIR --format npy` with the
+    CLI's defaults (chain, K = 1, batch 16) on 2 scene dirs of 64 .npy
+    patches, 20 iterations; each scene against the port's standalone
+    `train_single_kernel` at seed s; timing at S = 2."""
+    import numpy as np
+
+    from kmsr_tpu_torch import kernels
+    from kmsr_tpu_torch.data.sampler import PatchPool
+    from kmsr_tpu_torch.pipeline import train_fleet_cli
+    from kmsr_tpu_torch.train import SingleKernelConfig, train_single_kernel
+
+    root = os.path.join(tmp, "fleet_b_in")
+    pools = []
+    for s, name in enumerate(("sceneA", "sceneB")):
+        os.makedirs(os.path.join(root, name))
+        hr, _ = fleet_scene_pools(10 + s, dev)
+        for i, p in enumerate(hr.patches):
+            np.save(os.path.join(root, name, f"p{i:03d}.npy"), p)
+        pools.append(PatchPool.from_npy_dir(os.path.join(root, name)))
+    outdir = os.path.join(tmp, "fleet_b")
+    every = FLEET_CLI_ITERS // 2
+    kernels.reset_launches()
+    res = {}
+    with deterministic():
+        t0 = time.perf_counter()
+        rc = train_fleet_cli.main(["--patch-root", root, "--format", "npy", "--outdir",
+                                   outdir, "--iters", str(FLEET_CLI_ITERS), "--log-every",
+                                   str(every), "--kernel-log-every", str(every)])
+        res["run_seconds"] = time.perf_counter() - t0
+        if rc != 0:
+            failures.append(f"fleet (b): train_fleet_cli returned {rc}")
+        res["scenes"] = {}
+        for s, name in enumerate(("sceneA", "sceneB")):
+            r = check_fleet_scene(os.path.join(outdir, name), FLEET_CLI_ITERS,
+                                  (every, FLEET_CLI_ITERS), failures, f"(b) {name}")
+            one = SingleKernelConfig(iters=FLEET_CLI_ITERS, log_every=every,
+                                     kernel_log_every=every, seed=s, verbose=False,
+                                     outdir=os.path.join(tmp, f"fleet_b1_{s}"))
+            train_single_kernel(pools[s], one, progress=False, device=dev)
+            r["vs_standalone"] = compare_runs(os.path.join(outdir, name), one.outdir,
+                                              failures, f"(b) {name} vs standalone seed {s}")
+            res["scenes"][name] = r
+    no_kernel_launched("fleet (b)", failures)
+    log(f"[fleet] (b) train_fleet_cli --patch-root (npy, chain, K=1) 2 scenes x "
+        f"{FLEET_CLI_ITERS} iterations in {res['run_seconds']:.1f}s: "
+        + "; ".join(f"{n} checks {'ok' if not r['checks_failed'] else r['checks_failed']}"
+                    f", vs standalone {'ok' if r['vs_standalone']['ok'] else 'FAILED'} "
+                    f"(rows {r['vs_standalone']['rows_max_abs']:.3g}, kernel "
+                    f"{r['vs_standalone']['kernel_max_abs']:.3g})"
+                    for n, r in res["scenes"].items()))
+    cfg = SingleKernelConfig(seed=0, verbose=False, outdir=os.path.join(tmp, "unused"))
+    res["timing"] = {"S=2": fleet_timing(cfg, pools, None, dev)}
+    log("[fleet] (b) " + fleet_line("chain K=1 host draws", res["timing"]["S=2"]))
+    no_kernel_launched("fleet (b) timing", failures)
+    return res
+
+
+def fleet_factory(tmp: str, kernel_root: str, dev, failures: list) -> dict:
+    """(c): `run_factory(kernel_root=...)` on 5 scenes x 64 .npy patches
+    `<scene>_<gi>_<gj>.npy` (the fifth without a kernel) with a [64, 5, 32,
+    32] pool, x8, batch 128, its .nc writes captured in memory (no h5py on
+    this machine): one degrade_v3psn launch a scene batch and no other
+    degrade kernel; every lr against the plain degrade(hr, kernel_s) +
+    pool[idx], idx drawn from `scene_seed(42, scene)`; the fifth scene's
+    files failed as a unit, the rest written."""
+    import numpy as np
+    import torch
+
+    from kmsr_tpu_torch import kernels
+    from kmsr_tpu_torch.ops.degrade import degrade
+    from kmsr_tpu_torch.pipeline import factory
+    from kmsr_tpu_torch.pipeline.apply_kernel import load_kernel
+
+    indir = os.path.join(tmp, "fleet_c_in")
+    os.makedirs(indir)
+    rng = np.random.default_rng(SEED + 120)
+    names = [f"scene_{s:03d}" for s in range(FLEET_SCENES + 1)]
+    for name in names:
+        for i in range(FLEET_N):
+            np.save(os.path.join(indir, f"{name}_{i // 8:03d}_{i % 8:03d}.npy"),
+                    rng.normal(5, 2, (C, HW, HW)).astype(np.float32))
+    pool_path = os.path.join(tmp, "fleet_c_pool.npy")
+    np.save(pool_path, rng.normal(0, 0.1, (POOL_N, C, HW // FACTOR, HW // FACTOR))
+            .astype(np.float32))
+    written = {}
+
+    def capture(out_path, hr, lr, nav, lr_attrs=None):
+        written[os.path.basename(out_path)] = (hr, lr)
+
+    saved = factory.save_training_sample
+    factory.save_training_sample = capture
+    try:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        rep = factory.run_factory(indir, None, pool_path, os.path.join(tmp, "fleet_c_out"),
+                                  factor=FACTOR, batch_size=128, seed=42,
+                                  input_format="npy", kernel_root=kernel_root,
+                                  progress=False, device=dev)
+        secs = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        factory.save_training_sample = saved
+    res = {"seconds": secs, "ok_files": rep.n_ok, "failed_files": rep.n_fail,
+           "launches": launches}
+    n_kernel = FLEET_SCENES * FLEET_N
+    if rep.n_ok != n_kernel or rep.n_fail != FLEET_N or len(written) != n_kernel:
+        failures.append(f"fleet (c): {rep.n_ok} ok / {rep.n_fail} failed / "
+                        f"{len(written)} written, want {n_kernel} / {FLEET_N} / {n_kernel}")
+    if not all(names[-1] in p and "no kernel for scene" in m for p, m in rep.failed):
+        failures.append(f"fleet (c): unexpected failures {rep.failed[:3]}")
+    batches = FLEET_SCENES * -(-FLEET_N // 128)
+    if launches["degrade_v3psn"] != batches or sum(launches.values()) != batches:
+        failures.append(f"fleet (c): launches {launches}, want degrade_v3psn once a "
+                        f"scene batch ({batches}) and nothing else")
+    pool = np.load(pool_path)
+    worst = 0.0
+    for name in names[:-1]:
+        files = sorted(os.path.join(indir, f) for f in os.listdir(indir)
+                       if f.startswith(name + "_"))
+        _, noise_of = factory.noise_inputs(files, pool_path, factory.scene_seed(42, name))
+        kernel = torch.from_numpy(load_kernel(os.path.join(kernel_root, name,
+                                                           "kernel_per_band.npy"))).to(dev)
+        hr = torch.from_numpy(np.stack([np.load(f) for f in files])).to(dev)
+        want = (degrade(hr, kernel, factor=FACTOR)
+                + torch.from_numpy(pool[[noise_of[f] for f in files]]).to(dev)).cpu()
+        got_hr = np.stack([written[os.path.basename(f)[:-4] + "_train.nc"][0] for f in files])
+        got = torch.from_numpy(np.stack(
+            [written[os.path.basename(f)[:-4] + "_train.nc"][1] for f in files]))
+        if not np.array_equal(got_hr, hr.cpu().numpy()):
+            failures.append(f"fleet (c) {name}: hr differs from its files")
+        e = errors(got, want)
+        worst = max(worst, e["max_abs_err"])
+        if not e["ok"]:
+            failures.append(f"fleet (c) {name}: lr vs plain degrade + noise {e}")
+    res["max_abs_err"] = worst
+    log(f"[fleet] (c) run_factory(kernel_root=(a)) {len(names)} scenes x {FLEET_N} .npy: "
+        f"{rep.n_ok} written, {rep.n_fail} failed (the scene without a kernel), "
+        f"launches {launches}, lr max_abs_err vs plain {worst:.3g}, {secs:.2f}s")
+    return res
+
+
+def phase_fleet(dev, failures: list) -> dict:
+    """Phase 13 (module docstring): the fleet through the library and the
+    CLI, and the per-scene factory route."""
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="kmsr_chip_fleet_")
+    try:
+        res = {}
+        res["library"], kernel_root = fleet_library(tmp, dev, failures)
+        res["cli"] = fleet_cli(tmp, dev, failures)
+        res["factory"] = fleet_factory(tmp, kernel_root, dev, failures)
+        res["seconds"] = time.perf_counter() - t0
+        return res
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
+    # phase 13 holds runs to each other under torch's deterministic
+    # algorithms, whose cuBLAS calls need this before cuBLAS's first use
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -3002,6 +3508,7 @@ def main() -> int:
         phase_build()
         cases = phase_kernels(dev, failures)
         cases += phase_wide_kernels(dev, failures)
+        cases += phase_span_kernels(dev, failures)
         log(f"[kernels] {'ok' if not failures else 'FAILED'}: {len(cases)} cases, "
             f"rtol={RTOL} atol={ATOL}")
         cases += phase_scene_kernels(dev, failures)
@@ -3031,6 +3538,9 @@ def main() -> int:
         sr_res = phase_sr(dev, card, smi, failures)
         sr_res["nvidia_smi"] = smi
         log(f"[sr] {'ok' if not failures else 'FAILED'} in {sr_res['seconds']:.1f}s")
+        fleet_res = phase_fleet(dev, failures)
+        fleet_res["nvidia_smi"] = smi
+        log(f"[fleet] {'ok' if not failures else 'FAILED'} in {fleet_res['seconds']:.1f}s")
     except Exception:
         traceback.print_exc()
         return 1
@@ -3082,6 +3592,7 @@ def main() -> int:
     log(json.dumps({"denoise": denoise_res}))
     log(json.dumps({"moe_dynamic": moe_dynamic_res}))
     log(json.dumps({"sr": sr_res}))
+    log(json.dumps({"fleet": fleet_res}))
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f}s")
     log(smi)
     log(json.dumps({"kernels": records}))

@@ -43,7 +43,12 @@ the SR CNN (`models.sr`, JAX's parameter tree and `.npz` files), PSNR/SSIM
 (`ops.metrics`), inference over pairs (`pipeline.sr_infer`), whole scenes
 through exact halo tiling (`pipeline.sr_scene`) and SR training
 (`pipeline.train_sr_cli` -> `train.sr`), plain PyTorch (cuDNN / cuBLAS) as
-JAX's SR is XLA convolutions and einsums.
+JAX's SR is XLA convolutions and einsums; and the fleet with the DAG's
+orchestration: one KernelGAN per scene (`pipeline.train_fleet_cli` ->
+`train.fleet`), the factory's and apply_kernel's per-scene `--kernel-root`
+routes, the Landsat calibration head (`pipeline.calibrate_landsat` ->
+`io.landsat`), the training-log analysis (`analysis.log_analyzer`) and
+the one-config DAG runner (`pipeline.run_all`).
 """
 
 __version__ = "0.1.0"

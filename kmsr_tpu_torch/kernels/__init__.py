@@ -18,6 +18,12 @@ with a plain C interface, at first use, into `_build/` beside this file
   `scene_stencil_ext`), the same row ring on a [C, rows, W] plane
   (`scene_tiles` is its plan).
 
+The ring and wide sources also hold a global-read instantiation, planned
+(`RING_DIRECT`, `WIDE_DIRECT`) only where no tile fits a block's shared
+memory, i.e. at spans far wider than the shipped 13x13 blur's: a thread
+sums one output from global memory through the read-only cache, in its
+version's tap order, so every span JAX's guards accept is taken.
+
 A library's name carries a hash of its source, the `*.cuh` headers beside
 it (`stencil_ring.cuh`, the ring walk the v3 and scene kernels share) and
 the flags, so an edited source or header rebuilds and a stale build is
@@ -308,6 +314,9 @@ def wide_tiles(layout: str, ksize: int, factor: int,
     else 4, in chunks. The largest tile that fits is taken: NCHW 8, 4, 2
     or 1 row groups of WIDE_R (no more than the image's h/f output rows
     need), CHWB 2 x 8, 1 x 8, 1 x 4, 1 x 2 or 1 x 1 (row groups x columns).
+    Where none fits (the window grows as K^2/f: CHWB K > 32 at f = 2), the
+    plan is `WIDE_DIRECT`: the kernel's global-read instantiation, a
+    thread an output with no shared memory.
     """
     n_o = -(-ksize // factor)
     noc = 7 if (factor, n_o) == (2, 7) else 4
@@ -331,10 +340,14 @@ def wide_tiles(layout: str, ksize: int, factor: int,
             phase = rows * cols * 32
         if 4 * (table + 2 * phase) <= SMEM_MAX:
             return ti, tj, rows, cols, noc
-    raise ValueError(f"no wide-span tile fits shared memory at K={ksize}, "
-                     f"factor={factor}")
+    return WIDE_DIRECT
 
 
+#: the plans of the kernels' global-read instantiations, taken where no
+#: tile fits shared memory: a thread sums one output straight from global
+#: memory (comp and pixels through the read-only cache), same tap order
+RING_DIRECT = (0, 0, 0, 0)
+WIDE_DIRECT = (0, 0, 0, 0, 4)
 #: output rows a v3 block walks down each column (`stencil_tiles`)
 STENCIL_TI = 8
 #: output rows a scene block walks down each column (`scene_tiles`)
@@ -366,7 +379,10 @@ def _ring_plan(what: str, phase_split: bool, ksize: int, factor: int,
     more than ow needs), `cols` window columns per column phase
     (`_phase_cols`); else a warp a column of a 32-wide batch slice, tj =
     4, 2 or 1, `cols` = f*(tj-1) + K window columns of 32 entries. The
-    first tj whose block fits shared memory is taken, or `tj` if given."""
+    first tj whose block fits shared memory is taken, or `tj` if given.
+    Where none fits (comp's K x K copy and the ring rows: batch-minor
+    K > 184, phase-split K > 236 at f <= 4), `RING_DIRECT`, the global-read
+    instantiation."""
     if oh < 1 or ow < 1:
         raise ValueError(f"empty {what} output: {oh} x {ow}")
     n_o = -(-ksize // factor)
@@ -383,8 +399,7 @@ def _ring_plan(what: str, phase_split: bool, ksize: int, factor: int,
             cols, row, tables = span, span * 32, 1
         if ring_smem(ksize, row, span, tables) <= SMEM_MAX:
             return ti, tj, cols, row
-    raise ValueError(f"no {what} tile fits shared memory at K={ksize}, "
-                     f"factor={factor}")
+    return RING_DIRECT
 
 
 def stencil_tiles(layout: str, ksize: int, factor: int, h: int, w: int,

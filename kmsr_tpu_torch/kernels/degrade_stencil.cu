@@ -41,7 +41,11 @@
 // its own instantiation with every bound known at compile time; other
 // shapes run the same walk with run-time bounds and ring::kSlots
 // accumulators, a block taking at most kSlots output rows where ceil(K/f)
-// is larger, so any span is taken. The noise is added as an output is
+// is larger. A span whose comp copy and ring rows do not fit a block's
+// shared memory (batch-minor K > 184, NCHW K > 236 at f <= 4) runs the
+// global-read instantiation instead (`degrade_direct_kernel`: a thread an
+// output, comp and pixels read through the read-only cache, the same tap
+// order), so every span is taken. The noise is added as an output is
 // written.
 //
 // Bound on an H100 at the factory shape (B=128, C=5, 256x256, f=8, K=20):
@@ -196,6 +200,80 @@ degrade_stencil_kernel(const T* __restrict__ x, const float* __restrict__ comp,
                                          min(t.TI, oh - i0), load_row, emit);
 }
 
+// one input pixel through the read-only cache, as float32
+__device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
+
+__device__ __forceinline__ float ld(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+
+// The global-read instantiation, taken where no shared-memory plan fits (a
+// span whose comp copy and ring rows exceed a block's shared memory, e.g.
+// batch-minor K > 184): a thread sums one output straight from global
+// memory, comp and pixels through the read-only cache, with the row and
+// column maps of `load_row` applied per tap, in the walk's order (dy
+// outer, dx inner, from 0, separately rounded): the same bits.
+template <int LAYOUT, typename T>
+__global__ void __launch_bounds__(256)
+degrade_direct_kernel(const T* __restrict__ x, const float* __restrict__ comp,
+                      const float* __restrict__ noise, float* __restrict__ out,
+                      Tile t, int64_t n) {
+  const int64_t o = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (o >= n) return;
+  const int f = t.f, K = t.K, H = t.H, W = t.W, B = t.B, oh = t.oh, ow = t.ow;
+  int64_t r = o;
+  int c, i, j, b;
+  if (LAYOUT == kNCHW) {  // out [B, C, oh, ow]
+    j = r % ow; r /= ow;
+    i = r % oh; r /= oh;
+    c = r % t.C;
+    b = r / t.C;
+  } else {                // out [C, oh, ow, B]
+    b = r % B; r /= B;
+    j = r % ow; r /= ow;
+    i = r % oh;
+    c = r / oh;
+  }
+  const T* plane;
+  if (LAYOUT == kNCHW) {
+    plane = x + ((int64_t)b * t.C + c) * H * W;
+  } else {
+    const int64_t prow = LAYOUT == kPresplitHalo ? (int64_t)f * (oh + 2 * t.m) : H;
+    plane = x + (int64_t)c * prow * W * B + b;
+  }
+  const float* kc = comp + (int64_t)c * K * K;
+  float acc = 0.f;
+  for (int dy = 0; dy < K; ++dy) {
+    const int y = f * i + dy - t.half;
+    int64_t roff;
+    if (LAYOUT == kPresplitHalo) {  // baked rows: read unclamped
+      const int p = ((y % f) + f) % f;
+      roff = ((int64_t)p * (oh + 2 * t.m) + t.m + (y - p) / f) * W;
+    } else {
+      const int yc = min(max(y, 0), H - 1);
+      roff = LAYOUT == kPresplit ? ((int64_t)(yc % f) * oh + yc / f) * W : (int64_t)yc * W;
+    }
+    for (int dx = 0; dx < K; ++dx) {
+      const int xc = min(max(f * j + dx - t.half, 0), W - 1);
+      const int64_t col = LAYOUT == kPresplit || LAYOUT == kPresplitHalo
+                              ? (int64_t)(xc % f) * ow + xc / f
+                              : xc;
+      const float v = ld(LAYOUT == kNCHW ? plane + roff + col : plane + (roff + col) * B);
+      acc = __fadd_rn(acc, __fmul_rn(__ldg(kc + dy * K + dx), v));
+    }
+  }
+  out[o] = noise ? __fadd_rn(acc, noise[o]) : acc;
+}
+
+template <int LAYOUT, typename T>
+int launch_direct(const void* x, const float* comp, const float* noise, float* out,
+                  const Tile& t, cudaStream_t stream) {
+  const int64_t n = (int64_t)t.C * t.oh * t.ow * t.B;
+  const int64_t blocks = (n + 255) / 256;
+  if (blocks > INT32_MAX) return -1;
+  degrade_direct_kernel<LAYOUT, T><<<(unsigned)blocks, 256, 0, stream>>>(
+      static_cast<const T*>(x), comp, noise, out, t, n);
+  return (int)cudaGetLastError();
+}
+
 size_t smem_bytes(const Tile& t, int layout) {
   return 4 * ((size_t)t.kk + (size_t)kRing * t.row +
               (size_t)t.span * (layout == kNCHW ? 2 : 1));
@@ -245,6 +323,7 @@ int launch(const void* x, const float* comp, const float* noise, float* out,
 template <int LAYOUT, typename T>
 int by_shape(const void* x, const float* comp, const float* noise, float* out,
              const Tile& t, cudaStream_t s) {
+  if (t.TI == 0) return launch_direct<LAYOUT, T>(x, comp, noise, out, t, s);
 #if KMSR_RING_SPECIALIZE
   if (t.f == 8 && t.K == 20) return launch<LAYOUT, 8, 20, T>(x, comp, noise, out, t, s);
 #endif
@@ -279,7 +358,7 @@ extern "C" {
 // noise is NULL or float32 in the output's layout. (ti, tj, cols, row) is
 // the tile plan: ti x tj outputs a block (NCHW: tj a multiple of 32),
 // staged columns of a window row (NCHW: per column phase) and floats of a
-// ring buffer. Returns 0, a cudaError_t code from the launch, or -1 for
+// ring buffer; all four 0 select the global-read kernel. Returns 0, a cudaError_t code from the launch, or -1 for
 // arguments the kernel does not take (including a halo depth m that a tap
 // would reach past, and a plan that does not cover the taps or fit shared
 // memory).
@@ -311,7 +390,9 @@ int kmsr_degrade_stencil(const void* x, int x_dtype, int layout,
   t.TJ = tj;
   t.cols = cols;
   t.row = row;
-  if (!plan_ok(t, layout)) return -1;
+  // the all-zero plan: no shared-memory staging, the global-read kernel
+  const bool direct = ti == 0 && tj == 0 && cols == 0 && row == 0;
+  if (!direct && !plan_ok(t, layout)) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return x_dtype == 0
              ? dispatch<float>(layout, x, comp, noise, out, t, s)

@@ -36,7 +36,9 @@
 // the tap loop. The x2 factory's lattice (f = 2, ceil(K/f) = 7) has its
 // own instantiation with every loop bound and stride known at compile
 // time, so the tap loop is only loads, multiplies and adds; other shapes
-// run the same code with them read at run time.
+// run the same code with them read at run time. A span whose window does
+// not fit shared memory at any tile runs the global-read instantiation
+// (`degrade_wide_direct_kernel`: a thread an output, the same tap order).
 //
 // Bound on an H100 at B=128, C=5, 256x256, f=2, K=14: 167.8 MB of input,
 // 2 x 41.9 MB of noise and output (0.0751 ms at 3.35 TB/s) against 2.06 G
@@ -291,6 +293,74 @@ degrade_wide_kernel(const T* __restrict__ x, const float* __restrict__ comp,
   }
 }
 
+__device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
+
+__device__ __forceinline__ float ld(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+
+// The global-read instantiation, taken where no tile's window fits shared
+// memory (the window grows as K^2/f: CHWB K > 32 at f = 2, NCHW K > 150):
+// a thread sums one output straight from global memory, comp and pixels
+// through the read-only cache, clamping per tap, in its version's lattice
+// order (dyi, dxi, dxo, dyo; V1 a partial per dyi): the same bits.
+template <int LAYOUT, int MODE, typename T>
+__global__ void __launch_bounds__(256)
+degrade_wide_direct_kernel(const T* __restrict__ x, const float* __restrict__ comp,
+                           const float* __restrict__ noise, float* __restrict__ out,
+                           Tile t, int64_t n) {
+  const int64_t o = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (o >= n) return;
+  const int f = t.f, K = t.K, H = t.H, W = t.W, B = t.B, n_o = t.n_o;
+  int64_t r = o;
+  int c, i, j, b;
+  if (LAYOUT == kNCHW) {  // out [B, C, oh, ow]
+    j = r % t.ow; r /= t.ow;
+    i = r % t.oh; r /= t.oh;
+    c = r % t.C;
+    b = r / t.C;
+  } else {                // out [C, oh, ow, B]
+    b = r % B; r /= B;
+    j = r % t.ow; r /= t.ow;
+    i = r % t.oh;
+    c = r / t.oh;
+  }
+  const T* plane = LAYOUT == kNCHW ? x + ((int64_t)b * t.C + c) * H * W
+                                   : x + (int64_t)c * H * W * B + b;
+  const int64_t xs = LAYOUT == kNCHW ? 1 : B;  // elements a pixel
+  const float* kc = comp + (int64_t)c * K * K;
+  float acc = 0.f;
+  for (int dyi = 0; dyi < f; ++dyi) {
+    float part = 0.f;
+    float& sum = MODE == kV1 ? part : acc;
+    for (int dxi = 0; dxi < f; ++dxi) {
+      for (int dxo = 0; dxo < n_o; ++dxo) {
+        const int dx = dxo * f + dxi;
+        if (dx >= K) break;
+        const int xc = min(max(f * j + dx - t.half, 0), W - 1);
+        for (int dyo = 0; dyo < n_o; ++dyo) {
+          const int dy = dyo * f + dyi;
+          if (dy >= K) break;
+          const int yc = min(max(f * i + dy - t.half, 0), H - 1);
+          const float v = ld(plane + ((int64_t)yc * W + xc) * xs);
+          sum = __fadd_rn(sum, __fmul_rn(__ldg(kc + dy * K + dx), v));
+        }
+      }
+    }
+    if (MODE == kV1) acc = __fadd_rn(acc, part);
+  }
+  out[o] = noise ? __fadd_rn(acc, noise[o]) : acc;
+}
+
+template <int LAYOUT, int MODE, typename T>
+int launch_direct(const void* x, const float* comp, const float* noise, float* out,
+                  const Tile& t, cudaStream_t stream) {
+  const int64_t n = (int64_t)t.C * t.oh * t.ow * t.B;
+  const int64_t blocks = (n + 255) / 256;
+  if (blocks > INT32_MAX) return -1;
+  degrade_wide_direct_kernel<LAYOUT, MODE, T><<<(unsigned)blocks, 256, 0, stream>>>(
+      static_cast<const T*>(x), comp, noise, out, t, n);
+  return (int)cudaGetLastError();
+}
+
 // The tile plan (`kmsr_tpu_torch.kernels.wide_tiles` chooses it) must
 // give every tap its staged window row and column, match the compile-time
 // geometry where there is one, and fit.
@@ -338,6 +408,7 @@ int launch(const void* x, const float* comp, const float* noise, float* out,
 template <int LAYOUT, int MODE, typename T>
 int by_chunk(int noc, const void* x, const float* comp, const float* noise,
              float* out, const Tile& t, cudaStream_t s) {
+  if (t.TI == 0) return launch_direct<LAYOUT, MODE, T>(x, comp, noise, out, t, s);
   return noc == 7 ? launch<LAYOUT, MODE, 2, 7, T>(x, comp, noise, out, t, s)
                   : launch<LAYOUT, MODE, 0, 0, T>(x, comp, noise, out, t, s);
 }
@@ -362,7 +433,8 @@ extern "C" {
 // plan: ti x tj outputs a block (NCHW: tj = 32), window rows staged per
 // row phase, window columns (NCHW: per column phase), row taps per
 // register window (7: the compile-time x2 lattice, f = 2 and ceil(k/f) =
-// 7; else 4). Returns 0, a cudaError_t code from the launch, or -1 for
+// 7; else 4); ti = tj = rows = cols = 0 selects the global-read kernel.
+// Returns 0, a cudaError_t code from the launch, or -1 for
 // arguments the kernel does not take.
 int kmsr_degrade_wide(const void* x, int x_dtype, int layout, int mode,
                       const float* comp, const float* noise, float* out, int c,
@@ -389,7 +461,8 @@ int kmsr_degrade_wide(const void* x, int x_dtype, int layout, int mode,
   t.TJ = tj;
   t.rows = rows;
   t.cols = cols;
-  if ((int64_t)b * c > 65535 && layout == kNCHW) return -1;
+  if (ti == 0 && (tj != 0 || rows != 0 || cols != 0)) return -1;
+  if ((int64_t)b * c > 65535 && layout == kNCHW && ti != 0) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return x_dtype == 0 ? dispatch<float>(layout, mode, noc, x, comp, noise, out, t, s)
                       : dispatch<__nv_bfloat16>(layout, mode, noc, x, comp, noise, out, t, s);

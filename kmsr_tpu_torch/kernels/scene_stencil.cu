@@ -39,7 +39,11 @@
 // tap loop. f = 8, K = 20 (the scene path's x8 with a 13x13 blur) is a
 // compile-time instantiation; other shapes run the same walk with
 // run-time bounds and ring::kSlots accumulators, a block taking at most
-// kSlots output rows where ceil(K/f) is larger, so any span is taken.
+// kSlots output rows where ceil(K/f) is larger. A span whose comp copy and
+// ring rows do not fit a block's shared memory (K > 236 at f <= 4) runs
+// the global-read instantiation instead (`scene_direct_kernel`: a thread an
+// output, comp and rows read through the read-only cache, the same tap
+// order), so every span is taken.
 //
 // Bound on an H100 at the full scene width (C=5, 8192x8192 f32, f=8,
 // K=20): one launch must read 1342 MB and write 21 MB, 0.4075 ms at
@@ -142,6 +146,52 @@ scene_stencil_kernel(Rows x, Rows top, Rows bot, const float* __restrict__ comp,
                               min(t.TI, oh - i0), load_row, emit);
 }
 
+// The global-read instantiation, taken where no shared-memory plan fits:
+// a thread sums one output straight from global memory, comp and rows
+// through the read-only cache, with `load_row`'s row map and the column
+// clamp applied per tap, in the walk's order: the same bits.
+template <bool RAW>
+__global__ void __launch_bounds__(256)
+scene_direct_kernel(Rows x, Rows top, Rows bot, const float* __restrict__ comp,
+                    float* __restrict__ out, Tile t, int64_t n) {
+  const int64_t o = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (o >= n) return;
+  const int f = t.f, K = t.K, W = t.W, hs = t.hs;
+  const int j = o % t.ow, i = (o / t.ow) % t.oh, c = o / t.ow / t.oh;
+  const float* kc = comp + (int64_t)c * K * K;
+  float acc = 0.f;
+  for (int dy = 0; dy < K; ++dy) {
+    const int y = f * i + dy - t.half;
+    const float* src;
+    if (RAW) {
+      if (y < 0) {
+        src = top.ptr + (int64_t)c * top.channel_stride + (int64_t)(t.th + y) * top.row_stride;
+      } else if (y >= hs) {
+        src = bot.ptr + (int64_t)c * bot.channel_stride + (int64_t)(y - hs) * bot.row_stride;
+      } else {
+        src = x.ptr + (int64_t)c * x.channel_stride + (int64_t)y * x.row_stride;
+      }
+    } else {
+      src = x.ptr + (int64_t)c * x.channel_stride + (int64_t)(t.row0 + y) * x.row_stride;
+    }
+    for (int dx = 0; dx < K; ++dx) {
+      const int xc = min(max(f * j + dx - t.half, 0), W - 1);
+      acc = __fadd_rn(acc, __fmul_rn(__ldg(kc + dy * K + dx), __ldg(src + xc)));
+    }
+  }
+  out[o] = acc;
+}
+
+template <bool RAW>
+int launch_direct(Rows x, Rows top, Rows bot, const float* comp, float* out,
+                  const Tile& t, cudaStream_t stream) {
+  const int64_t n = (int64_t)t.C * t.oh * t.ow;
+  const int64_t blocks = (n + 255) / 256;
+  if (blocks > INT32_MAX) return -1;
+  scene_direct_kernel<RAW><<<(unsigned)blocks, 256, 0, stream>>>(x, top, bot, comp, out, t, n);
+  return (int)cudaGetLastError();
+}
+
 size_t smem_bytes(const Tile& t) {
   return 4 * ((size_t)t.kk + (size_t)kRing * t.row + 2 * (size_t)t.span);
 }
@@ -178,6 +228,7 @@ int launch(Rows x, Rows top, Rows bot, const float* comp, float* out,
 template <bool RAW>
 int by_shape(Rows x, Rows top, Rows bot, const float* comp, float* out,
              const Tile& t, cudaStream_t s) {
+  if (t.TI == 0) return launch_direct<RAW>(x, top, bot, comp, out, t, s);
 #if KMSR_RING_SPECIALIZE
   if (t.f == 8 && t.K == 20) return launch<RAW, 8, 20>(x, top, bot, comp, out, t, s);
 #endif
@@ -195,7 +246,8 @@ extern "C" {
 // in elements (column stride 1); comp is [c, k, k] float32 contiguous, out
 // [c, hs/f, w/f] float32 contiguous. (ti, tj, cols, row) is the tile plan:
 // ti x tj outputs a block (tj a multiple of 32), staged columns of a window
-// row per column phase, floats of a ring buffer. Returns 0, a cudaError_t
+// row per column phase, floats of a ring buffer; all four 0 select the
+// global-read kernel. Returns 0, a cudaError_t
 // code from the launch, or -1 for arguments the kernel does not take (dims
 // not multiples of f, halos that do not cover the taps' reach, a plan
 // that does not cover the taps or fit shared memory).
@@ -231,7 +283,9 @@ int kmsr_scene_stencil(int raw, const float* x, int64_t x_cs, int64_t x_rs,
   t.TJ = tj;
   t.cols = cols;
   t.row = row;
-  if (!plan_ok(t)) return -1;
+  // the all-zero plan: no shared-memory staging, the global-read kernel
+  const bool direct = ti == 0 && tj == 0 && cols == 0 && row == 0;
+  if (!direct && !plan_ok(t)) return -1;
   Rows xr{x, x_cs, x_rs}, tr{top, top_cs, top_rs}, br{bot, bot_cs, bot_rs};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return raw ? by_shape<true>(xr, tr, br, comp, out, t, s)

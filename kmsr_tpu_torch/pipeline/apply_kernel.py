@@ -7,13 +7,17 @@ into device batches and degraded with one strided grouped conv
 (`ops.degrade.degrade_strided`) per batch. `--moe MODEL` routes each patch
 to its selector's argmax expert and blurs it with that expert's kernel
 (the factory's `moe_degrade`, no noise), recording the expert as the
-`moe_expert` attribute of the written group; it runs on one device. Still
-refused: `--kernel-root` (per-scene kernels, ROADMAP.md queue 1 item 5) and
-the batch data parallelism over several local devices (queue 1 item 7).
+`moe_expert` attribute of the written group; it runs on one device.
+`--kernel-root DIR` takes per-scene kernels (a fleet run's outdir,
+`DIR/<scene>/kernel_per_band.npy`): each scene's files run through its own
+kernel, a scene with no kernel failing all of its files, as the factory's
+route does. Still refused: the batch data parallelism over several local
+devices (ROADMAP.md queue 1 item 7).
 
 Usage:
     python -m kmsr_tpu_torch.pipeline.apply_kernel --input-dir PATCHES \
-        (--kernel kernel_per_band.npy | --moe KERNEL_RUN) --output-dir OUT \
+        (--kernel kernel_per_band.npy | --moe KERNEL_RUN | --kernel-root FLEET_RUN) \
+        --output-dir OUT \
         [--factor 8] [--in-group denoised] [--out-group blurred] \
         [--suffix _blurred] [--batch-size 64] [--device cuda|cpu]
 """
@@ -31,7 +35,7 @@ from ..device import resolve_device
 from ..io.ncio import copy_file_with_groups, read_band_stack, write_band_stack
 from ..io.schema import GROUP_BLURRED, GROUP_DENOISED, RADIANCE_UNITS
 from ..ops.degrade import degrade_strided
-from .common import DeviceSyncGuard, RunReport, chunked_reader
+from .common import DeviceSyncGuard, RunReport, chunked_reader, route_per_scene_kernels
 
 
 def kernel_bands(k: np.ndarray, n_bands: int = 5, name: str = "kernel") -> np.ndarray:
@@ -98,21 +102,28 @@ def apply_kernel_to_folder(
 ) -> RunReport:
     """Degrade every patch file; write `out_group` into a copy (or in place).
 
-    Exactly one of kernel_path and moe_path (content-adaptive routing, the
-    factory's `--moe` blur without its noise) is taken; kernel_root
-    (per-scene kernels) is not ported and raises ValueError."""
-    from .factory import KERNEL_ROOT_REFUSAL
-
+    Exactly one of kernel_path, moe_path (content-adaptive routing, the
+    factory's `--moe` blur without its noise) and kernel_root (per-scene
+    kernels, a fleet run's outdir) is taken."""
     dev = resolve_device(device)
     t0 = time.time()
     if sum(p is not None for p in (kernel_path, moe_path, kernel_root)) != 1:
         raise ValueError(
             "exactly one of kernel_path / moe_path / kernel_root is required"
         )
-    if kernel_root is not None:
-        raise ValueError(KERNEL_ROOT_REFUSAL)
     if files is None:
         files = list_patch_files(input_dir, "*.nc")
+    if kernel_root is not None:
+        return route_per_scene_kernels(
+            files, kernel_root,
+            lambda scene, k_path, scene_files: apply_kernel_to_folder(
+                input_dir, k_path, output_dir, factor=factor,
+                in_group=in_group, out_group=out_group, suffix=suffix,
+                batch_size=batch_size, in_place=in_place, progress=progress,
+                files=scene_files, device=dev,
+            ),
+            "apply_kernel", output_dir,
+        )
     fn, kernel_src = make_degrader(kernel_path, moe_path, factor, dev)
     os.makedirs(output_dir, exist_ok=True)
 
@@ -208,8 +219,8 @@ def build_parser() -> argparse.ArgumentParser:
     src.add_argument("--moe", help="content-adaptive mode: MoE model dir / .npz / "
                                    "reference .pth")
     src.add_argument("--kernel-root",
-                     help="per-scene kernels: not ported yet (ROADMAP.md "
-                          "queue 1 item 5): refused")
+                     help="per-scene kernels: a fleet-trainer outdir "
+                          "(<scene>/kernel_per_band.npy)")
     p.add_argument("--output-dir", required=True)
     p.add_argument("--factor", type=int, default=8)
     p.add_argument("--in-group", default=GROUP_DENOISED)
@@ -223,10 +234,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     a = build_parser().parse_args(argv)
-    if a.kernel_root:
-        from .factory import KERNEL_ROOT_REFUSAL
-
-        raise SystemExit(KERNEL_ROOT_REFUSAL)
     report = apply_kernel_to_folder(
         a.input_dir,
         a.kernel,
@@ -239,6 +246,7 @@ def main(argv=None) -> int:
         in_place=a.in_place,
         device=a.device,
         moe_path=a.moe,
+        kernel_root=a.kernel_root,
     )
     return 0 if report.n_fail == 0 else 1
 

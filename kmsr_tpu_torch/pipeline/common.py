@@ -2,7 +2,9 @@
 
 The port's copy of the parts of `kmsr_tpu.pipeline.common` the factory,
 the denoise and cut stages and the trainer CLI use: `RunReport`,
-`run_per_file`, `DeviceSyncGuard`, `chunked_reader` and `maybe_trace`.
+`run_per_file`, `DeviceSyncGuard`, `chunked_reader`, `maybe_trace` and
+`route_per_scene_kernels` (the factory's and apply_kernel's
+`--kernel-root`).
 Every reference batch driver wraps its per-file work in try/except-continue
 with success/failure counting (`A_00_patch_cutter_universal.py:409-419`,
 `E_make_train_data.py:264-272`, `denoise/batch_denoise.py:60-93`) so one
@@ -185,3 +187,37 @@ def maybe_trace(log_dir: Optional[str]):
     path = os.path.join(log_dir, "trace.json")
     prof.export_chrome_trace(path)
     print(f"[trace] timeline written to {path}")
+
+
+def route_per_scene_kernels(
+    files: list, kernel_root: str, run_scene: Callable, label: str,
+    output_dir: str,
+) -> RunReport:
+    """Shared per-scene kernel routing (the fleet trainer's outdir layout).
+
+    Groups `files` by originating scene (`data.patches.scene_prefix`),
+    probes `<kernel_root>/<scene>/kernel_per_band.npy`, and calls
+    `run_scene(scene, kernel_path, scene_files) -> RunReport` per scene
+    with a kernel; a scene whose kernel artifact is missing fails as a unit
+    (per-file accounting), the rest proceed. Used by both the fused
+    factory and apply_kernel.
+    """
+    from ..data.patches import group_by_scene
+
+    t0 = time.time()
+    ok_all: list = []
+    fail_all: list = []
+    for scene, scene_files in group_by_scene(files).items():
+        k_path = os.path.join(kernel_root, scene, "kernel_per_band.npy")
+        if not os.path.exists(k_path):
+            fail_all.extend(
+                (f, f"no kernel for scene {scene!r}: {k_path} missing")
+                for f in scene_files
+            )
+            continue
+        rep = run_scene(scene, k_path, scene_files)
+        ok_all.extend(rep.succeeded)
+        fail_all.extend(rep.failed)
+    report = RunReport(succeeded=ok_all, failed=fail_all, seconds=time.time() - t0)
+    print(f"{label}[per-scene kernels]: {report.summary()} -> {output_dir}")
+    return report

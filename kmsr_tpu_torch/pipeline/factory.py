@@ -37,13 +37,20 @@ blur, x`factor` block mean: `ops.degrade.degrade_batch_kernels`, a cuDNN
 grouped conv, as JAX's route is XLA) and gets the pool draw
 (`--moe-noise pool`) or a normal draw scaled by the expert's learned
 per-band sigma (`--moe-noise sigma`); the `lr` group carries the
-`moe_expert` attribute. Still refused: `--kernel-root` (per-scene kernels,
-ROADMAP.md queue 1 item 5) and the data parallelism over several local
-devices (queue 1 item 7).
+`moe_expert` attribute.
+
+`--kernel-root DIR` takes per-scene kernels, a fleet run's outdir
+(`DIR/<scene>/kernel_per_band.npy`): the files are grouped by scene name
+(`pipeline.common.route_per_scene_kernels`) and each scene runs the
+one-kernel route above on its own files, with its own noise seed
+`scene_seed(seed, scene)`, so it takes the same routes and launches the
+same kernels as a one-kernel run. A scene with no kernel fails all of its
+files; the others go on. Still refused: the data parallelism over several
+local devices (ROADMAP.md queue 1 item 7).
 
 Usage:
     python -m kmsr_tpu_torch.pipeline.factory --input-dir DENOISED \
-        (--kernel kernel_per_band.npy | --moe KERNEL_RUN) \
+        (--kernel kernel_per_band.npy | --moe KERNEL_RUN | --kernel-root FLEET_RUN) \
         --noise-pool pool.npy --output-dir TRAIN [--factor 8] \
         [--moe-noise pool|sigma] [--batch-size 128] [--seed 42] \
         [--backend auto|conv|fused] [--device cuda|cpu]
@@ -54,6 +61,7 @@ import argparse
 import glob
 import os
 import time
+import zlib
 from typing import Iterator
 
 import numpy as np
@@ -76,13 +84,10 @@ from ..ops.degrade_fused import degrade_fused, degrade_fused_presplit
 from ..utils.params_io import load_params
 from ..utils.profiling import stage_timer
 from .apply_kernel import load_kernel
-from .common import DeviceSyncGuard, RunReport, chunked_reader
+from .common import DeviceSyncGuard, RunReport, chunked_reader, route_per_scene_kernels
 from .make_train_data import save_training_sample
 
 BACKENDS = ("auto", "conv", "fused")
-KERNEL_ROOT_REFUSAL = (
-    "--kernel-root (per-scene kernels from a fleet run) is not ported: it is "
-    "ROADMAP.md queue 1 item 5 (fleet); pass --kernel or --moe")
 
 #: one factory batch: (paths, hr [b, C, H, W] host array, lr [b, C, h, w]
 #: device tensor — dispatched, not yet synchronized, failures)
@@ -469,6 +474,13 @@ def factory_batches(
                            device=device)
 
 
+def scene_seed(seed: int, scene: str) -> int:
+    """Derived noise seed for one scene of a per-scene (--kernel-root)
+    factory run: stable across runs AND across scene-set changes (the
+    scene NAME is mixed in, not its position)."""
+    return (seed ^ zlib.crc32(scene.encode("utf-8"))) & 0x7FFFFFFF
+
+
 def run_factory(
     input_dir: str,
     kernel_path: str | None,
@@ -489,9 +501,9 @@ def run_factory(
 ) -> RunReport:
     """Degrade every patch in `input_dir` and write `<name>_train.nc` pairs.
 
-    Exactly one of kernel_path (one per-band kernel) and moe_path (the
-    content-adaptive route, see the module docstring) is taken;
-    kernel_root (per-scene kernels) is not ported and raises ValueError.
+    Exactly one of kernel_path (one per-band kernel), moe_path (the
+    content-adaptive route) and kernel_root (per-scene kernels, a fleet
+    run's outdir; see the module docstring) is taken.
 
     input_format: 'nc' (grouped NetCDF patches), 'npy' (raw [C, H, W]
     float32 patch dirs) or 'auto' (npy iff the dir holds .npy files and no
@@ -507,8 +519,6 @@ def run_factory(
         raise ValueError(
             "exactly one of kernel_path / moe_path / kernel_root is required"
         )
-    if kernel_root is not None:
-        raise ValueError(KERNEL_ROOT_REFUSAL)
     if input_format == "auto":
         has_npy = bool(glob.glob(os.path.join(input_dir, "*.npy")))
         has_nc = bool(glob.glob(os.path.join(input_dir, "*.nc")))
@@ -518,6 +528,21 @@ def run_factory(
     if files is None:
         files = list_patch_files(
             input_dir, "*.npy" if input_format == "npy" else "*.nc"
+        )
+    if kernel_root is not None:
+        # each scene's files through ITS kernel, with a distinct noise
+        # stream: with a shared seed every scene's i-th file would draw the
+        # SAME noise-pool entry
+        return route_per_scene_kernels(
+            files, kernel_root,
+            lambda scene, k_path, scene_files: run_factory(
+                input_dir, k_path, noise_pool_path, output_dir,
+                factor=factor, in_group=in_group, batch_size=batch_size,
+                seed=scene_seed(seed, scene), backend=backend,
+                progress=progress, input_format=input_format,
+                files=scene_files, device=dev,
+            ),
+            "factory", output_dir,
         )
     os.makedirs(output_dir, exist_ok=True)
     if moe_path is None:
@@ -603,8 +628,9 @@ def main(argv=None) -> int:
                                    "each patch degrades with its selector-"
                                    "routed expert kernel")
     src.add_argument("--kernel-root",
-                     help="per-scene kernels: not ported yet (ROADMAP.md "
-                          "queue 1 item 5): refused")
+                     help="per-scene kernels: a fleet-trainer outdir "
+                          "(<scene>/kernel_per_band.npy); each patch "
+                          "degrades with ITS scene's kernel")
     p.add_argument("--moe-noise", choices=["pool", "sigma"], default="pool",
                    help="pool: empirical noise-pool sample; sigma: the "
                         "expert's learned per-band Gaussian")
@@ -625,13 +651,12 @@ def main(argv=None) -> int:
                         "native split loader into the presplit kernel")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     a = p.parse_args(argv)
-    if a.kernel_root:
-        raise SystemExit(KERNEL_ROOT_REFUSAL)
     report = run_factory(
         a.input_dir, a.kernel, a.noise_pool, a.output_dir,
         factor=a.factor, in_group=a.in_group, batch_size=a.batch_size,
         seed=a.seed, backend=a.backend, input_format=a.input_format,
         device=a.device, moe_path=a.moe, moe_noise=a.moe_noise,
+        kernel_root=a.kernel_root,
     )
     return 0 if report.n_fail == 0 else 1
 

@@ -1,4 +1,5 @@
-"""Trainers: single-kernel KernelGAN, the MoE kernel bank (`train.moe`),
+"""Trainers: single-kernel KernelGAN, its per-scene fleet (`train.fleet`),
+the MoE kernel bank (`train.moe`),
 the dynamic degradation model (`train.dynamic`) and their shared state /
 optimizer / checkpoint plumbing."""
 from .state import (
@@ -17,3 +18,4 @@ from .single_kernel import (
     train_single_kernel,
     random_crops,
 )
+from .fleet import train_fleet

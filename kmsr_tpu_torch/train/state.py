@@ -164,38 +164,64 @@ def init_gan_state(
 
 
 # ------------------------------------------------------------ checkpointing
-def save_checkpoint(ckpt_dir: str, state, step: int) -> None:
-    """torch.save the whole state (a dataclass: `GANTrainState`, the SR
-    trainer's state) to `ckpt_dir/step_N` (atomically)."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+def state_blob(state) -> dict:
+    """A state dataclass as a dict torch.load(weights_only=True) can read
+    back: its fields, the generator as its RNG state."""
     blob = {f.name: getattr(state, f.name) for f in dataclasses.fields(state)}
     if "rng" in blob:
         blob["rng"] = state.rng.get_state()
-    path = os.path.join(ckpt_dir, f"step_{step}")
-    torch.save(blob, path + ".tmp")
-    os.replace(path + ".tmp", path)
+    return blob
 
 
-def restore_checkpoint(ckpt_dir: str, step: int, template):
-    """The state saved at `step`, on the device of `template`'s parameters;
+def _param_trees(template) -> list[str]:
+    """The fields of a state dataclass that hold parameters (named *params)."""
+    return [f.name for f in dataclasses.fields(template) if f.name.endswith("params")]
+
+
+def _device_of(template) -> torch.device:
+    return tree_leaves(getattr(template, _param_trees(template)[0]))[0].device
+
+
+def state_from_blob(blob: dict, template):
+    """`state_blob`'s inverse, on the device of `template`'s parameters;
     its parameter trees (the fields named *params) require grad."""
-    path = os.path.join(ckpt_dir, f"step_{step}")
-    if os.path.isdir(path):
-        raise ValueError(
-            f"{path} is a directory (an orbax checkpoint of the JAX package?); "
-            "this package reads only its own torch.save checkpoints")
-    names = [f.name for f in dataclasses.fields(template)]
-    trees = [n for n in names if n.endswith("params")]
-    dev = tree_leaves(getattr(template, trees[0]))[0].device
-    blob = torch.load(path, map_location=dev, weights_only=True)
+    dev = _device_of(template)
+    blob = dict(blob)
     if "rng" in blob:
         rng = torch.Generator(device=dev)
         rng.set_state(blob["rng"].cpu())
         blob["rng"] = rng
     state = type(template)(**blob)
-    for n in trees:
+    for n in _param_trees(template):
         _trainable(getattr(state, n))
     return state
+
+
+def save_checkpoint(ckpt_dir: str, state, step: int) -> None:
+    """torch.save the whole state (a dataclass: `GANTrainState`, the SR
+    trainer's state; or any `state_blob`-made object, the fleet's list of
+    them) to `ckpt_dir/step_N` (atomically)."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    blob = state_blob(state) if dataclasses.is_dataclass(state) else state
+    path = os.path.join(ckpt_dir, f"step_{step}")
+    torch.save(blob, path + ".tmp")
+    os.replace(path + ".tmp", path)
+
+
+def load_checkpoint(ckpt_dir: str, step: int, device: torch.device):
+    """The object saved at `step`, its tensors on `device`."""
+    path = os.path.join(ckpt_dir, f"step_{step}")
+    if os.path.isdir(path):
+        raise ValueError(
+            f"{path} is a directory (an orbax checkpoint of the JAX package?); "
+            "this package reads only its own torch.save checkpoints")
+    return torch.load(path, map_location=device, weights_only=True)
+
+
+def restore_checkpoint(ckpt_dir: str, step: int, template):
+    """The state saved at `step`, on the device of `template`'s parameters;
+    its parameter trees (the fields named *params) require grad."""
+    return state_from_blob(load_checkpoint(ckpt_dir, step, _device_of(template)), template)
 
 
 def latest_checkpoint_step(ckpt_dir: str) -> Optional[int]:

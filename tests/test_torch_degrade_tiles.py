@@ -353,3 +353,73 @@ def test_ring_constants_match_the_kernels():
     for name in ("degrade_stencil.cu", "scene_stencil.cu"):
         text = (src / name).read_text()
         assert re.search(r"constexpr int kSmemMax = (\d+);", text)[1] == str(SMEM_MAX)
+
+
+def _ring_fits(layout, ksize, factor, ow):
+    """Whether some ring tile of the plan's search fits shared memory."""
+    split = layout in ("nchw", "scene")
+    n_o = -(-ksize // factor)
+    for n in (4, 2, 1):
+        tj = (32 if split else 1) * n
+        span = factor * (tj - 1) + ksize
+        if split:
+            cols = tj - 1 + n_o
+            cols += (32 // factor - cols) % 32 if 32 % factor == 0 else 0
+            row, tables = -(-factor * cols // 4) * 4, 2
+        else:
+            row, tables = span * 32, 1
+        if ring_smem(ksize, row, span, tables) <= SMEM_MAX:
+            return True
+    return False
+
+
+@pytest.mark.parametrize("factor", [2, 3, 4, 8, 16, 40, 48])
+def test_planners_take_every_span_jax_accepts(factor):
+    """Every span JAX's guards accept gets a plan, never a refusal: v3 at
+    K <= 5f (each layout), v1/v2 at any K > 5f (`select_version` picks v2
+    when v4's shape rule fails), the scene wherever JAX's `_check_span`
+    holds. Where no shared-memory tile fits (the old refusals: batch-minor
+    K > 184, phase-split K > 236 at f <= 4, wide CHWB K > 32 at f = 2), the
+    plan is the global-read one, and only there."""
+    from kmsr_tpu.ops.degrade_scene_fast import _geometry
+
+    hw = 2 * factor * 8
+    spans = sorted({factor, 5 * factor, 20, 33, 150, 185, 237, 240, 400} - {0})
+    for ksize in spans:
+        for layout in ("nchw", "chwb", "presplit", "presplit_halo"):
+            if ksize > 5 * factor:
+                continue
+            plan = stencil_tiles(layout, ksize, factor, hw, hw, 8)
+            direct = plan == kernels.RING_DIRECT
+            assert direct != _ring_fits("nchw" if layout == "nchw" else "chwb", ksize,
+                                        factor, hw // factor), (layout, ksize)
+        if ksize > 5 * factor:
+            assert select_version(ksize, factor, hw, hw, torch.float32, None) in (2, 4)
+            for layout in ("nchw", "chwb"):
+                plan = wide_tiles(layout, ksize, factor, hw)
+                assert len(plan) == 5 and plan[-1] in (4, 7)
+        _, nb, _, _, qmax, _ = _geometry(factor, ksize)
+        if qmax <= 2 * nb:
+            plan = scene_tiles(ksize, factor, hw, 8192)
+            assert (plan == kernels.RING_DIRECT) != _ring_fits("scene", ksize, factor,
+                                                                8192 // factor)
+    # the old limits: the first span past each takes the global-read plan
+    assert stencil_tiles("chwb", 184, 40, 80, 80, 8) != kernels.RING_DIRECT
+    assert stencil_tiles("chwb", 185, 40, 80, 80, 8) == kernels.RING_DIRECT
+    assert scene_tiles(236, 4, 64, 256) != kernels.RING_DIRECT
+    assert scene_tiles(237, 4, 64, 256) == kernels.RING_DIRECT
+    assert wide_tiles("chwb", 32, 2, 64) != kernels.WIDE_DIRECT
+    assert wide_tiles("chwb", 33, 2, 64) == kernels.WIDE_DIRECT
+    assert wide_tiles("nchw", 151, 2, 64) == kernels.WIDE_DIRECT
+
+
+def test_global_read_plans_are_the_c_abi_sentinels():
+    """The kernels take the all-zero plan (wide: rows = cols = 0 with a
+    valid noc) as the global-read instantiation."""
+    src = Path(kernels.__file__).parent
+    for name in ("degrade_stencil.cu", "scene_stencil.cu"):
+        text = (src / name).read_text()
+        assert "ti == 0 && tj == 0 && cols == 0 && row == 0" in text
+    assert kernels.RING_DIRECT == (0, 0, 0, 0)
+    assert kernels.WIDE_DIRECT[:4] == (0, 0, 0, 0) and kernels.WIDE_DIRECT[4] == 4
+    assert "if (t.TI == 0) return launch_direct" in (src / "degrade_wide.cu").read_text()

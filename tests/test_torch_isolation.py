@@ -278,3 +278,51 @@ def test_sr_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
     assert not (tmp_path / "out").exists()
+
+
+def test_importing_the_fleet_and_the_dag_loads_no_jax():
+    """The fleet trainer and its CLI, the DAG runner, the Landsat
+    calibration and the log analyzer (matplotlib and PIL load at first
+    use only)."""
+    code = (
+        "import sys; import kmsr_tpu_torch.pipeline.train_fleet_cli, "
+        "kmsr_tpu_torch.train.fleet, kmsr_tpu_torch.pipeline.run_all, "
+        "kmsr_tpu_torch.pipeline.calibrate_landsat, kmsr_tpu_torch.io.landsat, "
+        "kmsr_tpu_torch.analysis.log_analyzer; "
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'optax', 'orbax', 'kmsr_tpu', 'matplotlib', 'PIL')]; "
+        "print(bad); sys.exit(1 if bad else 0)"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_fleet_and_dag_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device; the check is for hosts without")
+    from kmsr_tpu_torch.data import synthetic_pool
+    from kmsr_tpu_torch.pipeline import apply_kernel, factory, run_all, train_fleet_cli
+    from kmsr_tpu_torch.train import SingleKernelConfig, train_fleet
+
+    out = str(tmp_path / "out")
+    pool = synthetic_pool(np.random.default_rng(0), n=2, size=16)
+    cfg_path = tmp_path / "c.json"
+    cfg_path.write_text('{"workdir": "%s"}' % out)
+    calls = [
+        lambda: train_fleet([pool], SingleKernelConfig(outdir=out)),
+        lambda: train_fleet_cli.main(["--patch-root", str(tmp_path), "--outdir", out]),
+        lambda: factory.run_factory(str(tmp_path), None, "pool.npy", out, kernel_root="r"),
+        lambda: factory.main(["--input-dir", str(tmp_path), "--kernel-root", "r",
+                              "--noise-pool", "pool.npy", "--output-dir", out]),
+        lambda: apply_kernel.apply_kernel_to_folder(str(tmp_path), None, out,
+                                                    kernel_root="r"),
+        lambda: run_all.run_pipeline({"workdir": out}),
+        lambda: run_all.main(["--config", str(cfg_path)]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    assert not (tmp_path / "out").exists()

@@ -625,7 +625,8 @@ def test_factory_moe_sigma_noise(tmp_path):
 
 
 def test_factory_and_apply_refusals(tmp_path):
-    """Exactly one source; --kernel-root refused naming queue 1 item 5."""
+    """Exactly one source; --kernel-root is taken: a scene with no kernel
+    under the root fails all of its files (rc 1), as in JAX."""
     for fn in (lambda **kw: tfactory.run_factory("d", None, "p", str(tmp_path / "o"), **kw),
                lambda **kw: tapply.apply_kernel_to_folder("d", None, str(tmp_path / "o"),
                                                           **kw)):
@@ -633,14 +634,19 @@ def test_factory_and_apply_refusals(tmp_path):
             fn(device="cpu")
         with pytest.raises(ValueError, match="exactly one"):
             fn(device="cpu", moe_path="m", kernel_root="r")
-        with pytest.raises(ValueError, match="queue 1 item 5"):
-            fn(device="cpu", kernel_root="r")
-    with pytest.raises(SystemExit, match="queue 1 item 5"):
-        tfactory.main(["--input-dir", "d", "--kernel-root", "r", "--noise-pool", "p",
-                       "--output-dir", "o", "--device", "cpu"])
-    with pytest.raises(SystemExit, match="queue 1 item 5"):
-        tapply.main(["--input-dir", "d", "--kernel-root", "r", "--output-dir", "o",
-                     "--device", "cpu"])
+    src = tmp_path / "in"
+    src.mkdir()
+    write_band_stack(src / "sceneA_000_000.nc", "denoised",
+                     np.ones((5, 16, 16), np.float32), mode="w")
+    (tmp_path / "root").mkdir()
+    rep = tfactory.run_factory(str(src), None, "p", str(tmp_path / "o"), device="cpu",
+                               kernel_root=str(tmp_path / "root"), progress=False)
+    assert rep.n_ok == 0 and rep.n_fail == 1 and "no kernel for scene 'sceneA'" in rep.failed[0][1]
+    assert tfactory.main(["--input-dir", str(src), "--kernel-root", str(tmp_path / "root"),
+                          "--noise-pool", "p", "--output-dir", str(tmp_path / "o"),
+                          "--device", "cpu"]) == 1
+    assert tapply.main(["--input-dir", str(src), "--kernel-root", str(tmp_path / "root"),
+                        "--output-dir", str(tmp_path / "o"), "--device", "cpu"]) == 1
     with pytest.raises(SystemExit):  # the sources exclude each other
         tapply.build_parser().parse_args(["--input-dir", "d", "--kernel", "k",
                                           "--moe", "m", "--output-dir", "o"])
