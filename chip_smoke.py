@@ -199,27 +199,56 @@ and exits non-zero without them. Phases, one line each:
    5x32x32 native-LR patches, 40 of its 2,000 iterations: every scene's
    files under the JAX package's names, 40 finite CSV rows, kernels >= 0
    with bands summing to 1 (or zeroed by the clamp); each scene equal to a
-   1-scene fleet at seed s (kernels and CSV rows, rtol 1e-4 / atol 1e-5,
-   torch's deterministic algorithms for these runs). (b)
-   `train_fleet_cli.main --patch-root DIR --format npy` at the CLI's
-   defaults (chain, K = 1, batch 16) on 2 scene dirs of 64 .npy patches,
-   20 iterations, each scene equal to the port's standalone
-   `train_single_kernel` at seed s. (c) `run_factory(kernel_root=(a)'s
-   outdir)` on 5 scenes x 64 .npy patches `<scene>_<gi>_<gj>.npy` (the
-   fifth without a kernel), pool [64, 5, 32, 32], x8, batch 128, its .nc
+   1-scene fleet at seed s (kernels and CSV rows, rtol 1e-4 / atol 1e-5;
+   measured bit for bit). (b) `train_fleet_cli.main --patch-root DIR
+   --format npy` at the CLI's defaults (chain, K = 1, batch 16) on 2 scene
+   dirs of 64 .npy patches, 20 iterations, each scene equal to the port's
+   standalone `train_single_kernel` at seed s. Neither run is wrapped
+   here: every trainer runs its steps under the package's
+   `device.deterministic` on the card, and these runs are its proof.
+   (c) `run_factory(kernel_root=(a)'s outdir)` on 5 scenes x 64 .npy
+   patches `<scene>_<gi>_<gj>.npy` (the fifth without a kernel), pool
+   [64, 5, 32, 32], x8, batch 128, its .nc
    writes captured in memory (no h5py there): one `degrade_v3psn` launch
    a scene batch and no other degrade kernel, every lr against the plain
    degrade(hr, kernel_s) + pool[idx] with idx from `scene_seed(42, s)`
    (rtol 1e-4 / atol 1e-5), the fifth scene failed as a unit. Timing: the
-   fleet loop (`train.fleet.make_fleet_advance`) at S = 1, 2, 4 for (a)
+   fleet loop (`train.fleet.make_fleet_advance`) at S = 1, 4 for (a)
    and S = 2 for (b): scene-iterations/s (median of 5 synchronized
    windows), device ms an iteration of all scenes, busy share, peak
    memory.
 
+   Phases 9, 11 (b)/(c), 12 (d) and 13 time each trainer's step twice in
+   one process, as the package runs it (deterministic algorithms) and
+   without them (`with_and_without`), and print what determinism costs.
+
+14. oracle: the known-kernel deconvolution oracle (`analysis.oracle`,
+   plain PyTorch: cuDNN convs, their vjp, torch.fft; it launches no kernel
+   of the table, and the eight counts must read 0 after each run) at
+   scripts/quality_report.py's width (--holdout 24, x8): 24 seeded HR
+   5x256x256 patches, the fresh generator's 13x13 sigma=2 kernel, LR =
+   degrade + a seeded draw from a [64, 5, 32, 32] N(0, 0.05) pool; (a)
+   `oracle_sweep(prior="grad")`, 8 lams, 100 CG iterations, one chunk of
+   24; (b) prior="matched", 4 lams, the pool's per-band variance and 16
+   more patches' spectrum; (c) per-sample kernels at x4 (each patch one of
+   the committed quality_run_r4/work_x4/kernel_run kernels, by a seeded
+   draw). Each: predictions finite; seconds a lam, CG iterations to the
+   stop, wall and device ms an iteration of one lam's solve, busy share,
+   peak memory; and, on the first 3 patches (the CPU's sweep at the full
+   chunk would take minutes), the card against the port's CPU run: the
+   same chosen lam, every lam's mean PSNR within 0.01 dB, the same CG stop
+   iterations, and the card's predictions no further from a float64 solve
+   on the card (same iterations) than twice the CPU's are.
+
+inspect_nc, data_stats, viz_cli and make_train_data --vis-dir are host
+h5py / matplotlib code (no h5py on the card's machine); the CPU tests
+(tests/test_torch_analysis_tools.py) hold them against JAX, and no phase
+drives them.
+
 Prints one JSON line {"factory": {...}} (per-route results), one
 {"scene": {...}}, one {"api": {...}}, one {"kernelgan": {...}}, one
 {"denoise": {...}}, one {"moe_dynamic": {...}}, one {"sr": {...}}, one
-{"fleet": {...}}, then the card's nvidia-smi line, one JSON line {"kernels": [...]} and, last,
+{"fleet": {...}}, one {"oracle": {...}}, then the card's nvidia-smi line, one JSON line {"kernels": [...]} and, last,
 {"ok": true, "device": {...}}. Any mismatch or error in any phase, timing
 included, exits non-zero before that last line.
 """
@@ -1578,7 +1607,7 @@ def phase_kernelgan(dev, failures: list) -> dict:
                 f"last row {rec['last_row']}; band sums {rec['band_sums']}")
         result["card_vs_cpu"] = kernelgan_parity(dev, failures)
         for name in ("chain", "compose"):
-            rec = kernelgan_timing(configs[name][0], pool, dev)
+            rec = with_and_without(lambda: kernelgan_timing(configs[name][0], pool, dev))
             result["timing"][name] = rec
             log(f"[kernelgan] timing {name}: {rec['iters_per_s']:.2f} it/s (median of "
                 f"{KG_WINDOWS} windows of {rec['window_iters']} iterations, "
@@ -1589,7 +1618,8 @@ def phase_kernelgan(dev, failures: list) -> dict:
                 + str({p: round(v, 3) for p, v in rec["parts_ms_per_iter"].items()})
                 + "; top ops: "
                 + "; ".join(f"{o['op']} {o['shapes'][:60]} {o['device_ms_per_iter']:.3f} ms"
-                            for o in rec["top_ops"][:6]))
+                            for o in rec["top_ops"][:6])
+                + det_note(rec))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -2223,6 +2253,32 @@ def training_timing(one_call, k: int, top_ops: bool = True) -> dict:
                         "top_ops": time.perf_counter() - t_device}}
 
 
+def with_and_without(time_it) -> dict:
+    """time_it() as the package's trainers run their steps on the card
+    (under `device.deterministic`, the default since the analysis slice)
+    and, for what that costs, without it, in one process: the first record,
+    with the second's rates under "without_deterministic" and
+    "deterministic_cost" (iterations/s without over with)."""
+    from kmsr_tpu_torch.device import deterministic
+
+    free = time_it()
+    with deterministic("cuda"):
+        det = time_it()
+    det["without_deterministic"] = {k: free[k] for k in (
+        "iters_per_s", "scene_iters_per_s", "wall_ms_per_iter", "device_ms_per_iter",
+        "busy_share") if k in free}
+    det["deterministic_cost"] = free["iters_per_s"] / det["iters_per_s"]
+    return det
+
+
+def det_note(t: dict) -> str:
+    w = t["without_deterministic"]
+    scene = (f"{w['scene_iters_per_s']:.2f} scene-it/s, " if "scene_iters_per_s" in w else "")
+    return (f"; without deterministic algorithms {scene}{w['iters_per_s']:.2f} it/s, device "
+            f"{w['device_ms_per_iter']:.3f} ms/it, busy {w['busy_share']:.3f} (cost "
+            f"x{t['deterministic_cost']:.3f})")
+
+
 def timing_line(label: str, t: dict) -> str:
     return (f"{label}: {t['iters_per_s']:.2f} it/s (median of {MD_WINDOWS} windows of "
             f"{t['window_iters']}, {t['wall_ms_per_iter']:.3f} ms/it, windows "
@@ -2308,8 +2364,10 @@ def moe_training(pool, dev, failures: list) -> dict:
                 nonlocal state
                 state, _ = step_fn(state, *draw(), temps[:k] if k > 1 else temps[0])
 
-            res["timing"][name] = training_timing(one_call, k, top_ops=k == 1)
-            log("[moe-dynamic] (b) timing " + timing_line(name, res["timing"][name]))
+            res["timing"][name] = with_and_without(
+                lambda: training_timing(one_call, k, top_ops=k == 1))
+            log("[moe-dynamic] (b) timing " + timing_line(name, res["timing"][name])
+                + det_note(res["timing"][name]))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return res
@@ -2394,8 +2452,10 @@ def dynamic_training(pool, dev, failures: list) -> dict:
                 nonlocal state
                 state, _ = step_fn(state, *draw())
 
-            res["timing"][name] = training_timing(one_call, k, top_ops=k == 1)
-            log("[moe-dynamic] (c) timing " + timing_line(name, res["timing"][name]))
+            res["timing"][name] = with_and_without(
+                lambda: training_timing(one_call, k, top_ops=k == 1))
+            log("[moe-dynamic] (c) timing " + timing_line(name, res["timing"][name])
+                + det_note(res["timing"][name]))
         # the chain's activation layout: device ms of G's forward + backward
         # at the training batch, each way
         cfg = cfgs["host_k1"]
@@ -3068,13 +3128,13 @@ def sr_training_part(pairs, dev, failures: list) -> dict:
 
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
-        t = training_timing(one_call, 1)
+        t = with_and_without(lambda: training_timing(one_call, 1))
         t["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
         t["production_run_hours"] = SR_PRODUCTION_ITERS / t["iters_per_s"] / 3600
         res["timing"] = t
         log("[sr] (d) timing " + timing_line("bf16 step, batch 32", t)
             + f"; peak {t['peak_mem_gb']:.2f} GB; a {SR_PRODUCTION_ITERS}-iteration run "
-            f"{t['production_run_hours'] * 60:.1f} min")
+            f"{t['production_run_hours'] * 60:.1f} min" + det_note(t))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     res["card_vs_cpu"] = sr_step_parity((lr, hr), dev, failures)
@@ -3208,27 +3268,6 @@ def compare_runs(got_dir: str, want_dir: str, failures: list, label: str) -> dic
     return res
 
 
-@contextlib.contextmanager
-def deterministic():
-    """PyTorch's deterministic algorithms (cuDNN's and cuBLAS's included),
-    so that two runs of one scene's step sequence can be held to each
-    other: with cuDNN's deterministic flag alone, a chain-mode fleet scene
-    and its standalone twin differ on the card, and a GAN's steps amplify
-    any difference. cuBLAS needs CUBLAS_WORKSPACE_CONFIG set before its
-    first use (`main` sets it)."""
-    import torch
-
-    prev = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
-            torch.are_deterministic_algorithms_enabled())
-    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
-    torch.use_deterministic_algorithms(True)
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = prev[:2]
-        torch.use_deterministic_algorithms(prev[2])
-
-
 def fleet_timing(cfg, pools, lr_pools, dev) -> dict:
     """Scene-iterations/s of the fleet loop (`train.fleet.make_fleet_advance`,
     what `train_fleet` calls each iteration) at S = len(pools): the median of
@@ -3292,22 +3331,21 @@ def fleet_library(tmp: str, dev, failures: list) -> tuple[dict, str]:
         generator=GeneratorConfig(forward_mode="compose"))
     res = {"sigma": [float(v) for v in sigma], "data_seconds": t_data}
     kernels.reset_launches()
-    with deterministic():
-        t0 = time.perf_counter()
-        out = train_fleet(pools, cfg, lr_pools=lr_pools, progress=False, device=dev)
-        res["run_seconds"] = time.perf_counter() - t0
-        no_kernel_launched("fleet (a)", failures)
-        names = out["scene_names"]
-        res["scenes"] = {n: check_fleet_scene(os.path.join(outdir, n), FLEET_ITERS,
-                                              (FLEET_K, FLEET_ITERS), failures, f"(a) {n}")
-                         for n in names}
-        for s, n in enumerate(names):
-            one = dataclasses.replace(cfg, seed=s, outdir=os.path.join(tmp, f"fleet_a1_{s}"))
-            train_fleet([pools[s]], one, scene_names=[n], lr_pools=[lr_pools[s]],
-                        progress=False, device=dev)
-            res["scenes"][n]["vs_one_scene_fleet"] = compare_runs(
-                os.path.join(outdir, n), os.path.join(one.outdir, n), failures,
-                f"(a) {n} vs a 1-scene fleet at seed {s}")
+    t0 = time.perf_counter()
+    out = train_fleet(pools, cfg, lr_pools=lr_pools, progress=False, device=dev)
+    res["run_seconds"] = time.perf_counter() - t0
+    no_kernel_launched("fleet (a)", failures)
+    names = out["scene_names"]
+    res["scenes"] = {n: check_fleet_scene(os.path.join(outdir, n), FLEET_ITERS,
+                                          (FLEET_K, FLEET_ITERS), failures, f"(a) {n}")
+                     for n in names}
+    for s, n in enumerate(names):
+        one = dataclasses.replace(cfg, seed=s, outdir=os.path.join(tmp, f"fleet_a1_{s}"))
+        train_fleet([pools[s]], one, scene_names=[n], lr_pools=[lr_pools[s]],
+                    progress=False, device=dev)
+        res["scenes"][n]["vs_one_scene_fleet"] = compare_runs(
+            os.path.join(outdir, n), os.path.join(one.outdir, n), failures,
+            f"(a) {n} vs a 1-scene fleet at seed {s}")
     no_kernel_launched("fleet (a)", failures)
     log(f"[fleet] (a) {FLEET_SCENES} scenes x {FLEET_ITERS} iterations (compose, "
         f"real_is_lr, K={FLEET_K}, sigma {[round(float(v), 4) for v in sigma]}) in "
@@ -3318,10 +3356,10 @@ def fleet_library(tmp: str, dev, failures: list) -> tuple[dict, str]:
                     f"{r['vs_one_scene_fleet']['kernel_max_abs']:.3g})"
                     for n, r in res["scenes"].items()))
     res["timing"] = {}
-    for s_n in (1, 2, 4):
-        t = fleet_timing(cfg, pools[:s_n], lr_pools[:s_n], dev)
+    for s_n in (1, 4):
+        t = with_and_without(lambda: fleet_timing(cfg, pools[:s_n], lr_pools[:s_n], dev))
         res["timing"][f"S={s_n}"] = t
-        log(f"[fleet] (a) " + fleet_line("compose real_is_lr K=20", t))
+        log(f"[fleet] (a) " + fleet_line("compose real_is_lr K=20", t) + det_note(t))
     no_kernel_launched("fleet (a) timing", failures)
     return res, outdir
 
@@ -3350,25 +3388,24 @@ def fleet_cli(tmp: str, dev, failures: list) -> dict:
     every = FLEET_CLI_ITERS // 2
     kernels.reset_launches()
     res = {}
-    with deterministic():
-        t0 = time.perf_counter()
-        rc = train_fleet_cli.main(["--patch-root", root, "--format", "npy", "--outdir",
-                                   outdir, "--iters", str(FLEET_CLI_ITERS), "--log-every",
-                                   str(every), "--kernel-log-every", str(every)])
-        res["run_seconds"] = time.perf_counter() - t0
-        if rc != 0:
-            failures.append(f"fleet (b): train_fleet_cli returned {rc}")
-        res["scenes"] = {}
-        for s, name in enumerate(("sceneA", "sceneB")):
-            r = check_fleet_scene(os.path.join(outdir, name), FLEET_CLI_ITERS,
-                                  (every, FLEET_CLI_ITERS), failures, f"(b) {name}")
-            one = SingleKernelConfig(iters=FLEET_CLI_ITERS, log_every=every,
-                                     kernel_log_every=every, seed=s, verbose=False,
-                                     outdir=os.path.join(tmp, f"fleet_b1_{s}"))
-            train_single_kernel(pools[s], one, progress=False, device=dev)
-            r["vs_standalone"] = compare_runs(os.path.join(outdir, name), one.outdir,
-                                              failures, f"(b) {name} vs standalone seed {s}")
-            res["scenes"][name] = r
+    t0 = time.perf_counter()
+    rc = train_fleet_cli.main(["--patch-root", root, "--format", "npy", "--outdir",
+                               outdir, "--iters", str(FLEET_CLI_ITERS), "--log-every",
+                               str(every), "--kernel-log-every", str(every)])
+    res["run_seconds"] = time.perf_counter() - t0
+    if rc != 0:
+        failures.append(f"fleet (b): train_fleet_cli returned {rc}")
+    res["scenes"] = {}
+    for s, name in enumerate(("sceneA", "sceneB")):
+        r = check_fleet_scene(os.path.join(outdir, name), FLEET_CLI_ITERS,
+                              (every, FLEET_CLI_ITERS), failures, f"(b) {name}")
+        one = SingleKernelConfig(iters=FLEET_CLI_ITERS, log_every=every,
+                                 kernel_log_every=every, seed=s, verbose=False,
+                                 outdir=os.path.join(tmp, f"fleet_b1_{s}"))
+        train_single_kernel(pools[s], one, progress=False, device=dev)
+        r["vs_standalone"] = compare_runs(os.path.join(outdir, name), one.outdir,
+                                          failures, f"(b) {name} vs standalone seed {s}")
+        res["scenes"][name] = r
     no_kernel_launched("fleet (b)", failures)
     log(f"[fleet] (b) train_fleet_cli --patch-root (npy, chain, K=1) 2 scenes x "
         f"{FLEET_CLI_ITERS} iterations in {res['run_seconds']:.1f}s: "
@@ -3378,8 +3415,9 @@ def fleet_cli(tmp: str, dev, failures: list) -> dict:
                     f"{r['vs_standalone']['kernel_max_abs']:.3g})"
                     for n, r in res["scenes"].items()))
     cfg = SingleKernelConfig(seed=0, verbose=False, outdir=os.path.join(tmp, "unused"))
-    res["timing"] = {"S=2": fleet_timing(cfg, pools, None, dev)}
-    log("[fleet] (b) " + fleet_line("chain K=1 host draws", res["timing"]["S=2"]))
+    res["timing"] = {"S=2": with_and_without(lambda: fleet_timing(cfg, pools, None, dev))}
+    log("[fleet] (b) " + fleet_line("chain K=1 host draws", res["timing"]["S=2"])
+        + det_note(res["timing"]["S=2"]))
     no_kernel_launched("fleet (b) timing", failures)
     return res
 
@@ -3483,10 +3521,186 @@ def phase_fleet(dev, failures: list) -> dict:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+#: phase 14, the known-kernel oracle at scripts/quality_report.py's width
+#: (--holdout 24, x8): 24 HR 5x256x256 patches, one chunk of 24, 100 CG
+#: iterations; the matched prior's spectrum from 16 more patches; the
+#: per-sample route at x4 with the committed x4 bank's kernels. The card is
+#: held against the port's CPU run on the first ORACLE_CPU_N patches (one
+#: joint system of its own): the CPU's sweep takes ~0.15 s an iteration at
+#: the full chunk (~1,000 iterations over the three sweeps at their stops).
+ORACLE_N, ORACLE_SPEC_N, ORACLE_ITERS, ORACLE_CPU_N = 24, 16, 100, 3
+ORACLE_PSNR_DB = 0.01
+X4_BANK = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "quality_run_r4", "work_x4", "kernel_run")
+
+
+def oracle_inputs(dev):
+    """(hr [24+16, 5, 256, 256] host f32, the fresh generator's kernel,
+    the x8 noise pool [64, 5, 32, 32], the x4 pool [64, 5, 64, 64], the x4
+    bank [10, 5, 13, 13]); smooth radiance-like fields (3x3 box mean of
+    N(5, 2) plus a per-band ramp) made on the card from seed SEED + 140."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from kmsr_tpu_torch.models import GeneratorConfig, extract_kernels, init_generator
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 140)
+    n = ORACLE_N + ORACLE_SPEC_N
+    x = torch.randn(n, C, HW, HW, generator=gen, device=dev) * 2 + 5
+    x = F.avg_pool2d(x, 3, stride=1, padding=1, count_include_pad=False)
+    x = x + torch.linspace(0, 1, HW, device=dev)[None, None, None] * torch.arange(
+        1, C + 1, device=dev)[None, :, None, None]
+    pool8 = 0.05 * torch.randn(POOL_N, C, HW // 8, HW // 8, generator=gen, device=dev)
+    pool4 = 0.05 * torch.randn(POOL_N, C, HW // 4, HW // 4, generator=gen, device=dev)
+    kernel = extract_kernels(init_generator(GeneratorConfig(), device=dev)).cpu().numpy()
+    bank = np.stack([np.load(os.path.join(X4_BANK, f"kernel_{i}.npy")) for i in range(10)])
+    return (x.cpu().numpy(), kernel, pool8.cpu().numpy(), pool4.cpu().numpy(),
+            bank.astype(np.float32))
+
+
+def oracle_lr(hr, kernel, factor, pool, rng, dev):
+    """degrade(hr, kernel) + one pool entry a patch (shared [C, k, k] or
+    per-sample [N, C, k, k] kernels, the oracle's operator)."""
+    import numpy as np
+    import torch
+
+    from kmsr_tpu_torch.ops.degrade import degrade, degrade_batch_kernels, normalize_kernel
+
+    x = torch.from_numpy(hr).to(dev)
+    k = torch.from_numpy(kernel).to(dev)
+    lr = (degrade_batch_kernels(x, normalize_kernel(k), factor=factor, padding="replicate")
+          if k.ndim == 4 else degrade(x, k, factor=factor))
+    idx = rng.integers(0, len(pool), len(hr))
+    return (lr.cpu().numpy() + pool[idx]).astype(np.float32), idx
+
+
+def oracle_run(label, lr, hr, kernel, factor, prior_kw, dev, failures) -> dict:
+    """One sweep through `oracle_sweep` on the card (timed; device time an
+    iteration; busy share; peak memory; launches), then on the first
+    ORACLE_CPU_N patches on the card, on the CPU and once more on the card
+    in float64 at the CPU's chosen lam: the same chosen lam, every lam's
+    mean PSNR within ORACLE_PSNR_DB, the same CG stop iteration, and the
+    card no further from the float64 solve than twice the CPU is."""
+    import numpy as np
+    import torch
+
+    from kmsr_tpu_torch import kernels
+    from kmsr_tpu_torch.analysis import oracle
+    from kmsr_tpu_torch.utils.profiling import cuda_device_ms
+
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    stops = {}
+    t0 = time.perf_counter()
+    best, preds, per_lam = oracle.oracle_sweep(lr, hr, kernel, factor, iters=ORACLE_ITERS,
+                                               device=dev, cg_iters=stops, **prior_kw)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    no_kernel_launched(f"oracle {label}", failures)
+    if preds.shape != hr.shape or not np.isfinite(preds).all():
+        failures.append(f"oracle {label}: predictions {preds.shape}, finite "
+                        f"{bool(np.isfinite(preds).all())}")
+    # device time of one lam's solve, an iteration
+    per_sample = kernel.ndim == 4
+    w_prior = inv = None
+    if prior_kw.get("prior") == "matched":
+        w_np, inv_np = oracle.matched_prior(prior_kw["spec_examples"], prior_kw["noise_var"])
+        w_prior, inv = torch.from_numpy(w_np).to(dev), torch.from_numpy(inv_np).to(dev)
+    lr_dev, k_dev = torch.from_numpy(lr).to(dev), torch.from_numpy(kernel).to(dev)
+
+    def solve():
+        return oracle._deconv_batch(lr_dev, k_dev, factor, float(best), w_prior, inv,
+                                    iters=ORACLE_ITERS, per_sample=per_sample,
+                                    return_iters=True)
+
+    # CG leaves its loop at the first look at the stop flag after the stop
+    ran = min(ORACLE_ITERS, -(-int(solve()[1]) // oracle._STOP_CHECK) * oracle._STOP_CHECK)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    solve()
+    torch.cuda.synchronize()
+    solve_ms = (time.perf_counter() - t1) * 1e3
+    dev_ms = cuda_device_ms(solve, runs=1, warmup=0)["device_ms"]
+    no_kernel_launched(f"oracle {label} timing", failures)
+
+    # card vs CPU (and float64 on the card) on the first ORACLE_CPU_N patches
+    m = ORACLE_CPU_N
+    sub = (lr[:m], hr[:m], kernel[:m] if per_sample else kernel, factor)
+    card_stops, cpu_stops = {}, {}
+    best_c, preds_c, res_c = oracle.oracle_sweep(*sub, iters=ORACLE_ITERS, device=dev,
+                                                 cg_iters=card_stops, **prior_kw)
+    t2 = time.perf_counter()
+    best_h, preds_h, res_h = oracle.oracle_sweep(*sub, iters=ORACLE_ITERS, device="cpu",
+                                                 cg_iters=cpu_stops, **prior_kw)
+    cpu_s = time.perf_counter() - t2
+    f64 = oracle._deconv_batch(
+        torch.from_numpy(sub[0]).to(dev, torch.float64),
+        torch.from_numpy(sub[2]).to(dev, torch.float64), factor, float(best_h),
+        None if w_prior is None else w_prior.double(), None if inv is None else inv.double(),
+        iters=ORACLE_ITERS, per_sample=per_sample).cpu().numpy()
+    d_card, d_cpu = float(np.abs(preds_c - f64).max()), float(np.abs(preds_h - f64).max())
+    psnr_diff = max(abs(res_c[lam] - res_h[lam]) for lam in res_h)
+    checks = {"same_lam": best_c == best_h, "psnr_within": psnr_diff <= ORACLE_PSNR_DB,
+              "same_stop": card_stops == cpu_stops, "f64_yardstick": d_card <= 2 * d_cpu}
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        failures.append(f"oracle {label}: card vs CPU failed {bad}: lam {best_c} vs {best_h}, "
+                        f"PSNR diff {psnr_diff:.3g} dB, stops {card_stops} vs {cpu_stops}, "
+                        f"from float64 card {d_card:.3g} vs CPU {d_cpu:.3g}")
+    no_kernel_launched(f"oracle {label} card-vs-CPU", failures)
+    n_lams = len(per_lam)
+    res = {"best_lam": best, "psnr_by_lam": {str(k): v for k, v in per_lam.items()},
+           "cg_stop_iters": {str(k): v for k, v in stops.items()}, "seconds": wall,
+           "seconds_per_lam": wall / n_lams, "solve_ms": solve_ms, "solve_iters_run": ran,
+           "wall_ms_per_iter": solve_ms / ran,
+           "device_ms_per_iter": dev_ms / ran, "busy_share": dev_ms / solve_ms,
+           "peak_mem_gb": peak, "checks_failed": bad,
+           "cpu_check": {"patches": m, "best_lam_card": best_c, "best_lam_cpu": best_h,
+                         "max_psnr_diff_db": psnr_diff, "stops_card": card_stops,
+                         "stops_cpu": cpu_stops, "card_from_f64": d_card,
+                         "cpu_from_f64": d_cpu, "cpu_seconds": cpu_s}}
+    log(f"[oracle] {label}: best lam {best} of {n_lams} ({', '.join(f'{k:g}: {v:.3f}' for k, v in per_lam.items())} dB), "
+        f"CG stops {sorted(set(v for vs in stops.values() for v in vs))}; {wall:.2f}s "
+        f"({wall / n_lams:.3f} s a lam), best lam's solve {solve_ms:.1f} ms for {ran} "
+        f"iterations, {res['wall_ms_per_iter']:.3f} ms an iteration "
+        f"(device {res['device_ms_per_iter']:.3f}, busy {res['busy_share']:.3f}), peak "
+        f"{peak:.2f} GB; card vs CPU on {m} patches {'ok' if not bad else 'FAILED ' + str(bad)}"
+        f" (lam {best_c} / {best_h}, PSNR within {psnr_diff:.2e} dB, from float64 card "
+        f"{d_card:.3g} / CPU {d_cpu:.3g}, CPU {cpu_s:.1f}s)")
+    return res
+
+
+def phase_oracle(dev, failures: list) -> dict:
+    """Phase 14 (module docstring): the known-kernel deconvolution oracle,
+    gradient and matched priors at x8 and per-sample kernels at x4."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    hr_all, kernel, pool8, pool4, bank = oracle_inputs(dev)
+    hr, spec = hr_all[:ORACLE_N], hr_all[ORACLE_N:]
+    rng = np.random.default_rng(SEED + 141)
+    lr8, _ = oracle_lr(hr, kernel, FACTOR, pool8, rng, dev)
+    res = {"data_seconds": time.perf_counter() - t0}
+    res["grad_x8"] = oracle_run("(a) grad x8", lr8, hr, kernel, FACTOR, {"prior": "grad"},
+                                dev, failures)
+    noise_var = pool8.var(axis=(0, 2, 3)).astype(np.float64)
+    res["matched_x8"] = oracle_run(
+        "(b) matched x8", lr8, hr, kernel, FACTOR,
+        {"prior": "matched", "noise_var": noise_var, "spec_examples": spec}, dev, failures)
+    per_patch = bank[rng.integers(0, len(bank), ORACLE_N)]
+    lr4, _ = oracle_lr(hr, per_patch, 4, pool4, rng, dev)
+    res["per_sample_x4"] = oracle_run("(c) per-sample x4", lr4, hr, per_patch, 4,
+                                      {"prior": "grad"}, dev, failures)
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
 
 def main() -> int:
-    # phase 13 holds runs to each other under torch's deterministic
-    # algorithms, whose cuBLAS calls need this before cuBLAS's first use
+    # the package's trainers (phases 9-13) run under torch's deterministic
+    # algorithms on the card, whose cuBLAS calls need this before cuBLAS's
+    # first use (phases 3-8 use it first), as the training CLIs set it
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
@@ -3541,6 +3755,9 @@ def main() -> int:
         fleet_res = phase_fleet(dev, failures)
         fleet_res["nvidia_smi"] = smi
         log(f"[fleet] {'ok' if not failures else 'FAILED'} in {fleet_res['seconds']:.1f}s")
+        oracle_res = phase_oracle(dev, failures)
+        oracle_res["nvidia_smi"] = smi
+        log(f"[oracle] {'ok' if not failures else 'FAILED'} in {oracle_res['seconds']:.1f}s")
     except Exception:
         traceback.print_exc()
         return 1
@@ -3593,6 +3810,7 @@ def main() -> int:
     log(json.dumps({"moe_dynamic": moe_dynamic_res}))
     log(json.dumps({"sr": sr_res}))
     log(json.dumps({"fleet": fleet_res}))
+    log(json.dumps({"oracle": oracle_res}))
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f}s")
     log(smi)
     log(json.dumps({"kernels": records}))

@@ -36,7 +36,7 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..ops.degrade import block_mean, fp32_convs
-from ..ops.kernel_algebra import clip_nonneg, compose_chain
+from ..ops.kernel_algebra import clip_nonneg, compose_chain, chain_conv
 from .moe import standard_normal
 
 DEFAULT_KS = (7, 5, 3, 1, 1, 1)
@@ -148,7 +148,7 @@ def _chain(layers: Sequence[torch.Tensor], scales: Sequence[torch.Tensor],
             if k > 1:
                 p = k // 2
                 h = F.pad(h, (p, p, p, p), mode="reflect").contiguous(memory_format=fmt)
-            h = F.conv2d(h, w.reshape(bands * out_c, in_c, k, k), groups=bands)
+            h = chain_conv(h, w.reshape(bands * out_c, in_c, k, k), bands)
             h = h * s.reshape(s.shape[0], bands * out_c, 1, 1)
     return h
 

@@ -24,7 +24,7 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..ops.degrade import block_mean, fp32_convs
-from ..ops.kernel_algebra import clip_nonneg, compose_chain
+from ..ops.kernel_algebra import clip_nonneg, compose_chain, chain_conv
 
 DEFAULT_KS = (7, 5, 3, 1, 1, 1)
 
@@ -95,6 +95,9 @@ def _chain_forward_grouped(layers: Sequence[torch.Tensor], x: torch.Tensor) -> t
     The activations are channels_last: on an H100, cuDNN's float32 grouped
     convs transpose every NCHW activation, and the chain's forward +
     backward at batch 16 took 3.4x as long (`scripts/torch_kernelgan_ab.py`).
+    Each layer goes through `ops.kernel_algebra.chain_conv` (the first and
+    the 1x1 layers' weight gradients as GEMMs): under the trainers'
+    deterministic algorithms, cuDNN's doubled the chain's time.
     """
     nhwc = torch.channels_last
     h = x.contiguous(memory_format=nhwc)
@@ -104,7 +107,7 @@ def _chain_forward_grouped(layers: Sequence[torch.Tensor], x: torch.Tensor) -> t
             if k > 1:
                 p = k // 2
                 h = F.pad(h, (p, p, p, p), mode="reflect").contiguous(memory_format=nhwc)
-            h = F.conv2d(h, w.reshape(bands * out_c, in_c, k, k), groups=bands)
+            h = chain_conv(h, w.reshape(bands * out_c, in_c, k, k), bands)
     return h
 
 

@@ -9,7 +9,7 @@ each slab gets exactly the halo rows its JAX shard would get — neighbour
 rows in the interior, its own edge row replicated at the global edges.
 The slabs run one after another on the scene's device, so the result
 equals JAX's on an n-device mesh and every slab seam runs through the
-kernel; one slab per torch.distributed rank is ROADMAP.md item 9.
+kernel; one slab per torch.distributed rank is ROADMAP.md queue 1 item 7.
 
 Two local implementations, as in JAX:
 - 'fast' (default): `ops.degrade_scene_fast.degrade_rows_fast`, the raw

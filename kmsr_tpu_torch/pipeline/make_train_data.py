@@ -5,12 +5,15 @@ h5py). Contract parity with `E_make_train_data.py:187-299`: for each input
 file, hr = `denoised` group (C,256,256), lr = `blurred` group (C,32,32) +
 one random noise-pool sample; strict shape gates; per-sample output .nc
 with `hr`/`lr`/`navigation_data` groups (zlib); seeded RNG;
-success/failure accounting. The QA figures (`--vis-dir`) come with the
-analysis slice (ROADMAP.md).
+success/failure accounting; optional QA comparison figures
+(`<base>_qa.png`, `analysis.visualize.plot_train_sample`) for up to 30
+random samples, drawn from the seeded generator before any noise draw, as
+JAX draws them (so `--vis-dir` shifts every file's noise stream in both
+packages alike).
 
 Usage:
     python -m kmsr_tpu_torch.pipeline.make_train_data --input-dir BLURRED \
-        --noise-pool pool.npy --output-dir OUT [--seed 42]
+        --noise-pool pool.npy --output-dir OUT [--vis-dir VIS] [--seed 42]
 """
 from __future__ import annotations
 
@@ -24,6 +27,8 @@ from ..data.sampler import list_patch_files
 from ..io.ncio import NCFile, read_band_stack, read_nav, write_band_stack
 from ..io.schema import GROUP_BLURRED, GROUP_DENOISED, GROUP_HR, GROUP_LR
 from .common import RunReport, run_per_file
+
+MAX_VIS_SAMPLES = 30
 
 
 def save_training_sample(
@@ -48,6 +53,7 @@ def process_files(
     input_dir: str,
     noise_pool_path: str,
     output_dir: str,
+    vis_dir: str | None = None,
     seed: int = 42,
     hr_group: str = GROUP_DENOISED,
     lr_group: str = GROUP_BLURRED,
@@ -59,6 +65,11 @@ def process_files(
     pool = load_noise_pool(noise_pool_path)
     files = list_patch_files(input_dir, "*.nc")
     os.makedirs(output_dir, exist_ok=True)
+    vis_files = set()
+    if vis_dir:
+        os.makedirs(vis_dir, exist_ok=True)
+        n_vis = min(MAX_VIS_SAMPLES, len(files))
+        vis_files = {files[i] for i in rng.choice(len(files), size=n_vis, replace=False)}
 
     def one(path):
         hr = read_band_stack(path, hr_group)
@@ -74,6 +85,10 @@ def process_files(
         base = os.path.splitext(os.path.basename(path))[0]
         out_path = os.path.join(output_dir, f"{base}_train.nc")
         save_training_sample(out_path, hr, lr, nav or None)
+        if path in vis_files:
+            from ..analysis.visualize import plot_train_sample
+
+            plot_train_sample(hr, blurred, lr, os.path.join(vis_dir, f"{base}_qa.png"))
 
     report = run_per_file(files, one, desc="making train data", progress=progress)
     print(f"make_train_data: {report.summary()} -> {output_dir}")
@@ -85,6 +100,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--input-dir", required=True)
     p.add_argument("--noise-pool", required=True)
     p.add_argument("--output-dir", required=True)
+    p.add_argument("--vis-dir", default=None)
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--hr-group", default=GROUP_DENOISED)
     p.add_argument("--lr-group", default=GROUP_BLURRED)
@@ -99,6 +115,7 @@ def main(argv=None) -> int:
         a.input_dir,
         a.noise_pool,
         a.output_dir,
+        vis_dir=a.vis_dir,
         seed=a.seed,
         hr_group=a.hr_group,
         lr_group=a.lr_group,

@@ -40,7 +40,7 @@ import json
 import os
 import time
 
-from ..device import resolve_device
+from ..device import resolve_device, set_cublas_workspace_config
 
 #: Template config, equal to the JAX package's.
 DEFAULT_CONFIG: dict = {
@@ -401,6 +401,9 @@ def run_pipeline(config: dict, from_stage: str | None = None,
 
 
 def main(argv=None) -> int:
+    # the training stages run in this process, under deterministic
+    # algorithms on the card: cuBLAS must see this before its first use
+    set_cublas_workspace_config()
     p = argparse.ArgumentParser(description="Run the full kmsr pipeline DAG")
     p.add_argument("--config", help="JSON config (see --write-config)")
     p.add_argument("--write-config", metavar="PATH",

@@ -28,7 +28,7 @@ import numpy as np
 
 from ..data.patches import group_by_scene
 from ..data.sampler import PatchPool, list_patch_files
-from ..device import resolve_device
+from ..device import resolve_device, set_cublas_workspace_config
 from ..io.schema import GROUP_DENOISED
 from ..models.generator import GeneratorConfig
 from ..ops.sigma import estimate_sigma_np
@@ -122,6 +122,9 @@ def fake_noise_sigma(lr_pools: Sequence[PatchPool]) -> tuple:
 
 
 def main(argv=None) -> int:
+    # the trainer runs its steps under deterministic algorithms on the
+    # card, whose cuBLAS calls need this before cuBLAS's first use
+    set_cublas_workspace_config()
     a = build_parser().parse_args(argv)
     if a.scene_parallel:
         raise SystemExit(MESH_REFUSAL)

@@ -18,7 +18,7 @@ from __future__ import annotations
 import argparse
 
 from ..data.sampler import PatchPool
-from ..device import resolve_device
+from ..device import resolve_device, set_cublas_workspace_config
 from ..io.schema import GROUP_DENOISED
 from ..models.moe import MoEConfig
 from ..train.moe import MoETrainConfig, train_moe
@@ -63,6 +63,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
+    # the trainer runs its steps under deterministic algorithms on the
+    # card, whose cuBLAS calls need this before cuBLAS's first use
+    set_cublas_workspace_config()
     a = build_parser().parse_args(argv)
     if a.data_parallel:
         raise SystemExit(

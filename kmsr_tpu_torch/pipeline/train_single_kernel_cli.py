@@ -22,7 +22,7 @@ from __future__ import annotations
 import argparse
 
 from ..data.sampler import PatchPool
-from ..device import resolve_device
+from ..device import resolve_device, set_cublas_workspace_config
 from ..io.schema import GROUP_DENOISED
 from ..models.generator import GeneratorConfig
 from ..train.single_kernel import SingleKernelConfig, train_single_kernel
@@ -85,6 +85,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
+    # the trainer runs its steps under deterministic algorithms on the
+    # card, whose cuBLAS calls need this before cuBLAS's first use
+    set_cublas_workspace_config()
     a = build_parser().parse_args(argv)
     if a.data_parallel:
         raise SystemExit(

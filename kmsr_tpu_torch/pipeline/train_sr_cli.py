@@ -19,7 +19,7 @@ import argparse
 import numpy as np
 
 from ..data.sampler import list_patch_files
-from ..device import resolve_device
+from ..device import resolve_device, set_cublas_workspace_config
 from ..io.ncio import read_band_stack
 from ..io.schema import GROUP_HR, GROUP_LR
 from ..models.sr import SRConfig
@@ -70,6 +70,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
+    # the trainer runs its steps under deterministic algorithms on the
+    # card, whose cuBLAS calls need this before cuBLAS's first use
+    set_cublas_workspace_config()
     a = build_parser().parse_args(argv)
     if a.data_parallel:
         raise SystemExit(

@@ -30,7 +30,7 @@ import torch
 
 from ..analysis.kernel_metrics import ascii_kernel, kernel_metrics
 from ..data.sampler import PatchPool
-from ..device import resolve_device
+from ..device import deterministic, resolve_device
 from ..losses import (
     lsgan_d_loss,
     lsgan_g_loss,
@@ -196,7 +196,10 @@ def train_dynamic(
 ) -> dict:
     """Run the dynamic-model loop over a patch pool; returns
     {"kernel_per_band": [C,13,13], "kernel_merged": [13,13], "state",
-    "log_file"}."""
+    "log_file"}. On a CUDA device the steps run under `device.deterministic`, so a
+    run is reproducible (CUBLAS_WORKSPACE_CONFIG must be set before the
+    process first uses cuBLAS; the training CLIs set it).
+    """
     dev = resolve_device(device)
     os.makedirs(cfg.outdir, exist_ok=True)
     visuals = os.path.join(cfg.outdir, "visuals")
@@ -239,29 +242,30 @@ def train_dynamic(
         except ImportError:
             pass
 
-    for t in iterator:
-        state, m = step_fn(state, *draw())
-        if K > 1:
-            rows.append((t + 2 - K, m))
-            m = {k: m[k][-1] for k in _CHUNK_KEYS}
-        else:
-            rows.append((t + 1, {k: m[k] for k in _DYN_LOG_KEYS}))
-        if (t + 1) % cfg.log_every == 0:
-            with open(log_file, "a", encoding="utf-8") as f:
-                f.writelines(_format_rows(rows, keys=_DYN_LOG_KEYS))
-            rows.clear()
-        if (t + 1) % cfg.kernel_log_every == 0:
-            ks = m["kernels"].cpu().numpy()
-            merged = ks.mean(axis=0)
-            km = kernel_metrics(merged)
-            with open(os.path.join(visuals, f"kernel_ascii_iter{t + 1}.txt"), "w") as f:
-                f.write(ascii_kernel(merged) + "\n")
-            np.save(os.path.join(cfg.outdir, f"batch_kernels_iter{t + 1}.npy"), ks)
-            if cfg.verbose:
-                print(f"  [iter {t + 1}] sigma={m['sigma'].cpu().numpy().round(3)} "
-                      f"k_sum={km['k_sum']:.4f} center_off={km['center_offset']:.3f}")
-        if cfg.ckpt_every and (t + 1) % cfg.ckpt_every == 0:
-            save_checkpoint(ckpt_dir, state, t + 1)
+    with deterministic(dev):
+        for t in iterator:
+            state, m = step_fn(state, *draw())
+            if K > 1:
+                rows.append((t + 2 - K, m))
+                m = {k: m[k][-1] for k in _CHUNK_KEYS}
+            else:
+                rows.append((t + 1, {k: m[k] for k in _DYN_LOG_KEYS}))
+            if (t + 1) % cfg.log_every == 0:
+                with open(log_file, "a", encoding="utf-8") as f:
+                    f.writelines(_format_rows(rows, keys=_DYN_LOG_KEYS))
+                rows.clear()
+            if (t + 1) % cfg.kernel_log_every == 0:
+                ks = m["kernels"].cpu().numpy()
+                merged = ks.mean(axis=0)
+                km = kernel_metrics(merged)
+                with open(os.path.join(visuals, f"kernel_ascii_iter{t + 1}.txt"), "w") as f:
+                    f.write(ascii_kernel(merged) + "\n")
+                np.save(os.path.join(cfg.outdir, f"batch_kernels_iter{t + 1}.npy"), ks)
+                if cfg.verbose:
+                    print(f"  [iter {t + 1}] sigma={m['sigma'].cpu().numpy().round(3)} "
+                          f"k_sum={km['k_sum']:.4f} center_off={km['center_offset']:.3f}")
+            if cfg.ckpt_every and (t + 1) % cfg.ckpt_every == 0:
+                save_checkpoint(ckpt_dir, state, t + 1)
     if rows:
         with open(log_file, "a", encoding="utf-8") as f:
             f.writelines(_format_rows(rows, keys=_DYN_LOG_KEYS))

@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from ..data.sampler import PatchPool
-from ..device import resolve_device
+from ..device import deterministic, resolve_device
 from ..models.generator import extract_kernels
 from .single_kernel import (
     _CHUNK_KEYS,
@@ -228,7 +228,9 @@ def train_fleet(
 
     Returns {"scene_names", "kernel_per_band" [S,C,kH,kW],
     "kernel_merged" [S,kH,kW], "state" (the per-scene GANTrainStates),
-    "log_files"}.
+    "log_files"}. On a CUDA device the steps run under `device.deterministic`, so a
+    run is reproducible (CUBLAS_WORKSPACE_CONFIG must be set before the
+    process first uses cuBLAS; the training CLIs set it).
     """
     if mesh is not None:
         raise ValueError(MESH_REFUSAL)
@@ -335,34 +337,35 @@ def train_fleet(
             pass
 
     last: list = [None] * s_total  # each scene's metrics at its latest step
-    for t in iterator:
-        for s, m in enumerate(advance()):
-            if k_steps > 1:
-                log_rows[s].append((t + 2 - k_steps, m))
-                last[s] = {k: m[k][-1] for k in _CHUNK_KEYS}
-            else:
-                log_rows[s].append((t + 1, {k: m[k] for k in _LOG_KEYS}))
-                last[s] = m
+    with deterministic(dev):
+        for t in iterator:
+            for s, m in enumerate(advance()):
+                if k_steps > 1:
+                    log_rows[s].append((t + 2 - k_steps, m))
+                    last[s] = {k: m[k][-1] for k in _CHUNK_KEYS}
+                else:
+                    log_rows[s].append((t + 1, {k: m[k] for k in _LOG_KEYS}))
+                    last[s] = m
 
-        if (t + 1) % cfg.log_every == 0:
-            flush()
-            if progress and hasattr(iterator, "set_postfix"):
-                iterator.set_postfix(
-                    D=f"{float(torch.stack([m['loss_D'] for m in last]).mean()):.4f}",
-                    G=f"{float(torch.stack([m['loss_G_adv'] for m in last]).mean()):.4f}",
-                )
+            if (t + 1) % cfg.log_every == 0:
+                flush()
+                if progress and hasattr(iterator, "set_postfix"):
+                    iterator.set_postfix(
+                        D=f"{float(torch.stack([m['loss_D'] for m in last]).mean()):.4f}",
+                        G=f"{float(torch.stack([m['loss_G_adv'] for m in last]).mean()):.4f}",
+                    )
 
-        if cfg.save_intermediate and (t + 1) % cfg.kernel_log_every == 0:
-            ks = torch.stack([m["kernels"] for m in last]).cpu().numpy()  # [S,C,kH,kW]
-            for s, d in enumerate(outdirs):
-                np.save(os.path.join(d, f"kernel_iter{t + 1}.npy"),
-                        ks[s].mean(axis=0))
-                np.save(os.path.join(d, f"kernel_per_band_iter{t + 1}.npy"),
-                        ks[s])
+            if cfg.save_intermediate and (t + 1) % cfg.kernel_log_every == 0:
+                ks = torch.stack([m["kernels"] for m in last]).cpu().numpy()  # [S,C,kH,kW]
+                for s, d in enumerate(outdirs):
+                    np.save(os.path.join(d, f"kernel_iter{t + 1}.npy"),
+                            ks[s].mean(axis=0))
+                    np.save(os.path.join(d, f"kernel_per_band_iter{t + 1}.npy"),
+                            ks[s])
 
-        if cfg.ckpt_every and (t + 1) % cfg.ckpt_every == 0:
-            save_checkpoint(ckpt_dir, {"scenes": [state_blob(st) for st in states]},
-                            t + 1)
+            if cfg.ckpt_every and (t + 1) % cfg.ckpt_every == 0:
+                save_checkpoint(ckpt_dir, {"scenes": [state_blob(st) for st in states]},
+                                t + 1)
 
     flush()
     ks_final = torch.stack([extract_kernels(st.g_params).detach()

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from ..data.sampler import PatchPool
-from ..device import resolve_device
+from ..device import deterministic, resolve_device
 from ..losses import (
     load_balance_loss,
     lsgan_d_loss,
@@ -247,7 +247,11 @@ def train_moe(
     device: str | torch.device = "cuda",
 ) -> dict:
     """Run the MoE loop over a patch pool; returns {"state", "artifacts",
-    "history": [(iteration, loss_D, selection counts)] at each log}."""
+    "history": [(iteration, loss_D, selection counts)] at each log}.
+    On a CUDA device the steps run under `device.deterministic`, so a
+    run is reproducible (CUBLAS_WORKSPACE_CONFIG must be set before the
+    process first uses cuBLAS; the training CLIs set it).
+    """
     dev = resolve_device(device)
     os.makedirs(cfg.outdir, exist_ok=True)
     use_device_pool = cfg.device_pool
@@ -281,21 +285,22 @@ def train_moe(
             pass
 
     history = []
-    for t in iterator:
-        if K > 1:
-            state, ms = step_fn(state, *draw(), temps[t + 1 - K: t + 1])
-            m = {k: ms[k][-1] for k in _CHUNK_KEYS}
-        else:
-            state, m = step_fn(state, *draw(), temps[t])
-        if (t + 1) % cfg.log_every == 0:
-            sel = m["selection"].cpu().numpy().astype(int)
-            loss_d = float(m["loss_D"])
-            history.append((t + 1, loss_d, sel))
-            if cfg.verbose:
-                print(f"Iter {t + 1} | Temp {temps[t]:.2f} | D {loss_d:.3f} "
-                      f"| Selection {sel}")
-        if cfg.ckpt_every and (t + 1) % cfg.ckpt_every == 0:
-            save_checkpoint(ckpt_dir, state, t + 1)
+    with deterministic(dev):
+        for t in iterator:
+            if K > 1:
+                state, ms = step_fn(state, *draw(), temps[t + 1 - K: t + 1])
+                m = {k: ms[k][-1] for k in _CHUNK_KEYS}
+            else:
+                state, m = step_fn(state, *draw(), temps[t])
+            if (t + 1) % cfg.log_every == 0:
+                sel = m["selection"].cpu().numpy().astype(int)
+                loss_d = float(m["loss_D"])
+                history.append((t + 1, loss_d, sel))
+                if cfg.verbose:
+                    print(f"Iter {t + 1} | Temp {temps[t]:.2f} | D {loss_d:.3f} "
+                          f"| Selection {sel}")
+            if cfg.ckpt_every and (t + 1) % cfg.ckpt_every == 0:
+                save_checkpoint(ckpt_dir, state, t + 1)
 
     artifacts = save_moe_artifacts(state.g_params, cfg.outdir,
                                    model_state=state.d_state["moe"])

@@ -29,7 +29,7 @@ import torch
 
 from ..analysis.kernel_metrics import ascii_kernel, kernel_delta_l2, kernel_metrics
 from ..data.sampler import PatchPool
-from ..device import resolve_device
+from ..device import deterministic, resolve_device
 from ..losses import lsgan_d_loss, lsgan_g_loss, per_band_kernel_regularization
 from ..models.discriminator import (
     DiscriminatorConfig,
@@ -327,7 +327,9 @@ def train_single_kernel(
     without it, random crops are taken from it instead of from `pool`).
 
     Returns {"kernel_per_band": [C,13,13], "kernel_merged": [13,13],
-    "state": final GANTrainState, "log_file": path}.
+    "state": final GANTrainState, "log_file": path}. On a CUDA device the steps run under `device.deterministic`, so a
+    run is reproducible (CUBLAS_WORKSPACE_CONFIG must be set before the
+    process first uses cuBLAS; the training CLIs set it).
     """
     dev = resolve_device(device)
     if cfg.real_is_lr:
@@ -392,50 +394,51 @@ def train_single_kernel(
         except ImportError:
             pass
 
-    for t in iterator:
-        state, metrics = step_fn(state, *draw())
-        if K > 1:
-            log_rows.append((t + 2 - K, metrics))
-            metrics = {k: metrics[k][-1] for k in _CHUNK_KEYS}
-        else:
-            # device scalars, materialized only at the flush
-            log_rows.append((t + 1, {k: metrics[k] for k in _LOG_KEYS}))
+    with deterministic(dev):
+        for t in iterator:
+            state, metrics = step_fn(state, *draw())
+            if K > 1:
+                log_rows.append((t + 2 - K, metrics))
+                metrics = {k: metrics[k][-1] for k in _CHUNK_KEYS}
+            else:
+                # device scalars, materialized only at the flush
+                log_rows.append((t + 1, {k: metrics[k] for k in _LOG_KEYS}))
 
-        if (t + 1) % cfg.log_every == 0:
-            with open(log_file, "a", encoding="utf-8") as f:
-                f.writelines(_format_rows(log_rows))
-            log_rows.clear()
-            if progress and hasattr(iterator, "set_postfix"):
-                iterator.set_postfix(
-                    D=f"{float(metrics['loss_D']):.4f}",
-                    G_adv=f"{float(metrics['loss_G_adv']):.4f}",
-                    RegW=f"{float(metrics['loss_reg_weighted']):.4f}",
-                    gN_D=f"{float(metrics['grad_norm_D']):.2f}",
-                    gN_G=f"{float(metrics['grad_norm_G']):.2f}",
-                )
+            if (t + 1) % cfg.log_every == 0:
+                with open(log_file, "a", encoding="utf-8") as f:
+                    f.writelines(_format_rows(log_rows))
+                log_rows.clear()
+                if progress and hasattr(iterator, "set_postfix"):
+                    iterator.set_postfix(
+                        D=f"{float(metrics['loss_D']):.4f}",
+                        G_adv=f"{float(metrics['loss_G_adv']):.4f}",
+                        RegW=f"{float(metrics['loss_reg_weighted']):.4f}",
+                        gN_D=f"{float(metrics['grad_norm_D']):.2f}",
+                        gN_G=f"{float(metrics['grad_norm_G']):.2f}",
+                    )
 
-        if (t + 1) % cfg.kernel_log_every == 0:
-            ks = metrics["kernels"].cpu().numpy()  # [C,kH,kW]
-            k_merged = ks.mean(axis=0)
-            km = kernel_metrics(k_merged)
-            delta = kernel_delta_l2(k_merged, prev_k)
-            prev_k = k_merged.copy()
-            if cfg.verbose:
-                print(
-                    f"  [Kernel] shape={km['k_shape']} sum={km['k_sum']:.4f} "
-                    f"max={km['k_max']:.4f} std={km['k_std']:.4f} "
-                    f"sparsity={km['sparsity']:.3f} "
-                    f"center_offset={km['center_offset']:.3f} delta_L2={delta:.5f}"
-                )
-                print("  [Kernel ASCII merged]\n" + ascii_kernel(k_merged))
-            if cfg.save_intermediate:
-                np.save(os.path.join(cfg.outdir, f"kernel_iter{t + 1}.npy"), k_merged)
-                np.save(
-                    os.path.join(cfg.outdir, f"kernel_per_band_iter{t + 1}.npy"), ks
-                )
+            if (t + 1) % cfg.kernel_log_every == 0:
+                ks = metrics["kernels"].cpu().numpy()  # [C,kH,kW]
+                k_merged = ks.mean(axis=0)
+                km = kernel_metrics(k_merged)
+                delta = kernel_delta_l2(k_merged, prev_k)
+                prev_k = k_merged.copy()
+                if cfg.verbose:
+                    print(
+                        f"  [Kernel] shape={km['k_shape']} sum={km['k_sum']:.4f} "
+                        f"max={km['k_max']:.4f} std={km['k_std']:.4f} "
+                        f"sparsity={km['sparsity']:.3f} "
+                        f"center_offset={km['center_offset']:.3f} delta_L2={delta:.5f}"
+                    )
+                    print("  [Kernel ASCII merged]\n" + ascii_kernel(k_merged))
+                if cfg.save_intermediate:
+                    np.save(os.path.join(cfg.outdir, f"kernel_iter{t + 1}.npy"), k_merged)
+                    np.save(
+                        os.path.join(cfg.outdir, f"kernel_per_band_iter{t + 1}.npy"), ks
+                    )
 
-        if cfg.ckpt_every and (t + 1) % cfg.ckpt_every == 0:
-            save_checkpoint(ckpt_dir, state, t + 1)
+            if cfg.ckpt_every and (t + 1) % cfg.ckpt_every == 0:
+                save_checkpoint(ckpt_dir, state, t + 1)
 
     if log_rows:
         with open(log_file, "a", encoding="utf-8") as f:

@@ -31,7 +31,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import deterministic, resolve_device
 from ..models.sr import SRConfig, init_sr, precision, sr_forward
 from ..ops.metrics import psnr, ssim
 from ..utils.params_io import save_params
@@ -145,7 +145,9 @@ def train_sr(
     (iter, l1) and the PSNR/SSIM columns filled on eval_every iters; with
     cfg.holdout > 0 the eval set is a held-out tail of the pairs, never
     trained on. Returns {"state", "log": [(iter, l1)], "model_path",
-    "final_eval", "csv_path"}.
+    "final_eval", "csv_path"}. On a CUDA device the steps run under `device.deterministic`, so a
+    run is reproducible (CUBLAS_WORKSPACE_CONFIG must be set before the
+    process first uses cuBLAS; the training CLIs set it).
     """
     lr_all, hr_all = pairs
     if lr_all.shape[0] != hr_all.shape[0]:
@@ -223,29 +225,30 @@ def train_sr(
                   f"ssim={ev['ssim']:.4f}")
         return ev
 
-    try:
-        if fresh:
-            csv_f.write(LOG_HEADER)
-        for t in iterator:
-            idx = host_rng.integers(0, lr_all.shape[0], cfg.batch_size)
-            state, m = step_fn(state, *batch(idx))
-            is_eval = (t + 1) % cfg.eval_every == 0
-            if is_eval:
-                last_eval = eval_now(t + 1)
-            if (t + 1) % cfg.log_every == 0 or is_eval:
-                l1 = float(m["l1"])
-                log.append((t + 1, l1))
-                csv_f.write(
-                    f"{t + 1},{l1:.6f},"
-                    + (f"{last_eval['psnr']:.4f},{last_eval['ssim']:.6f}\n"
-                       if is_eval else ",\n")
-                )
-                csv_f.flush()
-            if cfg.ckpt_every and (t + 1) % cfg.ckpt_every == 0:
-                save_checkpoint(ckpt_dir, state, t + 1)
-        final_eval = eval_now(cfg.iters) if lr_val is not None else last_eval
-    finally:
-        csv_f.close()
+    with deterministic(dev):
+        try:
+            if fresh:
+                csv_f.write(LOG_HEADER)
+            for t in iterator:
+                idx = host_rng.integers(0, lr_all.shape[0], cfg.batch_size)
+                state, m = step_fn(state, *batch(idx))
+                is_eval = (t + 1) % cfg.eval_every == 0
+                if is_eval:
+                    last_eval = eval_now(t + 1)
+                if (t + 1) % cfg.log_every == 0 or is_eval:
+                    l1 = float(m["l1"])
+                    log.append((t + 1, l1))
+                    csv_f.write(
+                        f"{t + 1},{l1:.6f},"
+                        + (f"{last_eval['psnr']:.4f},{last_eval['ssim']:.6f}\n"
+                           if is_eval else ",\n")
+                    )
+                    csv_f.flush()
+                if cfg.ckpt_every and (t + 1) % cfg.ckpt_every == 0:
+                    save_checkpoint(ckpt_dir, state, t + 1)
+            final_eval = eval_now(cfg.iters) if lr_val is not None else last_eval
+        finally:
+            csv_f.close()
     model_path = os.path.join(cfg.outdir, "sr_model.npz")
     save_params(model_path, state.params)
     return {"state": state, "log": log, "model_path": model_path,
