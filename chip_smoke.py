@@ -213,12 +213,13 @@ and exits non-zero without them. Phases, one line each:
    a scene batch and no other degrade kernel, every lr against the plain
    degrade(hr, kernel_s) + pool[idx] with idx from `scene_seed(42, s)`
    (rtol 1e-4 / atol 1e-5), the fifth scene failed as a unit. Timing: the
-   fleet loop (`train.fleet.make_fleet_advance`) at S = 1, 4 for (a)
+   fleet loop (`train.fleet.make_fleet_advance`) at S = 1 and 2 for (a)
    and S = 2 for (b): scene-iterations/s (median of 5 synchronized
    windows), device ms an iteration of all scenes, busy share, peak
    memory.
 
-   Phases 9, 11 (b)/(c), 12 (d) and 13 time each trainer's step twice in
+   Phases 9, 11 (b)/(c), 12 (d) and 13 (but (a) at S = 2, which runs as
+   the package runs it only) time each trainer's step twice in
    one process, as the package runs it (deterministic algorithms) and
    without them (`with_and_without`), and print what determinism costs.
 
@@ -240,6 +241,39 @@ and exits non-zero without them. Phases, one line each:
    iterations, and the card's predictions no further from a float64 solve
    on the card (same iterations) than twice the CPU's are.
 
+15. parallel: the multi-card layer (`parallel.local_dp`, `parallel.mesh`)
+   on one card. (a) Local DP over the card list (`local_batch_dp`: one card
+   here, n_dev = 1) and over [cuda:0, cuda:0] (two blocks on the one card:
+   the multi-card code path of pad_put / local_map / gather): the factory's
+   .npy route (`presplit_batches`, 256 5x256x256 patches, x8, batch 128:
+   one `degrade_v3psn` launch a batch, two with two blocks), the NLM chunk
+   (8 of phase 10's files), `sr_infer.run_batches` (24 pairs at the x8
+   model's width) and apply_kernel's device part (`make_degraders`,
+   `degrade_group`, 24 patches), each against its plain one-device
+   computation in this process: bit for bit on the card list; with two
+   blocks bit for bit (factory, NLM) or, where cuDNN may pick another
+   algorithm for the half batch, at the tolerance (apply_kernel's strided
+   conv, SR's metrics) and by phase 12's bf16 rule (SR's predictions no
+   further from the f32 forward than twice the whole batch's bf16 are).
+   (b) An in-process NCCL group of world size 1 (`init_process_group(
+   "nccl", store=HashStore(), rank=0, world_size=1)`, destroyed at the
+   end) and its 'data' mesh: the whole scene through the ranks path
+   (`parallel.spatial.degrade_scene(mesh=)`) at 5x8192x8192, one
+   `colsplit_raw` launch, bit-equal to the n_shards = 1 path; the NaN-aware
+   stage code (`degrade_scene_ranks`, band means all-reduced) against
+   `degrade_scene_file` at the tolerance, NaN cells identical; each trainer
+   for 4 steps with the mesh and without it, host batches both
+   (KernelGAN chain and compose with fake-side noise and SR through
+   `train_single_kernel` / `train_sr`, MoE with the load-balance loss and
+   dynamic through their CLIs with --data-parallel on .npy patches), every
+   parameter, BatchNorm statistic and artifact bit for bit; the fleet with
+   a 'scene' mesh at S = 2 against the fleet without one, every scene's
+   artifacts byte for byte. Timing: each trainer's step at its default
+   widths with and without the mesh (iterations/s, median of 5
+   synchronized windows of 6 steps, alternating). The card proves world
+   size 1 only; worlds of 2-4 ranks are held on the CPU with gloo
+   (tests/test_torch_dp_train.py, tests/test_torch_spatial_ranks.py).
+
 inspect_nc, data_stats, viz_cli and make_train_data --vis-dir are host
 h5py / matplotlib code (no h5py on the card's machine); the CPU tests
 (tests/test_torch_analysis_tools.py) hold them against JAX, and no phase
@@ -248,7 +282,10 @@ drives them.
 Prints one JSON line {"factory": {...}} (per-route results), one
 {"scene": {...}}, one {"api": {...}}, one {"kernelgan": {...}}, one
 {"denoise": {...}}, one {"moe_dynamic": {...}}, one {"sr": {...}}, one
-{"fleet": {...}}, one {"oracle": {...}}, then the card's nvidia-smi line, one JSON line {"kernels": [...]} and, last,
+{"fleet": {...}}, one {"oracle": {...}}, one {"parallel": {...}}, then the
+card's nvidia-smi line, one JSON line {"kernels": [...]} (each kernel's
+`launches` on the main path above, `parallel_launches` on phase 15's
+local-DP factory route and ranks scene route) and, last,
 {"ok": true, "device": {...}}. Any mismatch or error in any phase, timing
 included, exits non-zero before that last line.
 """
@@ -3309,7 +3346,7 @@ def fleet_line(label: str, t: dict) -> str:
 def fleet_library(tmp: str, dev, failures: list) -> tuple[dict, str]:
     """(a): the real_lr config's train_kernel block through `train_fleet`
     on 4 scenes; every scene's artifacts; each scene against a 1-scene
-    fleet at seed + s; timing at S = 1, 2, 4. Returns the result and the
+    fleet at seed + s; timing at S = 1 and 2. Returns the result and the
     4-scene run's outdir (the kernel root of (c))."""
     import dataclasses
 
@@ -3356,10 +3393,16 @@ def fleet_library(tmp: str, dev, failures: list) -> tuple[dict, str]:
                     f"{r['vs_one_scene_fleet']['kernel_max_abs']:.3g})"
                     for n, r in res["scenes"].items()))
     res["timing"] = {}
-    for s_n in (1, 4):
-        t = with_and_without(lambda: fleet_timing(cfg, pools[:s_n], lr_pools[:s_n], dev))
+    # S = 2 as the package runs it only: the wall's budget (ROADMAP
+    # follow-ups) took S = 4 and its run without deterministic algorithms
+    for s_n in (1, 2):
+        def time_it(s_n=s_n):
+            return fleet_timing(cfg, pools[:s_n], lr_pools[:s_n], dev)
+
+        t = with_and_without(time_it) if s_n == 1 else time_it()
         res["timing"][f"S={s_n}"] = t
-        log(f"[fleet] (a) " + fleet_line("compose real_is_lr K=20", t) + det_note(t))
+        log(f"[fleet] (a) " + fleet_line("compose real_is_lr K=20", t)
+            + (det_note(t) if "without_deterministic" in t else ""))
     no_kernel_launched("fleet (a) timing", failures)
     return res, outdir
 
@@ -3697,6 +3740,487 @@ def phase_oracle(dev, failures: list) -> dict:
     return res
 
 
+# --------------------------------------------------------------- phase 15
+#: phase 15: a trainer's DP run and plain run take DP_ITERS steps; the DP
+#: overhead is the median of DP_WINDOWS synchronized windows of
+#: DP_WINDOW_ITERS steps, after DP_WARMUP steps, DP and plain alternating
+DP_ITERS, DP_WINDOWS, DP_WINDOW_ITERS, DP_WARMUP = 4, 5, 6, 2
+DP_N = 16  # patches (or SR pairs) of a trainer's pool
+
+
+def same(label: str, got, want, failures: list, exact: bool = True) -> dict:
+    """got vs want (tensors or arrays, NaN cells compared as cells): bit for
+    bit when `exact`, else at the tolerance; a failure is recorded."""
+    import numpy as np
+    import torch
+
+    got, want = (torch.as_tensor(np.asarray(a)) if not isinstance(a, torch.Tensor)
+                 else a.detach().cpu() for a in (got, want))
+    nan = torch.isnan(want)
+    res = {"bit_equal": bool(torch.equal(torch.isnan(got), nan)
+                             and torch.equal(got[~nan], want[~nan]))}
+    res.update(errors(got[~nan].double(), want[~nan].double()) if got.shape == want.shape
+               else {"ok": False, "max_abs_err": None})
+    res["ok"] = res["bit_equal"] or (not exact and res["ok"]
+                                     and torch.equal(torch.isnan(got), nan))
+    if not res["ok"]:
+        failures.append(f"parallel {label}: {res}")
+    return res
+
+
+def launches_of(label: str, want: dict, failures: list) -> dict:
+    """The eight launch counts since the last reset; every kernel not in
+    `want` must read 0, every one in it its count."""
+    from kmsr_tpu_torch import kernels
+
+    got = dict(kernels.LAUNCHES)
+    bad = {k: n for k, n in got.items() if n != want.get(k, 0)}
+    if bad:
+        failures.append(f"parallel {label}: launches {bad}, want {want}")
+    return {k: n for k, n in got.items() if n}
+
+
+def dp_local(dev, failures: list) -> dict:
+    """(a): the local-DP stages on the card list (one card: n_dev = 1) and on
+    [cuda:0, cuda:0] (two blocks on one card, the multi-card code path),
+    each against its plain one-device computation in this process."""
+    import numpy as np
+    import torch
+
+    from kmsr_tpu_torch import kernels
+    from kmsr_tpu_torch.models.sr import SRConfig, init_sr, sr_forward
+    from kmsr_tpu_torch.ops import nlm
+    from kmsr_tpu_torch.ops.degrade_fused import degrade_fused_presplit
+    from kmsr_tpu_torch.parallel.local_dp import local_batch_dp
+    from kmsr_tpu_torch.pipeline import apply_kernel, factory, sr_infer
+
+    two = [torch.device("cuda", 0)] * 2
+    res = {"devices": [str(d) for d in local_batch_dp("cuda")[0]]}
+    if len(res["devices"]) != 1:
+        failures.append(f"parallel: expected one card, got {res['devices']}")
+    tmp = tempfile.mkdtemp(prefix="kmsr_dp_")
+    try:
+        sets, k_path, pools = write_inputs(tmp)
+        files = sets[HW]
+        kernel, pool, noise_of = factory.factory_inputs(files, k_path, pools[HW, FACTOR],
+                                                        42, dev)
+        # the plain route: the presplit kernel on each whole batch
+        plain = []
+        for paths, xp, _, _ in factory._npy_split_batches(files, B, (C, HW, HW), FACTOR, dev):
+            noise = np.ascontiguousarray(np.transpose(
+                pool[[noise_of[p] for p in paths]], (1, 2, 3, 0)))
+            plain.append(degrade_fused_presplit(
+                xp.to(dev), kernel, noise=torch.from_numpy(noise).to(dev),
+                factor=FACTOR).permute(3, 0, 1, 2).cpu())
+        fac = {}
+        for label, devices, n_launch in (("cards", None, 2), ("two blocks", two, 4)):
+            kernels.reset_launches()
+            lrs = [lr.cpu() for _, _, lr, _ in factory.presplit_batches(
+                files, kernel, pool, noise_of, shape=(C, HW, HW), factor=FACTOR,
+                batch_size=B, device="cuda", devices=devices)]
+            torch.cuda.synchronize()
+            fac[label] = {"launches": launches_of(f"factory {label}",
+                                                  {"degrade_v3psn": n_launch}, failures),
+                          **same(f"factory {label}", torch.cat(lrs), torch.cat(plain),
+                                 failures)}
+        res["factory"] = fac
+
+        # the NLM chunk (8 files, NaN holes, a dead band) at h_factor 1.0
+        stacks = denoise_data()[0][:8]
+        flat = stacks.reshape(-1, HW, HW)
+        valid = ~np.isnan(flat)
+        fills = np.array([np.nanmean(f) if v.any() else 0.0 for f, v in zip(flat, valid)],
+                         np.float32)
+        x = torch.from_numpy(np.where(valid, flat, fills[:, None, None]).astype(np.float32))
+        x = x.to(dev)
+        sig = nlm.estimate_sigma(x)
+        den = nlm.nlm_denoise_2d(x, sig * 1.0, sig).cpu().numpy().reshape(stacks.shape)
+        want = np.where(valid.reshape(stacks.shape), den, np.nan).astype(np.float32)
+        dead = ~valid.reshape(stacks.shape).any(axis=(2, 3))
+        want[dead] = stacks[dead]
+        dn = {}
+        for label, devices in (("cards", None), ("two blocks", two)):
+            kernels.reset_launches()
+            got, sigmas = nlm.denoise_batch_finalize(
+                nlm.denoise_batch_dispatch(stacks, 1.0, "cuda", devices=devices))
+            dn[label] = {"launches": launches_of(f"nlm {label}", {}, failures),
+                         **same(f"nlm {label}", got, want, failures),
+                         "sigmas": same(f"nlm {label} sigmas", sigmas, np.where(
+                             dead, 0.0, sig.cpu().numpy().reshape(dead.shape)
+                         ).astype(np.float32), failures)}
+        res["nlm"] = dn
+
+        # sr_infer's device loop: 24 pairs at the x8 model's width
+        cfg = SRConfig()
+        params = init_sr(cfg, seed=SEED + 15, device=dev)
+        rng = np.random.default_rng(SEED + 15)
+        lrs = [rng.normal(3, 1, (C, 32, 32)).astype(np.float32) for _ in range(24)]
+        hrs = [rng.normal(3, 1, (C, 256, 256)).astype(np.float32) for _ in range(24)]
+        p_pred, p_met, done = sr_infer.dispatch(params, lrs, hrs, cfg, dev)
+        done.synchronize()
+        with torch.no_grad():
+            f32 = sr_forward(params, torch.from_numpy(np.stack(lrs)).to(dev), cfg,
+                             compute_dtype=torch.float32).cpu()
+        own_bf16 = float((p_pred - f32).abs().max())
+        sr = {}
+        for label, devices in (("cards", None), ("two blocks", two)):
+            out = []
+            kernels.reset_launches()
+            fails = sr_infer.run_batches(
+                [([str(i) for i in range(24)], list(zip(lrs, hrs)), [])], params, cfg,
+                lambda p, preds, m, out=out: out.append((preds, m)), "cuda", devices)
+            if fails or len(out) != 1:
+                failures.append(f"parallel sr_infer {label}: {fails}, {len(out)} groups")
+                continue
+            sr[label] = {"launches": launches_of(f"sr_infer {label}", {}, failures),
+                         "metrics": same(f"sr_infer {label} metrics", out[0][1], p_met,
+                                         failures, exact=devices is None)}
+            if devices is None:
+                sr[label]["preds"] = same(f"sr_infer {label}", out[0][0], p_pred, failures)
+            else:
+                # two blocks run the bf16 network on half batches, where cuDNN
+                # may pick another algorithm: phase 12's bf16 rule, no further
+                # from the f32 forward than twice the whole batch's bf16 is
+                d = float((torch.from_numpy(out[0][0]) - f32).abs().max())
+                sr[label]["preds"] = {
+                    "bit_equal": bool(np.array_equal(out[0][0], p_pred.numpy())),
+                    "max_abs_from_f32": d, "whole_batch_max_abs_from_f32": own_bf16,
+                    "ok": d <= 2 * own_bf16}
+                if not sr[label]["preds"]["ok"]:
+                    failures.append(f"parallel sr_infer {label}: {sr[label]['preds']}")
+        res["sr_infer"] = sr
+
+        # apply_kernel's device part: 24 patches in one shape group
+        stacks_ak = [np.load(p) for p in files[:24]]
+        fn, _ = apply_kernel.make_degrader(k_path, None, FACTOR, dev)
+        want_ak = fn(torch.from_numpy(np.stack(stacks_ak)).to(dev))[0].cpu()
+        ak = {}
+        for label, devices in (("cards", None), ("two blocks", two)):
+            kernels.reset_launches()
+            devs, fns, _ = apply_kernel.make_degraders(k_path, None, FACTOR, "cuda", devices)
+            got_ak, experts = apply_kernel.degrade_group(stacks_ak, fns, devs)
+            ak[label] = {"launches": launches_of(f"apply_kernel {label}", {}, failures),
+                         **same(f"apply_kernel {label}", got_ak, want_ak, failures,
+                                exact=devices is None)}
+            if experts is not None:
+                failures.append("parallel apply_kernel: experts on the kernel route")
+        res["apply_kernel"] = ak
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
+def dp_scene(mesh, dev, failures: list) -> dict:
+    """(b) the whole scene through the ranks path at 5x8192^2: the scene
+    tensor's row slab of this rank (`degrade_scene(mesh=)`, one
+    `colsplit_raw` launch) against the n_shards = 1 path bit for bit, and
+    the NaN-aware stage code (`degrade_scene_ranks`, band means
+    all-reduced) against `degrade_scene_file` on the same host scene."""
+    import torch
+
+    from kmsr_tpu_torch import kernels
+    from kmsr_tpu_torch.parallel import spatial
+    from kmsr_tpu_torch.pipeline.degrade_scene import degrade_scene_file, degrade_scene_ranks
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 150)
+    x = torch.randn(SCENE_C, SCENE_HW, SCENE_HW, generator=gen, device=dev) * 2 + 5
+    k = torch.rand(SCENE_C, SCENE_K, SCENE_K, generator=gen, device=dev) + 0.1
+    res = {}
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    got = spatial.degrade_scene(x, k, factor=FACTOR, mesh=mesh)
+    torch.cuda.synchronize()
+    res["ranks_seconds"] = time.perf_counter() - t0
+    res["ranks_launches"] = launches_of("scene ranks", {"colsplit_raw": 1}, failures)
+    res["ranks"] = same("scene ranks", got, spatial.degrade_scene(x, k, factor=FACTOR),
+                        failures)
+    host = x.cpu().numpy()
+    host[:, 1000:1400, 2000:2600] = float("nan")
+    del got, x
+    kernels.reset_launches()
+    got = degrade_scene_ranks(lambda lo, hi: host[:, lo:hi], SCENE_HW, k, mesh, FACTOR)
+    res["stage_launches"] = launches_of("scene stage ranks", {"colsplit_raw": 1}, failures)
+    res["stage"] = same("scene stage ranks", got, degrade_scene_file(host, k, FACTOR),
+                        failures, exact=False)
+    del host
+    torch.cuda.empty_cache()
+    return res
+
+
+def dp_pool(n: int, side: int, seed: int, dev):
+    """[n, 5, side, side] float32 host array: a smooth field made on the card."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(n, C, side, side, generator=gen, device=dev) * 2 + 5
+    return F.avg_pool2d(x, 3, stride=1, padding=1, count_include_pad=False).cpu().numpy()
+
+
+def tree_same(label: str, got, want, failures: list) -> dict:
+    """Two parameter / state trees (or artifact dirs' arrays) bit for bit."""
+    import torch
+
+    from kmsr_tpu_torch.train.state import tree_leaves
+
+    a, b = tree_leaves(got), tree_leaves(want)
+    ok = len(a) == len(b) and all(torch.equal(x.detach().cpu(), y.detach().cpu())
+                                  for x, y in zip(a, b))
+    worst = max((float((x.detach().cpu() - y.detach().cpu()).abs().max())
+                 for x, y in zip(a, b) if x.shape == y.shape), default=None)
+    if not ok:
+        failures.append(f"parallel {label}: DP run differs from the plain run "
+                        f"(max abs {worst})")
+    return {"bit_equal": ok, "leaves": len(a), "max_abs_err": worst}
+
+
+def dir_same(label: str, got_dir: str, want_dir: str, failures: list) -> dict:
+    """Every .npy / .txt / .csv artifact of two run dirs byte for byte (the
+    .npz models array for array: zip members carry their write time)."""
+    import numpy as np
+
+    names = sorted(n for n in os.listdir(want_dir) if os.path.isfile(os.path.join(want_dir, n)))
+    diff = []
+    for n in names:
+        a, b = os.path.join(got_dir, n), os.path.join(want_dir, n)
+        if not os.path.exists(a):
+            diff.append(n)
+        elif n.endswith(".npz"):
+            x, y = np.load(a), np.load(b)
+            if x.files != y.files or not all(np.array_equal(x[f], y[f]) for f in x.files):
+                diff.append(n)
+        elif open(a, "rb").read() != open(b, "rb").read():
+            diff.append(n)
+    if diff or not names:
+        failures.append(f"parallel {label}: artifacts differ {diff} of {names}")
+    return {"files": len(names), "differ": diff}
+
+
+def dp_trainers(mesh, dev, failures: list) -> dict:
+    """(b) each trainer DP_ITERS steps with the mesh (NCCL, world size 1) and
+    without it, host batches both: KernelGAN chain and compose with
+    fake-side noise and SR through the library calls (their CLIs read .nc
+    patches: no h5py on the card's machine), MoE and dynamic through their
+    CLIs with --data-parallel on .npy patches; every parameter, BatchNorm
+    statistic and artifact bit for bit."""
+    import dataclasses
+
+    import numpy as np
+
+    from kmsr_tpu_torch.data.sampler import PatchPool
+    from kmsr_tpu_torch.models.generator import GeneratorConfig
+    from kmsr_tpu_torch.pipeline import train_dynamic_cli, train_moe_cli
+    from kmsr_tpu_torch.train.single_kernel import SingleKernelConfig, train_single_kernel
+    from kmsr_tpu_torch.train.sr import SRTrainConfig, train_sr
+
+    res = {}
+    tmp = tempfile.mkdtemp(prefix="kmsr_dpt_")
+    try:
+        pool = PatchPool(dp_pool(DP_N, HW, SEED + 151, dev))
+        for mode, extra in (("chain", {}),
+                            ("compose", {"fake_noise_sigma": (0.1, 0.2, 0.1, 0.3, 0.1)})):
+            cfg = SingleKernelConfig(iters=DP_ITERS, log_every=2, kernel_log_every=DP_ITERS,
+                                     device_pool=False, verbose=False,
+                                     generator=GeneratorConfig(forward_mode=mode), **extra)
+            runs = {}
+            for label, m in (("dp", mesh), ("plain", None)):
+                out_dir = os.path.join(tmp, f"kg_{mode}_{label}")
+                t0 = time.perf_counter()
+                runs[label] = train_single_kernel(
+                    pool, dataclasses.replace(cfg, outdir=out_dir), progress=False,
+                    device=dev, mesh=m)
+                runs[label]["seconds"] = time.perf_counter() - t0
+            st = {k: runs[k]["state"] for k in runs}
+            res[f"kernelgan_{mode}"] = {
+                "params": tree_same(f"kernelgan {mode} params",
+                                    [st["dp"].g_params, st["dp"].d_params],
+                                    [st["plain"].g_params, st["plain"].d_params], failures),
+                "d_state": tree_same(f"kernelgan {mode} D state", st["dp"].d_state,
+                                     st["plain"].d_state, failures),
+                "artifacts": dir_same(f"kernelgan {mode}", os.path.join(tmp, f"kg_{mode}_dp"),
+                                      os.path.join(tmp, f"kg_{mode}_plain"), failures),
+                "seconds": {k: r["seconds"] for k, r in runs.items()}}
+
+        npy_dir = os.path.join(tmp, "npy")
+        os.makedirs(npy_dir)
+        for i, p in enumerate(pool.patches):
+            np.save(os.path.join(npy_dir, f"p{i:03d}.npy"), p)
+        for name, cli, args, sub in (
+                ("moe", train_moe_cli, ["--batch-size", "8", "--balance-weight", "0.5"], ""),
+                ("dynamic", train_dynamic_cli, ["--batch-size", "8"], "final_results")):
+            secs = {}
+            for label, flag in (("dp", ["--data-parallel"]), ("plain", [])):
+                t0 = time.perf_counter()
+                rc = cli.main(["--patch-dir", npy_dir, "--format", "npy", "--iters",
+                               str(DP_ITERS), "--outdir", os.path.join(tmp, f"{name}_{label}"),
+                               "--device", "cuda"] + args + flag)
+                secs[label] = time.perf_counter() - t0
+                if rc != 0:
+                    failures.append(f"parallel {name} CLI {label}: rc {rc}")
+            res[name] = {"artifacts": dir_same(
+                name, os.path.join(tmp, f"{name}_dp", sub),
+                os.path.join(tmp, f"{name}_plain", sub), failures), "seconds": secs}
+            if name == "dynamic":
+                res[name]["log"] = dir_same("dynamic log", os.path.join(tmp, "dynamic_dp"),
+                                            os.path.join(tmp, "dynamic_plain"), failures)
+
+        rng = np.random.default_rng(SEED + 152)
+        hr = dp_pool(DP_N, HW, SEED + 153, dev)
+        lr = hr.reshape(DP_N, C, 32, FACTOR, 32, FACTOR).mean(axis=(3, 5)) \
+            + rng.normal(0, 0.05, (DP_N, C, 32, 32)).astype(np.float32)
+        cfg = SRTrainConfig(iters=DP_ITERS, batch_size=8, log_every=2, eval_every=DP_ITERS,
+                            device_pool=False)
+        runs = {}
+        for label, m in (("dp", mesh), ("plain", None)):
+            t0 = time.perf_counter()
+            runs[label] = train_sr((lr.astype(np.float32), hr),
+                                   dataclasses.replace(cfg, outdir=os.path.join(tmp, f"sr_{label}")),
+                                   mesh=m, progress=False, device=dev)
+            runs[label]["seconds"] = time.perf_counter() - t0
+        res["sr"] = {"params": tree_same("sr params", runs["dp"]["state"].params,
+                                         runs["plain"]["state"].params, failures),
+                     "log_equal": runs["dp"]["log"] == runs["plain"]["log"],
+                     "artifacts": dir_same("sr", os.path.join(tmp, "sr_dp"),
+                                           os.path.join(tmp, "sr_plain"), failures),
+                     "seconds": {k: r["seconds"] for k, r in runs.items()}}
+        if not res["sr"]["log_equal"]:
+            failures.append("parallel sr: DP log differs from the plain log")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
+def dp_fleet(dev, failures: list) -> dict:
+    """(b) the fleet with a scene mesh (NCCL, world size 1) at S = 2 against
+    the fleet without one: every scene's artifacts byte for byte."""
+    import dataclasses
+
+    from kmsr_tpu_torch.data.sampler import PatchPool
+    from kmsr_tpu_torch.models.generator import GeneratorConfig
+    from kmsr_tpu_torch.parallel.mesh import make_mesh
+    from kmsr_tpu_torch.train.fleet import train_fleet
+    from kmsr_tpu_torch.train.single_kernel import SingleKernelConfig
+
+    mesh = make_mesh(axis_names=("scene",), device="cuda")
+    pools = [PatchPool(dp_pool(DP_N, HW, SEED + 154 + s, dev)) for s in range(2)]
+    cfg = SingleKernelConfig(iters=DP_ITERS, log_every=2, kernel_log_every=DP_ITERS,
+                             verbose=False, generator=GeneratorConfig(forward_mode="compose"))
+    tmp = tempfile.mkdtemp(prefix="kmsr_dpf_")
+    try:
+        outs = {label: train_fleet(pools, dataclasses.replace(cfg, outdir=os.path.join(tmp, label)),
+                                   mesh=m, progress=False, device=dev)
+                for label, m in (("mesh", mesh), ("plain", None))}
+        res = {"mesh": {"axis": mesh.axis_name, "size": mesh.size},
+               "scenes": len(pools),
+               "kernels": same("fleet kernels", outs["mesh"]["kernel_per_band"],
+                               outs["plain"]["kernel_per_band"], failures)}
+        for name in outs["plain"]["scene_names"]:
+            res[name] = dir_same(f"fleet {name}", os.path.join(tmp, "mesh", name),
+                                 os.path.join(tmp, "plain", name), failures)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
+def dp_overhead(mesh, dev, card: str) -> dict:
+    """Iterations/s of each trainer's step with and without the data-
+    parallel mesh (NCCL, world size 1: the gradient all-reduce, the
+    BatchNorm statistics' all-reduces, the draws at the global shape),
+    host batches on the card already: the median of DP_WINDOWS synchronized
+    windows of DP_WINDOW_ITERS steps, DP and plain windows alternating."""
+    import statistics
+
+    import torch
+
+    from kmsr_tpu_torch.device import deterministic
+    from kmsr_tpu_torch.models.generator import GeneratorConfig
+    from kmsr_tpu_torch.parallel.mesh import data_parallel
+    from kmsr_tpu_torch.train import dynamic, moe, single_kernel, sr
+
+    hr = torch.from_numpy(dp_pool(DP_N, HW, SEED + 160, dev)).to(dev)
+    cases = {}
+    kg = single_kernel.SingleKernelConfig(generator=GeneratorConfig(forward_mode="compose"))
+    cases["kernelgan_compose"] = (single_kernel.init_training(kg, dev),
+                                  single_kernel.make_base_step(kg), (hr[:16], hr[:16]))
+    mc = moe.MoETrainConfig()
+    base = moe.make_moe_base_step(mc)
+    cases["moe"] = (moe.init_moe_training(mc, device=dev),
+                    lambda st, a, b: base(st, a, b, 2.0), (hr[:8], hr[8:16]))
+    dc = dynamic.DynamicTrainConfig()
+    cases["dynamic"] = (dynamic.init_dynamic_training(dc, dev),
+                        dynamic.make_dynamic_base_step(dc), (hr[:8], hr[8:16]))
+    sc = sr.SRTrainConfig()
+    lr = torch.nn.functional.avg_pool2d(hr, FACTOR)
+    sstep, _ = sr.make_sr_train_step(sc)
+    cases["sr"] = (sr.init_sr_training(sc, dev), sstep,
+                   (lr.repeat(2, 1, 1, 1), hr.repeat(2, 1, 1, 1)))
+    res = {"card": card, "world_size": mesh.size, "backend": "nccl"}
+    for name, (state, step, args) in cases.items():
+        walls = {"dp": [], "plain": []}
+        with deterministic(dev):
+            for m in (mesh, None):
+                with data_parallel(m):
+                    for _ in range(DP_WARMUP):
+                        state, _ = step(state, *args)
+            for _ in range(DP_WINDOWS):
+                for label, m in (("plain", None), ("dp", mesh)):
+                    with data_parallel(m):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        for _ in range(DP_WINDOW_ITERS):
+                            state, _ = step(state, *args)
+                        torch.cuda.synchronize()
+                    walls[label].append((time.perf_counter() - t0) / DP_WINDOW_ITERS)
+        med = {k: statistics.median(v) for k, v in walls.items()}
+        res[name] = {"iters_per_s": 1 / med["dp"], "plain_iters_per_s": 1 / med["plain"],
+                     "dp_over_plain_wall": med["dp"] / med["plain"],
+                     "wall_ms_windows": {k: [w * 1e3 for w in v] for k, v in walls.items()},
+                     "batch": int(args[0].shape[0])}
+        log(f"[parallel] DP overhead {name} (batch {res[name]['batch']}): "
+            f"{res[name]['iters_per_s']:.2f} it/s with the mesh, "
+            f"{res[name]['plain_iters_per_s']:.2f} without (wall x"
+            f"{res[name]['dp_over_plain_wall']:.3f})")
+    return res
+
+
+def phase_parallel(dev, card: str, failures: list) -> dict:
+    """Phase 15 (module docstring): local DP on the card list, then an
+    in-process NCCL group of world size 1 for the ranks path, the trainers'
+    DP runs, the scene-parallel fleet and the DP overhead."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from kmsr_tpu_torch.parallel.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    res = {"local_dp": dp_local(dev, failures)}
+    res["local_dp_seconds"] = time.perf_counter() - t0
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = make_mesh(device="cuda")
+        res["mesh"] = {"backend": dist.get_backend(), "size": mesh.size,
+                       "device": str(mesh.device)}
+        t1 = time.perf_counter()
+        res["scene"] = dp_scene(mesh, dev, failures)
+        t2 = time.perf_counter()
+        res["trainers"] = dp_trainers(mesh, dev, failures)
+        t3 = time.perf_counter()
+        res["fleet"] = dp_fleet(dev, failures)
+        t4 = time.perf_counter()
+        res["overhead"] = dp_overhead(mesh, dev, card)
+        res["part_seconds"] = {"scene": t2 - t1, "trainers": t3 - t2, "fleet": t4 - t3,
+                               "overhead": time.perf_counter() - t4}
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
 def main() -> int:
     # the package's trainers (phases 9-13) run under torch's deterministic
     # algorithms on the card, whose cuBLAS calls need this before cuBLAS's
@@ -3758,6 +4282,10 @@ def main() -> int:
         oracle_res = phase_oracle(dev, failures)
         oracle_res["nvidia_smi"] = smi
         log(f"[oracle] {'ok' if not failures else 'FAILED'} in {oracle_res['seconds']:.1f}s")
+        parallel_res = phase_parallel(dev, card, failures)
+        parallel_res["nvidia_smi"] = smi
+        log(f"[parallel] {'ok' if not failures else 'FAILED'} in "
+            f"{parallel_res['seconds']:.1f}s")
     except Exception:
         traceback.print_exc()
         return 1
@@ -3775,6 +4303,12 @@ def main() -> int:
     launches.update({name: r["launches"] for name, r in api_res.items()})
     launches["colsplit_raw"] = scene_res["n_shards=1"]["launches"]
     launches["colsplit"] = scene_res["slab"]["launches"]
+    # phase 15's paths: the factory's .npy route over the card list (local
+    # DP) and the whole scene through the ranks path (world size 1)
+    dp_launches = {name: 0 for name in SOURCES}
+    dp_launches["degrade_v3psn"] = parallel_res["local_dp"]["factory"]["cards"]["launches"].get(
+        "degrade_v3psn", 0)
+    dp_launches["colsplit_raw"] = parallel_res["scene"]["ranks_launches"].get("colsplit_raw", 0)
     main_layout = {"degrade_v3": "nchw", "degrade_v3psn": "presplit",
                    "degrade_v3ps": "presplit_halo", "degrade_v2": "nchw",
                    "degrade_v1": "chwb", "degrade_v4": "nchw",
@@ -3786,6 +4320,7 @@ def main() -> int:
         records.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],
+            "parallel_launches": dp_launches[name],
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "max_rel_err": max(c["max_rel_err"] for c in mine),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
@@ -3811,6 +4346,7 @@ def main() -> int:
     log(json.dumps({"sr": sr_res}))
     log(json.dumps({"fleet": fleet_res}))
     log(json.dumps({"oracle": oracle_res}))
+    log(json.dumps({"parallel": parallel_res}))
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f}s")
     log(smi)
     log(json.dumps({"kernels": records}))

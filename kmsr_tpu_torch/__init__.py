@@ -48,7 +48,14 @@ orchestration: one KernelGAN per scene (`pipeline.train_fleet_cli` ->
 `train.fleet`), the factory's and apply_kernel's per-scene `--kernel-root`
 routes, the Landsat calibration head (`pipeline.calibrate_landsat` ->
 `io.landsat`), the training-log analysis (`analysis.log_analyzer`) and
-the one-config DAG runner (`pipeline.run_all`).
+the one-config DAG runner (`pipeline.run_all`); and the multi-card layer
+(`parallel`): per-host batch data parallelism over local cards for the
+factory's `.npy` route, the NLM, `sr_infer` and `apply_kernel`
+(`parallel.local_dp`), torch.distributed meshes with one process per card
+(`parallel.mesh`, `parallel.multihost`) for the trainers'
+`--data-parallel`, the fleet's `--scene-parallel` and `sr_scene
+--data-parallel`, and the whole scene in one row slab a rank with NCCL
+halo exchange (`parallel.spatial`).
 """
 
 __version__ = "0.1.0"

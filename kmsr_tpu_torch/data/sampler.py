@@ -28,22 +28,21 @@ class NaNPatchError(ValueError):
 def list_patch_files(
     patch_dir: str, pattern: str = "*.nc", host_shard: bool = True
 ) -> list[str]:
-    """Sorted file list; when `torch.distributed` is initialized with more
-    than one process, each rank gets its own deterministic strided shard
-    (files[rank::world_size]; identity for a single process), so every
-    file-in/file-out stage scales across processes with no flag."""
+    """Sorted file list; under a multi-process launch each rank gets its
+    own deterministic strided shard (`parallel.multihost.host_shard`;
+    identity for a single process), so every file-in/file-out stage scales
+    across processes with no flag."""
     files = sorted(glob.glob(os.path.join(patch_dir, pattern)))
     if not files:
         raise FileNotFoundError(f"no {pattern} files in {patch_dir}")
     if host_shard:
-        import torch.distributed as dist
+        from ..parallel import multihost
 
-        if dist.is_available() and dist.is_initialized():
-            rank, world = dist.get_rank(), dist.get_world_size()
-            files = files[rank::world]
+        if multihost.world_size() > 1:
+            files = multihost.host_shard(files)
             if not files:
                 raise FileNotFoundError(
-                    f"rank {rank}'s shard of {patch_dir} is empty"
+                    f"rank {multihost.rank()}'s shard of {patch_dir} is empty"
                 )
     return files
 
@@ -85,8 +84,12 @@ class PatchPool:
         group: str = GROUP_DENOISED,
         band_names: Sequence[str] = BAND_NAMES,
         allow_nan: bool = False,
+        host_shard: bool = True,
     ) -> "PatchPool":
-        files = list_patch_files(patch_dir, "*.nc")
+        """The pool of a folder's `.nc` patches: this rank's shard of them,
+        or every file with host_shard=False (a data-parallel trainer's
+        ranks all draw from the whole pool)."""
+        files = list_patch_files(patch_dir, "*.nc", host_shard=host_shard)
         stacks = [read_band_stack(f, group, band_names) for f in files]
         return cls(np.stack(stacks, axis=0), sources=files, allow_nan=allow_nan)
 
@@ -123,8 +126,10 @@ class PatchPool:
         return cls(patches, sources=[f"{nc_path}[{group}]"] * n_patches)
 
     @classmethod
-    def from_npy_dir(cls, patch_dir: str, allow_nan: bool = False) -> "PatchPool":
-        files = list_patch_files(patch_dir, "*.npy")
+    def from_npy_dir(cls, patch_dir: str, allow_nan: bool = False,
+                     host_shard: bool = True) -> "PatchPool":
+        """`from_nc_dir` for a folder of `.npy` patches."""
+        files = list_patch_files(patch_dir, "*.npy", host_shard=host_shard)
         stacks = [np.load(f).astype(np.float32) for f in files]
         return cls(np.stack(stacks, axis=0), sources=files, allow_nan=allow_nan)
 

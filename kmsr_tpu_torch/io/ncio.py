@@ -191,13 +191,22 @@ class NCFile:
 # Band-stack helpers (the framework-wide [5, H, W] contract)
 # ---------------------------------------------------------------------------
 
+def band_shape(path: str | os.PathLike, group: str,
+               band: str = BAND_NAMES[0]) -> tuple[int, ...]:
+    """The [H, W] shape of one band of `group`, without reading it."""
+    with NCFile(path, "r") as f:
+        return tuple(f.group(group)[band].shape)
+
+
 def read_band_stack(
     path: str | os.PathLike,
     group: str,
     band_names: Iterable[str] = BAND_NAMES,
     fill_to_nan: bool = True,
+    rows: slice | None = None,
 ) -> np.ndarray:
-    """Read the 5 spectral bands of `group` as a `[C, H, W]` float32 stack.
+    """Read the 5 spectral bands of `group` as a `[C, H, W]` float32 stack
+    (only the rows `rows` of each band when given: a rank's slab).
 
     `_FillValue` pixels (and exact INVALID_VALUE matches) become NaN when
     `fill_to_nan`, mirroring the masked-array `.filled(np.nan)` reads in the
@@ -209,7 +218,7 @@ def read_band_stack(
         for b in band_names:
             if b not in grp:
                 raise KeyError(f"band {b!r} not in group {group!r} of {path}")
-            arr = np.asarray(grp[b], dtype=np.float32)
+            arr = np.asarray(grp[b] if rows is None else grp[b][rows], dtype=np.float32)
             if fill_to_nan:
                 fv = grp[b].attrs.get("_FillValue", INVALID_VALUE)
                 arr = np.where(arr == np.float32(fv), np.nan, arr)

@@ -12,6 +12,7 @@ import torch
 import torch.nn.functional as F
 
 from .ops.kernel_algebra import clip_nonneg
+from .parallel.mesh import batch_mean
 
 
 def lsgan_d_loss(pred_real: torch.Tensor, pred_fake: torch.Tensor) -> torch.Tensor:
@@ -99,6 +100,7 @@ def load_balance_loss(weights: torch.Tensor) -> torch.Tensor:
     uniform routing, K when every sample routes to one expert."""
     k = weights.shape[-1]
     hard = F.one_hot(weights.argmax(dim=-1), k).to(weights.dtype)
-    f = hard.mean(dim=0).detach()
-    p = weights.mean(dim=0)
+    # the global batch's fractions inside a data-parallel step
+    f = batch_mean(hard.mean(dim=0).detach())
+    p = batch_mean(weights.mean(dim=0))
     return k * torch.sum(f * p)

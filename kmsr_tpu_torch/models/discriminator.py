@@ -24,6 +24,7 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..ops.degrade import fp32_convs
+from ..parallel.mesh import active_mesh, batch_mean
 
 _SN_EPS = 1e-12
 _BN_EPS = 1e-5
@@ -94,11 +95,22 @@ def _spectral_normalize(w: torch.Tensor, u: torch.Tensor, update: bool):
 
 def batch_norm(x, scale, bias, mean_run, var_run, train: bool):
     """BN over (B, H, W): normalize with the biased batch variance, update
-    the running variance with the unbiased one; running stats detached."""
+    the running variance with the unbiased one; running stats detached.
+
+    Inside a `parallel.mesh.data_parallel` block the statistics are the
+    global batch's, as JAX's sharded step computes them: the ranks' means
+    are averaged, and the variance is the mean of each rank's variance plus
+    its mean's squared distance from the global mean (exact for equal
+    per-rank batches), both differentiable across ranks."""
     if train:
         mean = x.mean(dim=(0, 2, 3))
         var = x.var(dim=(0, 2, 3), unbiased=False)
         n = x.shape[0] * x.shape[2] * x.shape[3]
+        mesh = active_mesh()
+        if mesh is not None:
+            local_mean, mean = mean, batch_mean(mean)
+            var = batch_mean(var + (local_mean - mean) ** 2)
+            n *= mesh.size
         unbiased = var * n / max(n - 1, 1)
         new_mean = (1 - _BN_MOMENTUM) * mean_run + _BN_MOMENTUM * mean
         new_var = (1 - _BN_MOMENTUM) * var_run + _BN_MOMENTUM * unbiased

@@ -30,6 +30,7 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..ops.degrade import degrade_batch_kernels, fp32_convs
+from ..parallel.mesh import global_rows, local_rows
 from .discriminator import batch_norm
 
 #: the selector's three stride-2 convs: (out, in) channels after the input
@@ -126,13 +127,18 @@ def effective_sigmas(params: dict) -> torch.Tensor:
 
 def gumbel_uniform(gen: torch.Generator, shape, device) -> torch.Tensor:
     """Uniforms in [1e-10, 1), as the JAX package draws them (in float32
-    the largest draw, 1 - 2^-24, stays below 1 after the shift)."""
-    return torch.rand(shape, generator=gen, device=device) + 1e-10
+    the largest draw, 1 - 2^-24, stays below 1 after the shift). A DP step
+    draws the global batch's (shape[0] is the batch) and keeps its rows."""
+    shape = (global_rows(shape[0]), *shape[1:])
+    return local_rows(torch.rand(shape, generator=gen, device=device)) + 1e-10
 
 
 def standard_normal(gen: torch.Generator, like: torch.Tensor) -> torch.Tensor:
-    """A standard normal draw shaped like `like` (the output noise)."""
-    return torch.randn(like.shape, generator=gen, device=like.device, dtype=like.dtype)
+    """A standard normal draw shaped like `like` (the output noise); a DP
+    step draws the global batch's and keeps its rows."""
+    shape = (global_rows(like.shape[0]), *like.shape[1:])
+    return local_rows(torch.randn(shape, generator=gen, device=like.device,
+                                  dtype=like.dtype))
 
 
 def gumbel_softmax(logits: torch.Tensor, tau, hard: bool = False, *,

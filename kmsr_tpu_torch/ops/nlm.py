@@ -51,6 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
+from ..parallel.local_dp import gather, local_batch_dp, local_map, pad_put
 from .sigma import estimate_sigma, estimate_sigma_np, pad_index
 
 PATCH_SIZE = 7
@@ -225,22 +226,36 @@ class DenoiseHandle:
     what the host needs to finish it."""
     denoised: torch.Tensor      # [N*C, H, W] host tensor (pinned on a card)
     sigma: torch.Tensor         # [N*C] host tensor (pinned on a card)
-    copied: "torch.cuda.Event | None"  # recorded after the copies; None on the CPU
+    copied: list                # one event a card, recorded after its copies
+    #                             (empty on the CPU)
     staging: torch.Tensor       # the (pinned) upload buffer, kept until the sync
     stacks: np.ndarray          # [N, C, H, W] float32 input, NaNs included
     valid: np.ndarray           # ~isnan(stacks)
     any_valid: np.ndarray       # [N, C]
 
 
+def _sigma_and_nlm(filled: torch.Tensor, h_factor: float):
+    sig = estimate_sigma(filled)
+    return nlm_denoise_2d(filled, sig * h_factor, sig), sig
+
+
 def denoise_batch_dispatch(
-    stacks: np.ndarray, h_factor: float = 1.8, device: str | torch.device = "cuda"
+    stacks: np.ndarray, h_factor: float = 1.8, device: str | torch.device = "cuda",
+    devices=None,
 ) -> DenoiseHandle:
     """Async half of `denoise_batch`: NaN-fill each (file, band) with its
     mean on the host, upload through a pinned buffer (non-blocking on a
     card), launch the sigma pass and the shift sweep and queue their copy
     back; returns the in-flight handle. `denoise_batch_finalize` is the
-    sync point."""
-    dev = resolve_device(device)
+    sync point.
+
+    Batch DP: every (file, band) image is independent, so the flattened
+    leading axis is split over the host's cards (`parallel.local_dp`; for
+    device "cuda", every visible card; `devices` names them explicitly);
+    the zero padding is inert (sigma 0, h clamp, self-weight 1) and is
+    sliced back off."""
+    devs, n_dev = local_batch_dp(device, devices)
+    dev = devs[0]
     stacks = np.asarray(stacks, np.float32)
     n, c, hgt, wid = stacks.shape
     valid = ~np.isnan(stacks)
@@ -254,25 +269,31 @@ def denoise_batch_dispatch(
     host = staging.numpy()
     np.copyto(host, flat)
     np.copyto(host, fills[:, None, None], where=~valid.reshape(flat.shape))
-    filled = staging.to(dev, non_blocking=True)
-    sig = estimate_sigma(filled)
-    den = nlm_denoise_2d(filled, sig * h_factor, sig)
-    copied = None
+    blocks, nb = pad_put(staging, devs, n_dev)
+    outs = local_map(lambda x: _sigma_and_nlm(x, h_factor), blocks)
+    copied = []
     if dev.type == "cuda":
-        den = torch.empty(den.shape, dtype=den.dtype, pin_memory=True).copy_(
-            den, non_blocking=True)
-        sig = torch.empty(sig.shape, dtype=sig.dtype, pin_memory=True).copy_(
-            sig, non_blocking=True)
-        copied = torch.cuda.Event()
-        copied.record()
+        step = blocks[0].shape[0]
+        den = torch.empty((step * n_dev, hgt, wid), dtype=torch.float32, pin_memory=True)
+        sig = torch.empty(step * n_dev, dtype=torch.float32, pin_memory=True)
+        for i, (d_i, s_i) in enumerate(outs):
+            with torch.cuda.device(d_i.device):
+                den[i * step:(i + 1) * step].copy_(d_i, non_blocking=True)
+                sig[i * step:(i + 1) * step].copy_(s_i, non_blocking=True)
+                copied.append(torch.cuda.Event())
+                copied[-1].record()
+        den, sig = den[:nb], sig[:nb]
+    else:
+        den = gather([o[0] for o in outs], nb)
+        sig = gather([o[1] for o in outs], nb)
     return DenoiseHandle(den, sig, copied, staging, stacks, valid, any_valid)
 
 
 def denoise_batch_finalize(handle: DenoiseHandle) -> tuple[np.ndarray, np.ndarray]:
     """Sync half of `denoise_batch`: wait for the sweep's copy back, then
     restore NaNs and pass all-NaN bands through on the host."""
-    if handle.copied is not None:
-        handle.copied.synchronize()
+    for done in handle.copied:
+        done.synchronize()
     stacks = handle.stacks
     n, c = stacks.shape[:2]
     den = handle.denoised.numpy().reshape(stacks.shape)

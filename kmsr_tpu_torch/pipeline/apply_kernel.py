@@ -11,8 +11,12 @@ to its selector's argmax expert and blurs it with that expert's kernel
 `--kernel-root DIR` takes per-scene kernels (a fleet run's outdir,
 `DIR/<scene>/kernel_per_band.npy`): each scene's files run through its own
 kernel, a scene with no kernel failing all of its files, as the factory's
-route does. Still refused: the batch data parallelism over several local
-devices (ROADMAP.md queue 1 item 7).
+route does.
+
+The single-kernel routes split each batch over the host's cards
+(`parallel.local_dp`; the degrade is per-sample independent), as JAX
+shards them over its local devices. The MoE route stays on one device, as
+in JAX: its selector may use batch statistics, which padding would perturb.
 
 Usage:
     python -m kmsr_tpu_torch.pipeline.apply_kernel --input-dir PATCHES \
@@ -35,7 +39,15 @@ from ..device import resolve_device
 from ..io.ncio import copy_file_with_groups, read_band_stack, write_band_stack
 from ..io.schema import GROUP_BLURRED, GROUP_DENOISED, RADIANCE_UNITS
 from ..ops.degrade import degrade_strided
-from .common import DeviceSyncGuard, RunReport, chunked_reader, route_per_scene_kernels
+from ..parallel.local_dp import gather, local_map
+from .common import (
+    DeviceSyncGuard,
+    RunReport,
+    chunked_reader,
+    local_batch_dp,
+    pad_put,
+    route_per_scene_kernels,
+)
 
 
 def kernel_bands(k: np.ndarray, n_bands: int = 5, name: str = "kernel") -> np.ndarray:
@@ -84,6 +96,35 @@ def make_degrader(kernel_path: str | None, moe_path: str | None, factor: int,
             os.path.basename(os.path.normpath(moe_path)))
 
 
+def make_degraders(kernel_path: str | None, moe_path: str | None, factor: int,
+                   device: str | torch.device = "cuda", devices=None):
+    """(devices, {device: `make_degrader`'s fn on it}, the kernel_file
+    name): the kernel routes over the host's cards (for device "cuda",
+    every visible card; `devices` names them explicitly), the MoE route on
+    one device."""
+    dev = resolve_device(device)
+    if moe_path is not None:
+        devs = [dev]
+        if dev.type == "cuda" and dev.index is None:
+            devs = [torch.device("cuda", torch.cuda.current_device())]
+    else:
+        devs, _ = local_batch_dp(device, devices)
+    fns = {d: make_degrader(kernel_path, moe_path, factor, d) for d in devs}
+    return devs, {d: fn for d, (fn, _) in fns.items()}, fns[devs[0]][1]
+
+
+def degrade_group(stacks: list, fns: dict, devs: list) -> tuple:
+    """One shape group's device work: the stacked [B, C, H, W] batch padded
+    to a multiple of the device count, one contiguous block a device (a
+    non-blocking copy to a card), each block degraded on its device and the
+    blocks gathered in order on the first; returns (degraded, experts or
+    None), dispatched, not synchronized."""
+    blocks, b = pad_put(np.stack(stacks), devs, len(devs))
+    outs = local_map(lambda x: fns[x.device](x), blocks)
+    # the MoE route runs on one device: its experts are the one block's
+    return gather([o[0] for o in outs], b), outs[0][1]
+
+
 def apply_kernel_to_folder(
     input_dir: str,
     kernel_path: str | None,
@@ -99,12 +140,16 @@ def apply_kernel_to_folder(
     device: str | torch.device = "cuda",
     moe_path: str | None = None,
     kernel_root: str | None = None,
+    devices=None,
 ) -> RunReport:
     """Degrade every patch file; write `out_group` into a copy (or in place).
 
     Exactly one of kernel_path, moe_path (content-adaptive routing, the
     factory's `--moe` blur without its noise) and kernel_root (per-scene
-    kernels, a fleet run's outdir) is taken."""
+    kernels, a fleet run's outdir) is taken. The batches of the kernel
+    routes are split over the host's cards (for device "cuda", every
+    visible card; `devices` names them explicitly: `make_degraders`,
+    `degrade_group`)."""
     dev = resolve_device(device)
     t0 = time.time()
     if sum(p is not None for p in (kernel_path, moe_path, kernel_root)) != 1:
@@ -120,11 +165,11 @@ def apply_kernel_to_folder(
                 input_dir, k_path, output_dir, factor=factor,
                 in_group=in_group, out_group=out_group, suffix=suffix,
                 batch_size=batch_size, in_place=in_place, progress=progress,
-                files=scene_files, device=dev,
+                files=scene_files, device=device, devices=devices,
             ),
             "apply_kernel", output_dir,
         )
-    fn, kernel_src = make_degrader(kernel_path, moe_path, factor, dev)
+    devs, fns, kernel_src = make_degraders(kernel_path, moe_path, factor, dev, devices)
     os.makedirs(output_dir, exist_ok=True)
 
     ok, fail = [], []
@@ -195,8 +240,7 @@ def apply_kernel_to_folder(
         for items in groups.values():
             paths = [p for p, _ in items]
             try:
-                batch = torch.from_numpy(np.stack([s for _, s in items])).to(dev)
-                degraded_dev, experts_dev = fn(batch)
+                degraded_dev, experts_dev = degrade_group([s for _, s in items], fns, devs)
             except Exception as e:  # per-group failure isolation
                 fail.extend((p, f"{type(e).__name__}: {e}") for p in paths)
                 continue

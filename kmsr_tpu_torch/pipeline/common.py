@@ -4,7 +4,8 @@ The port's copy of the parts of `kmsr_tpu.pipeline.common` the factory,
 the denoise and cut stages and the trainer CLI use: `RunReport`,
 `run_per_file`, `DeviceSyncGuard`, `chunked_reader`, `maybe_trace` and
 `route_per_scene_kernels` (the factory's and apply_kernel's
-`--kernel-root`).
+`--kernel-root`), and re-exports `local_batch_dp` / `pad_put` from
+`parallel.local_dp` for the stages, as the JAX module does.
 Every reference batch driver wraps its per-file work in try/except-continue
 with success/failure counting (`A_00_patch_cutter_universal.py:409-419`,
 `E_make_train_data.py:264-272`, `denoise/batch_denoise.py:60-93`) so one
@@ -187,6 +188,11 @@ def maybe_trace(log_dir: Optional[str]):
     path = os.path.join(log_dir, "trace.json")
     prof.export_chrome_trace(path)
     print(f"[trace] timeline written to {path}")
+
+
+# Re-exported for the pipeline stages; the implementation lives in
+# parallel.local_dp (ops modules use it too and must not import pipeline).
+from ..parallel.local_dp import local_batch_dp, pad_put  # noqa: E402,F401
 
 
 def route_per_scene_kernels(

@@ -10,11 +10,19 @@ so masked scenes survive the stencil. Reads `geophysical_data` and
 appends a `blurred` group to a copy of each scene file, as the JAX stage
 does.
 
+Across ranks (a torchrun launch of several processes, one per card; JAX
+row-shards each scene over its mesh): every rank takes part in every
+scene, reads only its own row slab from the file (`parallel.spatial.
+rank_rows`), fills its NaN pixels with the band means of the whole scene
+(sums and counts all-reduced), degrades its slab once with halo rows from
+its neighbours, and rank 0 writes the gathered output.
+
 Usage:
     python -m kmsr_tpu_torch.pipeline.degrade_scene --input SCENE.nc_or_DIR \
         --kernel kernel_per_band.npy --output-dir OUT [--factor 8] \
         [--in-group geophysical_data] [--out-group blurred] \
         [--impl fast|bands] [--device cuda|cpu]
+    torchrun --nproc_per_node=N -m kmsr_tpu_torch.pipeline.degrade_scene ...
 """
 from __future__ import annotations
 
@@ -27,9 +35,11 @@ import torch
 
 from ..data.sampler import list_patch_files
 from ..device import resolve_device
-from ..io.ncio import copy_file_with_groups, read_band_stack, write_band_stack
+from ..io.ncio import band_shape, copy_file_with_groups, read_band_stack, write_band_stack
 from ..io.schema import GROUP_BLURRED, GROUP_GEO, RADIANCE_UNITS
-from ..parallel.spatial import degrade_scene
+from ..parallel.mesh import make_mesh
+from ..parallel.multihost import global_batch, initialize_if_needed, world_size
+from ..parallel.spatial import degrade_scene, degrade_slab_ranks, rank_rows, scene_slab
 from ..utils.profiling import stage_timer
 from .apply_kernel import load_kernel
 from .common import RunReport
@@ -74,6 +84,55 @@ def degrade_scene_file(
         return out.cpu().numpy()
 
 
+def degrade_scene_ranks(read_rows, h: int, kernel: torch.Tensor, mesh,
+                        factor: int = 8, impl: str = "fast") -> np.ndarray:
+    """The whole-scene degrade with one row slab a rank: this rank reads
+    only its slab through read_rows(lo, hi) (scene rows lo..hi as a host
+    [C, rows, W] array; H = h), NaN-fills it with the whole scene's band
+    means (each rank's NaN-sums and counts over its own rows of the scene,
+    all-reduced), degrades it once with its neighbours' halo rows,
+    restores the cells whose footprint was all NaN and all-gathers the
+    rows: every rank returns the whole [C, H//f, W//f] output. At world
+    size 1 this is `degrade_scene_file` on the same scene."""
+    dev = kernel.device
+    r0, r1, h_keep = rank_rows(h, factor, mesh)
+    slab = scene_slab(read_rows, r0, r1, h_keep)
+    c, _, w = slab.shape
+    w_keep = (w // factor) * factor
+    with stage_timer("scene.h2d"):
+        x = slab.to(dev)
+        _sync(dev)
+    with stage_timer("scene.kernel"):
+        # the band-mean statistics over the rank's own rows of the scene
+        # (the last rank's include the rows past h_keep)
+        own = x[:, :max(0, min(r1, h_keep) - r0)]
+        if mesh.rank == mesh.size - 1 and h > h_keep:
+            own = torch.cat([own, torch.as_tensor(read_rows(h_keep, h)).to(dev)], dim=1)
+        valid = ~torch.isnan(x)
+        # NaN-sums (float32, as torch.nanmean sums) and exact valid counts
+        sums = torch.nansum(own, dim=(1, 2))
+        counts = (~torch.isnan(own)).sum(dim=(1, 2))
+        if mesh.group is not None:
+            for t in (sums, counts):
+                torch.distributed.all_reduce(t, group=mesh.group)
+        x = x[:, :, :w_keep]
+        valid = valid[:, :, :w_keep]
+        if int(counts.sum()) == c * h * w:
+            out = degrade_slab_ranks(x, kernel, mesh, factor, impl)
+        else:
+            # nanmean's division: the float32 sum over the integer count
+            fills = torch.where(counts > 0, sums / counts, 0.0)
+            out = degrade_slab_ranks(torch.where(valid, x, fills[:, None, None]),
+                                     kernel, mesh, factor, impl)
+            oh, ow = out.shape[1:]
+            v = valid.reshape(c, oh, factor, ow, factor)
+            out = torch.where(v.any(dim=4).any(dim=2), out, float("nan"))
+        out = global_batch(mesh, out, dim=1)[:, : h_keep // factor]
+        _sync(dev)
+    with stage_timer("scene.d2h"):
+        return out.cpu().numpy()
+
+
 def process_scenes(
     input_path: str,
     kernel_path: str,
@@ -84,24 +143,37 @@ def process_scenes(
     suffix: str = "_blurred",
     impl: str = "fast",
     device: str | torch.device = "cuda",
+    mesh=None,
 ) -> RunReport:
-    """Degrade every scene file; write `out_group` into a copy of each."""
-    dev = resolve_device(device)
+    """Degrade every scene file; write `out_group` into a copy of each.
+    With `mesh` (every rank calls this on the same files), each scene is
+    degraded in one slab a rank (`degrade_scene_ranks`) and rank 0
+    writes."""
+    dev = resolve_device(device) if mesh is None else mesh.device
     t0 = time.time()
     kernel = torch.from_numpy(load_kernel(kernel_path)).to(dev)
     files = (
         [input_path]
         if os.path.isfile(input_path)
-        else list_patch_files(input_path, "*.nc")
+        else list_patch_files(input_path, "*.nc", host_shard=mesh is None)
     )
+    main = mesh is None or mesh.is_main
     os.makedirs(output_dir, exist_ok=True)
     ok, fail = [], []
     for path in files:
         try:
-            scene = read_band_stack(path, in_group)
-            lr = degrade_scene_file(scene, kernel, factor, impl=impl)
+            if mesh is None:
+                lr = degrade_scene_file(read_band_stack(path, in_group), kernel,
+                                        factor, impl=impl)
+            else:
+                lr = degrade_scene_ranks(
+                    lambda lo, hi: read_band_stack(path, in_group, rows=slice(lo, hi)),
+                    band_shape(path, in_group)[0], kernel, mesh, factor, impl)
             base = os.path.splitext(os.path.basename(path))[0]
             out_path = os.path.join(output_dir, f"{base}{suffix}.nc")
+            if not main:
+                ok.append(out_path)
+                continue
             copy_file_with_groups(path, out_path)
             write_band_stack(
                 out_path,
@@ -113,7 +185,8 @@ def process_scenes(
                 group_attrs={
                     "history": (
                         f"whole-scene blur + {factor}x downsample, "
-                        f"one row slab on {dev.type}"
+                        + (f"one row slab on {dev.type}" if mesh is None else
+                           f"{mesh.size} row slab(s) over ranks on {dev.type}")
                     ),
                     "kernel_file": os.path.basename(kernel_path),
                 },
@@ -140,11 +213,18 @@ def main(argv=None) -> int:
                    help="fast: raw-slab stencil kernel; bands: slab conv")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     a = p.parse_args(argv)
-    report = process_scenes(
-        a.input, a.kernel, a.output_dir,
-        factor=a.factor, in_group=a.in_group, out_group=a.out_group,
-        suffix=a.suffix, impl=a.impl, device=a.device,
-    )
+    # under a launch of several processes: one row slab a rank
+    started = initialize_if_needed(a.device)
+    try:
+        report = process_scenes(
+            a.input, a.kernel, a.output_dir,
+            factor=a.factor, in_group=a.in_group, out_group=a.out_group,
+            suffix=a.suffix, impl=a.impl, device=a.device,
+            mesh=make_mesh(device=a.device) if world_size() > 1 else None,
+        )
+    finally:
+        if started:
+            torch.distributed.destroy_process_group()
     return 0 if report.n_fail == 0 else 1
 
 

@@ -45,8 +45,12 @@ per-band sigma (`--moe-noise sigma`); the `lr` group carries the
 one-kernel route above on its own files, with its own noise seed
 `scene_seed(seed, scene)`, so it takes the same routes and launches the
 same kernels as a one-kernel run. A scene with no kernel fails all of its
-files; the others go on. Still refused: the data parallelism over several
-local devices (ROADMAP.md queue 1 item 7).
+files; the others go on.
+
+The `.npy` presplit route splits each batch over the host's cards
+(`parallel.local_dp`), launching `degrade_v3psn` once a card, as JAX
+shard_maps it over its local devices; the other routes run on one card,
+as in JAX.
 
 Usage:
     python -m kmsr_tpu_torch.pipeline.factory --input-dir DENOISED \
@@ -81,6 +85,7 @@ from ..models.moe import (
 )
 from ..ops.degrade import degrade_batch_kernels, degrade_strided
 from ..ops.degrade_fused import degrade_fused, degrade_fused_presplit
+from ..parallel.local_dp import gather, local_batch_dp, local_map, pad_put
 from ..utils.params_io import load_params
 from ..utils.profiling import stage_timer
 from .apply_kernel import load_kernel
@@ -96,6 +101,10 @@ Batch = tuple[list, np.ndarray, torch.Tensor, list]
 #: failures)
 MoEBatch = tuple[list, np.ndarray, torch.Tensor, torch.Tensor, list]
 
+
+#: JAX's TPU lane width (`kmsr_tpu.ops.degrade_pallas.LANE`): the presplit
+#: route splits a chunk over n_dev cards once it holds LANE * n_dev / 2 patches
+LANE = 128
 
 def _backend(backend: str) -> str:
     if backend not in BACKENDS:
@@ -273,17 +282,30 @@ def presplit_batches(
     factor: int = 8,
     batch_size: int = 128,
     device: str | torch.device = "cuda",
+    devices=None,
 ) -> Iterator[Batch]:
     """The `.npy` route: the native split gather feeds the halo-free
     presplit kernel (`degrade_fused_presplit`); lr is returned as a
-    [b, C, h, w] view of the kernel's [C, h, w, b] output."""
-    dev = resolve_device(device)
+    [b, C, h, w] view of the kernel's [C, h, w, b] output.
+
+    Batch DP over the host's cards (`parallel.local_dp`; for device
+    "cuda", every visible card; `devices` names them explicitly), as JAX
+    shard_maps the route over its local devices: a chunk of at least
+    LANE * n_dev / 2 patches has its batch (lane) axis split into one
+    contiguous block a card, with its noise draws, and `degrade_v3psn` is
+    launched once a card; the lr blocks are gathered in order on the first
+    card. Smaller (tail) chunks run on the first card alone, as in JAX.
+    The CUDA kernel takes any batch width, so the batch is padded to a
+    multiple of the card count only, not of JAX's 128-lane quantum."""
+    devs, n_dev = local_batch_dp(device, devices)
+    dev = devs[0]
     if len(shape) != 3 or shape[1] % factor or shape[2] % factor:
         raise ValueError(
             f"npy patches must be [C, H, W] with H, W multiples of "
             f"factor; got {shape}"
         )
     c, h, w = shape
+    kernels = {d: kernel.to(d) for d in devs}
     for paths, xp, nat, chunk_fail in _npy_split_batches(
             files, batch_size, shape, factor, dev):
         if xp is None:
@@ -293,10 +315,13 @@ def presplit_batches(
             noise = _host_empty((c, h // factor, w // factor, len(paths)), dev)
             np.copyto(noise.numpy(), np.transpose(
                 pool[[noise_of[p] for p in paths]], (1, 2, 3, 0)))  # CHWB
-            lr = degrade_fused_presplit(
-                xp.to(dev, non_blocking=True), kernel,
-                noise=noise.to(dev, non_blocking=True), factor=factor,
-            )
+            # DP only pays when the chunk roughly fills the card set
+            use = devs if n_dev > 1 and len(paths) >= LANE * n_dev // 2 else devs[:1]
+            xs, b = pad_put(xp, use, len(use), axis=-1)
+            ns, _ = pad_put(noise, use, len(use), axis=-1)
+            lr = gather(local_map(
+                lambda x, n: degrade_fused_presplit(x, kernels[x.device], noise=n,
+                                                    factor=factor), xs, ns), b, axis=-1)
         yield paths, nat.numpy(), lr.permute(3, 0, 1, 2), chunk_fail
 
 
@@ -457,17 +482,19 @@ def factory_batches(
     input_format: str = "nc",
     in_group: str = GROUP_DENOISED,
     device: str | torch.device = "cuda",
+    devices=None,
 ) -> Iterator[Batch]:
     """The factory's device part, batch by batch: the presplit route for
-    fused `.npy` input, the natural route otherwise. `run_factory`
-    consumes this generator and writes each batch's files."""
+    fused `.npy` input (over the host's cards, `presplit_batches`), the
+    natural route otherwise (one card, as in JAX). `run_factory` consumes
+    this generator and writes each batch's files."""
     kernel, pool, noise_of = factory_inputs(files, kernel_path,
                                             noise_pool_path, seed, device)
     shape = _presplit_shape(files, kernel, factor, backend, input_format)
     if shape is not None:
         return presplit_batches(files, kernel, pool, noise_of, shape=shape,
                                 factor=factor, batch_size=batch_size,
-                                device=device)
+                                device=device, devices=devices)
     return natural_batches(files, kernel, pool, noise_of, factor=factor,
                            batch_size=batch_size, backend=backend,
                            input_format=input_format, in_group=in_group,

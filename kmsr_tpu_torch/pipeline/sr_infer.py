@@ -14,8 +14,9 @@ in-memory stacks too. It keeps a one-deep pipeline: group k+1 is staged
 and each group's predictions and metrics come back through pinned memory
 on the same stream, so the host's file writes overlap the next forward.
 A failed group fails its files only; `DeviceSyncGuard` aborts the run
-when the device keeps failing. The JAX package's local-device data
-parallelism is not ported: the stage runs on one device.
+when the device keeps failing. Each group is split over the host's cards
+(`parallel.local_dp`: the SR forward has no cross-sample state), as JAX
+shards the file batch over its local devices.
 
 Usage:
     python -m kmsr_tpu_torch.pipeline.sr_infer --input-dir TRAIN_DATA \
@@ -27,6 +28,7 @@ from __future__ import annotations
 import argparse
 import os
 import time
+from contextlib import nullcontext
 from typing import Callable, Iterable, Optional
 
 import numpy as np
@@ -38,9 +40,10 @@ from ..io.ncio import NCFile, copy_file_with_groups, read_band_stack, write_band
 from ..io.schema import GROUP_HR, GROUP_LR
 from ..models.sr import SRConfig, init_sr, sr_forward
 from ..ops.metrics import psnr, ssim
+from ..train.state import tree_map
 from ..utils.params_io import load_params
 from ..utils.profiling import stage_timer
-from .common import DeviceSyncGuard, RunReport, chunked_reader
+from .common import DeviceSyncGuard, RunReport, chunked_reader, local_batch_dp
 
 #: one chunk of input: (paths, [(lr [C,h,w], hr [C,H,W] or None)], failures)
 Chunk = tuple[list, list, list]
@@ -105,35 +108,57 @@ def dispatch(params: dict, lrs: list, hrs: Optional[list], cfg: SRConfig,
     return to_host(pred), metrics, queued_event(dev)
 
 
+def _blocks(arrays: list, n_dev: int) -> list[list]:
+    """`arrays` padded with zero arrays to an n_dev multiple and cut into
+    n_dev contiguous blocks (one block, unpadded, for one device)."""
+    if n_dev == 1:
+        return [arrays]
+    step = -(-len(arrays) // n_dev)
+    padded = arrays + [np.zeros_like(arrays[0])] * (step * n_dev - len(arrays))
+    return [padded[i * step:(i + 1) * step] for i in range(n_dev)]
+
+
 def run_batches(
     chunks: Iterable[Chunk],
     params: dict,
     cfg: SRConfig,
     on_batch: Callable[[list, np.ndarray, Optional[np.ndarray]], None],
     device: str | torch.device = "cuda",
+    devices=None,
 ) -> list:
     """The device loop: each chunk split into groups of one (lr, hr)
     shape, each group dispatched, and on_batch(paths, preds [b, C, H, W],
     metrics [b, 2] (psnr, ssim) or None) called once it is on the host,
     after the next group was dispatched. Returns the failures [(path,
-    error)] of the chunks and of failed groups."""
-    dev = resolve_device(device)
+    error)] of the chunks and of failed groups.
+
+    Each group is split over the host's cards (for device "cuda", every
+    visible card; `devices` names them explicitly), one contiguous block a
+    card with the model copied to each, and the blocks' results are
+    concatenated in order."""
+    devs, n_dev = local_batch_dp(device, devices)
+    params_on = {d: tree_map(lambda t, d=d: t.to(d), params) for d in devs}
     fail: list = []
     sync_guard = DeviceSyncGuard()
 
-    def finish(paths, preds, metrics, done):
+    def finish(paths, outs):
         # device-side failures surface at this sync: fail the group, not
         # the run (unless the guard sees the device persistently wedged)
         try:
             with stage_timer("sr_infer.device_sync"):
-                if done is not None:
-                    done.synchronize()
+                for _, _, done in outs:
+                    if done is not None:
+                        done.synchronize()
             sync_guard.succeeded()
         except Exception as e:  # per-group failure isolation
             fail.extend((p, f"{type(e).__name__}: {e}") for p in paths)
             sync_guard.failed(e)
             return
-        on_batch(paths, preds.numpy(), None if metrics is None else metrics.numpy())
+        b = len(paths)
+        preds = np.concatenate([o[0].numpy() for o in outs])[:b]
+        metrics = (None if outs[0][1] is None
+                   else np.concatenate([o[1].numpy() for o in outs])[:b])
+        on_batch(paths, preds, metrics)
 
     pending = None
     for paths, items, chunk_fail in chunks:
@@ -147,15 +172,19 @@ def run_batches(
             paths_g = [p for p, _, _ in items_g]
             try:
                 with stage_timer("sr_infer.dispatch"):
-                    out = dispatch(params, [lr for _, lr, _ in items_g],
-                                   None if hr_shape is None else [hr for _, _, hr in items_g],
-                                   cfg, dev)
+                    lrs = _blocks([lr for _, lr, _ in items_g], n_dev)
+                    hrs = (_blocks([hr for _, _, hr in items_g], n_dev)
+                           if hr_shape is not None else [None] * n_dev)
+                    outs = []
+                    for d, lr_b, hr_b in zip(devs, lrs, hrs):
+                        with torch.cuda.device(d) if d.type == "cuda" else nullcontext():
+                            outs.append(dispatch(params_on[d], lr_b, hr_b, cfg, d))
             except Exception as e:  # per-group failure isolation
                 fail.extend((p, f"{type(e).__name__}: {e}") for p in paths_g)
                 continue
             if pending is not None:
                 finish(*pending)
-            pending = (paths_g, *out)
+            pending = (paths_g, outs)
     if pending is not None:
         finish(*pending)
     return fail

@@ -28,13 +28,18 @@ upload), sr_scene.dispatch (slab gather, forward, crop, copy back queued),
 sr_scene.device_sync (waiting for a chunk's copy back), sr_scene.assemble
 (host copies into the output), sr_scene.nan_restore.
 
-The JAX package's `--data-parallel` (tiles sharded over a device mesh)
-is not ported: it is refused (ROADMAP.md queue 1 item 7).
+`--data-parallel` (JAX: the tile batch sharded over a device mesh): under
+a torchrun launch of one process per card, each chunk (rounded up to a
+multiple of the rank count, as JAX rounds it to its devices) is split over
+the ranks in contiguous blocks; every rank runs the network on its block,
+the centres are all-gathered, and rank 0 assembles the scene and writes
+each output file once.
 
 Usage:
     python -m kmsr_tpu_torch.pipeline.sr_scene --input SCENE.nc_or_DIR \
         --model sr_model.npz --output-dir OUT [--in-group lr] \
         [--tile 64] [--halo N] [--chunk 32] [--device cuda|cpu]
+    torchrun --nproc_per_node=N -m kmsr_tpu_torch.pipeline.sr_scene ... --data-parallel
 """
 from __future__ import annotations
 
@@ -46,10 +51,11 @@ import numpy as np
 import torch
 
 from ..data.sampler import list_patch_files
-from ..device import resolve_device
 from ..io.ncio import copy_file_with_groups, read_band_stack, write_band_stack
 from ..io.schema import GROUP_LR
 from ..models.sr import SRConfig, sr_forward
+from ..parallel.mesh import launch_mesh, mesh_device, rows_of
+from ..parallel.multihost import global_batch
 from ..utils.profiling import stage_timer
 from .common import RunReport
 from .sr_infer import load_sr_model, queued_event, to_host
@@ -108,6 +114,20 @@ def _crops(batch: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
     return batch.gather(2, rows.expand(n, c, hgt, w)).gather(3, cols.expand(n, c, hgt, wid))
 
 
+def _rank_crops(params, filled, idx, padn, cfg, compute_dtype, sizes, mesh):
+    """One chunk's tile centres with the chunk's tiles split over the ranks:
+    the chunk (idx padded with padn repeats of its first tile) is cut into
+    one contiguous block a rank, each rank runs the network on its block
+    and crops its centres, and the centres are all-gathered in rank order."""
+    slab_h, slab_w, ch, cw = sizes
+    if padn:
+        idx = torch.cat([idx, idx[:1].expand(padn, -1)])
+    mine = idx[rows_of(mesh, idx.shape[0])]
+    res = sr_forward(params, _slabs(filled, mine[:, 0], mine[:, 1], slab_h, slab_w),
+                     cfg, compute_dtype)
+    return global_batch(mesh, _crops(res, mine[:, 2], mine[:, 3], ch, cw))
+
+
 def sr_scene(
     params: dict,
     scene: np.ndarray,
@@ -117,9 +137,17 @@ def sr_scene(
     chunk: int = 32,
     compute_dtype: torch.dtype = torch.bfloat16,
     device: str | torch.device = "cuda",
-) -> np.ndarray:
-    """[C, H, W] LR scene -> [C, H*factor, W*factor] SR scene (host array)."""
-    dev = resolve_device(device)
+    mesh=None,
+) -> np.ndarray | None:
+    """[C, H, W] LR scene -> [C, H*factor, W*factor] SR scene (host array).
+    With `mesh` (a 'data' mesh; every rank passes the same scene), each
+    chunk's tiles are split over the ranks and the scene is assembled on
+    rank 0, which returns it; the other ranks return None."""
+    dev = mesh_device(device, mesh)
+    n_rank = 1 if mesh is None else mesh.size
+    if chunk % n_rank:  # even blocks per rank: round up, don't fail mid-run
+        chunk = -(-chunk // n_rank) * n_rank
+    main = mesh is None or mesh.is_main
     scene = np.asarray(scene, np.float32)
     c, h, w = scene.shape
     f = cfg.factor
@@ -132,12 +160,14 @@ def sr_scene(
         filled = _upload(_band_filled(scene, valid), dev)
 
     coords = [(y, x) for y in _anchors(h, th) for x in _anchors(w, tw)]
-    out = np.empty((c, h * f, w * f), np.float32)
+    out = np.empty((c, h * f, w * f), np.float32) if main else None
 
     def assemble(group, res, done):
         with stage_timer("sr_scene.device_sync"):
             if done is not None:
                 done.synchronize()
+        if not main:
+            return
         with stage_timer("sr_scene.assemble"):
             for (y0, x0), tile_out in zip(group, res.numpy()):
                 out[:, y0 * f:(y0 + th) * f, x0 * f:(x0 + tw) * f] = tile_out
@@ -152,19 +182,23 @@ def sr_scene(
             # keep ONE dispatch shape: pad the last chunk with zero slabs
             padn = chunk - len(group)
             idx = _upload(np.concatenate([starts, centre], axis=1), dev)
-            slabs = _slabs(filled, idx[:, 0], idx[:, 1], slab_h, slab_w)
-            if padn:
-                slabs = torch.cat([slabs, slabs.new_zeros((padn, *slabs.shape[1:]))])
-            res = sr_forward(params, slabs, cfg, compute_dtype)[:len(group)]
-            crops = _crops(res, idx[:, 2], idx[:, 3], th * f, tw * f)
-            host, done = to_host(crops), queued_event(dev)
+            if mesh is None:
+                slabs = _slabs(filled, idx[:, 0], idx[:, 1], slab_h, slab_w)
+                if padn:
+                    slabs = torch.cat([slabs, slabs.new_zeros((padn, *slabs.shape[1:]))])
+                res = sr_forward(params, slabs, cfg, compute_dtype)[:len(group)]
+                crops = _crops(res, idx[:, 2], idx[:, 3], th * f, tw * f)
+            else:
+                crops = _rank_crops(params, filled, idx, padn, cfg, compute_dtype,
+                                    (slab_h, slab_w, th * f, tw * f), mesh)[:len(group)]
+            host, done = (to_host(crops), queued_event(dev)) if main else (None, None)
         if pending is not None:
             assemble(*pending)
         pending = (group, host, done)
     if pending is not None:
         assemble(*pending)
 
-    if not valid.all():
+    if main and not valid.all():
         with stage_timer("sr_scene.nan_restore"):
             # in-place masked write on a block view — a repeated boolean
             # mask would allocate another full-HR array (GBs at scene scale)
@@ -184,13 +218,17 @@ def sr_scene_folder(
     halo: int | None = None,
     chunk: int = 32,
     device: str | torch.device = "cuda",
+    mesh=None,
 ) -> RunReport:
+    """Super-resolve every scene; with `mesh` every rank takes part in every
+    scene (`sr_scene`) and rank 0 writes each output file."""
     t0 = time.time()
-    dev = resolve_device(device)
+    dev = mesh_device(device, mesh)
+    main = mesh is None or mesh.is_main
     params = load_sr_model(model_path, cfg, dev)
     files = (
         [input_path] if os.path.isfile(input_path)
-        else list_patch_files(input_path, "*.nc")
+        else list_patch_files(input_path, "*.nc", host_shard=mesh is None)
     )
     os.makedirs(output_dir, exist_ok=True)
     ok, fail = [], []
@@ -199,7 +237,10 @@ def sr_scene_folder(
         try:
             scene = read_band_stack(path, in_group)
             sr = sr_scene(params, scene, cfg, tile=tile, halo=halo, chunk=chunk,
-                          device=dev)
+                          device=dev, mesh=mesh)
+            if not main:
+                ok.append(path)
+                continue
             dst = os.path.join(output_dir, os.path.basename(path))
             copy_file_with_groups(path, dst)
             write_band_stack(
@@ -216,10 +257,11 @@ def sr_scene_folder(
         except Exception as e:  # per-file failure isolation
             fail.append((path, f"{type(e).__name__}: {e}"))
     dt = time.time() - t0
-    print(
-        f"sr_scene: {len(ok)} scene(s), {total_px / 1e6:.1f} Mpix out in "
-        f"{dt:.1f}s ({total_px / dt / 1e6:.1f} Mpix/s end-to-end)"
-    )
+    if main:
+        print(
+            f"sr_scene: {len(ok)} scene(s), {total_px / 1e6:.1f} Mpix out in "
+            f"{dt:.1f}s ({total_px / dt / 1e6:.1f} Mpix/s end-to-end)"
+        )
     return RunReport(succeeded=ok, failed=fail, seconds=dt)
 
 
@@ -240,25 +282,22 @@ def build_parser() -> argparse.ArgumentParser:
                    help="LR halo (default: the receptive-field bound)")
     p.add_argument("--chunk", type=int, default=32, help="tiles per dispatch")
     p.add_argument("--data-parallel", action="store_true",
-                   help="not ported yet (ROADMAP.md queue 1 item 7): refused")
+                   help="shard the tile batch over all devices: one process "
+                        "per card under torchrun (a plain process is one rank)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return p
 
 
 def main(argv=None) -> int:
     a = build_parser().parse_args(argv)
-    if a.data_parallel:
-        raise SystemExit(
-            "--data-parallel is not ported: tiles sharded over several cards "
-            "is ROADMAP.md queue 1 item 7 (torch.distributed); drop the flag "
-            "to run on one device")
     cfg = SRConfig(width=a.width, n_blocks=a.n_blocks, factor=a.factor,
                    upsampler=a.upsampler)
-    rep = sr_scene_folder(
-        a.input, a.model, a.output_dir, cfg, in_group=a.in_group,
-        out_group=a.out_group, tile=a.tile, halo=a.halo, chunk=a.chunk,
-        device=a.device,
-    )
+    with launch_mesh(a.data_parallel, "data", a.device) as mesh:
+        rep = sr_scene_folder(
+            a.input, a.model, a.output_dir, cfg, in_group=a.in_group,
+            out_group=a.out_group, tile=a.tile, halo=a.halo, chunk=a.chunk,
+            device=a.device, mesh=mesh,
+        )
     for path, err in rep.failed:
         print(f"FAILED {path}: {err}")
     return 0 if not rep.failed else 1

@@ -17,6 +17,7 @@ import os
 from ..data.sampler import PatchPool
 from ..device import resolve_device, set_cublas_workspace_config
 from ..io.schema import GROUP_DENOISED
+from ..parallel.mesh import launch_mesh
 from ..train.dynamic import (
     TARGET_SIGMA,
     DynamicTrainConfig,
@@ -48,7 +49,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--bulk-extract", action="store_true",
                    help="after training, extract a per-patch kernel for every file")
     p.add_argument("--data-parallel", action="store_true",
-                   help="not ported yet (ROADMAP.md queue 1 item 7): refused")
+                   help="shard the batch over all devices: one process per "
+                        "card under torchrun (a plain process is one rank)")
     p.add_argument("--trace", default=None, metavar="DIR",
                    help="capture a torch.profiler trace of the run")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
@@ -60,16 +62,13 @@ def main(argv=None) -> int:
     # card, whose cuBLAS calls need this before cuBLAS's first use
     set_cublas_workspace_config()
     a = build_parser().parse_args(argv)
-    if a.data_parallel:
-        raise SystemExit(
-            "--data-parallel is not ported: data-parallel dynamic-model training "
-            "over several cards is ROADMAP.md queue 1 item 7 (torch.distributed); "
-            "drop the flag to train on one device")
     dev = resolve_device(a.device)
+    # a data-parallel run's ranks all draw from the whole pool
     if a.format == "npy":
-        pool = PatchPool.from_npy_dir(a.patch_dir)
+        pool = PatchPool.from_npy_dir(a.patch_dir, host_shard=not a.data_parallel)
     else:
-        pool = PatchPool.from_nc_dir(a.patch_dir, group=a.group)
+        pool = PatchPool.from_nc_dir(a.patch_dir, group=a.group,
+                                     host_shard=not a.data_parallel)
     cfg = DynamicTrainConfig(
         iters=a.iters,
         batch_size=a.batch_size,
@@ -83,10 +82,11 @@ def main(argv=None) -> int:
         resume=a.resume,
         seed=a.seed,
     )
-    with maybe_trace(a.trace):
-        out = train_dynamic(pool, cfg, device=dev)
+    with launch_mesh(a.data_parallel, "data", dev) as mesh, maybe_trace(a.trace):
+        out = train_dynamic(pool, cfg, device=dev, mesh=mesh)
+        main_rank = mesh is None or mesh.is_main
     print(f"final kernels: {out['kernel_per_band'].shape} -> {a.outdir}/final_results")
-    if a.bulk_extract:
+    if a.bulk_extract and main_rank:
         paths = bulk_extract_kernels(
             out["state"].g_params, pool,
             os.path.join(a.outdir, "final_results", "per_patch"), cfg.model,

@@ -15,8 +15,14 @@ Usage:
     python -m kmsr_tpu_torch.pipeline.train_fleet_cli \
         --patch-dirs sceneA/ sceneB/ --outdir OUT [--device cpu]
 
-`--scene-parallel` (scenes over several cards) is refused: ROADMAP.md
-queue 1 item 7. Checkpoints are this package's torch.save files.
+    # scenes over the host's cards, one process per card (S must divide N)
+    torchrun --nproc_per_node=N -m kmsr_tpu_torch.pipeline.train_fleet_cli \
+        --patch-root PATCHES_ROOT --outdir OUT --scene-parallel
+
+`--scene-parallel` splits the scenes over the ranks in contiguous blocks
+with no collectives (`train.fleet`); every rank reads every scene's pool
+and writes only its own scenes' directories. A multi-process launch
+without it is refused. Checkpoints are this package's torch.save files.
 """
 from __future__ import annotations
 
@@ -32,7 +38,8 @@ from ..device import resolve_device, set_cublas_workspace_config
 from ..io.schema import GROUP_DENOISED
 from ..models.generator import GeneratorConfig
 from ..ops.sigma import estimate_sigma_np
-from ..train.fleet import MESH_REFUSAL, _world_size, train_fleet
+from ..parallel.mesh import launch_mesh
+from ..train.fleet import _world_size, train_fleet
 from ..train.single_kernel import SingleKernelConfig
 
 
@@ -73,7 +80,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="run G as ONE composed depthwise conv")
     p.add_argument("--differentiable-reg", action="store_true")
     p.add_argument("--scene-parallel", action="store_true",
-                   help="not ported yet (ROADMAP.md queue 1 item 7): refused")
+                   help="shard the scene axis over all devices: one process "
+                        "per card under torchrun (zero collectives; scenes "
+                        "must divide the ranks)")
     p.add_argument("--scene-chunk", type=int, default=0,
                    help="the JAX package's scenes per vmapped chunk (must "
                         "divide the scene count; 0 = auto); the port runs "
@@ -126,15 +135,12 @@ def main(argv=None) -> int:
     # card, whose cuBLAS calls need this before cuBLAS's first use
     set_cublas_workspace_config()
     a = build_parser().parse_args(argv)
-    if a.scene_parallel:
-        raise SystemExit(MESH_REFUSAL)
-    if _world_size() > 1:
-        # every scene needs its FULL pool in one process; a host-sharded
-        # file list would give each process a partial subset and race the
-        # per-scene artifact writes
+    if _world_size() > 1 and not a.scene_parallel:
+        # every process would train every scene and race the per-scene
+        # artifact writes
         raise SystemExit(
-            "train_fleet_cli does not support multi-process launches; "
-            "run one process"
+            "train_fleet_cli in a multi-process launch needs --scene-parallel "
+            "(scenes split over the ranks)"
         )
     dev = resolve_device(a.device)
     if a.patch_dir:
@@ -159,9 +165,10 @@ def main(argv=None) -> int:
             dirs = a.patch_dirs
         names = [os.path.basename(os.path.normpath(d)) for d in dirs]
         if a.format == "npy":
-            pools = [PatchPool.from_npy_dir(d) for d in dirs]
+            pools = [PatchPool.from_npy_dir(d, host_shard=False) for d in dirs]
         else:
-            pools = [PatchPool.from_nc_dir(d, group=a.group) for d in dirs]
+            pools = [PatchPool.from_nc_dir(d, group=a.group, host_shard=False)
+                     for d in dirs]
     lr_pools = None
     if a.real_is_lr:
         if not a.real_lr_dir:
@@ -219,9 +226,10 @@ def main(argv=None) -> int:
             forward_mode="compose" if a.fast_forward else "chain"
         ),
     )
-    out = train_fleet(pools, cfg, scene_names=names,
-                      scene_chunk=a.scene_chunk or None, lr_pools=lr_pools,
-                      device=dev)
+    with launch_mesh(a.scene_parallel, "scene", dev) as mesh:
+        out = train_fleet(pools, cfg, scene_names=names, mesh=mesh,
+                          scene_chunk=a.scene_chunk or None, lr_pools=lr_pools,
+                          device=dev)
     print(f"fleet done: {len(out['scene_names'])} scenes -> {a.outdir}")
     return 0
 

@@ -21,6 +21,7 @@ from ..data.sampler import PatchPool
 from ..device import resolve_device, set_cublas_workspace_config
 from ..io.schema import GROUP_DENOISED
 from ..models.moe import MoEConfig
+from ..parallel.mesh import launch_mesh
 from ..train.moe import MoETrainConfig, train_moe
 from .common import maybe_trace
 
@@ -55,7 +56,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="weight of the Switch-style load-balance aux loss "
                         "(0 = the reference's objective)")
     p.add_argument("--data-parallel", action="store_true",
-                   help="not ported yet (ROADMAP.md queue 1 item 7): refused")
+                   help="shard the batch over all devices: one process per "
+                        "card under torchrun (a plain process is one rank)")
     p.add_argument("--trace", default=None, metavar="DIR",
                    help="capture a torch.profiler trace of the run")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
@@ -67,16 +69,13 @@ def main(argv=None) -> int:
     # card, whose cuBLAS calls need this before cuBLAS's first use
     set_cublas_workspace_config()
     a = build_parser().parse_args(argv)
-    if a.data_parallel:
-        raise SystemExit(
-            "--data-parallel is not ported: data-parallel MoE training over "
-            "several cards is ROADMAP.md queue 1 item 7 (torch.distributed); "
-            "drop the flag to train on one device")
     dev = resolve_device(a.device)
+    # a data-parallel run's ranks all draw from the whole pool
     if a.format == "npy":
-        pool = PatchPool.from_npy_dir(a.patch_dir)
+        pool = PatchPool.from_npy_dir(a.patch_dir, host_shard=not a.data_parallel)
     else:
-        pool = PatchPool.from_nc_dir(a.patch_dir, group=a.group)
+        pool = PatchPool.from_nc_dir(a.patch_dir, group=a.group,
+                                     host_shard=not a.data_parallel)
     cfg = MoETrainConfig(
         iters=a.iters,
         batch_size=a.batch_size,
@@ -93,8 +92,8 @@ def main(argv=None) -> int:
         resume=a.resume,
         seed=a.seed,
     )
-    with maybe_trace(a.trace):
-        out = train_moe(pool, cfg, init_from=a.init_from, device=dev)
+    with launch_mesh(a.data_parallel, "data", dev) as mesh, maybe_trace(a.trace):
+        out = train_moe(pool, cfg, init_from=a.init_from, device=dev, mesh=mesh)
     print(f"saved {len(out['artifacts'])} MoE artifacts -> {a.outdir}")
     return 0
 

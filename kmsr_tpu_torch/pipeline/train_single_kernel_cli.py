@@ -13,6 +13,10 @@ Usage:
     python -m kmsr_tpu_torch.pipeline.train_single_kernel_cli \
         --scene-file SCENE.nc --group geophysical_data --outdir OUT
 
+    # data-parallel over the host's cards, one process per card:
+    torchrun --nproc_per_node=N -m kmsr_tpu_torch.pipeline.train_single_kernel_cli \
+        --patch-dir PATCHES --outdir OUT --data-parallel
+
 Checkpoints (`--ckpt-every`, `--resume`) are this package's torch.save
 files; the JAX package's orbax checkpoints cannot be resumed here, nor the
 other way round.
@@ -25,6 +29,7 @@ from ..data.sampler import PatchPool
 from ..device import resolve_device, set_cublas_workspace_config
 from ..io.schema import GROUP_DENOISED
 from ..models.generator import GeneratorConfig
+from ..parallel.mesh import launch_mesh
 from ..train.single_kernel import SingleKernelConfig, train_single_kernel
 from .common import maybe_trace
 
@@ -71,7 +76,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="corrected gradient path through kernel extraction "
                         "(the reference's regularizer has no G-gradient)")
     p.add_argument("--data-parallel", action="store_true",
-                   help="not ported yet (ROADMAP.md queue 1 item 7): refused")
+                   help="shard the batch over all devices: one process per "
+                        "card under torchrun (a plain process is one rank)")
     p.add_argument("--trace", default=None, metavar="DIR",
                    help="capture a torch.profiler trace of the run")
     p.add_argument("--real-lr-dir", default=None,
@@ -89,11 +95,6 @@ def main(argv=None) -> int:
     # card, whose cuBLAS calls need this before cuBLAS's first use
     set_cublas_workspace_config()
     a = build_parser().parse_args(argv)
-    if a.data_parallel:
-        raise SystemExit(
-            "--data-parallel is not ported: data-parallel KernelGAN training "
-            "over several cards is ROADMAP.md queue 1 item 7 (torch.distributed); "
-            "drop the flag to train on one device")
     if a.real_is_lr and not a.real_lr_dir:
         raise SystemExit("--real-is-lr requires --real-lr-dir")
     dev = resolve_device(a.device)
@@ -103,7 +104,9 @@ def main(argv=None) -> int:
             seed=a.seed, normalize=not a.scene_raw,
         )
     else:
-        pool = PatchPool.from_nc_dir(a.patch_dir, group=a.group)
+        # a data-parallel run's ranks all draw from the whole pool
+        pool = PatchPool.from_nc_dir(a.patch_dir, group=a.group,
+                                     host_shard=not a.data_parallel)
     cfg = SingleKernelConfig(
         iters=a.iters,
         batch_size=a.batch_size,
@@ -125,11 +128,12 @@ def main(argv=None) -> int:
         ),
     )
     lr_pool = (
-        PatchPool.from_nc_dir(a.real_lr_dir, group=a.group)
+        PatchPool.from_nc_dir(a.real_lr_dir, group=a.group,
+                              host_shard=not a.data_parallel)
         if a.real_lr_dir else None
     )
-    with maybe_trace(a.trace):
-        out = train_single_kernel(pool, cfg, lr_pool=lr_pool, device=dev)
+    with launch_mesh(a.data_parallel, "data", dev) as mesh, maybe_trace(a.trace):
+        out = train_single_kernel(pool, cfg, lr_pool=lr_pool, device=dev, mesh=mesh)
     print(
         f"saved kernel_per_band.npy {out['kernel_per_band'].shape}, "
         f"kernel_merged.npy sum={out['kernel_merged'].sum():.6f}"

@@ -2,8 +2,9 @@
 
 Counterpart of `kmsr_tpu.pipeline.train_sr_cli`, with the same flags plus
 `--device` (cuda by default; a run without a card raises unless `--device
-cpu`). `--trace DIR` writes a torch.profiler trace. `--data-parallel` is
-refused (ROADMAP.md queue 1 item 7). Checkpoints (`--ckpt-every`,
+cpu`). `--trace DIR` writes a torch.profiler trace. `--data-parallel`
+splits each batch over the ranks of a torchrun launch (one process per
+card; every rank loads all pairs). Checkpoints (`--ckpt-every`,
 `--resume`) are this package's torch.save files; `sr_model.npz` is the
 JAX package's layout, and either package reads it.
 
@@ -11,6 +12,8 @@ Usage:
     python -m kmsr_tpu_torch.pipeline.train_sr_cli --train-dir PAIRS --outdir OUT \
         [--iters 20000] [--batch-size 32] [--width 64] [--n-blocks 8] [--factor 8] \
         [--device cuda|cpu]
+    torchrun --nproc_per_node=N -m kmsr_tpu_torch.pipeline.train_sr_cli \
+        --train-dir PAIRS --outdir OUT --data-parallel
 """
 from __future__ import annotations
 
@@ -23,12 +26,13 @@ from ..device import resolve_device, set_cublas_workspace_config
 from ..io.ncio import read_band_stack
 from ..io.schema import GROUP_HR, GROUP_LR
 from ..models.sr import SRConfig
+from ..parallel.mesh import launch_mesh
 from ..train.sr import SRTrainConfig, train_sr
 from .common import maybe_trace
 
 
-def load_pairs(train_dir: str) -> tuple[np.ndarray, np.ndarray]:
-    files = list_patch_files(train_dir, "*.nc")
+def load_pairs(train_dir: str, host_shard: bool = True) -> tuple[np.ndarray, np.ndarray]:
+    files = list_patch_files(train_dir, "*.nc", host_shard=host_shard)
     lrs, hrs = [], []
     for f in files:
         hrs.append(read_band_stack(f, GROUP_HR))
@@ -61,7 +65,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", action="store_true",
                    help="resume from the latest checkpoint in OUTDIR/ckpt")
     p.add_argument("--data-parallel", action="store_true",
-                   help="not ported yet (ROADMAP.md queue 1 item 7): refused")
+                   help="shard the batch over all devices: one process per "
+                        "card under torchrun (a plain process is one rank)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--trace", default=None, metavar="DIR",
                    help="capture a torch.profiler trace of the run")
@@ -74,13 +79,9 @@ def main(argv=None) -> int:
     # card, whose cuBLAS calls need this before cuBLAS's first use
     set_cublas_workspace_config()
     a = build_parser().parse_args(argv)
-    if a.data_parallel:
-        raise SystemExit(
-            "--data-parallel is not ported: data-parallel SR training over "
-            "several cards is ROADMAP.md queue 1 item 7 (torch.distributed); "
-            "drop the flag to train on one device")
     dev = resolve_device(a.device)
-    lr_all, hr_all = load_pairs(a.train_dir)
+    # a data-parallel run's ranks all draw from every pair
+    lr_all, hr_all = load_pairs(a.train_dir, host_shard=not a.data_parallel)
     print(f"loaded {lr_all.shape[0]} pairs: lr {lr_all.shape[1:]}, hr {hr_all.shape[1:]}")
     cfg = SRTrainConfig(
         iters=a.iters,
@@ -98,8 +99,8 @@ def main(argv=None) -> int:
         eval_every=a.eval_every,
         log_every=a.log_every,
     )
-    with maybe_trace(a.trace):
-        out = train_sr((lr_all, hr_all), cfg, device=dev)
+    with launch_mesh(a.data_parallel, "data", dev) as mesh, maybe_trace(a.trace):
+        out = train_sr((lr_all, hr_all), cfg, mesh=mesh, device=dev)
     if out.get("final_eval"):
         ev = out["final_eval"]
         print(f"final eval: psnr={ev['psnr']:.2f} ssim={ev['ssim']:.4f}")

@@ -1,4 +1,5 @@
-"""Dynamic (content-conditioned) degradation-model training on one device.
+"""Dynamic (content-conditioned) degradation-model training, on one device
+or data-parallel.
 
 Counterpart of `kmsr_tpu.train.dynamic`: Adam 1e-4 (betas (0.5, 0.999),
 no clipping) for G (generator + noise estimator) and for D, LSGAN, the
@@ -17,7 +18,13 @@ through it against the freshly updated D.
 Host batches come from `np.random.default_rng(seed + start_iter)` as in
 the JAX package; the device draws (crops, noise, K > 1 batch indices) come
 from a `torch.Generator` seeded with `seed`, not `jax.random`'s stream.
-Data-parallel training (the JAX `mesh=`) is not ported.
+
+Data parallelism (`mesh=`, `--data-parallel`) follows
+`train.single_kernel`: the same global host batch on every rank, each
+keeping its rows; the crop offsets and the noise drawn at the global
+batch's shape and sliced; D's BatchNorm statistics and the logged
+batch-mean kernels taken over the global batch; the gradients averaged
+over ranks. Rank 0 writes the log, the kernels and the checkpoints.
 """
 from __future__ import annotations
 
@@ -49,9 +56,18 @@ from ..models.dynamic import (
     init_degradation_model,
 )
 from ..ops.degrade import fp32_convs
+from ..parallel.mesh import (
+    batch_mean,
+    data_parallel,
+    mesh_device,
+    metrics_mean,
+    reduce_grads,
+    replicate_state,
+)
 from .single_kernel import _format_rows, make_batch_source, random_crops
 from .state import (
     GANTrainState,
+    check_mesh_vs_scan,
     check_scan_intervals,
     init_gan_state,
     make_chunk_step,
@@ -124,13 +140,14 @@ def make_dynamic_base_step(cfg: DynamicTrainConfig) -> Callable:
         pred_real, st = discriminator_forward(d_params, state.d_state, real, train=True)
         pred_fake, st = discriminator_forward(d_params, st, fake.detach(), train=True)
         loss_d = lsgan_d_loss(pred_real, pred_fake)
-        d_grads = torch.autograd.grad(loss_d, d_leaves)
+        d_grads = reduce_grads(torch.autograd.grad(loss_d, d_leaves))
         d_tx.step(d_params, list(d_grads), state.d_opt_state)
 
         # ---- G step: the same fake (same noise draw), the updated D ---------
         pred_fake, d_state = discriminator_forward(d_params, st, fake, train=True)
         adv = lsgan_g_loss(pred_fake)
-        ks = extract_dynamic_kernels(g_params["generator"], hr, cfg.model)
+        # detached batch mean: the global batch's under DP
+        ks = batch_mean(extract_dynamic_kernels(g_params["generator"], hr, cfg.model))
         reg = per_band_kernel_regularization(ks, cfg.reg_weights, center_max=False)
         if hr.device not in targets:
             targets[hr.device] = torch.tensor(cfg.target_sigma, dtype=torch.float32,
@@ -138,8 +155,8 @@ def make_dynamic_base_step(cfg: DynamicTrainConfig) -> Callable:
         nreg = noise_reg_loss(sigma, targets[hr.device])
         loss = adv + reg + cfg.noise_reg_weight * nreg
         g_leaves = tree_leaves(g_params)
-        g_grads = [g if g is not None else torch.zeros_like(p) for g, p in zip(
-            torch.autograd.grad(loss, g_leaves, allow_unused=True), g_leaves)]
+        g_grads = reduce_grads([g if g is not None else torch.zeros_like(p) for g, p in zip(
+            torch.autograd.grad(loss, g_leaves, allow_unused=True), g_leaves)])
         g_tx.step(g_params, g_grads, state.g_opt_state)
 
         state.step += 1
@@ -154,7 +171,7 @@ def make_dynamic_base_step(cfg: DynamicTrainConfig) -> Callable:
             "grads_D": tree_unflatten(d_params, d_grads),
             "grads_G": tree_unflatten(g_params, g_grads),
         }
-        return state, metrics
+        return state, metrics_mean(metrics, ("loss_D", "loss_G_adv"))
 
     return step
 
@@ -193,14 +210,17 @@ def train_dynamic(
     cfg: DynamicTrainConfig = DynamicTrainConfig(),
     progress: bool = True,
     device: str | torch.device = "cuda",
+    mesh=None,
 ) -> dict:
-    """Run the dynamic-model loop over a patch pool; returns
+    """Run the dynamic-model loop over a patch pool (mesh: optional 'data'
+    mesh, module docstring; no device pool, K = 1); returns
     {"kernel_per_band": [C,13,13], "kernel_merged": [13,13], "state",
     "log_file"}. On a CUDA device the steps run under `device.deterministic`, so a
     run is reproducible (CUBLAS_WORKSPACE_CONFIG must be set before the
     process first uses cuBLAS; the training CLIs set it).
     """
-    dev = resolve_device(device)
+    dev = mesh_device(device, mesh)
+    main = mesh is None or mesh.is_main
     os.makedirs(cfg.outdir, exist_ok=True)
     visuals = os.path.join(cfg.outdir, "visuals")
     final_dir = os.path.join(cfg.outdir, "final_results")
@@ -208,9 +228,11 @@ def train_dynamic(
     os.makedirs(final_dir, exist_ok=True)
     log_file = os.path.join(cfg.outdir, "training_log.txt")
 
+    check_mesh_vs_scan(cfg, mesh)
     use_device_pool = cfg.device_pool
     if use_device_pool is None:
-        use_device_pool = hasattr(pool, "patches") and pool.patches.nbytes <= 4 << 30
+        use_device_pool = (mesh is None and hasattr(pool, "patches")
+                           and pool.patches.nbytes <= 4 << 30)
     K = cfg.steps_per_call
     check_scan_intervals(
         cfg,
@@ -222,19 +244,22 @@ def train_dynamic(
     step_fn = make_dynamic_train_step(cfg, use_device_pool)
     state = init_dynamic_training(cfg, dev)
     ckpt_dir = os.path.join(cfg.outdir, "ckpt")
-    state, start_iter = maybe_resume(cfg, state, ckpt_dir, announce=cfg.verbose)
-    if start_iter == 0:
+    state, start_iter = maybe_resume(cfg, state, ckpt_dir,
+                                     announce=cfg.verbose and main)
+    if mesh is not None:
+        replicate_state(mesh, state)
+    if start_iter == 0 and main:
         with open(log_file, "w", encoding="utf-8") as f:
             f.write(DYN_LOG_HEADER)
 
     host_rng = np.random.default_rng(cfg.seed + start_iter)
-    draw = make_batch_source(cfg, pool, None, use_device_pool, host_rng, dev)
+    draw = make_batch_source(cfg, pool, None, use_device_pool, host_rng, dev, mesh)
     rows: list = []
     if K > 1:
         iterator = range(start_iter + K - 1, cfg.iters, K)
     else:
         iterator = range(start_iter, cfg.iters)
-    if progress:
+    if progress and main:
         try:
             from tqdm import tqdm
 
@@ -242,7 +267,7 @@ def train_dynamic(
         except ImportError:
             pass
 
-    with deterministic(dev):
+    with deterministic(dev), data_parallel(mesh):
         for t in iterator:
             state, m = step_fn(state, *draw())
             if K > 1:
@@ -251,10 +276,11 @@ def train_dynamic(
             else:
                 rows.append((t + 1, {k: m[k] for k in _DYN_LOG_KEYS}))
             if (t + 1) % cfg.log_every == 0:
-                with open(log_file, "a", encoding="utf-8") as f:
-                    f.writelines(_format_rows(rows, keys=_DYN_LOG_KEYS))
+                if main:
+                    with open(log_file, "a", encoding="utf-8") as f:
+                        f.writelines(_format_rows(rows, keys=_DYN_LOG_KEYS))
                 rows.clear()
-            if (t + 1) % cfg.kernel_log_every == 0:
+            if (t + 1) % cfg.kernel_log_every == 0 and main:
                 ks = m["kernels"].cpu().numpy()
                 merged = ks.mean(axis=0)
                 km = kernel_metrics(merged)
@@ -264,17 +290,18 @@ def train_dynamic(
                 if cfg.verbose:
                     print(f"  [iter {t + 1}] sigma={m['sigma'].cpu().numpy().round(3)} "
                           f"k_sum={km['k_sum']:.4f} center_off={km['center_offset']:.3f}")
-            if cfg.ckpt_every and (t + 1) % cfg.ckpt_every == 0:
+            if cfg.ckpt_every and (t + 1) % cfg.ckpt_every == 0 and main:
                 save_checkpoint(ckpt_dir, state, t + 1)
-    if rows:
+    if rows and main:
         with open(log_file, "a", encoding="utf-8") as f:
             f.writelines(_format_rows(rows, keys=_DYN_LOG_KEYS))
 
     ks_final = extract_dynamic_kernels(state.g_params["generator"], None,
                                        cfg.model).cpu().numpy()
     merged = ks_final.mean(axis=0)
-    np.save(os.path.join(final_dir, "kernel_per_band.npy"), ks_final)
-    np.save(os.path.join(final_dir, "kernel_merged.npy"), merged)
+    if main:
+        np.save(os.path.join(final_dir, "kernel_per_band.npy"), ks_final)
+        np.save(os.path.join(final_dir, "kernel_merged.npy"), merged)
     return {"kernel_per_band": ks_final, "kernel_merged": merged, "state": state,
             "log_file": log_file}
 

@@ -22,8 +22,14 @@ the K > 1 indices come from each scene's own `torch.Generator` (seeded
 `seed + s`), not from `jax.random`. Checkpoints (`outdir/ckpt/step_N`)
 are one torch.save file holding every scene's state.
 
-Not ported: `mesh=` (the scene axis sharded over devices), refused and
-queued as ROADMAP.md queue 1 item 7.
+Scene parallelism (`mesh=`, `--scene-parallel` under torchrun): the
+scenes are split over the mesh's ranks in contiguous blocks, as JAX's
+`P("scene")` places the stacked scene axis, with no collectives in the
+steps. Scene s keeps seed `cfg.seed + s` whichever rank trains it, so each
+scene equals its one-process run. Each rank writes only its own scenes'
+directories; a checkpoint gathers every scene's state to rank 0, which
+writes the one file a one-process fleet would, and every rank resumes its
+own scenes from it.
 """
 from __future__ import annotations
 
@@ -35,8 +41,10 @@ import numpy as np
 import torch
 
 from ..data.sampler import PatchPool
-from ..device import deterministic, resolve_device
+from ..device import deterministic
 from ..models.generator import extract_kernels
+from ..parallel.mesh import mesh_device
+from ..parallel.multihost import global_batch
 from .single_kernel import (
     _CHUNK_KEYS,
     _LOG_KEYS,
@@ -55,12 +63,8 @@ from .state import (
     save_checkpoint,
     state_blob,
     state_from_blob,
+    tree_map,
 )
-
-MESH_REFUSAL = (
-    "mesh= / --scene-parallel is not ported: spreading the fleet's scenes "
-    "over several cards is ROADMAP.md queue 1 item 7 (torch.distributed); "
-    "drop it to train every scene on one device")
 
 
 def _stack_pools(pools: Sequence[PatchPool]) -> tuple[np.ndarray, list[int]]:
@@ -158,7 +162,12 @@ def make_fleet_advance(cfg: SingleKernelConfig, states: list, pools_dev: list,
     each scene's host RNG draws its HR indices, then its crop indices (the
     draw order of a standalone run), every scene's go up in one copy, and
     each scene runs `make_base_step` on its own gathers. Scenes run one
-    after another on one stream; nothing waits for the device."""
+    after another on one stream; nothing waits for the device.
+
+    This takes the place of JAX's `make_fleet_step` (the vmapped K = 1
+    step, shard_mapped over a scene mesh) and of its vmapped
+    `make_fleet_chunk_step` call: under a mesh, `states` are this rank's
+    scenes only."""
     n = len(states)
     if cfg.steps_per_call > 1:
         chunk_fn = make_fleet_chunk_step(cfg)
@@ -223,8 +232,10 @@ def train_fleet(
     lr_pools (with cfg.real_is_lr): one pool of native-LR patches per
     scene, at cfg.lr_crop_size: each scene's D sees its own LR pool.
 
-    mesh (scenes over several devices) is refused (ROADMAP.md queue 1
-    item 7), as is a launch of more than one process.
+    mesh: an optional 1-axis mesh (`parallel.mesh.make_mesh(axis_names=
+    ("scene",))`): the scene axis is split over its ranks (len(pools) must
+    be a multiple of the mesh size; no collectives in the steps; composes
+    with either K). A multi-process launch without a mesh is refused.
 
     Returns {"scene_names", "kernel_per_band" [S,C,kH,kW],
     "kernel_merged" [S,kH,kW], "state" (the per-scene GANTrainStates),
@@ -232,16 +243,21 @@ def train_fleet(
     run is reproducible (CUBLAS_WORKSPACE_CONFIG must be set before the
     process first uses cuBLAS; the training CLIs set it).
     """
-    if mesh is not None:
-        raise ValueError(MESH_REFUSAL)
-    if _world_size() > 1:
+    if mesh is None and _world_size() > 1:
         raise ValueError(
-            "train_fleet does not support multi-process launches; run one "
-            "process (every scene needs its full pool in it)")
-    dev = resolve_device(device)
+            "train_fleet in a multi-process launch needs mesh= "
+            "(--scene-parallel): without it every process would train "
+            "every scene")
+    dev = mesh_device(device, mesh)
     s_total = len(pools)
     if s_total == 0:
         raise ValueError("train_fleet needs at least one pool")
+    if mesh is not None and s_total % mesh.size:
+        raise ValueError(
+            f"{s_total} scenes not divisible over {mesh.size} devices")
+    s_local = s_total if mesh is None else s_total // mesh.size
+    lo = 0 if mesh is None else mesh.rank * s_local
+    own = range(lo, lo + s_local)  # this rank's scenes
     if cfg.real_is_lr:
         if lr_pools is None:
             raise ValueError(
@@ -273,12 +289,12 @@ def train_fleet(
     ]
     if len(names) != s_total or len(set(names)) != s_total:
         raise ValueError("scene_names must be unique, one per pool")
-    outdirs = [os.path.join(cfg.outdir, n) for n in names]
+    outdirs = [os.path.join(cfg.outdir, names[s]) for s in own]
     for d in outdirs:
         os.makedirs(d, exist_ok=True)
 
     states = [init_training(dataclasses.replace(cfg, seed=cfg.seed + s), dev)
-              for s in range(s_total)]
+              for s in own]
 
     ckpt_dir = os.path.join(cfg.outdir, "ckpt")
     start_iter = 0
@@ -287,25 +303,27 @@ def train_fleet(
         if len(blobs) != s_total:
             raise ValueError(f"checkpoint step {step} holds {len(blobs)} scenes, "
                              f"this fleet has {s_total}")
-        states = [state_from_blob(b, st) for b, st in zip(blobs, states)]
+        states = [state_from_blob(blobs[s], st) for s, st in zip(own, states)]
         start_iter = step
         if cfg.verbose:
             print(f"resumed from checkpoint step {step}")
     if k_steps > 1 and start_iter % k_steps:
         raise ValueError(f"resume step {start_iter} not a multiple of K={k_steps}")
 
-    pools_dev, crop_dev = device_pools(pools, lr_pools, dev)
+    pools_dev, crop_dev = device_pools(
+        [pools[s] for s in own],
+        None if lr_pools is None else [lr_pools[s] for s in own], dev)
     if scene_chunk is None:
-        scene_chunk = pick_scene_chunk(cfg, s_total, pools_dev[0].shape[-1])
-    elif s_total % scene_chunk:
+        scene_chunk = pick_scene_chunk(cfg, s_local, pools_dev[0].shape[-1])
+    elif s_local % scene_chunk:
         raise ValueError(
             f"scene_chunk {scene_chunk} must divide the per-device scene "
-            f"count {s_total}"
+            f"count {s_local}"
         )
     # K = 1: per-scene host RNG streams identical to a standalone run at
     # seed+s (reseeded at the resume point, as JAX's are)
     host_rngs = None if k_steps > 1 else [
-        np.random.default_rng(cfg.seed + s + start_iter) for s in range(s_total)]
+        np.random.default_rng(cfg.seed + s + start_iter) for s in own]
     advance = make_fleet_advance(cfg, states, pools_dev, crop_dev, host_rngs)
     log_files = [os.path.join(d, "training_log.txt") for d in outdirs]
     if start_iter == 0:
@@ -313,7 +331,7 @@ def train_fleet(
             with open(f, "w", encoding="utf-8") as fh:
                 fh.write(LOG_HEADER)
 
-    log_rows: list[list] = [[] for _ in range(s_total)]
+    log_rows: list[list] = [[] for _ in own]
 
     def flush():
         for f, rows in zip(log_files, log_rows):
@@ -336,7 +354,7 @@ def train_fleet(
         except ImportError:
             pass
 
-    last: list = [None] * s_total  # each scene's metrics at its latest step
+    last: list = [None] * s_local  # each scene's metrics at its latest step
     with deterministic(dev):
         for t in iterator:
             for s, m in enumerate(advance()):
@@ -364,20 +382,35 @@ def train_fleet(
                             ks[s])
 
             if cfg.ckpt_every and (t + 1) % cfg.ckpt_every == 0:
-                save_checkpoint(ckpt_dir, {"scenes": [state_blob(st) for st in states]},
-                                t + 1)
+                blobs = _gather_scenes(mesh, [state_blob(st) for st in states])
+                if blobs is not None:
+                    save_checkpoint(ckpt_dir, {"scenes": blobs}, t + 1)
 
     flush()
-    ks_final = torch.stack([extract_kernels(st.g_params).detach()
-                            for st in states]).cpu().numpy()  # [S, C, kH, kW]
-    merged = ks_final.mean(axis=1)
+    ks_local = torch.stack([extract_kernels(st.g_params).detach()
+                            for st in states])  # [S_local, C, kH, kW]
+    merged_local = ks_local.cpu().numpy().mean(axis=1)
     for s, d in enumerate(outdirs):
-        np.save(os.path.join(d, "kernel_per_band.npy"), ks_final[s])
-        np.save(os.path.join(d, "kernel_merged.npy"), merged[s])
+        np.save(os.path.join(d, "kernel_per_band.npy"), ks_local[s].cpu().numpy())
+        np.save(os.path.join(d, "kernel_merged.npy"), merged_local[s])
+    ks_final = (ks_local if mesh is None else global_batch(mesh, ks_local)).cpu().numpy()
     return {
         "scene_names": names,
-        "kernel_per_band": ks_final,
-        "kernel_merged": merged,
-        "state": states,
-        "log_files": log_files,
+        "kernel_per_band": ks_final,  # [S, C, kH, kW], every rank's scenes
+        "kernel_merged": ks_final.mean(axis=1),
+        "state": states,  # this rank's scenes
+        "log_files": [os.path.join(cfg.outdir, n, "training_log.txt") for n in names],
     }
+
+
+def _gather_scenes(mesh, blobs: list) -> Optional[list]:
+    """Every rank's scene blobs, in scene order, on rank 0 (None on the
+    other ranks); the blobs as they are without a mesh."""
+    if mesh is None or mesh.group is None:
+        return blobs
+    host = [tree_map(lambda t: t.cpu(), b) for b in blobs]
+    parts = [None] * mesh.size if mesh.is_main else None
+    torch.distributed.gather_object(
+        host, parts, dst=torch.distributed.get_global_rank(mesh.group, 0),
+        group=mesh.group)
+    return [b for p in parts for b in p] if mesh.is_main else None

@@ -1,4 +1,4 @@
-"""Mixture-of-kernels (MoE bank) training on one device.
+"""Mixture-of-kernels (MoE bank) training, on one device or data-parallel.
 
 Counterpart of `kmsr_tpu.train.moe`: Adam 1e-4 (betas (0.5, 0.999), no
 clipping) for the model (selector + banks) and for D, the Gumbel
@@ -19,8 +19,15 @@ Host batches come from `np.random.default_rng(seed + start_iter)` exactly
 as in the JAX package (`hr`, then `crop_src`); the device draws (crops,
 Gumbel uniforms, noise, K > 1 batch indices) come from a `torch.Generator`
 seeded with `seed`, a different stream from `jax.random`'s by design.
-Checkpoints are this package's `torch.save` files. Data-parallel training
-(the JAX `mesh=`) is not ported.
+Checkpoints are this package's `torch.save` files.
+
+Data parallelism (`mesh=`, `--data-parallel`) follows
+`train.single_kernel`: the same global host batch on every rank, each
+keeping its rows; the crops, both Gumbel draws and both noise draws made
+at the global batch's shape and sliced; the selector's and D's BatchNorm
+statistics, the load-balance fractions and the selection counts taken
+over the global batch; the gradients averaged over ranks. Rank 0 writes
+the artifacts and checkpoints.
 """
 from __future__ import annotations
 
@@ -52,10 +59,19 @@ from ..models.moe import (
     moe_forward,
 )
 from ..ops.degrade import fp32_convs
+from ..parallel.mesh import (
+    batch_sum,
+    data_parallel,
+    mesh_device,
+    metrics_mean,
+    reduce_grads,
+    replicate_state,
+)
 from ..utils.params_io import load_params, save_params
 from .single_kernel import make_batch_source, random_crops
 from .state import (
     GANTrainState,
+    check_mesh_vs_scan,
     check_scan_intervals,
     init_gan_state,
     make_chunk_step,
@@ -129,7 +145,7 @@ def make_moe_base_step(cfg: MoETrainConfig) -> Callable:
                                               train=True)
         pred_fake, st = discriminator_forward(d_params, st, fake, train=True)
         loss_d = lsgan_d_loss(pred_real, pred_fake)
-        d_grads = torch.autograd.grad(loss_d, d_leaves)
+        d_grads = reduce_grads(torch.autograd.grad(loss_d, d_leaves))
         d_tx.step(d_params, list(d_grads), state.d_opt_state)
 
         # ---- G step (selector + banks), against the updated D -------------
@@ -142,14 +158,14 @@ def make_moe_base_step(cfg: MoETrainConfig) -> Callable:
         bal = load_balance_loss(weights)
         total = adv + reg + cfg.balance_weight * bal
         g_leaves = tree_leaves(moe_params)
-        g_grads = [g if g is not None else torch.zeros_like(p) for g, p in zip(
-            torch.autograd.grad(total, g_leaves, allow_unused=True), g_leaves)]
+        g_grads = reduce_grads([g if g is not None else torch.zeros_like(p) for g, p in zip(
+            torch.autograd.grad(total, g_leaves, allow_unused=True), g_leaves)])
         g_tx.step(moe_params, g_grads, state.g_opt_state)
 
         state.step += 1
         state.d_state = {"disc": disc_state, "moe": new_moe_state}
-        selection = torch.bincount(weights.detach().argmax(dim=1),
-                                   minlength=cfg.model.n_kernels).to(torch.float32)
+        selection = batch_sum(torch.bincount(weights.detach().argmax(dim=1),
+                                             minlength=cfg.model.n_kernels).to(torch.float32))
         metrics = {
             "loss_D": loss_d.detach(),
             "loss_G_adv": adv.detach(),
@@ -159,7 +175,7 @@ def make_moe_base_step(cfg: MoETrainConfig) -> Callable:
             "grads_D": tree_unflatten(d_params, d_grads),
             "grads_G": tree_unflatten(moe_params, g_grads),
         }
-        return state, metrics
+        return state, metrics_mean(metrics, ("loss_D", "loss_G_adv"))
 
     return step
 
@@ -245,18 +261,23 @@ def train_moe(
     progress: bool = True,
     init_from: str | None = None,
     device: str | torch.device = "cuda",
+    mesh=None,
 ) -> dict:
     """Run the MoE loop over a patch pool; returns {"state", "artifacts",
     "history": [(iteration, loss_D, selection counts)] at each log}.
+    mesh: optional 'data' mesh (module docstring; no device pool, K = 1).
     On a CUDA device the steps run under `device.deterministic`, so a
     run is reproducible (CUBLAS_WORKSPACE_CONFIG must be set before the
     process first uses cuBLAS; the training CLIs set it).
     """
-    dev = resolve_device(device)
+    dev = mesh_device(device, mesh)
+    main = mesh is None or mesh.is_main
     os.makedirs(cfg.outdir, exist_ok=True)
+    check_mesh_vs_scan(cfg, mesh)
     use_device_pool = cfg.device_pool
     if use_device_pool is None:
-        use_device_pool = hasattr(pool, "patches") and pool.patches.nbytes <= 4 << 30
+        use_device_pool = (mesh is None and hasattr(pool, "patches")
+                           and pool.patches.nbytes <= 4 << 30)
     K = cfg.steps_per_call
     check_scan_intervals(
         cfg,
@@ -267,16 +288,19 @@ def train_moe(
     step_fn = make_moe_train_step(cfg, device_pool=use_device_pool)
     state = init_moe_training(cfg, init_from=init_from, device=dev)
     ckpt_dir = os.path.join(cfg.outdir, "ckpt")
-    state, start_iter = maybe_resume(cfg, state, ckpt_dir, announce=cfg.verbose)
+    state, start_iter = maybe_resume(cfg, state, ckpt_dir,
+                                     announce=cfg.verbose and main)
+    if mesh is not None:
+        replicate_state(mesh, state)
 
     temps = np.linspace(cfg.temp_start, cfg.temp_end, cfg.iters).astype(np.float32)
     host_rng = np.random.default_rng(cfg.seed + start_iter)
-    draw = make_batch_source(cfg, pool, None, use_device_pool, host_rng, dev)
+    draw = make_batch_source(cfg, pool, None, use_device_pool, host_rng, dev, mesh)
     if K > 1:
         iterator = range(start_iter + K - 1, cfg.iters, K)
     else:
         iterator = range(start_iter, cfg.iters)
-    if progress:
+    if progress and main:
         try:
             from tqdm import tqdm
 
@@ -285,7 +309,7 @@ def train_moe(
             pass
 
     history = []
-    with deterministic(dev):
+    with deterministic(dev), data_parallel(mesh):
         for t in iterator:
             if K > 1:
                 state, ms = step_fn(state, *draw(), temps[t + 1 - K: t + 1])
@@ -296,12 +320,12 @@ def train_moe(
                 sel = m["selection"].cpu().numpy().astype(int)
                 loss_d = float(m["loss_D"])
                 history.append((t + 1, loss_d, sel))
-                if cfg.verbose:
+                if cfg.verbose and main:
                     print(f"Iter {t + 1} | Temp {temps[t]:.2f} | D {loss_d:.3f} "
                           f"| Selection {sel}")
-            if cfg.ckpt_every and (t + 1) % cfg.ckpt_every == 0:
+            if cfg.ckpt_every and (t + 1) % cfg.ckpt_every == 0 and main:
                 save_checkpoint(ckpt_dir, state, t + 1)
 
     artifacts = save_moe_artifacts(state.g_params, cfg.outdir,
-                                   model_state=state.d_state["moe"])
+                                   model_state=state.d_state["moe"]) if main else []
     return {"state": state, "artifacts": artifacts, "history": history}

@@ -1,4 +1,5 @@
-"""Single-kernel (static per-band) KernelGAN training on one device.
+"""Single-kernel (static per-band) KernelGAN training, on one device or
+data-parallel over ranks.
 
 Counterpart of `kmsr_tpu.train.single_kernel`: unpaired LSGAN between
 G(HR 256^2) -> fake 32^2 and independent real 32^2 crops, Adam (4e-4,
@@ -16,7 +17,16 @@ come from a `torch.Generator` seeded with `seed` on the training device:
 a different stream from the JAX package's `jax.random` keys, by design.
 
 Metrics stay device tensors until the log flush: nothing in a step waits
-for the device. Data-parallel training (the JAX `mesh=`) is not ported.
+for the device.
+
+Data parallelism (`mesh=`, the CLI's `--data-parallel` under torchrun):
+one process per card, every rank drawing the same global host batch and
+keeping its rows (`parallel.mesh.shard_batch`); the step's random draws
+are made at the global batch's shape and sliced, D's BatchNorm statistics
+are the global batch's, the gradients are averaged over ranks before the
+optimizer and the logged losses are the global batch's, so a DP run
+follows the one-device run (bit for bit at world size 1). Rank 0 writes
+the log, the kernels and the checkpoints.
 """
 from __future__ import annotations
 
@@ -44,8 +54,19 @@ from ..models.generator import (
     init_generator,
 )
 from ..ops.degrade import fp32_convs
+from ..parallel.mesh import (
+    data_parallel,
+    global_rows,
+    local_rows,
+    mesh_device,
+    metrics_mean,
+    reduce_grads,
+    replicate_state,
+    shard_batch,
+)
 from .state import (
     GANTrainState,
+    check_mesh_vs_scan,
     check_scan_intervals,
     init_gan_state,
     make_chunk_step,
@@ -131,8 +152,9 @@ def random_crops(gen: torch.Generator, src: torch.Tensor, crop: int) -> torch.Te
     src: [B, C, H, W] -> [B, C, crop, crop]."""
     b, c, h, w = src.shape
     dev = src.device
-    ys = torch.randint(0, h - crop + 1, (b,), generator=gen, device=dev)
-    xs = torch.randint(0, w - crop + 1, (b,), generator=gen, device=dev)
+    n = global_rows(b)  # a DP step draws the global batch's offsets
+    ys = local_rows(torch.randint(0, h - crop + 1, (n,), generator=gen, device=dev))
+    xs = local_rows(torch.randint(0, w - crop + 1, (n,), generator=gen, device=dev))
     win = torch.arange(crop, device=dev)
     rows = (ys[:, None] + win)[:, None, :, None]
     cols = (xs[:, None] + win)[:, None, None, :]
@@ -141,8 +163,11 @@ def random_crops(gen: torch.Generator, src: torch.Tensor, crop: int) -> torch.Te
 
 
 def _normal(gen: torch.Generator, like: torch.Tensor) -> torch.Tensor:
-    """A standard normal draw shaped like `like` (the fake-side noise)."""
-    return torch.randn(like.shape, generator=gen, device=like.device, dtype=like.dtype)
+    """A standard normal draw shaped like `like` (the fake-side noise); a
+    DP step draws the global batch's and keeps its rows."""
+    shape = (global_rows(like.shape[0]), *like.shape[1:])
+    return local_rows(torch.randn(shape, generator=gen, device=like.device,
+                                  dtype=like.dtype))
 
 
 def make_base_step(cfg: SingleKernelConfig) -> Callable:
@@ -197,7 +222,7 @@ def make_base_step(cfg: SingleKernelConfig) -> Callable:
         pred_real, st = discriminator_forward(d_params, state.d_state, _trim(real), train=True)
         pred_fake, st = discriminator_forward(d_params, st, _trim(fake_d.detach()), train=True)
         loss_d = lsgan_d_loss(pred_real, pred_fake)
-        d_grads = torch.autograd.grad(loss_d, d_leaves)
+        d_grads = reduce_grads(torch.autograd.grad(loss_d, d_leaves))
         d_grad_norm = d_tx.step(d_params, list(d_grads), state.d_opt_state)
 
         # ---- G step (against the freshly updated D, reference order) -------
@@ -213,8 +238,8 @@ def make_base_step(cfg: SingleKernelConfig) -> Callable:
             raw_sums = extract_kernels_raw(g_params).sum(dim=(1, 2))
             total = total + cfg.raw_sum_reg * torch.mean((raw_sums - 1.0) ** 2)
         g_leaves = tree_leaves(g_params)
-        g_grads = [g if g is not None else torch.zeros_like(p) for g, p in zip(
-            torch.autograd.grad(total, g_leaves, allow_unused=True), g_leaves)]
+        g_grads = reduce_grads([g if g is not None else torch.zeros_like(p) for g, p in zip(
+            torch.autograd.grad(total, g_leaves, allow_unused=True), g_leaves)])
         g_grad_norm = g_tx.step(g_params, g_grads, state.g_opt_state)
 
         state.step += 1
@@ -230,7 +255,7 @@ def make_base_step(cfg: SingleKernelConfig) -> Callable:
             "grads_D": tree_unflatten(d_params, d_grads),
             "grads_G": tree_unflatten(g_params, g_grads),
         }
-        return state, metrics
+        return state, metrics_mean(metrics, ("loss_D", "loss_G_adv"))
 
     return step
 
@@ -287,17 +312,25 @@ def _to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
 
 
 def make_batch_source(cfg: SingleKernelConfig, pool, lr_pool, use_device_pool: bool,
-                      host_rng: np.random.Generator, dev: torch.device) -> Callable:
+                      host_rng: np.random.Generator, dev: torch.device,
+                      mesh=None) -> Callable:
     """draw() -> the arguments after `state` of one call of the
     `make_train_step(cfg, use_device_pool)` step: the host batches, or
     the device pool and the host's index draws (the same stream as
-    `pool.sample`), or, for K > 1, the device pool alone."""
+    `pool.sample`), or, for K > 1, the device pool alone. Under a mesh,
+    this rank's rows of the global host batches."""
     if not use_device_pool:
         real_src = lr_pool if lr_pool is not None else pool
+        if mesh is not None:
+            def put(a):
+                return shard_batch(mesh, a)
+        else:
+            def put(a):
+                return _to_device(a, dev)
 
         def draw():
-            hr = _to_device(pool.sample(host_rng, cfg.batch_size), dev)
-            return hr, _to_device(real_src.sample(host_rng, cfg.batch_size), dev)
+            hr = put(pool.sample(host_rng, cfg.batch_size))
+            return hr, put(real_src.sample(host_rng, cfg.batch_size))
 
         return draw
     pool_dev = torch.from_numpy(pool.patches).to(dev)
@@ -319,6 +352,7 @@ def train_single_kernel(
     progress: bool = True,
     lr_pool: PatchPool | None = None,
     device: str | torch.device = "cuda",
+    mesh=None,
 ) -> dict:
     """Run the full single-kernel KernelGAN loop over a patch pool.
 
@@ -330,8 +364,14 @@ def train_single_kernel(
     "state": final GANTrainState, "log_file": path}. On a CUDA device the steps run under `device.deterministic`, so a
     run is reproducible (CUBLAS_WORKSPACE_CONFIG must be set before the
     process first uses cuBLAS; the training CLIs set it).
+
+    mesh: an optional `parallel.mesh.Mesh` ('data' axis): the batch is
+    split over its ranks (module docstring); cfg.batch_size is the global
+    batch and must divide by the mesh size. Incompatible with the device
+    pool and K > 1 (`check_mesh_vs_scan`).
     """
-    dev = resolve_device(device)
+    dev = mesh_device(device, mesh)
+    main = mesh is None or mesh.is_main
     if cfg.real_is_lr:
         if lr_pool is None:
             raise ValueError(
@@ -349,10 +389,12 @@ def train_single_kernel(
             "lr_pool mode samples on host; incompatible with device_pool / "
             "steps_per_call > 1"
         )
+    check_mesh_vs_scan(cfg, mesh)
     use_device_pool = cfg.device_pool
     if use_device_pool is None:
         use_device_pool = (
-            lr_pool is None
+            mesh is None
+            and lr_pool is None
             and hasattr(pool, "patches")
             and pool.patches.nbytes <= 4 << 30
         )
@@ -372,13 +414,16 @@ def train_single_kernel(
     step_fn = make_train_step(cfg, device_pool=use_device_pool)
     state = init_training(cfg, dev)
     ckpt_dir = os.path.join(cfg.outdir, "ckpt")
-    state, start_iter = maybe_resume(cfg, state, ckpt_dir, announce=cfg.verbose)
-    if start_iter == 0:
+    state, start_iter = maybe_resume(cfg, state, ckpt_dir,
+                                     announce=cfg.verbose and main)
+    if mesh is not None:
+        replicate_state(mesh, state)
+    if start_iter == 0 and main:
         with open(log_file, "w", encoding="utf-8") as f:
             f.write(LOG_HEADER)
 
     host_rng = np.random.default_rng(cfg.seed + start_iter)
-    draw = make_batch_source(cfg, pool, lr_pool, use_device_pool, host_rng, dev)
+    draw = make_batch_source(cfg, pool, lr_pool, use_device_pool, host_rng, dev, mesh)
     prev_k = None
     log_rows: list = []
     if K > 1:
@@ -386,7 +431,7 @@ def train_single_kernel(
         iterator = range(start_iter + K - 1, cfg.iters, K)
     else:
         iterator = range(start_iter, cfg.iters)
-    if progress:
+    if progress and main:
         try:
             from tqdm import tqdm
 
@@ -394,7 +439,7 @@ def train_single_kernel(
         except ImportError:
             pass
 
-    with deterministic(dev):
+    with deterministic(dev), data_parallel(mesh):
         for t in iterator:
             state, metrics = step_fn(state, *draw())
             if K > 1:
@@ -405,8 +450,9 @@ def train_single_kernel(
                 log_rows.append((t + 1, {k: metrics[k] for k in _LOG_KEYS}))
 
             if (t + 1) % cfg.log_every == 0:
-                with open(log_file, "a", encoding="utf-8") as f:
-                    f.writelines(_format_rows(log_rows))
+                if main:
+                    with open(log_file, "a", encoding="utf-8") as f:
+                        f.writelines(_format_rows(log_rows))
                 log_rows.clear()
                 if progress and hasattr(iterator, "set_postfix"):
                     iterator.set_postfix(
@@ -417,7 +463,7 @@ def train_single_kernel(
                         gN_G=f"{float(metrics['grad_norm_G']):.2f}",
                     )
 
-            if (t + 1) % cfg.kernel_log_every == 0:
+            if (t + 1) % cfg.kernel_log_every == 0 and main:
                 ks = metrics["kernels"].cpu().numpy()  # [C,kH,kW]
                 k_merged = ks.mean(axis=0)
                 km = kernel_metrics(k_merged)
@@ -437,17 +483,18 @@ def train_single_kernel(
                         os.path.join(cfg.outdir, f"kernel_per_band_iter{t + 1}.npy"), ks
                     )
 
-            if cfg.ckpt_every and (t + 1) % cfg.ckpt_every == 0:
+            if cfg.ckpt_every and (t + 1) % cfg.ckpt_every == 0 and main:
                 save_checkpoint(ckpt_dir, state, t + 1)
 
-    if log_rows:
+    if log_rows and main:
         with open(log_file, "a", encoding="utf-8") as f:
             f.writelines(_format_rows(log_rows))
 
     ks_final = extract_kernels(state.g_params).cpu().numpy()
     k_merged = ks_final.mean(axis=0)
-    np.save(os.path.join(cfg.outdir, "kernel_per_band.npy"), ks_final)
-    np.save(os.path.join(cfg.outdir, "kernel_merged.npy"), k_merged)
+    if main:
+        np.save(os.path.join(cfg.outdir, "kernel_per_band.npy"), ks_final)
+        np.save(os.path.join(cfg.outdir, "kernel_merged.npy"), k_merged)
     return {
         "kernel_per_band": ks_final,
         "kernel_merged": k_merged,

@@ -1,4 +1,4 @@
-"""SR model training on (lr, hr) pairs on one device.
+"""SR model training on (lr, hr) pairs, on one device or data-parallel.
 
 Counterpart of `kmsr_tpu.train.sr`: L1 loss through the SR CNN (bfloat16
 compute by default), optax's `adam(cosine_decay_schedule(lr, iters,
@@ -19,7 +19,14 @@ each batch is uploaded through pinned memory.
 Checkpoints are this package's `torch.save` files (`OUTDIR/ckpt/step_N`);
 JAX's orbax directories are refused. `sr_model.npz` is written in the JAX
 package's layout (`utils.params_io`) and either package loads it.
-Data-parallel training (the JAX `mesh=`) is not ported.
+
+Data parallelism (`mesh=`, `--data-parallel` under torchrun): every rank
+draws the same batch indices and keeps its contiguous rows of the batch,
+the L1 loss is each rank's mean and the gradients are averaged over ranks
+(the L1 mean has no cross-sample term, so this is the global batch's
+gradient); the logged loss is the global batch's. The pairs stay on the
+host, as in JAX's mesh run. Rank 0 writes the log, the checkpoints and
+`sr_model.npz`.
 """
 from __future__ import annotations
 
@@ -31,9 +38,17 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
-from ..device import deterministic, resolve_device
+from ..device import deterministic
 from ..models.sr import SRConfig, init_sr, precision, sr_forward
 from ..ops.metrics import psnr, ssim
+from ..parallel.mesh import (
+    data_parallel,
+    mesh_device,
+    metrics_mean,
+    reduce_grads,
+    replicate_state,
+    shard_batch,
+)
 from ..utils.params_io import save_params
 from .state import (ClippedAdam, _trainable, maybe_resume, save_checkpoint, tree_leaves,
                     tree_unflatten)
@@ -102,10 +117,11 @@ def make_sr_train_step(cfg: SRTrainConfig) -> tuple[Callable, ClippedAdam]:
         with precision(dtype):  # the backward's convs and matmuls too
             pred = sr_forward(state.params, lr_batch, cfg.model, compute_dtype=dtype)
             loss = (pred - hr_batch).abs().mean()
-            grads = list(torch.autograd.grad(loss, leaves))
+            grads = reduce_grads(torch.autograd.grad(loss, leaves))
         tx.step(state.params, grads, state.opt_state)
         state.step += 1
-        return state, {"l1": loss.detach(), "grads": tree_unflatten(state.params, grads)}
+        return state, metrics_mean(
+            {"l1": loss.detach(), "grads": tree_unflatten(state.params, grads)}, ("l1",))
 
     return step, tx
 
@@ -139,7 +155,8 @@ def train_sr(
     progress: bool = True,
     device: str | torch.device = "cuda",
 ) -> dict:
-    """pairs: (lr [N,C,h,w], hr [N,C,H,W]) arrays.
+    """pairs: (lr [N,C,h,w], hr [N,C,H,W]) arrays. mesh: an optional
+    'data' mesh (module docstring); cfg.batch_size is the global batch.
 
     Writes `<outdir>/training_log.csv` with one row per log_every iters
     (iter, l1) and the PSNR/SSIM columns filled on eval_every iters; with
@@ -157,11 +174,8 @@ def train_sr(
             "mesh data-parallelism shards host-sampled batches and is "
             "incompatible with device_pool (it pins the pool to ONE device)"
         )
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh data-parallel SR training is not ported: ROADMAP.md queue 1 "
-            "item 7 (torch.distributed); train on one device")
-    dev = resolve_device(device)
+    dev = mesh_device(device, mesh)
+    main = mesh is None or mesh.is_main
     lr_val = hr_val = None
     if cfg.holdout:
         if cfg.holdout >= lr_all.shape[0]:
@@ -174,12 +188,14 @@ def train_sr(
     step_fn, _ = make_sr_train_step(cfg)
     state = init_sr_training(cfg, dev)
     ckpt_dir = os.path.join(cfg.outdir, "ckpt")
-    state, start_iter = maybe_resume(cfg, state, ckpt_dir, announce=progress)
+    state, start_iter = maybe_resume(cfg, state, ckpt_dir, announce=progress and main)
+    if mesh is not None:
+        replicate_state(mesh, state)
 
     host_rng = np.random.default_rng(cfg.seed + start_iter)
     log = []
     iterator = range(start_iter, cfg.iters)
-    if progress:
+    if progress and main:
         try:
             from tqdm import tqdm
 
@@ -188,13 +204,15 @@ def train_sr(
             pass
     use_device_pool = cfg.device_pool
     if use_device_pool is None:
-        use_device_pool = lr_all.nbytes + hr_all.nbytes <= 4 << 30
+        use_device_pool = mesh is None and lr_all.nbytes + hr_all.nbytes <= 4 << 30
     pinned = dev.type == "cuda"
     if use_device_pool:
         lr_dev = torch.from_numpy(np.ascontiguousarray(lr_all, np.float32)).to(dev)
         hr_dev = torch.from_numpy(np.ascontiguousarray(hr_all, np.float32)).to(dev)
 
     def batch(idx: np.ndarray) -> tuple[torch.Tensor, torch.Tensor]:
+        if mesh is not None:
+            return shard_batch(mesh, lr_all[idx]), shard_batch(mesh, hr_all[idx])
         if use_device_pool:
             i = torch.from_numpy(idx)
             i = i.pin_memory().to(dev, non_blocking=True) if pinned else i
@@ -209,7 +227,8 @@ def train_sr(
 
     csv_path = os.path.join(cfg.outdir, "training_log.csv")
     fresh = not (cfg.resume and start_iter)
-    csv_f = open(csv_path, "w" if fresh else "a", encoding="utf-8")
+    csv_f = (open(csv_path, "w" if fresh else "a", encoding="utf-8") if main
+             else open(os.devnull, "w", encoding="utf-8"))
     last_eval: dict = {}
 
     def eval_now(t):
@@ -219,13 +238,13 @@ def train_sr(
             i = host_rng.integers(0, lr_all.shape[0], min(8, lr_all.shape[0]))
             lr_e, hr_e = lr_all[i], hr_all[i]
         ev = evaluate_sr(state.params, lr_e, hr_e, cfg.model)
-        if progress:
+        if progress and main:
             tag = "holdout" if lr_val is not None else "train-sample"
             print(f"  [eval iter {t}] {tag} psnr={ev['psnr']:.2f} "
                   f"ssim={ev['ssim']:.4f}")
         return ev
 
-    with deterministic(dev):
+    with deterministic(dev), data_parallel(mesh):
         try:
             if fresh:
                 csv_f.write(LOG_HEADER)
@@ -244,12 +263,13 @@ def train_sr(
                            if is_eval else ",\n")
                     )
                     csv_f.flush()
-                if cfg.ckpt_every and (t + 1) % cfg.ckpt_every == 0:
+                if cfg.ckpt_every and (t + 1) % cfg.ckpt_every == 0 and main:
                     save_checkpoint(ckpt_dir, state, t + 1)
             final_eval = eval_now(cfg.iters) if lr_val is not None else last_eval
         finally:
             csv_f.close()
     model_path = os.path.join(cfg.outdir, "sr_model.npz")
-    save_params(model_path, state.params)
+    if main:
+        save_params(model_path, state.params)
     return {"state": state, "log": log, "model_path": model_path,
             "final_eval": final_eval, "csv_path": csv_path}

@@ -351,7 +351,20 @@ def test_cli_writes_the_jax_artifacts(tmp_path, fmt):
 
 
 def test_cli_refuses_data_parallel(tmp_path):
-    with pytest.raises(SystemExit, match="ROADMAP.md queue 1 item 7"):
-        tcli.main(["--patch-dir", str(tmp_path), "--outdir", str(tmp_path / "o"),
-                   "--data-parallel", "--device", "cpu"])
-    assert not (tmp_path / "o").exists()
+    """--data-parallel runs (a plain process is a one-rank mesh): the same
+    files as the run without it, bit for bit; with K > 1 it raises JAX's
+    check_mesh_vs_scan text."""
+    src = _patch_dir(tmp_path / "in", np.random.default_rng(12), fmt="npy")
+    args = ["--patch-dir", src, "--format", "npy", "--iters", "2", "--batch-size", "2",
+            "--lr-crop-size", "8", "--device", "cpu"]
+    assert tcli.main(args + ["--outdir", str(tmp_path / "dp"), "--data-parallel"]) == 0
+    assert tcli.main(args + ["--outdir", str(tmp_path / "one")]) == 0
+    got = _listing(tmp_path / "dp")
+    assert got == _listing(tmp_path / "one") and "final_results/kernel_per_band.npy" in got
+    for rel, shape in got.items():
+        if shape is not None or rel.endswith(".txt"):
+            assert ((tmp_path / "dp" / rel).read_bytes()
+                    == (tmp_path / "one" / rel).read_bytes()), rel
+    with pytest.raises(ValueError, match="incompatible with device_pool / steps_per_call"):
+        tcli.main(args + ["--outdir", str(tmp_path / "o"), "--data-parallel",
+                          "--steps-per-call", "2"])

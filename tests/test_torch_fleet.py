@@ -271,12 +271,22 @@ def test_refusals_match_jax(tmp_path, case):
 
 
 def test_scene_parallel_and_multi_process_are_refused(tmp_path, monkeypatch):
+    """--scene-parallel runs (a plain process is a one-rank scene mesh) and
+    writes every scene's artifacts as the run without it does, bit for
+    bit; a multi-process launch without it is refused."""
     pool = tsampler.PatchPool(np.ones((2, 5, 32, 32), np.float32))
-    with pytest.raises(ValueError, match="ROADMAP.md queue 1 item 7"):
-        tfleet.train_fleet([pool], _cfg("torch", tmp_path), mesh=object(), device="cpu")
-    with pytest.raises(SystemExit, match="ROADMAP.md queue 1 item 7"):
-        tcli.main(["--patch-root", str(tmp_path), "--outdir", str(tmp_path / "o"),
-                   "--scene-parallel", "--device", "cpu"])
+    _write_scenes(tmp_path / "root", np.random.default_rng(8), "npy")
+    args = ["--patch-root", str(tmp_path / "root"), "--format", "npy", "--iters", "2",
+            "--batch-size", "2", "--lr-crop-size", "8", "--log-every", "1",
+            "--kernel-log-every", "2", "--fast-forward", "--device", "cpu"]
+    assert tcli.main(args + ["--outdir", str(tmp_path / "sp"), "--scene-parallel"]) == 0
+    assert tcli.main(args + ["--outdir", str(tmp_path / "one")]) == 0
+    for scene in ("sceneA", "sceneB"):
+        names = sorted(os.listdir(tmp_path / "one" / scene))
+        assert sorted(os.listdir(tmp_path / "sp" / scene)) == names and len(names) == 5
+        for name in names:
+            assert ((tmp_path / "sp" / scene / name).read_bytes()
+                    == (tmp_path / "one" / scene / name).read_bytes())
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(SystemExit, match="multi-process"):
         tcli.main(["--patch-root", str(tmp_path), "--outdir", str(tmp_path / "o"),

@@ -682,7 +682,23 @@ def test_cli_writes_the_jax_artifacts(tmp_path, fmt):
 
 
 def test_cli_refuses_data_parallel(tmp_path):
-    with pytest.raises(SystemExit, match="ROADMAP.md queue 1 item 7"):
-        tcli.main(["--patch-dir", str(tmp_path), "--outdir", str(tmp_path / "o"),
-                   "--data-parallel", "--device", "cpu"])
-    assert not (tmp_path / "o").exists()
+    """--data-parallel runs (a plain process is a one-rank mesh): the same
+    artifacts as the run without it, bit for bit; with K > 1 it raises
+    JAX's check_mesh_vs_scan text."""
+    src = _patch_dir(tmp_path / "in", np.random.default_rng(17), n=6, hw=32, fmt="npy")
+    args = ["--patch-dir", src, "--format", "npy", "--iters", "2", "--batch-size", "2",
+            "--n-kernels", "3", "--device", "cpu"]
+    assert tcli.main(args + ["--outdir", str(tmp_path / "dp"), "--data-parallel"]) == 0
+    assert tcli.main(args + ["--outdir", str(tmp_path / "one")]) == 0
+    names = sorted(os.listdir(tmp_path / "one"))
+    assert sorted(os.listdir(tmp_path / "dp")) == names and len(names) == 8
+    for name in names:
+        a, b = np.load(tmp_path / "dp" / name), np.load(tmp_path / "one" / name)
+        if name.endswith(".npz"):  # zip members carry their write time
+            assert a.files == b.files
+            assert all(np.array_equal(a[f], b[f]) for f in a.files)
+        else:
+            assert (tmp_path / "dp" / name).read_bytes() == (tmp_path / "one" / name).read_bytes()
+    with pytest.raises(ValueError, match="incompatible with device_pool / steps_per_call"):
+        tcli.main(args + ["--outdir", str(tmp_path / "o"), "--data-parallel",
+                          "--steps-per-call", "2"])

@@ -128,6 +128,9 @@ def test_sr_scene_cli_matches_jax(tmp_path, jax_params):
             assert f.has_group("lr")
         assert attrs["source_group"] == "lr" and int(attrs["tile"]) == 16
         assert int(attrs["halo"]) == 8 and attrs["model"] == "sr_model.npz"
-    with pytest.raises(SystemExit, match="ROADMAP.md queue 1 item 7"):
-        tscene.main(args + ["--output-dir", str(tmp_path / "o"), "--data-parallel"])
-    assert not (tmp_path / "o").exists()
+    # --data-parallel (a plain process is a one-rank mesh) writes the same
+    assert tscene.main(args + ["--output-dir", str(tmp_path / "dp"), "--device", "cpu",
+                               "--data-parallel"]) == 0
+    for name in ("a.nc", "b.nc"):
+        np.testing.assert_array_equal(read_band_stack(str(tmp_path / "dp" / name), "sr"),
+                                      read_band_stack(str(tmp_path / "port" / name), "sr"))

@@ -389,9 +389,25 @@ def test_cli_writes_the_jax_artifacts(tmp_path, source):
 
 
 def test_cli_refuses_data_parallel_and_real_is_lr_alone(tmp_path):
-    with pytest.raises(SystemExit, match="ROADMAP.md queue 1 item 7"):
-        tcli.main(["--patch-dir", str(tmp_path), "--outdir", str(tmp_path / "o"),
-                   "--data-parallel", "--device", "cpu"])
+    """--data-parallel runs (a plain process is a one-rank mesh) and writes
+    the run without it bit for bit; with the scan knobs it raises JAX's
+    check_mesh_vs_scan text; --real-is-lr alone is refused."""
+    args = ["--patch-dir", _write_patch_dir(tmp_path / "p", np.random.default_rng(3)),
+            "--iters", "2", "--batch-size", "2", "--lr-crop-size", "8",
+            "--log-every", "1", "--kernel-log-every", "2", "--fast-forward"]
+    assert tcli.main(args + ["--outdir", str(tmp_path / "dp"), "--data-parallel",
+                             "--device", "cpu"]) == 0
+    assert tcli.main(args + ["--outdir", str(tmp_path / "one"), "--device", "cpu"]) == 0
+    for name in ("training_log.txt", "kernel_per_band.npy", "kernel_merged.npy",
+                 "kernel_per_band_iter2.npy"):
+        assert (tmp_path / "dp" / name).read_bytes() == (tmp_path / "one" / name).read_bytes()
+    msgs = []
+    for m, extra in ((jcli, []), (tcli, ["--device", "cpu"])):
+        with pytest.raises(ValueError) as e:
+            m.main(args + ["--outdir", str(tmp_path / "k"), "--data-parallel",
+                           "--steps-per-call", "2"] + extra)
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1] and "incompatible with device_pool" in msgs[0]
     with pytest.raises(SystemExit, match="--real-is-lr requires --real-lr-dir"):
         tcli.main(["--patch-dir", str(tmp_path), "--outdir", str(tmp_path / "o"),
                    "--real-is-lr", "--device", "cpu"])

@@ -27,6 +27,7 @@ from kmsr_tpu.pipeline import sr_infer as jinfer
 from kmsr_tpu.train import sr as jtrain
 from kmsr_tpu_torch import convert
 from kmsr_tpu_torch.models import sr as tsr
+from kmsr_tpu_torch.parallel.mesh import make_mesh
 from kmsr_tpu_torch.pipeline import sr_infer as tinfer
 from kmsr_tpu_torch.pipeline import train_sr_cli as tcli
 from kmsr_tpu_torch.train import sr as ttrain
@@ -217,19 +218,29 @@ def test_checkpoint_and_resume(tmp_path):
 
 
 def test_refusals(tmp_path):
+    """The device pool under a mesh and a holdout as large as the data are
+    refused with JAX's texts; a mesh run (one rank, the CLI's
+    --data-parallel without torchrun) equals the run without it bit for
+    bit."""
     _, tcfg = _cfgs(tmp_path)
     pairs = _pairs()
+    mesh = make_mesh(device="cpu")
     with pytest.raises(ValueError, match="incompatible with device_pool"):
-        ttrain.train_sr(pairs, dataclasses.replace(tcfg, device_pool=True), mesh=object(),
+        ttrain.train_sr(pairs, dataclasses.replace(tcfg, device_pool=True), mesh=mesh,
                         device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 7"):
-        ttrain.train_sr(pairs, tcfg, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="holdout 12 >= dataset size 12"):
         ttrain.train_sr(pairs, dataclasses.replace(tcfg, holdout=12), device="cpu")
-    with pytest.raises(SystemExit, match="ROADMAP.md queue 1 item 7"):
-        tcli.main(["--train-dir", str(tmp_path), "--outdir", str(tmp_path / "o"),
-                   "--data-parallel", "--device", "cpu"])
-    assert not (tmp_path / "o").exists() and not (tmp_path / "port").exists()
+    assert not (tmp_path / "port").exists()
+    cfg = dataclasses.replace(tcfg, iters=3, log_every=1, eval_every=2)
+    dp = ttrain.train_sr(pairs, dataclasses.replace(cfg, outdir=str(tmp_path / "dp")),
+                         mesh=mesh, progress=False, device="cpu")
+    one = ttrain.train_sr(pairs, dataclasses.replace(cfg, outdir=str(tmp_path / "one")),
+                          progress=False, device="cpu")
+    assert dp["log"] == one["log"] and dp["final_eval"] == one["final_eval"]
+    assert ((tmp_path / "dp" / "training_log.csv").read_bytes()
+            == (tmp_path / "one" / "training_log.csv").read_bytes())
+    a, b = np.load(tmp_path / "dp" / "sr_model.npz"), np.load(tmp_path / "one" / "sr_model.npz")
+    assert a.files == b.files and all(np.array_equal(a[f], b[f]) for f in a.files)
 
 
 def test_cli_writes_a_model_jax_reads(tmp_path, capsys):
