@@ -274,6 +274,34 @@ and exits non-zero without them. Phases, one line each:
    size 1 only; worlds of 2-4 ranks are held on the CPU with gloo
    (tests/test_torch_dp_train.py, tests/test_torch_spatial_ranks.py).
 
+16. tools: the last modules of the JAX package (none launches a kernel of
+   the table but the factory; each part's eight counts are set to 0
+   before it and read after it). (a) The device-sync watchdog
+   (`pipeline.common.SyncWatchdog`, thresholds and abort at 0.05 s) around
+   a sync on a ~0.5 s `torch.cuda._sleep` kernel: its recorded event is
+   pending, so it logs "still running queued work" and never aborts; then
+   the factory's .npy route (`run_factory`, 256 seeded 5x256x256 patches,
+   x8, batch 128, its .nc writes captured in memory) with `sync_watch`
+   armed at JAX's defaults (120 s, poll 30 s, abort 900 s) and with
+   KMSR_SYNC_WATCHDOG=0: lr bit-equal, one `degrade_v3psn` launch a batch
+   each. (b) Tensor parallelism (`parallel.gan_sharding`) on a (1, 1)
+   (data, model) mesh over an in-process NCCL group of world size 1:
+   KernelGAN at the default widths (phase 15's; chain, and compose with
+   fake-side noise), 2 steps of `make_train_step` on the sharded state
+   inside `data_parallel(mesh)` against 2 plain steps under the
+   deterministic algorithms, parameters, D state, Adam moments and metrics
+   bit for bit; the torch.distributed calls of one TP step by axis; TP /
+   plain wall (median of 5 windows of 3 steps). (c)
+   `scripts/torch_quality_report.evaluate` at configs/quality_x8.json's
+   width with the committed quality_run_r4/work/sr_run/sr_model.npz on
+   24 NaN-free 5x256x256 patches of scripts/torch_make_quality_scenes.py's
+   seeded 896x896 scenes (x8, LR = degrade with the sigma = 2 kernel + a
+   draw of a pool at the scenes' sensor noise; 16 more patches for the
+   matched prior's spectrum), SR in float32, both oracle priors at 100 CG
+   iterations; then on the first 3 holdout pairs on the card and on the
+   CPU: each pair's PSNR/SSIM within rtol 1e-5 / atol 1e-5 (phase 12 (c))
+   and the same lam with every lam's mean PSNR within 0.01 dB (phase 14).
+
 inspect_nc, data_stats, viz_cli and make_train_data --vis-dir are host
 h5py / matplotlib code (no h5py on the card's machine); the CPU tests
 (tests/test_torch_analysis_tools.py) hold them against JAX, and no phase
@@ -282,10 +310,11 @@ drives them.
 Prints one JSON line {"factory": {...}} (per-route results), one
 {"scene": {...}}, one {"api": {...}}, one {"kernelgan": {...}}, one
 {"denoise": {...}}, one {"moe_dynamic": {...}}, one {"sr": {...}}, one
-{"fleet": {...}}, one {"oracle": {...}}, one {"parallel": {...}}, then the
-card's nvidia-smi line, one JSON line {"kernels": [...]} (each kernel's
-`launches` on the main path above, `parallel_launches` on phase 15's
-local-DP factory route and ranks scene route) and, last,
+{"fleet": {...}}, one {"oracle": {...}}, one {"parallel": {...}}, one
+{"tools": {...}}, then the card's nvidia-smi line, one JSON line
+{"kernels": [...]} (each kernel's `launches` on the main path above,
+`parallel_launches` on phase 15's local-DP factory route and ranks scene
+route, `tools_launches` on phase 16's three parts) and, last,
 {"ok": true, "device": {...}}. Any mismatch or error in any phase, timing
 included, exits non-zero before that last line.
 """
@@ -3970,8 +3999,7 @@ def tree_same(label: str, got, want, failures: list) -> dict:
     worst = max((float((x.detach().cpu() - y.detach().cpu()).abs().max())
                  for x, y in zip(a, b) if x.shape == y.shape), default=None)
     if not ok:
-        failures.append(f"parallel {label}: DP run differs from the plain run "
-                        f"(max abs {worst})")
+        failures.append(f"parallel {label}: differs from the plain run (max abs {worst})")
     return {"bit_equal": ok, "leaves": len(a), "max_abs_err": worst}
 
 
@@ -4221,6 +4249,361 @@ def phase_parallel(dev, card: str, failures: list) -> dict:
     return res
 
 
+# --------------------------------------------------------------- phase 16
+#: phase 16: (a) a SyncWatchdog with thresholds of WATCH_S around a sync on
+#: a ~WATCH_SLEEP_S sleep kernel, then the factory's .npy route watched and
+#: not; (b) TP_STEPS tensor-parallel steps on a (1, 1) mesh against the
+#: plain step, and TP / plain wall over TP_WINDOWS windows of
+#: TP_WINDOW_ITERS steps; (c) the quality report's array function over
+#: QUALITY_HOLDOUT pairs (QUALITY_TRAIN more for the matched prior's
+#: spectrum), card vs CPU on the first QUALITY_CPU_N holdout pairs
+WATCH_SLEEP_S, WATCH_S = 0.5, 0.05
+TP_STEPS, TP_WINDOWS, TP_WINDOW_ITERS = 2, 5, 3
+QUALITY_HOLDOUT, QUALITY_TRAIN, QUALITY_CPU_N = 24, 16, 3
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+
+def watchdog_part(dev, failures: list) -> dict:
+    """(a) The watchdog's pending state on the card, then the factory's
+    .npy route with sync_watch armed at its defaults against the same route
+    with KMSR_SYNC_WATCHDOG=0, its .nc writes captured in memory."""
+    import numpy as np
+    import torch
+
+    from kmsr_tpu_torch import kernels
+    from kmsr_tpu_torch.pipeline import common, factory
+
+    logs, aborts = [], []
+    wd = common.SyncWatchdog(label="smoke", threshold_s=WATCH_S, poll_s=WATCH_S,
+                             wedge_abort_s=WATCH_S, on_abort=aborts.append, log=logs.append)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda._sleep(int(WATCH_SLEEP_S * max_sm_clock_hz()))
+        with wd.watch():
+            torch.cuda.synchronize()
+        slept = time.perf_counter() - t0
+    finally:
+        wd.stop()
+    states = [st for _, st in wd.diagnoses]
+    res = {"sleep_s": slept, "diagnoses": wd.diagnoses, "aborts": len(aborts),
+           "log": logs[:2]}
+    if "device_pending" not in states or aborts or not any(
+            "still running queued work" in m for m in logs):
+        failures.append(f"phase 16 (a): watchdog on a {slept:.2f}s sync: diagnoses "
+                        f"{wd.diagnoses}, aborts {aborts}, log {logs[:2]}")
+
+    tmp = tempfile.mkdtemp(prefix="kmsr_chip_watch_")
+    try:
+        rng = np.random.default_rng(SEED + 170)
+        indir = os.path.join(tmp, "in")
+        os.makedirs(indir)
+        for i in range(N_FILES):
+            np.save(os.path.join(indir, f"p{i:04d}.npy"),
+                    rng.normal(5, 2, (C, HW, HW)).astype(np.float32))
+        k_path, pool_path = os.path.join(tmp, "k.npy"), os.path.join(tmp, "pool.npy")
+        np.save(k_path, rng.uniform(0.1, 1, (C, KSIZE, KSIZE)).astype(np.float32))
+        np.save(pool_path, rng.normal(0, 0.1, (POOL_N, C, HW // FACTOR, HW // FACTOR))
+                .astype(np.float32))
+        runs = {}
+        saved, env = factory.save_training_sample, os.environ.pop("KMSR_SYNC_WATCHDOG", None)
+        try:
+            for label in ("watched", "unwatched"):
+                written = {}
+                factory.save_training_sample = (
+                    lambda out, hr, lr, nav, lr_attrs=None, w=written:
+                    w.__setitem__(os.path.basename(out), lr))
+                if label == "unwatched":
+                    os.environ["KMSR_SYNC_WATCHDOG"] = "0"
+                kernels.reset_launches()
+                t0 = time.perf_counter()
+                rep = factory.run_factory(indir, k_path, pool_path, os.path.join(tmp, label),
+                                          factor=FACTOR, batch_size=B, seed=42,
+                                          input_format="npy", progress=False, device=dev)
+                runs[label] = {"written": written, "ok": rep.n_ok, "failed": rep.n_fail,
+                               "launches": dict(kernels.LAUNCHES),
+                               "seconds": time.perf_counter() - t0}
+        finally:
+            factory.save_training_sample = saved
+            os.environ.pop("KMSR_SYNC_WATCHDOG", None)
+            if env is not None:
+                os.environ["KMSR_SYNC_WATCHDOG"] = env
+        wd = common._WATCHDOGS.get("factory")
+        armed = None if wd is None else {k: getattr(wd, k) for k in (
+            "threshold_s", "poll_s", "wedge_abort_s")}
+        if armed != {"threshold_s": 120.0, "poll_s": 30.0, "wedge_abort_s": 900.0}:
+            failures.append(f"phase 16 (a): the factory's watchdog {armed}, want JAX's defaults")
+        w, u = runs["watched"]["written"], runs["unwatched"]["written"]
+        same_lr = w.keys() == u.keys() and len(w) == N_FILES and all(
+            np.array_equal(w[k], u[k]) for k in w)
+        batches = -(-N_FILES // B)
+        for label, r in runs.items():
+            if r["launches"] != {**{k: 0 for k in r["launches"]}, "degrade_v3psn": batches}:
+                failures.append(f"phase 16 (a) factory {label}: launches {r['launches']}, "
+                                f"want degrade_v3psn once a batch ({batches})")
+            if r["ok"] != N_FILES or r["failed"]:
+                failures.append(f"phase 16 (a) factory {label}: {r['ok']} ok, {r['failed']} failed")
+        if not same_lr:
+            failures.append("phase 16 (a): the watched factory's lr differs from the unwatched")
+        res["factory"] = {"watchdog": armed, "lr_bit_equal": same_lr,
+                          "launches": runs["watched"]["launches"],
+                          "unwatched_launches": runs["unwatched"]["launches"],
+                          "diagnoses": [] if wd is None else wd.diagnoses,
+                          "seconds": {k: r["seconds"] for k, r in runs.items()}}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[tools] (a) watchdog: {WATCH_SLEEP_S}s sleep kernel synced in {slept:.2f}s, "
+        f"diagnoses {wd_states(res['diagnoses'])}, {len(aborts)} aborts; factory .npy "
+        f"watched vs unwatched lr bit-equal {res['factory']['lr_bit_equal']}, launches "
+        f"{ {k: n for k, n in res['factory']['launches'].items() if n} }")
+    return res
+
+
+def wd_states(diagnoses) -> dict:
+    out: dict = {}
+    for _, st in diagnoses:
+        out[st] = out.get(st, 0) + 1
+    return out
+
+
+def tp_part(dev, card: str, failures: list) -> dict:
+    """(b) An in-process NCCL group of world size 1 and its (1, 1) (data,
+    model) mesh: TP_STEPS KernelGAN steps at the default widths (chain;
+    compose with fake-side noise) on the sharded state inside
+    `data_parallel(mesh)` against the plain step, under the deterministic
+    algorithms, every parameter, D state leaf, Adam moment and metric bit
+    for bit; the collectives of one TP step, by axis; TP / plain wall."""
+    import datetime
+    import statistics
+
+    import torch
+    import torch.distributed as dist
+
+    from kmsr_tpu_torch import kernels
+    from kmsr_tpu_torch.device import deterministic
+    from kmsr_tpu_torch.models.generator import GeneratorConfig
+    from kmsr_tpu_torch.parallel.gan_sharding import shard_state, sharded_axis
+    from kmsr_tpu_torch.parallel.mesh import data_parallel, make_mesh, shard_batch
+    from kmsr_tpu_torch.train.single_kernel import (SingleKernelConfig, init_training,
+                                                    make_train_step)
+
+    res = {"card": card}
+    host = dp_pool(DP_N, HW, SEED + 171, dev)
+    hr = torch.from_numpy(host).to(dev)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+        res["mesh"] = {"shape": mesh.shape, "backend": dist.get_backend(),
+                       "device": str(mesh.device)}
+        for mode, extra in (("chain", {}),
+                            ("compose", {"fake_noise_sigma": (0.1, 0.2, 0.1, 0.3, 0.1)})):
+            cfg = SingleKernelConfig(verbose=False, generator=GeneratorConfig(forward_mode=mode),
+                                     **extra)
+            plain = init_training(cfg, dev)
+            tp = shard_state(mesh, init_training(cfg, dev))
+            n_sharded = sum(sharded_axis(t) is not None
+                            for t in tree_leaves_of(tp.g_params, tp.d_params))
+            step = make_train_step(cfg)
+            kernels.reset_launches()
+            same_metrics = True
+            with deterministic(dev):
+                for _ in range(TP_STEPS):
+                    plain, m_p = step(plain, hr, hr)
+                    with data_parallel(mesh):
+                        tp, m_t = step(tp, shard_batch(mesh, host), shard_batch(mesh, host))
+                    same_metrics &= all(torch.equal(m_t[k], m_p[k]) for k in (
+                        "loss_D", "loss_G_adv", "loss_reg", "grad_norm_D", "grad_norm_G",
+                        "kernels"))
+            r = {"sharded_leaves": n_sharded,
+                 "metrics_bit_equal": same_metrics,
+                 "params": tree_same(f"TP {mode} params", [tp.g_params, tp.d_params],
+                                     [plain.g_params, plain.d_params], failures),
+                 "d_state": tree_same(f"TP {mode} D state", tp.d_state, plain.d_state, failures),
+                 "adam": tree_same(f"TP {mode} Adam", [tp.g_opt_state, tp.d_opt_state],
+                                   [plain.g_opt_state, plain.d_opt_state], failures)}
+            with deterministic(dev):
+                calls = count_collectives(lambda: data_parallel(mesh), step, tp, host, mesh)
+                walls = {"tp": [], "plain": []}
+                for _ in range(TP_WINDOWS):
+                    for label in ("plain", "tp"):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        for _ in range(TP_WINDOW_ITERS):
+                            if label == "tp":
+                                with data_parallel(mesh):
+                                    tp, _ = step(tp, shard_batch(mesh, host),
+                                                 shard_batch(mesh, host))
+                            else:
+                                plain, _ = step(plain, hr, hr)
+                        torch.cuda.synchronize()
+                        walls[label].append((time.perf_counter() - t0) / TP_WINDOW_ITERS)
+            no_kernel_launched(f"phase 16 (b) {mode}", failures)
+            r["collectives_per_step"] = calls
+            if not same_metrics:
+                failures.append(f"phase 16 (b) {mode}: TP metrics differ from the plain step's")
+            med = {k: statistics.median(v) for k, v in walls.items()}
+            r.update({"iters_per_s": 1 / med["tp"], "plain_iters_per_s": 1 / med["plain"],
+                      "tp_over_plain_wall": med["tp"] / med["plain"],
+                      "wall_ms_windows": {k: [x * 1e3 for x in v] for k, v in walls.items()}})
+            res[mode] = r
+            log(f"[tools] (b) TP {mode} on a (1, 1) mesh (NCCL, world 1): {TP_STEPS} steps "
+                f"bit-equal to the plain step {r['params']['bit_equal'] and same_metrics}, "
+                f"{n_sharded} sharded leaves; collectives a step {calls}; "
+                f"{r['iters_per_s']:.2f} it/s TP, {r['plain_iters_per_s']:.2f} plain "
+                f"(wall x{r['tp_over_plain_wall']:.3f})")
+    finally:
+        dist.destroy_process_group()
+    return res
+
+
+def tree_leaves_of(*trees) -> list:
+    from kmsr_tpu_torch.train.state import tree_leaves
+
+    return [t for tree in trees for t in tree_leaves(tree)]
+
+
+def count_collectives(context, step, state, host, mesh) -> dict:
+    """The torch.distributed calls of one step of `step` on `state` inside
+    `context()`, by kind and by the mesh axis whose group they use."""
+    import torch.distributed as dist
+
+    from kmsr_tpu_torch.parallel.mesh import shard_batch
+
+    counts: dict = {}
+    axis = {id(mesh.group): "data", id(mesh.model_group): "model"}
+    saved = {name: getattr(dist, name) for name in ("all_reduce", "all_gather")}
+
+    def counting(name, fn):
+        def call(*a, group=None, **k):
+            key = f"{name}/{axis.get(id(group), 'other')}"
+            counts[key] = counts.get(key, 0) + 1
+            return fn(*a, group=group, **k)
+        return call
+
+    for name, fn in saved.items():
+        setattr(dist, name, counting(name, fn))
+    try:
+        with context():
+            step(state, shard_batch(mesh, host), shard_batch(mesh, host))
+    finally:
+        for name, fn in saved.items():
+            setattr(dist, name, fn)
+    return counts
+
+
+def quality_part(dev, failures: list) -> dict:
+    """(c) `scripts/torch_quality_report.evaluate` (SR and bilinear over the
+    holdout, PSNR/SSIM, the gradient and matched oracle sweeps) at
+    configs/quality_x8.json's width with the committed SR model, on pairs
+    cut from `scripts/torch_make_quality_scenes.py`'s seeded scenes; then on the first QUALITY_CPU_N holdout pairs on the
+    card and on the CPU: each pair's PSNR/SSIM at phase 12 (c)'s rule (rtol
+    1e-5 / atol 1e-5) and phase 14's for the oracle (the same lam, every
+    lam's mean PSNR within ORACLE_PSNR_DB)."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from kmsr_tpu_torch import kernels
+    from kmsr_tpu_torch.pipeline.sr_infer import load_sr_model
+
+    from kmsr_tpu_torch.models import GeneratorConfig, extract_kernels, init_generator
+
+    def script(name):
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(REPO, "scripts", f"{name}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    tqr, mqs = script("torch_quality_report"), script("torch_make_quality_scenes")
+    # the quality run's data: NaN-free 256x256 patches (stride 128) of seeded
+    # 896x896 Landsat-like scenes, LR = degrade(hr) with the sigma = 2 kernel
+    # + a draw of a pool at the scenes' sensor noise
+    rng = np.random.default_rng(SEED + 172)
+    n = QUALITY_TRAIN + QUALITY_HOLDOUT
+    patches = []
+    while len(patches) < n:
+        scene = mqs.make_scene(rng, 896)[0]
+        patches += [scene[:, y:y + HW, x:x + HW] for y in range(0, 896 - HW + 1, HW // 2)
+                    for x in range(0, 896 - HW + 1, HW // 2)
+                    if np.isfinite(scene[:, y:y + HW, x:x + HW]).all()]
+    hr_all = np.stack(patches[:n])
+    pool = (rng.normal(0, 1, (POOL_N, C, HW // FACTOR, HW // FACTOR))
+            * mqs.NOISE_SIGMA[None, :, None, None]).astype(np.float32)
+    kernel = extract_kernels(init_generator(GeneratorConfig(), device=dev)).cpu().numpy()
+    lr_all, _ = oracle_lr(hr_all, kernel, FACTOR, pool, rng, dev)
+    noise_var = np.nanvar(pool, axis=(0, 2, 3))
+    cfg = sr_config()
+    params = {d.type: load_sr_model(SR_MODEL, cfg, d) for d in (dev, torch.device("cpu"))}
+    n_check = QUALITY_TRAIN + QUALITY_CPU_N
+    res = {}
+    for run, d, n, holdout in (("full", dev, len(lr_all), QUALITY_HOLDOUT),
+                               ("check", dev, n_check, QUALITY_CPU_N),
+                               ("cpu", torch.device("cpu"), n_check, QUALITY_CPU_N)):
+        kernels.reset_launches()
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = tqr.evaluate(lr_all[:n], hr_all[:n], holdout, params[d.type], cfg,
+                           oracle_kernel=kernel, noise_var=noise_var,
+                           oracle_iters=ORACLE_ITERS, device=d)
+        out["seconds"] = time.perf_counter() - t0
+        no_kernel_launched(f"phase 16 (c) {run}", failures)
+        res[run] = out
+    full = res["full"]
+    if full["rows"].shape != (QUALITY_HOLDOUT, 4) or not np.isfinite(full["rows"]).all():
+        failures.append(f"phase 16 (c): rows {full['rows'].shape}, finite "
+                        f"{bool(np.isfinite(full['rows']).all())}")
+    got, want = res["check"], res["cpu"]
+    rows_ok = bool(np.allclose(got["rows"], want["rows"], rtol=1e-5, atol=1e-5))
+    lam_ok = all(got["stats"][k]["lam"] == want["stats"][k]["lam"] for k in want["stats"])
+    psnr_diff = max(abs(got["stats"][k]["per_lam"][lam] - want["stats"][k]["per_lam"][lam])
+                    for k in want["stats"] for lam in want["stats"][k]["per_lam"])
+    if not (rows_ok and lam_ok and psnr_diff <= ORACLE_PSNR_DB):
+        failures.append(f"phase 16 (c): card vs CPU rows {rows_ok} (max diff "
+                        f"{np.abs(got['rows'] - want['rows']).max():.3g}), same lam {lam_ok}, "
+                        f"lam PSNR within {psnr_diff:.3g} dB")
+
+    def summary(r):
+        return {"sr_psnr": r["sr_p"], "sr_ssim": r["sr_s"], "bilinear_psnr": r["bl_p"],
+                "bilinear_ssim": r["bl_s"], "seconds": r["seconds"],
+                "oracle": {k: {"psnr": v["p"], "ssim": v["s"], "lam": v["lam"],
+                               "psnr_by_lam": {str(a): b for a, b in v["per_lam"].items()}}
+                           for k, v in r["stats"].items()}}
+
+    out = {"full": summary(full), "check_card": summary(got), "check_cpu": summary(want),
+           "rows_max_abs_diff": float(np.abs(got["rows"] - want["rows"]).max()),
+           "lam_psnr_max_diff_db": psnr_diff, "pairs": QUALITY_HOLDOUT,
+           "spec_pairs": QUALITY_TRAIN}
+    log(f"[tools] (c) quality report on the card, {QUALITY_HOLDOUT} pairs: SR "
+        f"{full['sr_p']:.4f} dB / {full['sr_s']:.5f}, bilinear {full['bl_p']:.4f} / "
+        f"{full['bl_s']:.5f}, oracle " + ", ".join(
+            f"{k} {v['p']:.4f} dB at lam {v['lam']:g}" for k, v in full["stats"].items())
+        + f" in {full['seconds']:.2f}s; card vs CPU on {QUALITY_CPU_N} pairs: rows "
+        f"max diff {out['rows_max_abs_diff']:.3g}, lam PSNR within {psnr_diff:.3g} dB "
+        f"(CPU {want['seconds']:.1f}s)")
+    return out
+
+
+def phase_tools(dev, card: str, failures: list) -> dict:
+    """Phase 16 (module docstring): the device-sync watchdog and the
+    factory under it, tensor parallelism on a (1, 1) mesh, the quality
+    report's device part. Each part's eight launch counts are set to 0
+    before it and read after it."""
+    t0 = time.perf_counter()
+    res = {"watchdog": watchdog_part(dev, failures)}
+    t1 = time.perf_counter()
+    res["tp"] = tp_part(dev, card, failures)
+    t2 = time.perf_counter()
+    res["quality"] = quality_part(dev, failures)
+    res["part_seconds"] = {"watchdog": t1 - t0, "tp": t2 - t1,
+                           "quality": time.perf_counter() - t2}
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
 def main() -> int:
     # the package's trainers (phases 9-13) run under torch's deterministic
     # algorithms on the card, whose cuBLAS calls need this before cuBLAS's
@@ -4286,6 +4669,9 @@ def main() -> int:
         parallel_res["nvidia_smi"] = smi
         log(f"[parallel] {'ok' if not failures else 'FAILED'} in "
             f"{parallel_res['seconds']:.1f}s")
+        tools_res = phase_tools(dev, card, failures)
+        tools_res["nvidia_smi"] = smi
+        log(f"[tools] {'ok' if not failures else 'FAILED'} in {tools_res['seconds']:.1f}s")
     except Exception:
         traceback.print_exc()
         return 1
@@ -4309,6 +4695,11 @@ def main() -> int:
     dp_launches["degrade_v3psn"] = parallel_res["local_dp"]["factory"]["cards"]["launches"].get(
         "degrade_v3psn", 0)
     dp_launches["colsplit_raw"] = parallel_res["scene"]["ranks_launches"].get("colsplit_raw", 0)
+    # phase 16's paths: the watched factory .npy route; TP and the quality
+    # report launch none of the eight (each part fails otherwise)
+    tools_launches = {name: {"watchdog_factory": tools_res["watchdog"]["factory"]["launches"]
+                             .get(name, 0), "tp_step": 0, "quality_report": 0}
+                      for name in SOURCES}
     main_layout = {"degrade_v3": "nchw", "degrade_v3psn": "presplit",
                    "degrade_v3ps": "presplit_halo", "degrade_v2": "nchw",
                    "degrade_v1": "chwb", "degrade_v4": "nchw",
@@ -4321,6 +4712,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],
             "parallel_launches": dp_launches[name],
+            "tools_launches": tools_launches[name],
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "max_rel_err": max(c["max_rel_err"] for c in mine),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
@@ -4347,6 +4739,7 @@ def main() -> int:
     log(json.dumps({"fleet": fleet_res}))
     log(json.dumps({"oracle": oracle_res}))
     log(json.dumps({"parallel": parallel_res}))
+    log(json.dumps({"tools": tools_res}, default=str))
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f}s")
     log(smi)
     log(json.dumps({"kernels": records}))

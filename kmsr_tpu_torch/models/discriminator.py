@@ -13,6 +13,12 @@ by hand, not `torch.nn.utils.spectral_norm`: the JAX version takes one
 power step, recomputes v from the u it uses, and differentiates through
 the whole iteration (only the returned u is detached), where PyTorch's
 runs its iteration under no_grad in another order.
+
+Under a (data, model) mesh (`parallel.gan_sharding`) a conv's `w`, `b`, `u`
+and its BatchNorm's vectors may be this rank's slice of its O channels: the
+rank convolves the full activation into its channels (column-parallel),
+normalizes them, and the activations are gathered before the next conv;
+spectral norm's contractions over O are partial sums summed over 'model'.
 """
 from __future__ import annotations
 
@@ -24,7 +30,9 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..ops.degrade import fp32_convs
-from ..parallel.mesh import active_mesh, batch_mean
+from ..parallel.gan_sharding import sharded_axis
+from ..parallel.mesh import (active_mesh, batch_mean, copy_to_model, gather_from_model,
+                             model_mesh, model_norm, reduce_from_model)
 
 _SN_EPS = 1e-12
 _BN_EPS = 1e-5
@@ -80,16 +88,27 @@ def _normalized(v: torch.Tensor) -> torch.Tensor:
     return v / (torch.linalg.vector_norm(v) + _SN_EPS)
 
 
-def _spectral_normalize(w: torch.Tensor, u: torch.Tensor, update: bool):
+def _spectral_normalize(w: torch.Tensor, u: torch.Tensor, update: bool, rows: bool = False):
     """One power-iteration step; returns (w / sigma, new_u). sigma is
-    differentiated through the iteration; only new_u is detached."""
+    differentiated through the iteration; only new_u is detached.
+
+    rows: w's O rows (and u) are this rank's shard over 'model': W^T u and
+    sigma are partial sums over the rank's rows, summed over the ranks, and
+    so is ||W v||^2 (`parallel.mesh.model_norm`); at m = 1 the step is the
+    unsharded one bit for bit."""
+
+    def same(x):
+        return x
+
+    red, cp, norm = (reduce_from_model, copy_to_model, model_norm) if rows else (same,) * 3
     w_mat = w.reshape(w.shape[0], -1)
-    v = _normalized(w_mat.T @ u)
-    u_new = _normalized(w_mat @ v)
+    v = _normalized(red(w_mat.T @ u))
+    u_new = w_mat @ cp(v)
+    u_new = u_new / (norm(torch.linalg.vector_norm(u_new)) + _SN_EPS)
     u_used = u_new if update else u
-    v_used = _normalized(w_mat.T @ u_used)
-    sigma = torch.dot(u_used, w_mat @ v_used)
-    w_sn = w / (sigma + _SN_EPS)
+    v_used = _normalized(red(w_mat.T @ u_used))
+    sigma = red(torch.dot(u_used, w_mat @ cp(v_used))[None])[0]
+    w_sn = w / (cp(sigma) + _SN_EPS)
     return w_sn, (u_new.detach() if update else u)
 
 
@@ -129,19 +148,31 @@ def discriminator_forward(
     """x: [B, C, H, W] -> (score map [B, 1, H, W], new_state)."""
     new_state: dict = {"u": [], "bn_mean": [], "bn_var": []}
     convs = params["convs"]
+    tp = model_mesh() is not None
 
     def sn_conv(i, h, pad):
-        w_sn, u_new = _spectral_normalize(convs[i]["w"], state["u"][i], train)
+        """The conv's output: this rank's channels if its weight is sharded
+        over 'model', then (True) or the full output (False)."""
+        w = convs[i]["w"]
+        rows = tp and sharded_axis(w) == 0
+        w_sn, u_new = _spectral_normalize(w, state["u"][i], train, rows)
         new_state["u"].append(u_new)
         with fp32_convs():
-            return F.conv2d(h, w_sn, convs[i]["b"], padding=pad)
+            return F.conv2d(copy_to_model(h) if rows else h, w_sn, convs[i]["b"],
+                            padding=pad), rows
 
-    h = F.leaky_relu(sn_conv(0, x, 3), LEAKY_SLOPE)
+    def full(h, rows):
+        return gather_from_model(h, 1) if rows else h
+
+    h, rows = sn_conv(0, x, 3)
+    h = F.leaky_relu(h, LEAKY_SLOPE)
     for i in range(len(params["bn_scale"])):
+        h, rows = sn_conv(1 + i, full(h, rows), 0)
         h, m, v = batch_norm(
-            sn_conv(1 + i, h, 0), params["bn_scale"][i], params["bn_bias"][i],
+            h, params["bn_scale"][i], params["bn_bias"][i],
             state["bn_mean"][i], state["bn_var"][i], train)
         new_state["bn_mean"].append(m)
         new_state["bn_var"].append(v)
         h = F.leaky_relu(h, LEAKY_SLOPE)
-    return sn_conv(1 + len(params["bn_scale"]), h, 0), new_state
+    h, rows = sn_conv(1 + len(params["bn_scale"]), full(h, rows), 0)
+    return full(h, rows), new_state

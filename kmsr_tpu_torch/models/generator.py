@@ -13,6 +13,11 @@ The 5 band chains run as one grouped conv chain (groups = bands), and
 kernel instead (identical away from a 6-pixel border rim). Every conv runs
 in full float32 (`fp32_convs`), as the JAX path's Precision.HIGHEST
 composition and float32 XLA convolutions do.
+
+Under a (data, model) mesh (`parallel.gan_sharding`) a layer's weights may
+be this rank's slice of its OUT channels (the chain runs column-parallel)
+or, for the out = 1 last layer, of its IN channels (row-parallel); compose
+mode and kernel extraction gather the full weights first.
 """
 from __future__ import annotations
 
@@ -25,6 +30,8 @@ import torch.nn.functional as F
 from ..device import resolve_device
 from ..ops.degrade import block_mean, fp32_convs
 from ..ops.kernel_algebra import clip_nonneg, compose_chain, chain_conv
+from ..parallel.gan_sharding import sharded_axis
+from ..parallel.mesh import copy_to_model, gather_from_model, model_mesh, reduce_from_model
 
 DEFAULT_KS = (7, 5, 3, 1, 1, 1)
 
@@ -98,23 +105,52 @@ def _chain_forward_grouped(layers: Sequence[torch.Tensor], x: torch.Tensor) -> t
     Each layer goes through `ops.kernel_algebra.chain_conv` (the first and
     the 1x1 layers' weight gradients as GEMMs): under the trainers'
     deterministic algorithms, cuDNN's doubled the chain's time.
+
+    Under a model mesh an OUT-sharded layer convolves the full activation
+    into this rank's output channels, and the shards are gathered before a
+    layer that needs them all; an IN-sharded layer convolves this rank's
+    input channels and the partial results are summed over 'model'.
     """
     nhwc = torch.channels_last
+    sharded = model_mesh() is not None
     h = x.contiguous(memory_format=nhwc)
+    split = False  # h holds this rank's channel shard of every band
     with fp32_convs():
         for w in layers:
             bands, out_c, in_c, k, _ = w.shape
+            ax = sharded_axis(w) if sharded else None
+            # an IN-sharded layer (the rules shard IN only after an OUT-
+            # sharded layer of the same split) takes this rank's shard as is
+            if ax != 2 and split:
+                h, split = gather_from_model(h, 1, bands).contiguous(memory_format=nhwc), False
             if k > 1:
                 p = k // 2
                 h = F.pad(h, (p, p, p, p), mode="reflect").contiguous(memory_format=nhwc)
-            h = chain_conv(h, w.reshape(bands * out_c, in_c, k, k), bands)
+            wg = w.reshape(bands * out_c, in_c, k, k)
+            if ax == 1:
+                h, split = chain_conv(copy_to_model(h), wg, bands), True
+            elif ax == 2:
+                h, split = reduce_from_model(chain_conv(h, wg, bands)), False
+            else:
+                h = chain_conv(h, wg, bands)
+        if split:
+            h = gather_from_model(h, 1, bands).contiguous(memory_format=nhwc)
     return h
+
+
+def _full_layers(layers: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+    """The layers' full weights: each sharded layer gathered over 'model'
+    under a model mesh."""
+    if model_mesh() is None:
+        return list(layers)
+    return [w if (ax := sharded_axis(w)) is None else gather_from_model(w, ax)
+            for w in layers]
 
 
 def raw_effective_kernels(params: dict) -> torch.Tensor:
     """Per-band composed chain kernels [C, KH, KW], RAW (no clip or
     normalization): exactly the linear map the chain applies."""
-    return compose_chain(params["layers"])[:, 0, 0]
+    return compose_chain(_full_layers(params["layers"]))[:, 0, 0]
 
 
 def _compose_forward(params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -140,7 +176,7 @@ def generator_forward(
 def extract_kernels_raw(params: dict) -> torch.Tensor:
     """Per-band composed kernels [C, KH, KW] without clamp/normalize,
     differentiable (feeds `SingleKernelConfig.raw_sum_reg`)."""
-    return compose_chain(params["layers"]).mean(dim=(1, 2))
+    return compose_chain(_full_layers(params["layers"])).mean(dim=(1, 2))
 
 
 def extract_kernels(params: dict, differentiable: bool = False) -> torch.Tensor:

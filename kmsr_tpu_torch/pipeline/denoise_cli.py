@@ -43,7 +43,7 @@ from ..ops.nlm import (
     denoise_stack_np,
 )
 from ..utils.profiling import stage_timer
-from .common import RunReport, run_per_file
+from .common import RunReport, run_per_file, sync_watch
 
 
 def process_nc_file(
@@ -155,7 +155,7 @@ def batch_denoise(
             # writes and per-file fallbacks
             if handle is not None:
                 try:
-                    with stage_timer("denoise.device_sync"):
+                    with stage_timer("denoise.device_sync"), sync_watch("denoise"):
                         den, sig = denoise_batch_finalize(handle)
                     with stage_timer("denoise.host_write"):
                         for (path, stack), d, s in zip(uniform, den, sig):

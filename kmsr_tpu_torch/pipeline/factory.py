@@ -89,7 +89,8 @@ from ..parallel.local_dp import gather, local_batch_dp, local_map, pad_put
 from ..utils.params_io import load_params
 from ..utils.profiling import stage_timer
 from .apply_kernel import load_kernel
-from .common import DeviceSyncGuard, RunReport, chunked_reader, route_per_scene_kernels
+from .common import (DeviceSyncGuard, RunReport, chunked_reader, route_per_scene_kernels,
+                     sync_watch)
 from .make_train_data import save_training_sample
 
 BACKENDS = ("auto", "conv", "fused")
@@ -607,7 +608,7 @@ def run_factory(
         # crash the run (unless the guard sees the device persistently
         # wedged).
         try:
-            with stage_timer("factory.device_sync"):
+            with stage_timer("factory.device_sync"), sync_watch("factory"):
                 lr_batch = lr_dev.cpu().numpy()
                 experts = ([None] * len(paths) if experts_dev is None
                            else experts_dev.cpu().tolist())

@@ -18,6 +18,9 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from ..parallel.gan_sharding import sharded_axis
+from ..parallel.mesh import model_mesh, reduce_from_model
+
 
 # ------------------------------------------------------------------ pytrees
 def tree_leaves(tree) -> list[torch.Tensor]:
@@ -49,9 +52,23 @@ def tree_unflatten(template, leaves) -> Any:
 
 
 # ---------------------------------------------------------------- optimizer
-def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares over every element (optax.global_norm)."""
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+def global_norm(tensors: list[torch.Tensor], sharded: Optional[list[bool]] = None
+                ) -> torch.Tensor:
+    """sqrt of the sum of squares over every element (optax.global_norm).
+
+    Under a model mesh, the tensors flagged in `sharded` are this rank's
+    slices of their leaves: a slice's norm becomes its leaf's, sqrt of the
+    squared norms summed over 'model' (at m = 1 exactly the slice's norm),
+    and a replicated tensor counts once."""
+    norms = torch._foreach_norm(tensors)
+    if sharded is not None and any(sharded):
+        idx = [i for i, s in enumerate(sharded) if s]
+        part = torch.stack([norms[i] for i in idx])
+        full = torch.sqrt(reduce_from_model(part * part))
+        norms = list(norms)
+        for k, i in enumerate(idx):
+            norms[i] = full[k]
+    return torch.linalg.vector_norm(torch.stack(norms))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,8 +103,12 @@ class ClippedAdam:
     def step(self, params, grads: list[torch.Tensor], opt_state: dict) -> torch.Tensor:
         """Update `params` and `opt_state` in place from `grads` (in
         `tree_leaves(params)` order); returns the global norm of the
-        gradients before clipping, as a device scalar."""
-        g_norm = global_norm(grads)
+        gradients before clipping, as a device scalar. Under a model mesh,
+        the global norm is the full leaves' (`global_norm`)."""
+        sharded = None
+        if model_mesh() is not None:
+            sharded = [sharded_axis(p) is not None for p in tree_leaves(params)]
+        g_norm = global_norm(grads, sharded)
         if self.max_norm is not None:
             scaled = torch._foreach_div(grads, g_norm)
             torch._foreach_mul_(scaled, self.max_norm)

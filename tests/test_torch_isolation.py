@@ -14,9 +14,15 @@ from kmsr_tpu_torch.device import resolve_device
 REPO = Path(__file__).resolve().parent.parent
 
 
+#: the port's copies of the JAX package's SR quality scripts
+PORT_SCRIPTS = ("torch_make_quality_scenes.py", "torch_quality_report.py",
+                "torch_native_lr_eval.py")
+
+
 def _port_sources():
     files = sorted((REPO / "kmsr_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
+    files += [REPO / "scripts" / name for name in PORT_SCRIPTS]
     return files
 
 
@@ -326,3 +332,29 @@ def test_fleet_and_dag_entry_points_default_to_cuda_and_raise_without_it(tmp_pat
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
     assert not (tmp_path / "out").exists()
+
+
+def test_running_the_quality_scripts_loads_no_jax():
+    """The three quality scripts with what their mains import (the SR model,
+    metrics, pairs loader, oracle, kernel loader, sr_scene, params IO, the
+    tensor-parallel modules beside them)."""
+    code = (
+        "import sys, importlib.util; sys.path.insert(0, 'scripts')\n"
+        "for n in ('torch_make_quality_scenes', 'torch_quality_report', "
+        "'torch_native_lr_eval'):\n"
+        "    spec = importlib.util.spec_from_file_location(n, f'scripts/{n}.py')\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "import kmsr_tpu_torch.analysis.oracle, kmsr_tpu_torch.pipeline.train_sr_cli, "
+        "kmsr_tpu_torch.pipeline.apply_kernel, kmsr_tpu_torch.pipeline.sr_scene, "
+        "kmsr_tpu_torch.utils.params_io, kmsr_tpu_torch.io.ncio, "
+        "kmsr_tpu_torch.data.patches, kmsr_tpu_torch.parallel.gan_sharding, "
+        "kmsr_tpu_torch.utils.profiling, kmsr_tpu_torch.pipeline.common\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'optax', 'orbax', 'kmsr_tpu')]; print(bad); "
+        "sys.exit(1 if bad else 0)"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr

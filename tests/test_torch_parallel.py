@@ -121,8 +121,13 @@ def test_one_rank_mesh_and_its_refusals():
     np.testing.assert_array_equal(tmesh.shard_batch(two, batch).numpy(), batch[3:])
     with pytest.raises(ValueError, match=r"divisible by 2 .* equal to 3 \(full shape: \(3, 2\)\)"):
         tmesh.shard_batch(two, batch[:3])
-    with pytest.raises(ValueError, match="only 1-D meshes"):
-        tmesh.make_mesh(axis_sizes=(1, 1), axis_names=("data", "model"), device="cpu")
+    two_d = tmesh.make_mesh(axis_sizes=(1, 1), axis_names=("data", "model"), device="cpu")
+    assert two_d.axis_names == ("data", "model") and two_d.shape == {"data": 1, "model": 1}
+    assert (two_d.group, two_d.model_group, two_d.model_rank) == (None, None, 0) and two_d.is_main
+    with pytest.raises(ValueError, match="mesh needs 4 devices, have 1"):
+        tmesh.make_mesh((2, 2), ("data", "model"), device="cpu")
+    with pytest.raises(ValueError, match="only 1-D and 2-D meshes"):
+        tmesh.make_mesh((1, 1, 1), ("data", "model", "x"), device="cpu")
     with pytest.raises(ValueError, match="mesh needs 2 devices, have 1"):
         tmesh.make_mesh(axis_sizes=(2,), device="cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
