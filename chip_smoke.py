@@ -189,37 +189,57 @@ and exits non-zero without them. Phases, one line each:
    the scaled rule or <= 2x the CPU's distance from float64, parameters
    Adam's first-step bound).
 
-13. fleet: one KernelGAN per scene (`train.fleet`), which launches no
-   kernel of the table (JAX's fleet is XLA; the eight counts are set to 0
-   before each run and must read 0 after it). (a) configs/
+13. fleet: one KernelGAN per scene (`train.fleet`: the scenes' states
+   stacked, one step call a chunk of scenes), which launches no kernel of
+   the table (JAX's fleet is XLA; the eight counts are set to 0 before
+   each run and must read 0 after it). (a) configs/
    quality_x8_real_lr.json's train_kernel block through `train_fleet`
    (compose, real_is_lr, K = 20, batch 16, lr crops 32, raw_sum_reg 0.1,
    seed 0, sigma from `train_fleet_cli.fake_noise_sigma`, the CLI's
    `--fake-noise auto`) on 4 scenes of 64 seeded 5x256x256 HR and 64
-   5x32x32 native-LR patches, 40 of its 2,000 iterations: every scene's
-   files under the JAX package's names, 40 finite CSV rows, kernels >= 0
-   with bands summing to 1 (or zeroed by the clamp); each scene equal to a
-   1-scene fleet at seed s (kernels and CSV rows, rtol 1e-4 / atol 1e-5;
-   measured bit for bit). (b) `train_fleet_cli.main --patch-root DIR
-   --format npy` at the CLI's defaults (chain, K = 1, batch 16) on 2 scene
-   dirs of 64 .npy patches, 20 iterations, each scene equal to the port's
-   standalone `train_single_kernel` at seed s. Neither run is wrapped
-   here: every trainer runs its steps under the package's
-   `device.deterministic` on the card, and these runs are its proof.
+   5x32x32 native-LR patches, 40 of its 2,000 iterations, stacked at
+   JAX's automatic width (m = 4): every scene's files under the JAX
+   package's names, 40 finite CSV rows, kernels >= 0 with bands summing to
+   1 (or zeroed by the clamp). Held: one stacked step of the 4 scenes
+   against each scene's own step on the same state and batch (losses and
+   grad_norm_D rtol 1e-4 / atol 1e-6, in-step kernels rtol 1e-5 / atol
+   1e-7: JAX's fleet tolerances; grad_norm_G rtol 1e-2, phase 9's), and
+   the block cut to 2 iterations (K = 2, the horizon of JAX's own
+   chunking test) on the 4 scenes at scene_chunk 1 bit for bit against
+   four 1-scene fleets at seed s. Recorded at JAX's fleet tolerances, not
+   held: the 2-iteration block stacked against scene_chunk 2 and 1, and
+   the 40-iteration run against scene_chunk 1. Past a step or two the
+   stacked and per-scene trajectories part, in JAX's fleet too (its own
+   chunking test holds over 2 iterations): G's float32 gradients keep
+   ~1e-3, and Adam's first steps turn the sign of rounding noise into
+   +-lr. (b) `train_fleet_cli.main --patch-root DIR --format
+   npy` at the CLI's defaults (chain, K = 1, batch 16) on 2 scene dirs of
+   64 .npy patches, 20 iterations at JAX's automatic width (m = 1: two
+   scenes' chain residuals exceed its 6 GiB budget), each scene bit for
+   bit against the port's standalone `train_single_kernel` at seed s; and
+   2 iterations with --scene-chunk 2 against standalone runs of 2,
+   recorded. Neither run is wrapped here: every
+   trainer runs its steps under the package's `device.deterministic` on
+   the card, and these runs are its proof.
    (c) `run_factory(kernel_root=(a)'s outdir)` on 5 scenes x 64 .npy
    patches `<scene>_<gi>_<gj>.npy` (the fifth without a kernel), pool
    [64, 5, 32, 32], x8, batch 128, its .nc
    writes captured in memory (no h5py there): one `degrade_v3psn` launch
    a scene batch and no other degrade kernel, every lr against the plain
    degrade(hr, kernel_s) + pool[idx] with idx from `scene_seed(42, s)`
-   (rtol 1e-4 / atol 1e-5), the fifth scene failed as a unit. Timing: the
-   fleet loop (`train.fleet.make_fleet_advance`) at S = 1 and 2 for (a)
-   and S = 2 for (b): scene-iterations/s (median of 5 synchronized
-   windows), device ms an iteration of all scenes, busy share, peak
-   memory.
+   (rtol 1e-4 / atol 1e-5), the fifth scene failed as a unit. Timing: one
+   fleet iteration (`train.fleet.make_fleet_advance`) under the
+   deterministic algorithms, stacked (m = S) and at scene_chunk 1:
+   bench_fleet.py's cell (compose, K = 1, batch 16, 32-patch pools, 256^2
+   HR) at S = 1, 4 and 8 and the K = 20 block at S = 4:
+   scene-iterations/s (median of 5 synchronized windows; 3 for the K = 20
+   block and the scene_chunk 1 baselines, which are timed only), the
+   speed-up over scene_chunk 1 (bench_fleet.py's vs_baseline), device ms,
+   kernels (profiler) and, at K = 1, host aten ops an iteration of all
+   scenes, busy share, peak memory. The stacked S = 8 iteration must run
+   at most 1.5x one scene's kernels and aten ops.
 
-   Phases 9, 11 (b)/(c), 12 (d) and 13 (but (a) at S = 2, which runs as
-   the package runs it only) time each trainer's step twice in
+   Phases 9, 11 (b)/(c) and 12 (d) time each trainer's step twice in
    one process, as the package runs it (deterministic algorithms) and
    without them (`with_and_without`), and print what determinism costs.
 
@@ -2270,22 +2290,17 @@ def moe_factory(dev, failures: list) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def training_timing(one_call, k: int, top_ops: bool = True) -> dict:
-    """Iterations/s of a train-step closure (k steps a call; median of
-    MD_WINDOWS synchronized windows of >= MD_WINDOW_ITERS iterations after
-    one warm-up call), the profiler's device time an iteration over one
-    window, the busy share and, with top_ops, the top device operations of
-    MD_OPS_ITERS iterations; with the seconds each part took."""
+def wall_windows(one_call, k: int, windows: int = MD_WINDOWS, warm: bool = True) -> dict:
+    """Iterations/s of a train-step closure (k steps a call): the median
+    of `windows` synchronized windows of >= MD_WINDOW_ITERS iterations
+    after one warm-up call (none if not `warm`: its shapes ran before)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from kmsr_tpu_torch.utils.profiling import cuda_device_ms
 
     calls = -(-MD_WINDOW_ITERS // k)
-    t_start = time.perf_counter()
-    one_call()
+    if warm:
+        one_call()
     walls = []
-    for _ in range(MD_WINDOWS):
+    for _ in range(windows):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(calls):
@@ -2293,8 +2308,29 @@ def training_timing(one_call, k: int, top_ops: bool = True) -> dict:
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) / (calls * k))
     wall = sorted(walls)[len(walls) // 2]
+    return {"iters_per_s": 1.0 / wall, "wall_ms_per_iter": wall * 1e3,
+            "wall_ms_per_iter_windows": [w * 1e3 for w in walls],
+            "window_iters": calls * k}
+
+
+def training_timing(one_call, k: int, top_ops: bool = True,
+                    windows: int = MD_WINDOWS) -> dict:
+    """Iterations/s of a train-step closure (k steps a call; median of
+    `windows` synchronized windows of >= MD_WINDOW_ITERS iterations after
+    one warm-up call), the profiler's device time and kernels an iteration
+    over one window, the busy share and, with top_ops, the top device
+    operations of MD_OPS_ITERS iterations; with the seconds each part took."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from kmsr_tpu_torch.utils.profiling import cuda_device_ms
+
+    t_start = time.perf_counter()
+    t = wall_windows(one_call, k, windows)
+    calls, wall = t["window_iters"] // k, t["wall_ms_per_iter"] / 1e3
     t_windows = time.perf_counter()
-    dev_ms = cuda_device_ms(one_call, runs=calls, warmup=0)["device_ms"] / k
+    traced = cuda_device_ms(one_call, runs=calls, warmup=0)
+    dev_ms = traced["device_ms"] / k
     t_device = time.perf_counter()
     ops = []
     if top_ops:
@@ -2311,9 +2347,8 @@ def training_timing(one_call, k: int, top_ops: bool = True) -> dict:
                             "device_ms_per_iter": us / 1e3 / (MD_OPS_ITERS * k),
                             "calls_per_iter": ev.count / (MD_OPS_ITERS * k)})
         ops.sort(key=lambda o: -o["device_ms_per_iter"])
-    return {"iters_per_s": 1.0 / wall, "wall_ms_per_iter": wall * 1e3,
-            "wall_ms_per_iter_windows": [w * 1e3 for w in walls],
-            "window_iters": calls * k, "device_ms_per_iter": dev_ms,
+    return {**t, "device_ms_per_iter": dev_ms,
+            "kernels_per_iter": sum(traced["launches"].values()) / k,
             "busy_share": dev_ms / (wall * 1e3), "top_ops": ops[:10],
             "seconds": {"windows": t_windows - t_start, "device_ms": t_device - t_windows,
                         "top_ops": time.perf_counter() - t_device}}
@@ -3252,8 +3287,19 @@ def phase_sr(dev, card: str, smi: str, failures: list) -> dict:
 #: raw_sum_reg 0.1, seed 0) on 4 scenes of 64 HR patches 5x256x256 and 64
 #: native-LR patches 5x32x32 each, 40 of its 2,000 iterations; the CLI's
 #: defaults (chain, K = 1) on 2 scene dirs of 64 .npy patches, 20
-#: iterations; the per-scene factory on 4 + 1 scenes of 64 .npy patches
+#: iterations; the per-scene factory on 4 + 1 scenes of 64 .npy patches.
+#: Timing: bench_fleet.py's cell (compose, K = 1, batch 16, 32-patch pools,
+#: 256^2 HR) at S = 1, 4, 8 and the K = 20 block at S = 4, each stacked and
+#: at scene_chunk 1; baselines and (b) over FLEET_BASE_WINDOWS windows
 FLEET_SCENES, FLEET_N, FLEET_ITERS, FLEET_K, FLEET_CLI_ITERS = 4, 64, 40, 20, 20
+FLEET_BENCH_S, FLEET_BENCH_N, FLEET_BASE_WINDOWS = (1, 4, 8), 32, 3
+#: JAX's fleet tolerances across chunk widths (tests/test_train_fleet.py),
+#: and that test's horizon, FLEET_HOLD_ITERS iterations
+FLEET_KERNEL_TOL, FLEET_ROW_TOL = dict(rtol=1e-5, atol=1e-7), dict(rtol=1e-4, atol=1e-6)
+FLEET_HOLD_ITERS = 2
+#: the stacked S = 8 fleet-iteration may run at most this many times one
+#: scene's kernels and aten ops
+FLEET_LAUNCH_RATIO = 1.5
 
 
 def fleet_scene_pools(s: int, dev):
@@ -3314,124 +3360,284 @@ def check_fleet_scene(outdir: str, iters: int, dumps: tuple, failures: list,
     return {"checks_failed": bad, "band_sums": sums.tolist(), "last_row": rows[-1]}
 
 
-def compare_runs(got_dir: str, want_dir: str, failures: list, label: str) -> dict:
-    """Kernels and CSV rows of two runs of one scene, at the KernelGAN
-    tolerance (rtol 1e-4, atol 1e-5)."""
+def compare_runs(got_dir: str, want_dir: str, failures: list, label: str,
+                 exact: bool = False, gate: bool = True) -> dict:
+    """Kernels (every kernel_per_band*.npy) and CSV rows of two runs of one
+    scene: bit for bit with `exact`, else at JAX's fleet tolerances
+    (kernels rtol 1e-5 / atol 1e-7, rows rtol 1e-4 / atol 1e-6); a miss is
+    a failure if `gate`, else only recorded (a run past JAX's horizon)."""
     import numpy as np
 
     def rows(d):
         lines = open(os.path.join(d, "training_log.txt")).read().splitlines()[1:]
         return np.array([[float(v) for v in r.split(",")] for r in lines])
 
+    def close(a, b, tol):
+        return a.shape == b.shape and bool(
+            np.array_equal(a, b) if exact else np.allclose(a, b, **tol))
+
     rg, rw = rows(got_dir), rows(want_dir)
-    kg, kw = (np.load(os.path.join(d, "kernel_per_band.npy")) for d in (got_dir, want_dir))
+    names = sorted(f for f in os.listdir(want_dir) if f.startswith("kernel_per_band"))
+    kg, kw = ([np.load(os.path.join(d, f)) for f in names] for d in (got_dir, want_dir))
     res = {"rows_max_abs": float(np.abs(rg - rw).max()) if rg.shape == rw.shape else None,
-           "kernel_max_abs": float(np.abs(kg - kw).max()),
-           "ok": rg.shape == rw.shape and bool(np.allclose(rg, rw, rtol=RTOL, atol=ATOL))
-                 and bool(np.allclose(kg, kw, rtol=RTOL, atol=ATOL))}
-    if not res["ok"]:
+           "kernel_max_abs": max(float(np.abs(a - b).max()) for a, b in zip(kg, kw)),
+           "exact": exact, "gated": gate,
+           "ok": close(rg, rw, FLEET_ROW_TOL)
+                 and all(close(a, b, FLEET_KERNEL_TOL) for a, b in zip(kg, kw))}
+    if gate and not res["ok"]:
         failures.append(f"fleet {label}: differs from its reference {res}")
     return res
 
 
-def fleet_timing(cfg, pools, lr_pools, dev) -> dict:
-    """Scene-iterations/s of the fleet loop (`train.fleet.make_fleet_advance`,
-    what `train_fleet` calls each iteration) at S = len(pools): the median of
-    MD_WINDOWS synchronized windows, the profiler's device time an
-    iteration of all S scenes, the busy share and peak device memory."""
+def run_verdict(r: dict) -> str:
+    verdict = "ok" if r["ok"] else ("FAILED" if r.get("gated", True) else "apart")
+    return f"{verdict} (rows {r['rows_max_abs']:.3g}, kernel {r['kernel_max_abs']:.3g})"
+
+
+def host_aten_ops(one_call) -> float:
+    """aten ops one call dispatches from the host, those not run inside
+    another aten op (a warm call, then one profiled call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    one_call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        one_call()
+        torch.cuda.synchronize()
+    return float(sum(1 for e in prof.events() if e.name.startswith("aten::") and not (
+        e.cpu_parent is not None and e.cpu_parent.name.startswith("aten::"))))
+
+
+def fleet_timing(cfg, pools, lr_pools, dev, scene_chunk: int,
+                 windows: int = MD_WINDOWS, profiled: bool = True) -> dict:
+    """One fleet iteration of S = len(pools) scenes in stacked chunks of
+    `scene_chunk` (`train.fleet.make_fleet_advance`, what `train_fleet`
+    calls each iteration), under the package's deterministic algorithms:
+    scene-iterations/s (median of `windows` synchronized windows); if
+    `profiled`, the profiler's device time and kernels an iteration of all
+    S scenes, the host's aten ops an iteration (K = 1), busy share, peak
+    device memory; else its shapes ran before and it starts without a
+    warm-up call. With the seconds the timing took."""
     import dataclasses
 
     import numpy as np
     import torch
 
+    from kmsr_tpu_torch.device import deterministic
     from kmsr_tpu_torch.train import fleet
 
-    s_n = len(pools)
+    s_n, k = len(pools), cfg.steps_per_call
     states = [fleet.init_training(dataclasses.replace(cfg, seed=cfg.seed + s), dev)
               for s in range(s_n)]
-    pools_dev, crop_dev = fleet.device_pools(pools, lr_pools, dev)
-    rngs = [np.random.default_rng(cfg.seed + s) for s in range(s_n)]
-    advance = fleet.make_fleet_advance(cfg, states, pools_dev, crop_dev, rngs)
+    pool, crop, sizes, crop_sizes = fleet.device_pools(pools, lr_pools, dev)
+    chunks = [fleet._stack_states(states[c:c + scene_chunk])
+              for c in range(0, s_n, scene_chunk)]
+    rngs = None if k > 1 else [np.random.default_rng(cfg.seed + s) for s in range(s_n)]
+    advance = fleet.make_fleet_advance(cfg, chunks, pool, crop, sizes, crop_sizes, rngs)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    t = training_timing(advance, cfg.steps_per_call, top_ops=False)
+    t0 = time.perf_counter()
+    with deterministic(dev):
+        if profiled:
+            t = training_timing(advance, k, top_ops=False, windows=windows)
+            if k == 1:
+                t["aten_ops_per_iter"] = host_aten_ops(advance)
+        else:
+            t = wall_windows(advance, k, windows, warm=False)
+    t["timing_seconds"] = time.perf_counter() - t0
     t["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
-    t["scenes"] = s_n
+    t["scenes"], t["scene_chunk"] = s_n, scene_chunk
     t["scene_iters_per_s"] = s_n * t["iters_per_s"]
-    del states, pools_dev, crop_dev
+    del states, chunks, pool, crop
     torch.cuda.empty_cache()
     return t
 
 
 def fleet_line(label: str, t: dict) -> str:
-    return (f"{label}: S={t['scenes']} {t['scene_iters_per_s']:.2f} scene-it/s "
-            f"({t['iters_per_s']:.2f} fleet it/s, {t['wall_ms_per_iter']:.2f} ms an "
-            f"iteration of all scenes, windows "
-            f"{[round(w, 2) for w in t['wall_ms_per_iter_windows']]}), device "
-            f"{t['device_ms_per_iter']:.3f} ms, busy {t['busy_share']:.3f}, peak "
-            f"{t['peak_mem_gb']:.2f} GB")
+    line = (f"{label}: S={t['scenes']} m={t['scene_chunk']} {t['scene_iters_per_s']:.2f} "
+            f"scene-it/s ({t['wall_ms_per_iter']:.2f} ms an iteration of all scenes, windows "
+            f"{[round(w, 2) for w in t['wall_ms_per_iter_windows']]}; "
+            f"{t['timing_seconds']:.1f}s)")
+    if "device_ms_per_iter" in t:
+        line += (f", device {t['device_ms_per_iter']:.3f} ms, busy {t['busy_share']:.3f}, peak "
+                 f"{t['peak_mem_gb']:.2f} GB, {t['kernels_per_iter']:.0f} kernels"
+                 + (f" / {t['aten_ops_per_iter']:.0f} aten ops" if "aten_ops_per_iter" in t
+                    else "") + " an iteration")
+    if "vs_chunk_1" in t:
+        line += f", x{t['vs_chunk_1']:.3f} over scene_chunk 1"
+    return line
+
+
+def fleet_cell(label: str, cfg, pools, lr_pools, dev, windows: int = MD_WINDOWS) -> dict:
+    """The stacked fleet (one chunk of every scene), profiled, and for
+    S > 1 the same scenes at scene_chunk 1, wall only: the stacked timing
+    with "vs_chunk_1", its wall's speed-up over one scene a step call
+    (bench_fleet.py's vs_baseline), and "chunk_1", the baseline."""
+    s_n = len(pools)
+    t = fleet_timing(cfg, pools, lr_pools, dev, s_n, windows=windows)
+    if s_n > 1:
+        base = fleet_timing(cfg, pools, lr_pools, dev, 1, windows=FLEET_BASE_WINDOWS,
+                            profiled=False)
+        t["vs_chunk_1"] = base["wall_ms_per_iter"] / t["wall_ms_per_iter"]
+        t["chunk_1"] = base
+        log("[fleet] (a) " + fleet_line(f"{label} at scene_chunk 1", base))
+    log("[fleet] (a) " + fleet_line(label, t))
+    return t
+
+
+def fleet_step_parity(cfg, pools, lr_pools, dev, failures: list) -> dict:
+    """One stacked step of len(pools) scenes (`make_scenes_step`) against
+    each scene's `make_base_step` on the same fresh state and batch (each
+    scene's first `batch_size` HR and LR patches), under the deterministic
+    algorithms: losses and grad_norm_D at JAX's fleet row tolerance, the
+    in-step kernels at its kernel tolerance, grad_norm_G at phase 9's rtol
+    1e-2 (G's float32 gradients keep ~1e-3 on either side)."""
+    import dataclasses
+
+    import torch
+
+    from kmsr_tpu_torch.device import deterministic
+    from kmsr_tpu_torch.train import fleet
+    from kmsr_tpu_torch.train.single_kernel import make_base_step, make_scenes_step
+    from kmsr_tpu_torch.train.state import tree_leaves
+
+    m, one = len(pools), dataclasses.replace(cfg, steps_per_call=1)
+    states = [[fleet.init_training(dataclasses.replace(one, seed=s), dev) for s in range(m)]
+              for _ in range(2)]
+    n = one.batch_size
+    hr = torch.stack([torch.from_numpy(p.patches[:n]) for p in pools]).to(dev)
+    crop = torch.stack([torch.from_numpy(p.patches[:n]) for p in lr_pools]).to(dev)
+    with deterministic(dev):
+        stacked, got = make_scenes_step(one, m)(fleet._stack_states(states[0]), hr, crop)
+        base = make_base_step(one)
+        want = [base(states[1][s], hr[s], crop[s]) for s in range(m)]
+    res = {}
+    tols = {"loss_D": FLEET_ROW_TOL, "loss_G_adv": FLEET_ROW_TOL, "loss_reg": FLEET_ROW_TOL,
+            "grad_norm_D": FLEET_ROW_TOL, "kernels": FLEET_KERNEL_TOL,
+            "grad_norm_G": dict(rtol=KG_GRAD_G_RTOL, atol=0.0)}
+    for key, tol in tols.items():
+        a = got[key].detach().cpu()
+        b = torch.stack([w[key] for _, w in want]).detach().cpu()
+        res[key] = {"max_abs_err": float((a - b).abs().max()),
+                    "ok": bool(torch.allclose(a, b, **tol))}
+    bad = [k for k, r in res.items() if not r["ok"]]
+    # D's new state (u vectors, running statistics), recorded: a power
+    # step's u is as ill-conditioned as the gap of W's top singular values
+    res["d_state_max_abs_err"] = max(
+        float((a[s] - b).abs().max()) for s, (w, _) in enumerate(want)
+        for a, b in zip(tree_leaves(stacked.d_state), tree_leaves(w.d_state)))
+    if bad:
+        failures.append(f"fleet (a): one stacked step of {m} scenes vs their own steps: "
+                        f"{ {k: res[k] for k in bad} }")
+    log(f"[fleet] (a) one stacked step of {m} scenes vs each scene's own step: "
+        + ", ".join(f"{k} {'ok' if r['ok'] else 'FAILED'} ({r['max_abs_err']:.3g})"
+                    for k, r in res.items() if isinstance(r, dict))
+        + f"; D state max abs err {res['d_state_max_abs_err']:.3g}")
+    return res
 
 
 def fleet_library(tmp: str, dev, failures: list) -> tuple[dict, str]:
     """(a): the real_lr config's train_kernel block through `train_fleet`
-    on 4 scenes; every scene's artifacts; each scene against a 1-scene
-    fleet at seed + s; timing at S = 1 and 2. Returns the result and the
-    4-scene run's outdir (the kernel root of (c))."""
+    on 4 scenes, stacked (JAX's automatic width for compose, m = 4), at
+    scene_chunk 1, and the block cut to FLEET_HOLD_ITERS iterations (K =
+    2) at m = 4, 2, 1 and as four 1-scene fleets at seed s: one stacked
+    step against the scenes' own steps (`fleet_step_parity`); every
+    scene's artifacts; scene_chunk 1 bit for bit against the 1-scene
+    fleets; stacked against scene_chunk 2 and 1 at JAX's fleet
+    tolerances, recorded (a miss is not a failure: past a step or two the
+    trajectories part in both packages, module docstring). Timing of bench_fleet.py's cell at S = 1, 4, 8 and of the
+    block at S = 4. Returns the result and the 4-scene run's outdir (the
+    kernel root of (c))."""
     import dataclasses
 
     from kmsr_tpu_torch import kernels
+    from kmsr_tpu_torch.data.sampler import PatchPool
     from kmsr_tpu_torch.models import GeneratorConfig
     from kmsr_tpu_torch.pipeline.train_fleet_cli import fake_noise_sigma
     from kmsr_tpu_torch.train import SingleKernelConfig, train_fleet
+    from kmsr_tpu_torch.train.fleet import pick_scene_chunk
 
     t0 = time.perf_counter()
-    scenes = [fleet_scene_pools(s, dev) for s in range(FLEET_SCENES)]
-    pools, lr_pools = [p for p, _ in scenes], [q for _, q in scenes]
+    scenes = [fleet_scene_pools(s, dev) for s in range(max(FLEET_BENCH_S))]
+    pools, lr_pools = ([p for p, _ in scenes[:FLEET_SCENES]],
+                       [q for _, q in scenes[:FLEET_SCENES]])
     sigma = fake_noise_sigma(lr_pools)
     t_data = time.perf_counter() - t0
     outdir = os.path.join(tmp, "fleet_a")
     cfg = SingleKernelConfig(
-        iters=FLEET_ITERS, batch_size=16, lr_crop_size=32, real_is_lr=True,
+        iters=FLEET_ITERS, batch_size=16, lr_crop_size=HW // FACTOR, real_is_lr=True,
         steps_per_call=FLEET_K, seed=0, fake_noise_sigma=sigma, raw_sum_reg=0.1,
         log_every=FLEET_K, kernel_log_every=FLEET_K, outdir=outdir, verbose=False,
         generator=GeneratorConfig(forward_mode="compose"))
-    res = {"sigma": [float(v) for v in sigma], "data_seconds": t_data}
+    res = {"sigma": [float(v) for v in sigma], "data_seconds": t_data,
+           "scene_chunk": pick_scene_chunk(cfg, FLEET_SCENES, HW)}
+    if res["scene_chunk"] != FLEET_SCENES:
+        failures.append(f"fleet (a): automatic scene_chunk {res['scene_chunk']}, want "
+                        f"{FLEET_SCENES} (compose)")
+
+    def run(c, label, m=None):
+        return train_fleet(pools, dataclasses.replace(c, outdir=os.path.join(tmp, label)),
+                           lr_pools=lr_pools, progress=False, device=dev, scene_chunk=m)
+
     kernels.reset_launches()
+    res["step_parity"] = fleet_step_parity(cfg, pools, lr_pools, dev, failures)
     t0 = time.perf_counter()
-    out = train_fleet(pools, cfg, lr_pools=lr_pools, progress=False, device=dev)
+    names = run(cfg, "fleet_a")["scene_names"]
     res["run_seconds"] = time.perf_counter() - t0
-    no_kernel_launched("fleet (a)", failures)
-    names = out["scene_names"]
-    res["scenes"] = {n: check_fleet_scene(os.path.join(outdir, n), FLEET_ITERS,
-                                          (FLEET_K, FLEET_ITERS), failures, f"(a) {n}")
-                     for n in names}
+    run(cfg, "fleet_a_m1", 1)
+    hold = dataclasses.replace(cfg, iters=FLEET_HOLD_ITERS, steps_per_call=FLEET_HOLD_ITERS,
+                               log_every=FLEET_HOLD_ITERS, kernel_log_every=FLEET_HOLD_ITERS)
+    for m in (FLEET_SCENES, 2, 1):
+        run(hold, f"fleet_a_hold_m{m}", m)
+    res["scenes"] = {}
     for s, n in enumerate(names):
-        one = dataclasses.replace(cfg, seed=s, outdir=os.path.join(tmp, f"fleet_a1_{s}"))
+        r = res["scenes"][n] = check_fleet_scene(os.path.join(outdir, n), FLEET_ITERS,
+                                                 (FLEET_K, FLEET_ITERS), failures, f"(a) {n}")
+        one = dataclasses.replace(hold, seed=s, outdir=os.path.join(tmp, f"fleet_a1_{s}"))
         train_fleet([pools[s]], one, scene_names=[n], lr_pools=[lr_pools[s]],
                     progress=False, device=dev)
-        res["scenes"][n]["vs_one_scene_fleet"] = compare_runs(
-            os.path.join(outdir, n), os.path.join(one.outdir, n), failures,
-            f"(a) {n} vs a 1-scene fleet at seed {s}")
+
+        def cmp(got, want, label, **kw):
+            return compare_runs(os.path.join(tmp, got, n), os.path.join(tmp, want, n),
+                                failures, f"(a) {n} {label}", **kw)
+
+        r["m1_vs_one_scene_fleet"] = cmp("fleet_a_hold_m1", f"fleet_a1_{s}",
+                                         "scene_chunk 1 vs a 1-scene fleet", exact=True)
+        for m in (2, 1):
+            r[f"hold_vs_m{m}"] = cmp(f"fleet_a_hold_m{FLEET_SCENES}", f"fleet_a_hold_m{m}",
+                                     f"{FLEET_HOLD_ITERS} iterations stacked vs scene_chunk {m}",
+                                     gate=False)
+        r["vs_m1"] = cmp("fleet_a", "fleet_a_m1", "stacked vs scene_chunk 1", gate=False)
     no_kernel_launched("fleet (a)", failures)
     log(f"[fleet] (a) {FLEET_SCENES} scenes x {FLEET_ITERS} iterations (compose, "
-        f"real_is_lr, K={FLEET_K}, sigma {[round(float(v), 4) for v in sigma]}) in "
-        f"{res['run_seconds']:.1f}s: "
-        + "; ".join(f"{n} checks {'ok' if not r['checks_failed'] else r['checks_failed']}"
-                    f", vs 1-scene fleet {'ok' if r['vs_one_scene_fleet']['ok'] else 'FAILED'}"
-                    f" (rows {r['vs_one_scene_fleet']['rows_max_abs']:.3g}, kernel "
-                    f"{r['vs_one_scene_fleet']['kernel_max_abs']:.3g})"
-                    for n, r in res["scenes"].items()))
+        f"real_is_lr, K={FLEET_K}, stacked m={res['scene_chunk']}, sigma "
+        f"{[round(float(v), 4) for v in sigma]}) in {res['run_seconds']:.1f}s: "
+        + "; ".join(f"{n} checks {'ok' if not r['checks_failed'] else r['checks_failed']}, "
+                    f"m=1 vs 1-scene fleet {run_verdict(r['m1_vs_one_scene_fleet'])}, "
+                    f"{FLEET_HOLD_ITERS} iterations stacked vs m=1 {run_verdict(r['hold_vs_m1'])}"
+                    f", vs m=2 {run_verdict(r['hold_vs_m2'])}; {FLEET_ITERS} iterations "
+                    f"stacked vs m=1 {run_verdict(r['vs_m1'])}"
+                    for n, r in res["scenes"].items())
+        + f"; checks in {time.perf_counter() - t0:.1f}s")
     res["timing"] = {}
-    # S = 2 as the package runs it only: the wall's budget (ROADMAP
-    # follow-ups) took S = 4 and its run without deterministic algorithms
-    for s_n in (1, 2):
-        def time_it(s_n=s_n):
-            return fleet_timing(cfg, pools[:s_n], lr_pools[:s_n], dev)
-
-        t = with_and_without(time_it) if s_n == 1 else time_it()
-        res["timing"][f"S={s_n}"] = t
-        log(f"[fleet] (a) " + fleet_line("compose real_is_lr K=20", t)
-            + (det_note(t) if "without_deterministic" in t else ""))
+    bench = SingleKernelConfig(seed=0, verbose=False, outdir=os.path.join(tmp, "unused"),
+                               generator=GeneratorConfig(forward_mode="compose"))
+    bench_pools = [PatchPool(p.patches[:FLEET_BENCH_N]) for p, _ in scenes]
+    label = "bench_fleet cell (compose K=1, 32-patch pools)"
+    for s_n in FLEET_BENCH_S:
+        res["timing"][f"bench S={s_n}"] = fleet_cell(label, bench, bench_pools[:s_n], None, dev)
+    res["timing"][f"K={FLEET_K} S={FLEET_SCENES}"] = fleet_cell(
+        f"compose real_is_lr K={FLEET_K}", cfg, pools, lr_pools, dev,
+        windows=FLEET_BASE_WINDOWS)
+    one, eight = res["timing"]["bench S=1"], res["timing"][f"bench S={max(FLEET_BENCH_S)}"]
+    res["launch_ratio"] = {k: eight[k] / one[k] for k in ("kernels_per_iter", "aten_ops_per_iter")}
+    if max(res["launch_ratio"].values()) > FLEET_LAUNCH_RATIO:
+        failures.append(f"fleet (a): the stacked S={max(FLEET_BENCH_S)} iteration runs "
+                        f"{res['launch_ratio']} times one scene's, want <= {FLEET_LAUNCH_RATIO}")
+    log(f"[fleet] (a) S={max(FLEET_BENCH_S)} / S=1 an iteration: kernels "
+        f"{eight['kernels_per_iter']:.0f} / {one['kernels_per_iter']:.0f}, aten ops "
+        f"{eight['aten_ops_per_iter']:.0f} / {one['aten_ops_per_iter']:.0f}")
     no_kernel_launched("fleet (a) timing", failures)
     return res, outdir
 
@@ -3439,15 +3645,22 @@ def fleet_library(tmp: str, dev, failures: list) -> tuple[dict, str]:
 def fleet_cli(tmp: str, dev, failures: list) -> dict:
     """(b): `train_fleet_cli.main --patch-root DIR --format npy` with the
     CLI's defaults (chain, K = 1, batch 16) on 2 scene dirs of 64 .npy
-    patches, 20 iterations; each scene against the port's standalone
-    `train_single_kernel` at seed s; timing at S = 2."""
+    patches: 20 iterations at JAX's automatic width (m = 1 here: two
+    scenes' chain residuals, 6.75 GB by JAX's estimate, exceed its 6 GiB
+    budget), each scene bit for bit against the port's standalone
+    `train_single_kernel` at seed s; and FLEET_HOLD_ITERS iterations with
+    --scene-chunk 2 against standalone runs of as many iterations, at JAX's
+    fleet tolerances, recorded (`scripts/torch_fleet_ab.py` times stacked
+    chain fleets)."""
     import numpy as np
 
     from kmsr_tpu_torch import kernels
     from kmsr_tpu_torch.data.sampler import PatchPool
     from kmsr_tpu_torch.pipeline import train_fleet_cli
     from kmsr_tpu_torch.train import SingleKernelConfig, train_single_kernel
+    from kmsr_tpu_torch.train.fleet import pick_scene_chunk
 
+    t0 = time.perf_counter()
     root = os.path.join(tmp, "fleet_b_in")
     pools = []
     for s, name in enumerate(("sceneA", "sceneB")):
@@ -3456,41 +3669,45 @@ def fleet_cli(tmp: str, dev, failures: list) -> dict:
         for i, p in enumerate(hr.patches):
             np.save(os.path.join(root, name, f"p{i:03d}.npy"), p)
         pools.append(PatchPool.from_npy_dir(os.path.join(root, name)))
-    outdir = os.path.join(tmp, "fleet_b")
-    every = FLEET_CLI_ITERS // 2
+    cfg = SingleKernelConfig(seed=0, verbose=False, outdir=os.path.join(tmp, "unused"))
+    res = {"scene_chunk": pick_scene_chunk(cfg, 2, HW), "scenes": {}}
+    if res["scene_chunk"] != 1:
+        failures.append(f"fleet (b): automatic scene_chunk {res['scene_chunk']}, want JAX's 1")
     kernels.reset_launches()
-    res = {}
-    t0 = time.perf_counter()
-    rc = train_fleet_cli.main(["--patch-root", root, "--format", "npy", "--outdir",
-                               outdir, "--iters", str(FLEET_CLI_ITERS), "--log-every",
-                               str(every), "--kernel-log-every", str(every)])
-    res["run_seconds"] = time.perf_counter() - t0
-    if rc != 0:
-        failures.append(f"fleet (b): train_fleet_cli returned {rc}")
-    res["scenes"] = {}
+    runs = {"auto": (FLEET_CLI_ITERS, []), "stacked": (FLEET_HOLD_ITERS, ["--scene-chunk", "2"])}
+    for label, (iters, extra) in runs.items():
+        every = iters // 2
+        t1 = time.perf_counter()
+        rc = train_fleet_cli.main(["--patch-root", root, "--format", "npy", "--outdir",
+                                   os.path.join(tmp, f"fleet_b_{label}"), "--iters",
+                                   str(iters), "--log-every", str(every),
+                                   "--kernel-log-every", str(every)] + extra)
+        res[f"{label}_seconds"] = time.perf_counter() - t1
+        if rc != 0:
+            failures.append(f"fleet (b) {label}: train_fleet_cli returned {rc}")
     for s, name in enumerate(("sceneA", "sceneB")):
-        r = check_fleet_scene(os.path.join(outdir, name), FLEET_CLI_ITERS,
-                              (every, FLEET_CLI_ITERS), failures, f"(b) {name}")
-        one = SingleKernelConfig(iters=FLEET_CLI_ITERS, log_every=every,
-                                 kernel_log_every=every, seed=s, verbose=False,
-                                 outdir=os.path.join(tmp, f"fleet_b1_{s}"))
-        train_single_kernel(pools[s], one, progress=False, device=dev)
-        r["vs_standalone"] = compare_runs(os.path.join(outdir, name), one.outdir,
-                                          failures, f"(b) {name} vs standalone seed {s}")
+        r = check_fleet_scene(os.path.join(tmp, "fleet_b_auto", name), FLEET_CLI_ITERS,
+                              (FLEET_CLI_ITERS // 2, FLEET_CLI_ITERS), failures, f"(b) {name}")
+        for label, (iters, _) in runs.items():
+            one = SingleKernelConfig(iters=iters, log_every=iters // 2,
+                                     kernel_log_every=iters // 2, seed=s, verbose=False,
+                                     outdir=os.path.join(tmp, f"fleet_b1_{s}_{label}"))
+            train_single_kernel(pools[s], one, progress=False, device=dev)
+            r[f"{label}_vs_standalone"] = compare_runs(
+                os.path.join(tmp, f"fleet_b_{label}", name), one.outdir, failures,
+                f"(b) {name} {label} vs standalone seed {s}", exact=label == "auto",
+                gate=label == "auto")
         res["scenes"][name] = r
     no_kernel_launched("fleet (b)", failures)
-    log(f"[fleet] (b) train_fleet_cli --patch-root (npy, chain, K=1) 2 scenes x "
-        f"{FLEET_CLI_ITERS} iterations in {res['run_seconds']:.1f}s: "
-        + "; ".join(f"{n} checks {'ok' if not r['checks_failed'] else r['checks_failed']}"
-                    f", vs standalone {'ok' if r['vs_standalone']['ok'] else 'FAILED'} "
-                    f"(rows {r['vs_standalone']['rows_max_abs']:.3g}, kernel "
-                    f"{r['vs_standalone']['kernel_max_abs']:.3g})"
-                    for n, r in res["scenes"].items()))
-    cfg = SingleKernelConfig(seed=0, verbose=False, outdir=os.path.join(tmp, "unused"))
-    res["timing"] = {"S=2": with_and_without(lambda: fleet_timing(cfg, pools, None, dev))}
-    log("[fleet] (b) " + fleet_line("chain K=1 host draws", res["timing"]["S=2"])
-        + det_note(res["timing"]["S=2"]))
-    no_kernel_launched("fleet (b) timing", failures)
+    log(f"[fleet] (b) train_fleet_cli --patch-root (npy, chain, K=1) 2 scenes: "
+        f"{FLEET_CLI_ITERS} iterations at the automatic m={res['scene_chunk']} in "
+        f"{res['auto_seconds']:.1f}s, {FLEET_HOLD_ITERS} with --scene-chunk 2 in "
+        f"{res['stacked_seconds']:.1f}s: "
+        + "; ".join(f"{n} checks {'ok' if not r['checks_failed'] else r['checks_failed']}, "
+                    f"m=1 vs standalone {run_verdict(r['auto_vs_standalone'])}, stacked vs "
+                    f"standalone {run_verdict(r['stacked_vs_standalone'])}"
+                    for n, r in res["scenes"].items())
+        + f"; {time.perf_counter() - t0:.1f}s")
     return res
 
 

@@ -15,13 +15,26 @@ from .ops.kernel_algebra import clip_nonneg
 from .parallel.mesh import batch_mean
 
 
-def lsgan_d_loss(pred_real: torch.Tensor, pred_fake: torch.Tensor) -> torch.Tensor:
-    """0.5*mean[(D(real)-1)^2] + 0.5*mean[D(fake)^2]."""
+def scene_mean(x: torch.Tensor, scenes: int, dim: int = 1) -> torch.Tensor:
+    """The mean of each scene's part of x [scenes], x's `dim` holding the
+    scenes' equal blocks in order (the fleet's folded channels)."""
+    return x.movedim(dim, 0).reshape(scenes, -1).mean(dim=1)
+
+
+def lsgan_d_loss(pred_real: torch.Tensor, pred_fake: torch.Tensor,
+                 scenes: int | None = None) -> torch.Tensor:
+    """0.5*mean[(D(real)-1)^2] + 0.5*mean[D(fake)^2]; with scenes=m, of
+    each scene's maps [B, m, H, W] -> [m]."""
+    if scenes is not None:
+        return (0.5 * scene_mean((pred_real - 1.0) ** 2, scenes)
+                + 0.5 * scene_mean(pred_fake**2, scenes))
     return 0.5 * torch.mean((pred_real - 1.0) ** 2) + 0.5 * torch.mean(pred_fake**2)
 
 
-def lsgan_g_loss(pred_fake: torch.Tensor) -> torch.Tensor:
-    """0.5*mean[(D(fake)-1)^2]."""
+def lsgan_g_loss(pred_fake: torch.Tensor, scenes: int | None = None) -> torch.Tensor:
+    """0.5*mean[(D(fake)-1)^2]; with scenes=m, of each scene's -> [m]."""
+    if scenes is not None:
+        return 0.5 * scene_mean((pred_fake - 1.0) ** 2, scenes)
     return 0.5 * torch.mean((pred_fake - 1.0) ** 2)
 
 
@@ -75,11 +88,15 @@ def kernel_regularization(
 def per_band_kernel_regularization(
     kernels: torch.Tensor, weights: dict | None = None, center_max: bool = True
 ) -> torch.Tensor:
-    """Mean of the regularizer over the band axis. kernels: [C, kH, kW].
-    Default weights: alpha=.5 beta=.5 gamma=5 delta=1 epsilon=3."""
+    """Mean of the regularizer over the band axis. kernels: [C, kH, kW], or
+    [m, C, kH, kW] for m scenes -> [m]. Default weights: alpha=.5 beta=.5
+    gamma=5 delta=1 epsilon=3."""
     w = dict(alpha=0.5, beta=0.5, gamma=5.0, delta=1.0, epsilon=3.0)
     if weights:
         w.update(weights)
+    if kernels.ndim == 4:
+        reg = kernel_regularization(kernels.flatten(0, 1), center_max=center_max, **w)
+        return scene_mean(reg, kernels.shape[0], dim=0)
     return kernel_regularization(kernels, center_max=center_max, **w).mean()
 
 

@@ -14,6 +14,16 @@ power step, recomputes v from the u it uses, and differentiates through
 the whole iteration (only the returned u is detached), where PyTorch's
 runs its iteration under no_grad in another order.
 
+`scenes=m` runs m independent discriminators in one pass, the JAX
+package's vmap over the fleet's scenes: every leaf carries the scenes on a
+leading axis and the input holds them folded into its channels. Each conv
+is a batched matmul over the scenes on scene-major activations [m, C,
+B*H*W] (the first through an im2col): cuDNN runs a convolution grouped by
+scene one scene at a time on an H100, so its launches would grow with m.
+Spectral norm takes one power step per scene (batched matmuls), and
+BatchNorm's per-channel statistics, over the scenes folded into channels,
+are per scene.
+
 Under a (data, model) mesh (`parallel.gan_sharding`) a conv's `w`, `b`, `u`
 and its BatchNorm's vectors may be this rank's slice of its O channels: the
 rank convolves the full activation into its channels (column-parallel),
@@ -23,7 +33,7 @@ spectral norm's contractions over O are partial sums summed over 'model'.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -112,6 +122,25 @@ def _spectral_normalize(w: torch.Tensor, u: torch.Tensor, update: bool, rows: bo
     return w_sn, (u_new.detach() if update else u)
 
 
+def _normalized_rows(v: torch.Tensor) -> torch.Tensor:
+    return v / (torch.linalg.vector_norm(v, dim=-1, keepdim=True) + _SN_EPS)
+
+
+def _spectral_normalize_scenes(w: torch.Tensor, u: torch.Tensor, update: bool):
+    """`_spectral_normalize` of each scene's weight, w [m, O, I, k, k] and
+    u [m, O], as batched matmuls; returns (w / sigma [m, O, I, k, k],
+    new_u [m, O])."""
+    w_mat = w.flatten(2)
+    w_t = w_mat.transpose(1, 2)
+    v = _normalized_rows((w_t @ u[..., None]).squeeze(-1))
+    u_new = _normalized_rows((w_mat @ v[..., None]).squeeze(-1))
+    u_used = u_new if update else u
+    v_used = _normalized_rows((w_t @ u_used[..., None]).squeeze(-1))
+    sigma = (u_used * (w_mat @ v_used[..., None]).squeeze(-1)).sum(-1)
+    w_sn = w / (sigma.view(-1, 1, 1, 1, 1) + _SN_EPS)
+    return w_sn, (u_new.detach() if update else u)
+
+
 def batch_norm(x, scale, bias, mean_run, var_run, train: bool):
     """BN over (B, H, W): normalize with the biased batch variance, update
     the running variance with the unbiased one; running stats detached.
@@ -143,9 +172,16 @@ def batch_norm(x, scale, bias, mean_run, var_run, train: bool):
 
 
 def discriminator_forward(
-    params: dict, state: dict, x: torch.Tensor, train: bool = True
+    params: dict, state: dict, x: torch.Tensor, train: bool = True,
+    scenes: Optional[int] = None,
 ) -> Tuple[torch.Tensor, dict]:
-    """x: [B, C, H, W] -> (score map [B, 1, H, W], new_state)."""
+    """x: [B, C, H, W] -> (score map [B, 1, H, W], new_state).
+
+    scenes=m: params and state carry m scenes on a leading axis and x is
+    [B, m*C, H, W], scene-major channels: returns ([B, m, H, W], the
+    stacked new state)."""
+    if scenes is not None:
+        return _forward_scenes(params, state, x, train, scenes)
     new_state: dict = {"u": [], "bn_mean": [], "bn_var": []}
     convs = params["convs"]
     tp = model_mesh() is not None
@@ -176,3 +212,36 @@ def discriminator_forward(
         h = F.leaky_relu(h, LEAKY_SLOPE)
     h, rows = sn_conv(1 + len(params["bn_scale"]), full(h, rows), 0)
     return full(h, rows), new_state
+
+
+def _forward_scenes(params: dict, state: dict, x: torch.Tensor, train: bool, m: int):
+    """`discriminator_forward` of m stacked discriminators (module
+    docstring) on x [B, m*C, H, W]: each conv a batched matmul of the
+    scenes' normalized weights [m, O, I*k*k] with their activations [m,
+    I*k*k, B*H*W]; BatchNorm on the [1, m*O, B*H*W, 1] view, which keeps
+    each scene's statistics its own."""
+    if model_mesh() is not None:
+        raise ValueError("stacked discriminators do not run under a model mesh")
+    new_state: dict = {"u": [], "bn_mean": [], "bn_var": []}
+    convs = params["convs"]
+    b, _, hgt, wid = x.shape
+    n = b * hgt * wid
+
+    def sn_conv(i, h):
+        w_sn, u_new = _spectral_normalize_scenes(convs[i]["w"], state["u"][i], train)
+        new_state["u"].append(u_new)
+        return torch.baddbmm(convs[i]["b"][..., None], w_sn.flatten(2), h)
+
+    k = convs[0]["w"].shape[-1]
+    cols = F.unfold(x, k, padding=k // 2).view(b, m, -1, hgt * wid)
+    h = F.leaky_relu(sn_conv(0, cols.permute(1, 2, 0, 3).reshape(m, -1, n)), LEAKY_SLOPE)
+    for i in range(len(params["bn_scale"])):
+        h, mean, var = batch_norm(
+            sn_conv(1 + i, h).reshape(1, -1, n, 1), params["bn_scale"][i].flatten(),
+            params["bn_bias"][i].flatten(), state["bn_mean"][i].flatten(),
+            state["bn_var"][i].flatten(), train)
+        new_state["bn_mean"].append(mean.view(m, -1))
+        new_state["bn_var"].append(var.view(m, -1))
+        h = F.leaky_relu(h.view(m, -1, n), LEAKY_SLOPE)
+    out = sn_conv(1 + len(params["bn_scale"]), h)  # [m, 1, B*H*W]
+    return out.view(m, b, hgt, wid).transpose(0, 1), new_state

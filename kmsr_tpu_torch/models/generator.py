@@ -14,6 +14,12 @@ kernel instead (identical away from a 6-pixel border rim). Every conv runs
 in full float32 (`fp32_convs`), as the JAX path's Precision.HIGHEST
 composition and float32 XLA convolutions do.
 
+A fleet's m stacked generators (every leaf [m, band, ...], the JAX
+package's vmap over scenes) run as one generator of m*band bands
+(`fold_scenes`): one grouped chain (groups = m*bands) or one depthwise
+conv over [B, m*C, H, W], scene-major channels, and one extraction whose
+[m*C, K, K] kernels are the scenes' in order.
+
 Under a (data, model) mesh (`parallel.gan_sharding`) a layer's weights may
 be this rank's slice of its OUT channels (the chain runs column-parallel)
 or, for the out = 1 last layer, of its IN channels (row-parallel); compose
@@ -93,6 +99,13 @@ def init_generator(cfg: GeneratorConfig = GeneratorConfig(),
             w = eye.expand(cfg.in_ch, out_c, in_c, k, k)
         layers.append(w.to(dev, torch.float32).contiguous())
     return {"layers": layers}
+
+
+def fold_scenes(params: dict) -> dict:
+    """m stacked generators' parameters ([m, band, ...] leaves) as one
+    generator's of m*band bands, scene-major (views, module docstring)."""
+    return {k: [w.flatten(0, 1) for w in v] if isinstance(v, list) else v.flatten(0, 1)
+            for k, v in params.items()}
 
 
 def _chain_forward_grouped(layers: Sequence[torch.Tensor], x: torch.Tensor) -> torch.Tensor:

@@ -4,7 +4,8 @@ Counterpart of `kmsr_tpu.pipeline.train_fleet_cli`, with the same flags
 and per-scene artifacts (`training_log.txt`, kernel .npy dumps under
 OUTDIR/<scene>/), plus `--device` (cuda by default; a run without a card
 raises unless `--device cpu`). The reference runs `single_kernel/train.py`
-once per scene; `train.fleet` runs every scene's step in one loop.
+once per scene; `train.fleet` stacks the scenes and advances a chunk of
+`--scene-chunk` scenes with each step call (all of them in compose mode).
 
 Usage:
     # one subdirectory of patches per scene
@@ -84,9 +85,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "per card under torchrun (zero collectives; scenes "
                         "must divide the ranks)")
     p.add_argument("--scene-chunk", type=int, default=0,
-                   help="the JAX package's scenes per vmapped chunk (must "
-                        "divide the scene count; 0 = auto); the port runs "
-                        "one scene at a time, so it changes no value")
+                   help="scenes each stacked step call advances, the chunks "
+                        "run one after another (must divide the scene count "
+                        "per rank; 0 = auto: every scene in compose mode, "
+                        "the largest divisor keeping chain-mode residuals "
+                        "under ~6 GiB); 1 = each scene's standalone step, "
+                        "bit for bit")
     p.add_argument("--real-is-lr", action="store_true",
                    help="the D's real side is GENUINE native-LR patches "
                         "(per-scene pools from --real-lr-dir) instead of "

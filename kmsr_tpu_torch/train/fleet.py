@@ -2,13 +2,17 @@
 
 Counterpart of `kmsr_tpu.train.fleet`. The reference estimates one
 degradation kernel PER SCENE by running `single_kernel/train.py:121-355`
-once per scene; the JAX package stacks the S scenes' states and vmaps the
-combined D+G step over the scene axis. Here each iteration runs each
-scene's `make_base_step` on its own state, scene after scene, on one CUDA
-stream: nothing waits for the host between scenes, and only one scene's
-chain-mode residuals are alive at a time. That is what JAX computes with
-`scene_chunk = 1` (`lax.map` over one-scene chunks), so scene s equals a
-standalone run at seed `cfg.seed + s`.
+once per scene. As in the JAX package, the S scenes' train states and
+patch pools are stacked on a leading scene axis and one call of the
+combined D+G step advances a chunk of m scenes, where JAX vmaps the step
+(`single_kernel.make_scenes_step`: the scenes fold into the generator's
+grouped convs and the discriminator's batched matmuls). `scene_chunk` = m
+runs the scenes in S/m chunks, one after another (JAX's `_chunk_scenes`,
+`lax.map` over vmapped chunks): chain-mode residuals at full width are
+~3.4 GB a scene by JAX's estimate, and `pick_scene_chunk` keeps a chunk's
+under 6 GiB. Compose fleets take m = S. Scene s trains with seed `cfg.seed + s` and equals a standalone
+run at that seed: bit for bit at m = 1, to float32 reduction order at
+m > 1 (JAX's own contract, `_chunk_scenes`).
 
 Per-scene artifacts are those of the JAX package: under
 `cfg.outdir/<scene_name>/` a `training_log.txt` (same CSV header),
@@ -20,16 +24,17 @@ Draws: at K = 1 the host draws each scene's batch indices from
 crop indices, as JAX's fleet does; random real crops, fake-side noise and
 the K > 1 indices come from each scene's own `torch.Generator` (seeded
 `seed + s`), not from `jax.random`. Checkpoints (`outdir/ckpt/step_N`)
-are one torch.save file holding every scene's state.
+are one torch.save file holding every scene's state, one blob a scene,
+so a checkpoint written at one chunk width resumes at any other.
 
 Scene parallelism (`mesh=`, `--scene-parallel` under torchrun): the
 scenes are split over the mesh's ranks in contiguous blocks, as JAX's
 `P("scene")` places the stacked scene axis, with no collectives in the
-steps. Scene s keeps seed `cfg.seed + s` whichever rank trains it, so each
-scene equals its one-process run. Each rank writes only its own scenes'
-directories; a checkpoint gathers every scene's state to rank 0, which
-writes the one file a one-process fleet would, and every rank resumes its
-own scenes from it.
+steps; each rank stacks its own scenes in chunks. Scene s keeps seed
+`cfg.seed + s` whichever rank trains it. Each rank writes only its own
+scenes' directories; a checkpoint gathers every scene's state to rank 0,
+which writes the one file a one-process fleet would, and every rank
+resumes its own scenes from it.
 """
 from __future__ import annotations
 
@@ -53,9 +58,11 @@ from .single_kernel import (
     _format_rows,
     _to_device,
     init_training,
-    make_base_step,
+    make_scenes_step,
 )
 from .state import (
+    GANTrainState,
+    _trainable,
     batch_indices,
     check_scan_intervals,
     latest_checkpoint_step,
@@ -63,8 +70,45 @@ from .state import (
     save_checkpoint,
     state_blob,
     state_from_blob,
+    tree_leaves,
     tree_map,
+    tree_unflatten,
 )
+
+_TREES = ("g_params", "d_params", "d_state", "g_opt_state", "d_opt_state")
+
+
+def _stack_states(states: Sequence[GANTrainState]) -> GANTrainState:
+    """Per-scene states (at one step) -> one state whose tensors carry the
+    scenes on a leading axis, its parameters trainable, its rng the list of
+    the scenes' generators."""
+    if len({st.step for st in states}) != 1:
+        raise ValueError("stacked scenes must be at one step")
+
+    def stack(name):
+        trees = [getattr(st, name) for st in states]
+        return tree_unflatten(trees[0], [torch.stack(leaves) for leaves in
+                                         zip(*(tree_leaves(t) for t in trees))])
+
+    with torch.no_grad():
+        out = GANTrainState(states[0].step, *(stack(n) for n in _TREES),
+                            [st.rng for st in states])
+    _trainable(out.g_params)
+    _trainable(out.d_params)
+    return out
+
+
+def _unstack_state(state: GANTrainState) -> list[GANTrainState]:
+    """`_stack_states`' inverse: each scene's state, its tensors copies."""
+    out = []
+    for s, rng in enumerate(state.rng):
+        with torch.no_grad():
+            st = GANTrainState(state.step, *(tree_map(lambda t: t[s].clone(), getattr(state, n))
+                                             for n in _TREES), rng)
+        _trainable(st.g_params)
+        _trainable(st.d_params)
+        out.append(st)
+    return out
 
 
 def _stack_pools(pools: Sequence[PatchPool]) -> tuple[np.ndarray, list[int]]:
@@ -104,10 +148,9 @@ def _activation_bytes_per_scene(cfg: SingleKernelConfig, hr_size: int) -> int:
 
 def pick_scene_chunk(cfg: SingleKernelConfig, s_local: int, hr_size: int,
                      budget_bytes: int = 6 << 30) -> int:
-    """Largest divisor m of s_local whose m-scene chunk keeps the
+    """Largest divisor m of s_local whose m-scene stacked step keeps the
     estimated chain residuals under `budget_bytes` (min 1). Compose-mode
-    fleets always fit — returns s_local there. (The JAX package's chunk
-    size; the port runs one scene at a time whatever it is.)"""
+    fleets always fit — returns s_local there."""
     per_scene = _activation_bytes_per_scene(cfg, hr_size)
     for m in range(s_local, 0, -1):
         if s_local % m == 0 and m * per_scene <= budget_bytes:
@@ -115,85 +158,99 @@ def pick_scene_chunk(cfg: SingleKernelConfig, s_local: int, hr_size: int,
     return 1
 
 
-def make_fleet_chunk_step(cfg: SingleKernelConfig) -> Callable:
-    """One scene's K-step chunk: chunk(state, pool_dev, crop_dev) ->
-    (state, metrics), `_CHUNK_KEYS` stacked over the K steps. Each step
-    draws its HR indices from the scene's HR pool, then its crop indices
-    from `crop_dev` (the scene's native-LR pool under real_is_lr, else the
-    HR pool), both from the scene's generator, as JAX's
-    `make_fleet_chunk_step` splits (k_hr, k_cr) per step; pass the HR pool
-    twice for the non-real_is_lr fleet."""
-    base = make_base_step(cfg)
+def make_fleet_step(cfg: SingleKernelConfig, scenes: int) -> Callable:
+    """JAX's `make_fleet_step` for a chunk of m = `scenes` scenes (K = 1):
+    step(state, pool, crop_pool, hr_idx, crop_idx) -> (state, metrics [m]).
+    `state` is the chunk's stacked state, pool [m, N, C, H, W] its stacked
+    HR pools, crop_pool the crop sources' (the native-LR pools under
+    real_is_lr, else pool itself), the indices [m, B] drawn on the host:
+    one gather each and one `make_scenes_step` call."""
+    step = make_scenes_step(cfg, scenes)
+    rows: dict = {}  # device -> [m, 1] scene index
+
+    def fleet_step(state, pool, crop_pool, hr_idx, crop_idx):
+        dev = pool.device
+        if dev not in rows:
+            rows[dev] = torch.arange(scenes, device=dev)[:, None]
+        return step(state, pool[rows[dev], hr_idx], crop_pool[rows[dev], crop_idx])
+
+    return fleet_step
+
+
+def make_fleet_chunk_step(cfg: SingleKernelConfig, scenes: int) -> Callable:
+    """JAX's `make_fleet_chunk_step` for a chunk of m = `scenes` scenes (K >
+    1): chunk(state, pool, crop_pool, sizes, crop_sizes) -> (state,
+    `_CHUNK_KEYS` metrics [m, K, ...]), `make_fleet_step`'s arguments with
+    the pools' sizes in place of indices. Each of the K steps draws each
+    scene's HR indices in [0, sizes[s]), then its crop indices in
+    [0, crop_sizes[s]), from the scene's generator, as JAX splits
+    (k_hr, k_cr) per scene and step."""
+    step = make_fleet_step(cfg, scenes)
     bs, k_steps = cfg.batch_size, cfg.steps_per_call
 
-    def chunk(state, pool_dev: torch.Tensor, crop_dev: torch.Tensor):
+    def chunk(state, pool, crop_pool, sizes, crop_sizes):
+        dev = pool.device
         rows = []
         for _ in range(k_steps):
-            hr_idx = batch_indices(state.rng, pool_dev.shape[0], bs, pool_dev.device)
-            cr_idx = batch_indices(state.rng, crop_dev.shape[0], bs, crop_dev.device)
-            state, m = base(state, pool_dev[hr_idx], crop_dev[cr_idx])
+            idx = [(batch_indices(g, n, bs, dev), batch_indices(g, nc, bs, dev))
+                   for g, n, nc in zip(state.rng, sizes, crop_sizes)]
+            state, m = step(state, pool, crop_pool, torch.stack([h for h, _ in idx]),
+                            torch.stack([c for _, c in idx]))
             rows.append(m)
-        return state, {k: torch.stack([m[k] for m in rows]) for k in _CHUNK_KEYS}
+        return state, {k: torch.stack([m[k] for m in rows], dim=1) for k in _CHUNK_KEYS}
 
     return chunk
 
 
 def device_pools(pools: Sequence[PatchPool], lr_pools: Optional[Sequence[PatchPool]],
-                 dev: torch.device) -> tuple[list, list]:
-    """(each scene's HR pool, each scene's crop source) on `dev`: the
-    stacked pools go up in one copy (`_stack_pools`) and scene s reads its
-    own rows, its crop source being its native-LR pool when lr_pools are
-    given, else its HR pool."""
+                 dev: torch.device) -> tuple:
+    """(HR pools [S, N, C, H, W], crop sources, their sizes, the crop
+    sources' sizes) on `dev`: each side's stacked pools (`_stack_pools`) go
+    up in one copy; the crop source is the native-LR pools when lr_pools
+    are given, else the HR pools."""
     stacked, sizes = _stack_pools(pools)
     pool_all = torch.from_numpy(stacked).to(dev)
-    hr = [pool_all[s, :n] for s, n in enumerate(sizes)]
     if lr_pools is None:
-        return hr, hr
+        return pool_all, pool_all, sizes, sizes
     lr_stacked, lr_sizes = _stack_pools(lr_pools)
-    lr_all = torch.from_numpy(lr_stacked).to(dev)
-    return hr, [lr_all[s, :n] for s, n in enumerate(lr_sizes)]
+    return pool_all, torch.from_numpy(lr_stacked).to(dev), sizes, lr_sizes
 
 
-def make_fleet_advance(cfg: SingleKernelConfig, states: list, pools_dev: list,
-                       crop_dev: list, host_rngs: Optional[list]) -> Callable:
-    """advance() -> each scene's metrics: one call of the fleet loop, which
-    updates `states` in place. K > 1: each scene's K-step chunk
-    (`make_fleet_chunk_step`), `_CHUNK_KEYS` stacked over the steps. K = 1:
-    each scene's host RNG draws its HR indices, then its crop indices (the
-    draw order of a standalone run), every scene's go up in one copy, and
-    each scene runs `make_base_step` on its own gathers. Scenes run one
-    after another on one stream; nothing waits for the device.
-
-    This takes the place of JAX's `make_fleet_step` (the vmapped K = 1
-    step, shard_mapped over a scene mesh) and of its vmapped
-    `make_fleet_chunk_step` call: under a mesh, `states` are this rank's
-    scenes only."""
-    n = len(states)
+def make_fleet_advance(cfg: SingleKernelConfig, states: list, pool: torch.Tensor,
+                       crop_pool: torch.Tensor, sizes: list, crop_sizes: list,
+                       host_rngs: Optional[list]) -> Callable:
+    """advance() -> each chunk's metrics: one fleet iteration (K of them
+    for K > 1), one stacked step call a chunk (JAX's `_chunk_scenes`: the
+    chunks run one after another). `states` are the chunks' stacked states
+    (equal widths), updated in place; the pools and sizes are every local
+    scene's, in order. K = 1: each scene's host RNG draws its HR indices,
+    then its crop indices (a standalone run's draw order), and every
+    scene's go up in one copy. Nothing waits for the device."""
+    m = len(states[0].rng)
+    chunks = [slice(c * m, (c + 1) * m) for c in range(len(states))]
     if cfg.steps_per_call > 1:
-        chunk_fn = make_fleet_chunk_step(cfg)
+        chunk_fn = make_fleet_chunk_step(cfg, m)
 
         def advance_chunks():
             out = []
-            for s in range(n):
-                states[s], ms = chunk_fn(states[s], pools_dev[s], crop_dev[s])
+            for i, c in enumerate(chunks):
+                states[i], ms = chunk_fn(states[i], pool[c], crop_pool[c], sizes[c],
+                                         crop_sizes[c])
                 out.append(ms)
             return out
 
         return advance_chunks
-    step_fn = make_base_step(cfg)
-    dev = pools_dev[0].device
+    step_fn = make_fleet_step(cfg, m)
+    bs = cfg.batch_size
 
     def advance():
-        idx = np.stack([
-            np.stack([r.integers(0, pools_dev[s].shape[0], size=cfg.batch_size),
-                      r.integers(0, crop_dev[s].shape[0], size=cfg.batch_size)])
-            for s, r in enumerate(host_rngs)])
-        idx_dev = _to_device(idx, dev)
+        idx = _to_device(np.stack([
+            np.stack([r.integers(0, sizes[s], size=bs), r.integers(0, crop_sizes[s], size=bs)])
+            for s, r in enumerate(host_rngs)]), pool.device)  # [S, 2, B]
         out = []
-        for s in range(n):
-            states[s], m = step_fn(states[s], pools_dev[s][idx_dev[s, 0]],
-                                   crop_dev[s][idx_dev[s, 1]])
-            out.append(m)
+        for i, c in enumerate(chunks):
+            states[i], ms = step_fn(states[i], pool[c], crop_pool[c], idx[c, 0], idx[c, 1])
+            out.append(ms)
         return out
 
     return advance
@@ -224,10 +281,15 @@ def train_fleet(
     writes artifacts under `cfg.outdir/<scene_names[s]>/`.
     cfg.steps_per_call = K > 1 runs K steps per scene per call with the
     indices drawn on the device from the scene's generator; K = 1 keeps
-    the host-RNG stream of a standalone K = 1 run. scene_chunk: JAX's
-    scenes per vmapped chunk; it must divide the scene count (None: the
-    JAX package's automatic choice, `pick_scene_chunk`) and does not change
-    the port's values: the port runs one scene at a time.
+    the host-RNG stream of a standalone K = 1 run.
+
+    scene_chunk: the scenes each stacked step call advances (on each rank
+    under a mesh); the chunks run one after another, which bounds
+    chain-mode residuals by one chunk. It must divide the (per-rank) scene
+    count; None = JAX's automatic choice (`pick_scene_chunk`): every scene
+    in compose mode, the largest divisor under a ~6 GiB residual budget in
+    chain mode. At 1 each scene's step is the standalone step, bit for bit;
+    wider chunks agree to float32 reduction order.
 
     lr_pools (with cfg.real_is_lr): one pool of native-LR patches per
     scene, at cfg.lr_crop_size: each scene's D sees its own LR pool.
@@ -310,21 +372,28 @@ def train_fleet(
     if k_steps > 1 and start_iter % k_steps:
         raise ValueError(f"resume step {start_iter} not a multiple of K={k_steps}")
 
-    pools_dev, crop_dev = device_pools(
+    pool_dev, crop_dev, sizes, crop_sizes = device_pools(
         [pools[s] for s in own],
         None if lr_pools is None else [lr_pools[s] for s in own], dev)
     if scene_chunk is None:
-        scene_chunk = pick_scene_chunk(cfg, s_local, pools_dev[0].shape[-1])
+        scene_chunk = pick_scene_chunk(cfg, s_local, pool_dev.shape[-1])
+        if cfg.verbose and scene_chunk != s_local:
+            print(f"[fleet] chain-mode residuals: dispatching "
+                  f"{scene_chunk}/{s_local} scenes per chunk")
     elif s_local % scene_chunk:
         raise ValueError(
             f"scene_chunk {scene_chunk} must divide the per-device scene "
             f"count {s_local}"
         )
+    m = scene_chunk
+    chunks = [_stack_states(states[c:c + m]) for c in range(0, s_local, m)]
+    del states
     # K = 1: per-scene host RNG streams identical to a standalone run at
     # seed+s (reseeded at the resume point, as JAX's are)
     host_rngs = None if k_steps > 1 else [
         np.random.default_rng(cfg.seed + s + start_iter) for s in own]
-    advance = make_fleet_advance(cfg, states, pools_dev, crop_dev, host_rngs)
+    advance = make_fleet_advance(cfg, chunks, pool_dev, crop_dev, sizes, crop_sizes,
+                                 host_rngs)
     log_files = [os.path.join(d, "training_log.txt") for d in outdirs]
     if start_iter == 0:
         for f in log_files:
@@ -357,13 +426,15 @@ def train_fleet(
     last: list = [None] * s_local  # each scene's metrics at its latest step
     with deterministic(dev):
         for t in iterator:
-            for s, m in enumerate(advance()):
-                if k_steps > 1:
-                    log_rows[s].append((t + 2 - k_steps, m))
-                    last[s] = {k: m[k][-1] for k in _CHUNK_KEYS}
-                else:
-                    log_rows[s].append((t + 1, {k: m[k] for k in _LOG_KEYS}))
-                    last[s] = m
+            for c, ms in enumerate(advance()):
+                for j in range(m):
+                    s = c * m + j
+                    if k_steps > 1:
+                        log_rows[s].append((t + 2 - k_steps, {k: ms[k][j] for k in _LOG_KEYS}))
+                        last[s] = {k: ms[k][j, -1] for k in _CHUNK_KEYS}
+                    else:
+                        log_rows[s].append((t + 1, {k: ms[k][j] for k in _LOG_KEYS}))
+                        last[s] = {k: ms[k][j] for k in _CHUNK_KEYS}
 
             if (t + 1) % cfg.log_every == 0:
                 flush()
@@ -382,10 +453,12 @@ def train_fleet(
                             ks[s])
 
             if cfg.ckpt_every and (t + 1) % cfg.ckpt_every == 0:
-                blobs = _gather_scenes(mesh, [state_blob(st) for st in states])
+                blobs = _gather_scenes(mesh, [state_blob(st) for c in chunks
+                                              for st in _unstack_state(c)])
                 if blobs is not None:
                     save_checkpoint(ckpt_dir, {"scenes": blobs}, t + 1)
 
+    states = [st for c in chunks for st in _unstack_state(c)]
     flush()
     ks_local = torch.stack([extract_kernels(st.g_params).detach()
                             for st in states])  # [S_local, C, kH, kW]

@@ -40,7 +40,7 @@ import torch
 from ..analysis.kernel_metrics import ascii_kernel, kernel_delta_l2, kernel_metrics
 from ..data.sampler import PatchPool
 from ..device import deterministic, resolve_device
-from ..losses import lsgan_d_loss, lsgan_g_loss, per_band_kernel_regularization
+from ..losses import lsgan_d_loss, lsgan_g_loss, per_band_kernel_regularization, scene_mean
 from ..models.discriminator import (
     DiscriminatorConfig,
     discriminator_forward,
@@ -50,6 +50,7 @@ from ..models.generator import (
     GeneratorConfig,
     extract_kernels,
     extract_kernels_raw,
+    fold_scenes,
     generator_forward,
     init_generator,
 )
@@ -74,6 +75,7 @@ from .state import (
     maybe_resume,
     save_checkpoint,
     tree_leaves,
+    tree_map,
     tree_unflatten,
 )
 
@@ -256,6 +258,139 @@ def make_base_step(cfg: SingleKernelConfig) -> Callable:
             "grads_G": tree_unflatten(g_params, g_grads),
         }
         return state, metrics_mean(metrics, ("loss_D", "loss_G_adv"))
+
+    return step
+
+
+def _scene_view(state: GANTrainState) -> GANTrainState:
+    """The one scene of a one-scene stacked state as a plain state of
+    views: the optimizer's in-place updates through it reach the stacked
+    tensors."""
+    def view(tree):
+        return tree_map(lambda t: t[0], tree)
+
+    return GANTrainState(state.step, view(state.g_params), view(state.d_params),
+                         view(state.d_state), view(state.g_opt_state),
+                         view(state.d_opt_state), state.rng[0])
+
+
+def make_scenes_step(cfg: SingleKernelConfig, scenes: int) -> Callable:
+    """`make_base_step` over m = `scenes` scenes stacked in one state, the
+    JAX fleet's vmap of the combined step: step(state, hr, crop_src) ->
+    (state, metrics). Every state tensor, hr [m, B, C, H, W] and crop_src
+    [m, B, C, h, w] carry the scenes on their leading axis; `state.rng` is
+    the list of the scenes' generators.
+
+    One call advances the m scenes. They fold into the channels of one
+    generator pass (`models.generator.fold_scenes`) and of each
+    discriminator pass (`discriminator_forward(scenes=m)`); the losses are
+    per scene and summed for the gradients (the scenes are independent, so
+    each scene's gradient is its own); each optimizer clips each scene by
+    its own norm (`ClippedAdam.step(scenes=m)`). Every draw comes from the
+    scene's own generator in the standalone step's order (real crop
+    offsets, D noise, G noise), so scene s draws what its standalone run
+    draws. Metrics are per scene: [m], kernels [m, C, K, K], the gradients
+    in the stacked layout. Values equal the scenes' standalone steps to
+    float32 reduction order.
+
+    At m = 1 the step is `make_base_step` on the scene's views of the
+    state, bit for bit: a batched matmul or a reduction over a scene axis
+    may round otherwise.
+    """
+    base = make_base_step(cfg)
+    if scenes == 1:
+        def one_scene(state: GANTrainState, hr: torch.Tensor, crop_src: torch.Tensor):
+            view, metrics = base(_scene_view(state), hr[0], crop_src[0])
+            state.step, state.d_state = view.step, tree_map(lambda t: t[None], view.d_state)
+            state.g_opt_state["count"] = view.g_opt_state["count"]
+            state.d_opt_state["count"] = view.d_opt_state["count"]
+            return state, tree_map(lambda t: t[None], metrics)
+
+        return one_scene
+
+    m = scenes
+    g_tx = make_gan_optimizers(cfg.lr_rate, grad_clip_norm=cfg.grad_clip_norm)
+    d_tx = make_gan_optimizers(cfg.d_lr_rate or cfg.lr_rate,
+                               grad_clip_norm=cfg.grad_clip_norm)
+    bc = cfg.d_border_crop
+    noise_on = cfg.fake_noise_sigma is not None
+    fixed_sigma: dict = {}  # device -> [1, m*C, 1, 1], uploaded once
+
+    def _trim(x):
+        return x[..., bc:-bc, bc:-bc] if bc else x
+
+    def _fold(x):  # [m, B, C, H, W] -> [B, m*C, H, W], scene-major
+        return x.transpose(0, 1).flatten(1, 2)
+
+    def _sigma_of(g_fold, dev):
+        if cfg.fake_noise_learnable:
+            return torch.clamp(torch.exp(g_fold["log_sigma"]), 1e-4, 4.0)[None, :, None, None]
+        if dev not in fixed_sigma:
+            fixed_sigma[dev] = torch.tensor(
+                tuple(cfg.fake_noise_sigma) * m, dtype=torch.float32,
+                device=dev)[None, :, None, None]
+        return fixed_sigma[dev]
+
+    def step(state: GANTrainState, hr: torch.Tensor, crop_src: torch.Tensor):
+        with fp32_convs():  # the backward convs too, as in make_base_step
+            return _step(state, hr, crop_src)
+
+    def _step(state: GANTrainState, hr: torch.Tensor, crop_src: torch.Tensor):
+        g_params, d_params, gens = state.g_params, state.d_params, state.rng
+        if cfg.real_is_lr:
+            real = _fold(crop_src)
+        else:
+            real = _fold(torch.stack([random_crops(g, crop_src[s], cfg.lr_crop_size)
+                                      for s, g in enumerate(gens)]))
+        g_fold = fold_scenes(g_params)
+        fake = generator_forward(g_fold, _fold(hr), factor=cfg.generator.factor,
+                                 forward_mode=cfg.generator.forward_mode)
+        fake_d = fake_g = fake
+        if noise_on:
+            like = fake[:, : hr.shape[2]]
+            draws = [(_normal(g, like), _normal(g, like)) for g in gens]  # D's, G's
+            sigma = _sigma_of(g_fold, fake.device)
+            fake_d = fake + torch.cat([d for d, _ in draws], dim=1) * sigma
+            fake_g = fake + torch.cat([g for _, g in draws], dim=1) * sigma
+
+        # ---- D step -------------------------------------------------------
+        d_leaves = tree_leaves(d_params)
+        pred_real, st = discriminator_forward(d_params, state.d_state, _trim(real),
+                                              train=True, scenes=m)
+        pred_fake, st = discriminator_forward(d_params, st, _trim(fake_d.detach()),
+                                              train=True, scenes=m)
+        loss_d = lsgan_d_loss(pred_real, pred_fake, scenes=m)
+        d_grads = list(torch.autograd.grad(loss_d.sum(), d_leaves))
+        d_grad_norm = d_tx.step(d_params, d_grads, state.d_opt_state, scenes=m)
+
+        # ---- G step (against the freshly updated D, reference order) -------
+        pred_fake, d_state = discriminator_forward(d_params, st, _trim(fake_g),
+                                                   train=True, scenes=m)
+        adv = lsgan_g_loss(pred_fake, scenes=m)
+        ks = extract_kernels(g_fold, differentiable=cfg.differentiable_reg).unflatten(0, (m, -1))
+        reg = per_band_kernel_regularization(ks, cfg.reg_weights)
+        total = adv + cfg.reg_weight * reg
+        if cfg.raw_sum_reg:
+            raw_sums = extract_kernels_raw(g_fold).sum(dim=(1, 2))
+            total = total + cfg.raw_sum_reg * scene_mean((raw_sums - 1.0) ** 2, m, dim=0)
+        g_leaves = tree_leaves(g_params)
+        g_grads = [g if g is not None else torch.zeros_like(p) for g, p in zip(
+            torch.autograd.grad(total.sum(), g_leaves, allow_unused=True), g_leaves)]
+        g_grad_norm = g_tx.step(g_params, g_grads, state.g_opt_state, scenes=m)
+
+        state.step += 1
+        state.d_state = d_state
+        return state, {
+            "loss_D": loss_d.detach(),
+            "loss_G_adv": adv.detach(),
+            "loss_reg": reg.detach(),
+            "loss_reg_weighted": (cfg.reg_weight * reg).detach(),
+            "grad_norm_D": d_grad_norm,
+            "grad_norm_G": g_grad_norm,
+            "kernels": ks.detach(),  # [m, C, kH, kW]
+            "grads_D": tree_unflatten(d_params, d_grads),
+            "grads_G": tree_unflatten(g_params, g_grads),
+        }
 
     return step
 

@@ -71,6 +71,14 @@ def global_norm(tensors: list[torch.Tensor], sharded: Optional[list[bool]] = Non
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
+def scene_norms(tensors: list[torch.Tensor], scenes: int) -> torch.Tensor:
+    """Each scene's global norm [scenes], the tensors carrying the scenes on
+    their leading axis (the fleet's stacked state): one norm a tensor and
+    scene, then one over the tensors, whatever the scene count."""
+    per_tensor = [torch.linalg.vector_norm(t.reshape(scenes, -1), dim=1) for t in tensors]
+    return torch.linalg.vector_norm(torch.stack(per_tensor), dim=0)
+
+
 @dataclasses.dataclass(frozen=True)
 class ClippedAdam:
     """optax.chain(clip_by_global_norm(max_norm), adam(lr, b1, b2, eps)),
@@ -100,20 +108,33 @@ class ClippedAdam:
                 "nu": [torch.zeros_like(p) for p in leaves]}
 
     @torch.no_grad()
-    def step(self, params, grads: list[torch.Tensor], opt_state: dict) -> torch.Tensor:
+    def step(self, params, grads: list[torch.Tensor], opt_state: dict,
+             scenes: Optional[int] = None) -> torch.Tensor:
         """Update `params` and `opt_state` in place from `grads` (in
         `tree_leaves(params)` order); returns the global norm of the
         gradients before clipping, as a device scalar. Under a model mesh,
-        the global norm is the full leaves' (`global_norm`)."""
-        sharded = None
-        if model_mesh() is not None:
-            sharded = [sharded_axis(p) is not None for p in tree_leaves(params)]
-        g_norm = global_norm(grads, sharded)
-        if self.max_norm is not None:
+        the global norm is the full leaves' (`global_norm`).
+
+        scenes=m: every leaf holds m independent models on its leading axis
+        (optax's chain vmapped over the fleet's scenes): each scene is
+        clipped by its own global norm, the norms [m] are returned, and the
+        Adam arithmetic, elementwise, is the unstacked one."""
+        if scenes is None:
+            sharded = None
+            if model_mesh() is not None:
+                sharded = [sharded_axis(p) is not None for p in tree_leaves(params)]
+            g_norm = global_norm(grads, sharded)
+        else:
+            g_norm = scene_norms(grads, scenes)
+        if self.max_norm is not None and scenes is None:
             scaled = torch._foreach_div(grads, g_norm)
             torch._foreach_mul_(scaled, self.max_norm)
             keep = g_norm < self.max_norm
             grads = [torch.where(keep, g, s) for g, s in zip(grads, scaled)]
+        elif self.max_norm is not None:
+            norms = [g_norm.view(-1, *(1,) * (g.ndim - 1)) for g in grads]
+            grads = [torch.where(n < self.max_norm, g, g / n * self.max_norm)
+                     for g, n in zip(grads, norms)]
         lr = self.lr(opt_state["count"]) if callable(self.lr) else self.lr
         count = opt_state["count"] + 1
         mu, nu = opt_state["mu"], opt_state["nu"]
@@ -148,7 +169,9 @@ def make_gan_optimizers(
 class GANTrainState:
     """Everything a GAN training step threads through iterations. `rng` is
     the device generator of the step's random draws (crops, fake noise,
-    K > 1 batch indices)."""
+    K > 1 batch indices). In the fleet's stacked state (`train.fleet`)
+    every tensor carries the scenes on a leading axis and `rng` is the
+    list of the scenes' generators."""
 
     step: int
     g_params: Any

@@ -124,7 +124,7 @@ def _run_sr(tmp_path):
 # trainer -> (its module, the step factory it calls, a small CPU run)
 TRAINERS = {
     "single_kernel": (tsk, "make_train_step", _run_single),
-    "fleet": (tfleet, "make_fleet_advance", _run_fleet),
+    "fleet": (tfleet, "make_fleet_step", _run_fleet),
     "moe": (tmoe, "make_moe_train_step", _run_moe),
     "dynamic": (tdyn, "make_dynamic_train_step", _run_dynamic),
     "sr": (ttsr, "make_sr_train_step", _run_sr),
@@ -223,23 +223,53 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-def test_chain_fleet_scenes_equal_their_standalone_runs_on_the_card(cuda, tmp_path):
-    """A 2-scene chain-mode fleet (K = 1, host draws) through the public
-    call, no wrapper: each scene bit-equal to `train_single_kernel` at
-    seed + s (JAX's fleet contract)."""
-    pools = [PatchPool(synthetic_pool(np.random.default_rng(10 + s), n=16, size=64).patches)
-             for s in range(2)]
-    cfg = tsk.SingleKernelConfig(iters=6, hr_patch_size=64, lr_crop_size=16, batch_size=4,
-                                 log_every=3, kernel_log_every=3, verbose=False,
-                                 outdir=str(tmp_path / "fleet"))
-    out = tfleet.train_fleet(pools, cfg, progress=False, device=cuda)
+def _card_fleet_and_twins(cuda, tmp_path, scene_chunk, **kw):
+    """A 2-scene chain-mode fleet (K = 1, host draws; 6 iterations at the
+    default widths on 64x64 patches unless `kw` says otherwise) at
+    `scene_chunk` through the public call, no wrapper, and each scene's
+    standalone `train_single_kernel` at seed + s: [(fleet scene dir, twin
+    dir)]."""
+    cfg = tsk.SingleKernelConfig(**{**dict(
+        iters=6, hr_patch_size=64, lr_crop_size=16, batch_size=4, log_every=3,
+        kernel_log_every=3, verbose=False, outdir=str(tmp_path / "fleet")), **kw})
+    pools = [PatchPool(synthetic_pool(np.random.default_rng(10 + s), n=16,
+                                      size=cfg.hr_patch_size).patches) for s in range(2)]
+    out = tfleet.train_fleet(pools, cfg, progress=False, device=cuda, scene_chunk=scene_chunk)
+    dirs = []
     for s, name in enumerate(out["scene_names"]):
         one = dataclasses.replace(cfg, seed=cfg.seed + s, outdir=str(tmp_path / f"one{s}"))
         tsk.train_single_kernel(pools[s], one, progress=False, device=cuda)
+        dirs.append((tmp_path / "fleet" / name, tmp_path / f"one{s}"))
+    return dirs
+
+
+@pytest.mark.cuda
+def test_chain_fleet_scenes_equal_their_standalone_runs_on_the_card(cuda, tmp_path):
+    """At scene_chunk=1 each scene of a 2-scene chain fleet is bit-equal to
+    its standalone run at seed + s (JAX's fleet contract)."""
+    for fleet_dir, one_dir in _card_fleet_and_twins(cuda, tmp_path, scene_chunk=1):
         for f in ("kernel_per_band.npy", "kernel_per_band_iter3.npy"):
-            assert np.array_equal(np.load(tmp_path / "fleet" / name / f),
-                                  np.load(tmp_path / f"one{s}" / f)), (name, f)
-        rows = [open(p).read() for p in (tmp_path / "fleet" / name / "training_log.txt",
-                                         tmp_path / f"one{s}" / "training_log.txt")]
+            assert np.array_equal(np.load(fleet_dir / f), np.load(one_dir / f)), (fleet_dir, f)
+        rows = [open(d / "training_log.txt").read() for d in (fleet_dir, one_dir)]
         assert rows[0] == rows[1]
+
+
+@pytest.mark.cuda
+def test_stacked_chain_fleet_scenes_match_their_standalone_runs_on_the_card(cuda, tmp_path):
+    """A 2-scene chain fleet stacked (both scenes in one step call) at the
+    CPU fleet tests' widths and JAX's fleet test's length (G mid_ch 8, D
+    8x2, 32x32 patches, 4 iterations): each scene within JAX's fleet
+    tolerances of its standalone run (kernels rtol 1e-5 / atol 1e-7, CSV
+    rows rtol 1e-4 / atol 1e-6). At full width the trajectories part after
+    a step or two, as JAX's own fleet's do across chunk widths
+    (chip_smoke.py phase 13)."""
+    tiny = dict(iters=4, log_every=2, kernel_log_every=2, hr_patch_size=32, lr_crop_size=8,
+                generator=tg.GeneratorConfig(mid_ch=8),
+                discriminator=td.DiscriminatorConfig(base_ch=8, num_blocks=2))
+    for fleet_dir, one_dir in _card_fleet_and_twins(cuda, tmp_path, scene_chunk=2, **tiny):
+        for f in ("kernel_per_band.npy", "kernel_per_band_iter2.npy"):
+            np.testing.assert_allclose(np.load(fleet_dir / f), np.load(one_dir / f),
+                                       rtol=1e-5, atol=1e-7)
+        rows = [np.loadtxt(d / "training_log.txt", delimiter=",", skiprows=1)
+                for d in (fleet_dir, one_dir)]
+        np.testing.assert_allclose(rows[0], rows[1], rtol=1e-4, atol=1e-6)

@@ -5,11 +5,16 @@ batch 4).
 Against JAX, every scene starts from JAX's `init_training(seed + s)`
 weights (converted) and both packages draw the same numpy batches; the
 chain-mode run also gets JAX's per-scene `jax.random` crops, injected into
-the port's `random_crops` hook keyed by each scene's generator. Kernels and
-CSV rows agree at rtol 1e-4 / atol 1e-5 over 4 iterations. Within the port,
-scene s of a fleet equals the port's standalone run at seed + s bit for
-bit (the same step on the same draws).
+the port's `random_crops` hook keyed by each scene's generator, and the
+K = 2 runs JAX's device indices and fake-side noise too. Kernels and CSV
+rows agree at rtol 1e-4 / atol 1e-5 over 4 iterations, the stacked fleet
+against JAX's at the same `scene_chunk`. Within the port, scene s of a
+fleet at scene_chunk=1 equals the port's standalone run at seed + s bit
+for bit (the same step on the same draws); a stacked chunk of m > 1
+scenes equals it at JAX's fleet tolerances (`tests/test_train_fleet.py`:
+kernels rtol 1e-5 / atol 1e-7, CSV rows rtol 1e-4 / atol 1e-6).
 """
+import dataclasses
 import os
 
 import jax
@@ -34,6 +39,8 @@ from kmsr_tpu_torch.train import state as tstate
 from tests.helpers.jax_draws import JaxDraws
 
 TOL = dict(rtol=1e-4, atol=1e-5)
+#: JAX's fleet tolerances across chunk widths (float32 reduction order)
+KERNEL_TOL, ROW_TOL = dict(rtol=1e-5, atol=1e-7), dict(rtol=1e-4, atol=1e-6)
 
 
 def _cfg(pkg, outdir, mode="chain", **kw):
@@ -69,15 +76,16 @@ def _rows(path):
     return lines[0], np.array([[float(v) for v in ln.split(",")] for ln in lines[1:]])
 
 
-def _assert_runs_close(got, want, tol):
-    """Two fleet outputs: kernels, every scene's CSV rows and file names."""
+def _assert_runs_close(got, want, tol, row_tol=None):
+    """Two fleet outputs: kernels, every scene's CSV rows (at row_tol, else
+    tol) and file names."""
     np.testing.assert_allclose(got["kernel_per_band"], want["kernel_per_band"], **tol)
     np.testing.assert_allclose(got["kernel_merged"], want["kernel_merged"], **tol)
-    for fg, fw in zip(got["log_files"], want["log_files"]):
+    for fg, fw in zip(got["log_files"], want["log_files"], strict=True):
         (hg, rg), (hw, rw) = _rows(fg), _rows(fw)
         assert hg == hw and rg.shape == rw.shape
         np.testing.assert_array_equal(rg[:, 0], rw[:, 0])
-        np.testing.assert_allclose(rg, rw, **tol)
+        np.testing.assert_allclose(rg, rw, **(row_tol or tol))
         assert sorted(os.listdir(os.path.dirname(fg))) == sorted(os.listdir(os.path.dirname(fw)))
 
 
@@ -108,14 +116,20 @@ def test_scene_chunk_estimates_equal_jax(mode, batch, hr):
 
 
 # ------------------------------------------------------------ fleet vs JAX
-def _jax_fleet(tmp_path, hr, lr, **kw):
+def _names(hr):
+    return ["a", "b", "c", "d"][:len(hr)]
+
+
+def _jax_fleet(tmp_path, hr, lr, scene_chunk=None, **kw):
     lr_pools = [jsampler.PatchPool(p) for p in lr] if kw.get("real_is_lr") else None
     return jfleet.train_fleet([jsampler.PatchPool(p) for p in hr],
                               _cfg("jax", tmp_path / "jax", seed=7, **kw),
-                              scene_names=["a", "b"], progress=False, lr_pools=lr_pools)
+                              scene_names=_names(hr), progress=False, lr_pools=lr_pools,
+                              scene_chunk=scene_chunk)
 
 
-def _port_fleet_from_jax_init(tmp_path, monkeypatch, hr, lr, on_init=None, **kw):
+def _port_fleet_from_jax_init(tmp_path, monkeypatch, hr, lr, on_init=None, scene_chunk=None,
+                              out="torch", **kw):
     """The port's fleet with every scene started from JAX's init at seed
     7 + s; on_init(state, jax_key) sees each scene's state as it is made."""
 
@@ -129,9 +143,9 @@ def _port_fleet_from_jax_init(tmp_path, monkeypatch, hr, lr, on_init=None, **kw)
     monkeypatch.setattr(tfleet, "init_training", init)
     lr_pools = [tsampler.PatchPool(p) for p in lr] if kw.get("real_is_lr") else None
     return tfleet.train_fleet([tsampler.PatchPool(p) for p in hr],
-                              _cfg("torch", tmp_path / "torch", seed=7, **kw),
-                              scene_names=["a", "b"], progress=False, lr_pools=lr_pools,
-                              device="cpu")
+                              _cfg("torch", tmp_path / out, seed=7, **kw),
+                              scene_names=_names(hr), progress=False, lr_pools=lr_pools,
+                              device="cpu", scene_chunk=scene_chunk)
 
 
 def test_fleet_real_is_lr_matches_jax(tmp_path, monkeypatch):
@@ -159,19 +173,57 @@ def test_fleet_chain_crops_match_jax(tmp_path, monkeypatch):
     _assert_runs_close(got, want, TOL)
 
 
+#: the stacked cases against JAX: (K, mode, real_is_lr, fake-side noise)
+_STACKED = {1: ("compose", True, None), 2: ("compose", False, (0.1, 0.2, 0.1, 0.3, 0.1))}
+
+
+@pytest.mark.parametrize("m", [2, 4])
+@pytest.mark.parametrize("k", [1, 2])
+def test_stacked_fleet_matches_jax(tmp_path, monkeypatch, k, m):
+    """4 scenes in stacked chunks of m against JAX's `train_fleet(...,
+    scene_chunk=m)` from JAX's inits at the file's TOL: K = 1 real_is_lr
+    (host batches, no draws), and K = 2 with fake-side noise, JAX's
+    per-scene device indices, crops and noise injected into the port's
+    hooks; both compose (the chain fleets above run stacked too, two scenes
+    in one chunk in both packages). Then against the port's own fleet at
+    scene_chunk=1 at JAX's fleet tolerances."""
+    mode, real_is_lr, noise = _STACKED[k]
+    hr, lr = _pools(seed=12, sizes=(6, 9, 5, 7), lr_sizes=(5, 7, 4, 6))
+    kw = dict(steps_per_call=k, real_is_lr=real_is_lr, fake_noise_sigma=noise, mode=mode)
+    want = _jax_fleet(tmp_path, hr, lr, scene_chunk=m, **kw)
+    draws = {}
+
+    def hook(name):
+        return lambda gen, *a: getattr(draws[id(gen)], name)(gen, *a)
+
+    monkeypatch.setattr(tfleet, "batch_indices", hook("batch_indices"))
+    monkeypatch.setattr(tsk, "random_crops", hook("random_crops"))
+    monkeypatch.setattr(tsk, "_normal", hook("standard_normal"))
+    got = {}
+    for chunk in (m, 1):
+        draws.clear()
+        got[chunk] = _port_fleet_from_jax_init(
+            tmp_path, monkeypatch, hr, lr, scene_chunk=chunk, out=f"torch{chunk}",
+            on_init=lambda st, key: draws.__setitem__(id(st.rng), JaxDraws(key, 2)), **kw)
+    assert len(draws) == 4
+    _assert_runs_close(got[m], want, TOL)
+    _assert_runs_close(got[m], got[1], KERNEL_TOL, ROW_TOL)
+
+
 # ------------------------------------------------------------ within the port
 @pytest.mark.parametrize("k", [1, 2])
 def test_fleet_scene_equals_standalone_run(tmp_path, k):
-    """Scene s of a chain fleet equals the port's `train_single_kernel` at
-    seed 7 + s on the same pool (the device pool; K = 2 with fake-side
-    noise, so every draw comes from the scene's generator): kernels and
-    CSV rows bit for bit."""
+    """Scene s of a chain fleet at scene_chunk=1 equals the port's
+    `train_single_kernel` at seed 7 + s on the same pool (the device pool;
+    K = 2 with fake-side noise, so every draw comes from the scene's
+    generator): kernels and CSV rows bit for bit."""
     hr, _ = _pools(seed=5)
     kw = dict(steps_per_call=k, **({"fake_noise_sigma": (0.1, 0.2, 0.1, 0.3, 0.1)}
                                    if k > 1 else {}))
     fleet = tfleet.train_fleet([tsampler.PatchPool(p) for p in hr],
                                _cfg("torch", tmp_path / "fleet", seed=7, **kw),
-                               scene_names=["a", "b"], progress=False, device="cpu")
+                               scene_names=["a", "b"], progress=False, device="cpu",
+                               scene_chunk=1)
     for s, pool in enumerate(hr):
         one = tsk.train_single_kernel(
             tsampler.PatchPool(pool),
@@ -184,23 +236,64 @@ def test_fleet_scene_equals_standalone_run(tmp_path, k):
                                           np.load(tmp_path / f"one{s}" / name))
 
 
-def test_real_is_lr_chunked_fleet_equals_one_scene_fleets(tmp_path):
-    """K = 2 with real_is_lr (no standalone twin: the standalone trainer
-    samples an lr_pool on the host): a 2-scene fleet equals two 1-scene
-    fleets at seeds 11 and 12, kernels and CSV bit for bit."""
+def test_stacked_fleet_scene_equals_standalone_run(tmp_path):
+    """The same chain fleets stacked (2 scenes in one chunk, the automatic
+    width here; K = 2 with fake-side noise): each scene equals its
+    standalone run at JAX's fleet tolerances."""
+    hr, _ = _pools(seed=5)
+    kw = dict(steps_per_call=2, fake_noise_sigma=(0.1, 0.2, 0.1, 0.3, 0.1))
+    cfg = _cfg("torch", tmp_path / "fleet", seed=7, **kw)
+    assert tfleet.pick_scene_chunk(cfg, 2, 32) == 2
+    fleet = tfleet.train_fleet([tsampler.PatchPool(p) for p in hr], cfg,
+                               scene_names=["a", "b"], progress=False, device="cpu")
+    for s, pool in enumerate(hr):
+        one = tsk.train_single_kernel(
+            tsampler.PatchPool(pool),
+            _cfg("torch", tmp_path / f"one{s}", seed=7 + s, device_pool=True, **kw),
+            progress=False, device="cpu")
+        np.testing.assert_allclose(fleet["kernel_per_band"][s], one["kernel_per_band"],
+                                   **KERNEL_TOL)
+        (hf, rf), (ho, ro) = _rows(fleet["log_files"][s]), _rows(one["log_file"])
+        assert hf == ho and rf.shape == ro.shape == (4, 5)
+        np.testing.assert_allclose(rf, ro, **ROW_TOL)
+
+
+def _real_is_lr_fleets(tmp_path, chunk):
+    """K = 2 real_is_lr: a 2-scene fleet at scene_chunk `chunk` and two
+    1-scene fleets at seeds 11 and 12: [(two's log, kernels), (one's)]."""
     hr, lr = _pools(seed=6, sizes=(4, 5), lr_sizes=(3, 6))
     kw = dict(real_is_lr=True, steps_per_call=2)
     two = tfleet.train_fleet([tsampler.PatchPool(p) for p in hr],
                              _cfg("torch", tmp_path / "two", seed=11, **kw),
-                             scene_names=["a", "b"], progress=False,
+                             scene_names=["a", "b"], progress=False, scene_chunk=chunk,
                              lr_pools=[tsampler.PatchPool(p) for p in lr], device="cpu")
+    pairs = []
     for s in range(2):
         one = tfleet.train_fleet([tsampler.PatchPool(hr[s])],
                                  _cfg("torch", tmp_path / f"one{s}", seed=11 + s, **kw),
                                  scene_names=["only"], progress=False,
                                  lr_pools=[tsampler.PatchPool(lr[s])], device="cpu")
-        np.testing.assert_array_equal(two["kernel_per_band"][s], one["kernel_per_band"][0])
-        assert open(two["log_files"][s]).read() == open(one["log_files"][0]).read()
+        pairs.append(((two["log_files"][s], two["kernel_per_band"][s]),
+                      (one["log_files"][0], one["kernel_per_band"][0])))
+    return pairs
+
+
+def test_real_is_lr_chunked_fleet_equals_one_scene_fleets(tmp_path):
+    """K = 2 with real_is_lr (no standalone twin: the standalone trainer
+    samples an lr_pool on the host): a 2-scene fleet at scene_chunk=1
+    equals two 1-scene fleets at seeds 11 and 12, kernels and CSV bit for
+    bit."""
+    for (log2, k2), (log1, k1) in _real_is_lr_fleets(tmp_path, chunk=1):
+        np.testing.assert_array_equal(k2, k1)
+        assert open(log2).read() == open(log1).read()
+
+
+def test_stacked_real_is_lr_fleet_matches_one_scene_fleets(tmp_path):
+    """The same 2-scene fleet stacked in one chunk: at JAX's fleet
+    tolerances of the 1-scene fleets."""
+    for (log2, k2), (log1, k1) in _real_is_lr_fleets(tmp_path, chunk=2):
+        np.testing.assert_allclose(k2, k1, **KERNEL_TOL)
+        np.testing.assert_allclose(_rows(log2)[1], _rows(log1)[1], **ROW_TOL)
 
 
 def test_resume_equals_uninterrupted_fleet(tmp_path):
@@ -238,6 +331,127 @@ def test_resume_equals_uninterrupted_fleet(tmp_path):
         assert header == tsk.LOG_HEADER.strip()
         np.testing.assert_array_equal(rows[:, 0], [1, 2, 3, 4])
         assert np.isfinite(rows).all()
+
+
+@pytest.mark.parametrize("resume_chunk", [1, 4])
+def test_checkpoint_resumes_at_another_chunk_width(tmp_path, resume_chunk):
+    """A checkpoint written by 4 scenes in chunks of 2 (one blob a scene)
+    resumes at scene_chunk 1 and 4: every scene at step 4, kernels and
+    rows at JAX's fleet tolerances of the uninterrupted run at 2."""
+    hr, _ = _pools(seed=13, sizes=(4, 6, 5, 4))
+    pools = [tsampler.PatchPool(p) for p in hr]
+    kw = dict(steps_per_call=2, ckpt_every=2, fake_noise_sigma=(0.1,) * 5)
+    full = tfleet.train_fleet(pools, _cfg("torch", tmp_path / "full", **kw), progress=False,
+                              device="cpu", scene_chunk=2)
+    tfleet.train_fleet(pools, _cfg("torch", tmp_path / "cut", iters=2, **kw), progress=False,
+                       device="cpu", scene_chunk=2)
+    resumed = tfleet.train_fleet(pools, _cfg("torch", tmp_path / "cut", resume=True, **kw),
+                                 progress=False, device="cpu", scene_chunk=resume_chunk)
+    assert [st.step for st in resumed["state"]] == [4] * 4
+    _assert_runs_close(resumed, full, KERNEL_TOL, ROW_TOL)
+
+
+def _scene_states(cfg, n):
+    return [tsk.init_training(dataclasses.replace(cfg, seed=cfg.seed + s), "cpu")
+            for s in range(n)]
+
+
+@pytest.mark.parametrize("mode, learn", [("chain", False), ("compose", True)])
+def test_one_scene_stacked_step_is_the_base_step(mode, learn):
+    """`make_scenes_step` at m = 1 on a stacked state of one scene equals
+    `make_base_step` on the plain state, bit for bit over 3 steps: every
+    metric, every tensor of the state and the generator (random crops,
+    fake-side noise, learnable sigma, raw_sum_reg)."""
+    cfg = _cfg("torch", "unused", mode=mode, seed=3, raw_sum_reg=0.1,
+               fake_noise_sigma=(0.1, 0.2, 0.1, 0.3, 0.1), fake_noise_learnable=learn)
+    (plain,), (one,) = _scene_states(cfg, 1), _scene_states(cfg, 1)
+    stacked = tfleet._stack_states([one])
+    base, scenes = tsk.make_base_step(cfg), tsk.make_scenes_step(cfg, 1)
+    rng = np.random.default_rng(0)
+    for _ in range(3):
+        hr = torch.from_numpy(rng.normal(5, 1, (4, 5, 32, 32)).astype(np.float32))
+        plain, want = base(plain, hr, hr.flip(0))
+        stacked, got = scenes(stacked, hr[None], hr.flip(0)[None])
+        for k in tsk._CHUNK_KEYS:
+            assert torch.equal(got[k][0], want[k]), k
+    (back,) = tfleet._unstack_state(stacked)
+    assert back.step == plain.step == 3
+    for name in tfleet._TREES:
+        a, b = getattr(back, name), getattr(plain, name)
+        assert all(torch.equal(x, y) for x, y in zip(tstate.tree_leaves(a),
+                                                     tstate.tree_leaves(b), strict=True))
+    assert back.g_opt_state["count"] == plain.g_opt_state["count"] == 3
+    assert torch.equal(back.rng.get_state(), plain.rng.get_state())
+    assert all(p.requires_grad for p in tstate.tree_leaves(back.g_params))
+
+
+def test_each_scene_is_clipped_by_its_own_norm():
+    """ClippedAdam over 2 stacked scenes, the second's gradients 1e3x the
+    first's: the first scene's update equals its solo step's bit for bit
+    (a global norm would have clipped it too); the second's, clipped, and
+    both norms equal their solo steps' to float32 rounding."""
+    tx = tstate.make_gan_optimizers(4e-4)
+    g = torch.Generator().manual_seed(0)
+    shapes = [(3, 4), (5,), (2, 2, 3)]
+    params = [[torch.randn(sh, generator=g) for sh in shapes] for _ in range(2)]
+    stacked = [torch.stack(ps) for ps in zip(*params)]
+    opt, solo_opt = tx.init(stacked), [tx.init(p) for p in params]
+    for _ in range(2):
+        grads = [torch.randn(sh, generator=g) for sh in shapes]  # norm ~4 < 20
+        scene_grads = [grads, [1e3 * x for x in grads]]
+        norms = tx.step(stacked, [torch.stack(gs) for gs in zip(*scene_grads)], opt, scenes=2)
+        for s in range(2):
+            solo = tx.step(params[s], scene_grads[s], solo_opt[s])
+            torch.testing.assert_close(norms[s], solo, rtol=1e-6, atol=0)
+            for a, b in zip(stacked, params[s]):
+                if s == 0:
+                    assert torch.equal(a[s], b)
+                else:
+                    torch.testing.assert_close(a[s], b, rtol=1e-6, atol=1e-9)
+    assert float(norms[0]) < 20 < float(norms[1])
+
+
+def test_folded_discriminator_is_each_scenes():
+    """D over 3 scenes folded into the channels (groups = 3, per-scene
+    spectral norm, BatchNorm on the folded channels) against each scene's
+    own D at the file's TOL (float32 through 4 convs): score maps, u
+    vectors and BatchNorm's running statistics (each scene's inputs at its
+    own scale, so shared statistics would show)."""
+    dcfg = td.DiscriminatorConfig(base_ch=8, num_blocks=2)
+    nets = [td.init_discriminator(dcfg, seed=s, device="cpu") for s in range(3)]
+    g = torch.Generator().manual_seed(1)
+    xs = [torch.randn(4, 5, 12, 12, generator=g) * (1 + 3 * s) + s for s in range(3)]
+    params = tstate.tree_unflatten(nets[0][0], [torch.stack(ls) for ls in zip(
+        *(tstate.tree_leaves(p) for p, _ in nets))])
+    state = tstate.tree_unflatten(nets[0][1], [torch.stack(ls) for ls in zip(
+        *(tstate.tree_leaves(st) for _, st in nets))])
+    for train in (True, False):
+        out, new = td.discriminator_forward(params, state, torch.cat(xs, dim=1), train,
+                                            scenes=3)
+        assert out.shape == (4, 3, 12, 12)
+        for s, (p, st) in enumerate(nets):
+            want, want_st = td.discriminator_forward(p, st, xs[s], train)
+            torch.testing.assert_close(out[:, s:s + 1], want, **TOL)
+            for a, b in zip(tstate.tree_leaves(new), tstate.tree_leaves(want_st), strict=True):
+                torch.testing.assert_close(a[s], b, **TOL)
+
+
+def test_folded_batch_norm_statistics_are_per_scene():
+    """`batch_norm` on 3 scenes' channels folded into one tensor normalizes
+    each scene's channels by that scene's batch statistics and updates its
+    running statistics alone."""
+    g = torch.Generator().manual_seed(2)
+    x = torch.cat([torch.randn(4, 8, 6, 6, generator=g) * (1 + 5 * s) - 2 * s
+                   for s in range(3)], dim=1)
+    scale, bias, mean, var = (torch.rand(3, 8, generator=g) + 0.5 for _ in range(4))
+    y, new_mean, new_var = td.batch_norm(x, scale.flatten(), bias.flatten(), mean.flatten(),
+                                         var.flatten(), train=True)
+    for s in range(3):
+        c = slice(8 * s, 8 * s + 8)
+        ys, ms, vs = td.batch_norm(x[:, c], scale[s], bias[s], mean[s], var[s], train=True)
+        torch.testing.assert_close(y[:, c], ys, rtol=1e-6, atol=1e-6)
+        torch.testing.assert_close(new_mean[c], ms, rtol=1e-6, atol=1e-7)
+        torch.testing.assert_close(new_var[c], vs, rtol=1e-6, atol=1e-7)
 
 
 _REFUSALS = {  # (pools, lr side or None, cfg overrides, train_fleet kwargs)
