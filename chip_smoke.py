@@ -42,8 +42,9 @@ and exits non-zero without them. Phases, one line each:
    patches (two full batches of 128) with a seeded [64, 5, 32, 32] noise
    pool, through both routes — `factory_batches` (.npy input: native split
    loader -> presplit kernel) and `natural_batches` (the .nc route's
-   device code: NCHW stack -> v3 kernel; fed .npy here because the card's
-   machine has no h5py to read .nc files); then both at x2 (span 14 > 10,
+   device code: NCHW stack -> v3 kernel; fed .npy here to time the
+   device code without the .nc codec, which phase 17 drives from files);
+   then both at x2 (span 14 > 10,
    where the .npy route goes natural too): the same patches with a
    [64, 5, 128, 128] pool (the v2 kernel) and 256 5x48x48 patches with a
    [64, 5, 24, 24] pool (the dense v4 kernel). Launch counts are set to 0
@@ -51,7 +52,7 @@ and exits non-zero without them. Phases, one line each:
    per batch, no other degrade kernel); every lr is checked against the
    plain degrade(hr) + pool[idx];
 6. scene: `pipeline.degrade_scene.degrade_scene_file` (the CLI's device
-   code, fed in-memory scenes: no h5py there either) on a seeded
+   code, fed in-memory scenes; phase 17 runs the CLI on a file) on a seeded
    5x8192x8192 scene with NaN cells, in 1 and 4 row slabs, and on an
    uneven 5x8003x7999 scene; and the public `degrade_slab_fast` on the
    edge-extended 8192^2 scene. Launch counts are set to 0 before each
@@ -78,8 +79,8 @@ and exits non-zero without them. Phases, one line each:
 9. kernelgan: single-kernel KernelGAN training (`train.single_kernel`) at
    the repo's default widths (G mid_ch 32, 5 bands, 13x13, x8; D 64x4;
    batch 16 of 5x256x256 HR against 32x32 real) on a seeded in-memory
-   `synthetic_pool` of 64 patches (the card's machine has no h5py for
-   `.nc` patch folders): (a) chain forward, host-sampled batches, 20
+   `synthetic_pool` of 64 patches (in memory, as the trainers' own
+   samplers hold a pool): (a) chain forward, host-sampled batches, 20
    iterations; (b) compose forward (`--fast-forward`), device pool, 10
    steps a call, 40 iterations; (c) real_is_lr against a 64x5x32x32
    lr_pool, raw_sum_reg 0.1, compose, 20 iterations. Each run must write
@@ -100,7 +101,7 @@ and exits non-zero without them. Phases, one line each:
    radiance-like field plus per-band Gaussian noise of known sigma; NaN
    holes in three files, one all-NaN band). `batch_denoise` runs as a user
    runs it, its file reads and writes swapped for the in-memory stacks
-   (no h5py there): four chunks, one-deep pipeline. Checks: every file
+   (phase 17 runs it on files): four chunks, one-deep pipeline. Checks: every file
    out, no per-file fallback, no degrade kernel; NaNs restored at exactly
    the input's cells; the dead band passed through bit for bit with sigma
    0.0; every sigma finite and within 25 % of the noise sigma that made
@@ -224,7 +225,7 @@ and exits non-zero without them. Phases, one line each:
    (c) `run_factory(kernel_root=(a)'s outdir)` on 5 scenes x 64 .npy
    patches `<scene>_<gi>_<gj>.npy` (the fifth without a kernel), pool
    [64, 5, 32, 32], x8, batch 128, its .nc
-   writes captured in memory (no h5py there): one `degrade_v3psn` launch
+   writes captured in memory: one `degrade_v3psn` launch
    a scene batch and no other degrade kernel, every lr against the plain
    degrade(hr, kernel_s) + pool[idx] with idx from `scene_seed(42, s)`
    (rtol 1e-4 / atol 1e-5), the fifth scene failed as a unit. Timing: one
@@ -322,8 +323,35 @@ and exits non-zero without them. Phases, one line each:
    CPU: each pair's PSNR/SSIM within rtol 1e-5 / atol 1e-5 (phase 12 (c))
    and the same lam with every lam's mean PSNR within 0.01 dB (phase 14).
 
-inspect_nc, data_stats, viz_cli and make_train_data --vis-dir are host
-h5py / matplotlib code (no h5py on the card's machine); the CPU tests
+17. files: configs/quality_x8.json's DAG through `pipeline.run_all` from
+   and to .nc files, read and written by the port's own HDF5 codec
+   (`io.hdf5`; the card's machine has no h5py): 4 seeded scenes of
+   5x1024^2 written by the codec in the manner of examples/end_to_end.sh
+   (NIR inside the water-mask window, navigation_data lat/lon, NaN holes
+   stored as _FillValue), then cut (256^2, stride 128) -> denoise (NLM
+   on the card) -> noise_pool -> factory (x8, 13x13 kernel, batch 128,
+   the .nc route) -> check_shapes -> sr_train (width 64, 8 blocks) ->
+   sr_infer, at the config's widths; cut in depth only, and the cuts are
+   printed: the scene count and size, `kernel_file` (a seeded 5x13x13
+   .npy in the run dir: the config's trained kernel is not in the
+   checkout), sr_train 20 iterations, sr_infer enabled. Launch counts are
+   set to 0 before run_all and read after it: `degrade_v3` once a
+   128-patch batch and no other kernel. Checks: every stage returns 0 and
+   writes one file a patch; every `<name>_train.nc`, read back through the
+   codec, has its lr within rtol 1e-4 / atol 1e-5 of the plain
+   degrade(hr) + pool[idx] and its hr bit-equal to the denoised input
+   patch; `degrade_scene`'s CLI on one scene file (counts set to 0 before
+   it) launches `colsplit_raw` and nothing else and matches the plain
+   `degrade_strided` of the mean-filled scene at the tolerance, NaN cells
+   identical; `inspect_nc` on one output lists its hr and lr groups.
+   Prints, beside the card's name and power limit: each stage's seconds,
+   the factory's patches/s from files with its stage timers (read+decode
+   on the reader thread, dispatch, device sync, encode+write) beside phase
+   5's in-memory .nc route, and the codec's read and write MB/s on 16
+   pairs.
+
+data_stats, viz_cli and make_train_data --vis-dir are host numpy /
+matplotlib code that reads .nc through the same codec; the CPU tests
 (tests/test_torch_analysis_tools.py) hold them against JAX, and no phase
 drives them.
 
@@ -331,10 +359,11 @@ Prints one JSON line {"factory": {...}} (per-route results), one
 {"scene": {...}}, one {"api": {...}}, one {"kernelgan": {...}}, one
 {"denoise": {...}}, one {"moe_dynamic": {...}}, one {"sr": {...}}, one
 {"fleet": {...}}, one {"oracle": {...}}, one {"parallel": {...}}, one
-{"tools": {...}}, then the card's nvidia-smi line, one JSON line
-{"kernels": [...]} (each kernel's `launches` on the main path above,
-`parallel_launches` on phase 15's local-DP factory route and ranks scene
-route, `tools_launches` on phase 16's three parts) and, last,
+{"tools": {...}}, one {"files": {...}}, then the card's nvidia-smi line,
+one JSON line {"kernels": [...]} (each kernel's `launches` on the main
+path above, `parallel_launches` on phase 15's local-DP factory route and
+ranks scene route, `tools_launches` on phase 16's three parts,
+`files_launches` on phase 17's run_all and scene CLI) and, last,
 {"ok": true, "device": {...}}. Any mismatch or error in any phase, timing
 included, exits non-zero before that last line.
 """
@@ -1757,7 +1786,7 @@ def denoise_data():
 
 class InMemoryDenoiseIO:
     """Swaps the denoise CLI's file reads and writes for a dict of stacks
-    (the card's machine has no h5py), so `batch_denoise` — its chunking,
+    (phase 17 runs it on files), so `batch_denoise` — its chunking,
     one-deep pipeline, fallback and accounting — runs as a user runs it."""
 
     def __init__(self, stacks):
@@ -3714,8 +3743,8 @@ def fleet_cli(tmp: str, dev, failures: list) -> dict:
 def fleet_factory(tmp: str, kernel_root: str, dev, failures: list) -> dict:
     """(c): `run_factory(kernel_root=...)` on 5 scenes x 64 .npy patches
     `<scene>_<gi>_<gj>.npy` (the fifth without a kernel) with a [64, 5, 32,
-    32] pool, x8, batch 128, its .nc writes captured in memory (no h5py on
-    this machine): one degrade_v3psn launch a scene batch and no other
+    32] pool, x8, batch 128, its .nc writes captured in memory: one
+    degrade_v3psn launch a scene batch and no other
     degrade kernel; every lr against the plain degrade(hr, kernel_s) +
     pool[idx], idx drawn from `scene_seed(42, scene)`; the fifth scene's
     files failed as a unit, the rest written."""
@@ -4245,8 +4274,8 @@ def dir_same(label: str, got_dir: str, want_dir: str, failures: list) -> dict:
 def dp_trainers(mesh, dev, failures: list) -> dict:
     """(b) each trainer DP_ITERS steps with the mesh (NCCL, world size 1) and
     without it, host batches both: KernelGAN chain and compose with
-    fake-side noise and SR through the library calls (their CLIs read .nc
-    patches: no h5py on the card's machine), MoE and dynamic through their
+    fake-side noise and SR through the library calls (on in-memory pools),
+    MoE and dynamic through their
     CLIs with --data-parallel on .npy patches; every parameter, BatchNorm
     statistic and artifact bit for bit."""
     import dataclasses
@@ -4821,6 +4850,213 @@ def phase_tools(dev, card: str, failures: list) -> dict:
     return res
 
 
+#: phase 17: configs/quality_x8.json's DAG from .nc files, cut in depth
+#: only: 4 seeded scenes of 5x1024^2 (7x7 patches of 256^2 at stride 128
+#: each, less the one a NaN hole touches), sr_train 20 iterations
+FILES_CONFIG = os.path.join(REPO, "configs", "quality_x8.json")
+FILES_SCENES, FILES_SIDE, FILES_SR_ITERS = 4, 1024, 20
+#: patches read and written again for the codec's own MB/s
+FILES_CODEC_N = 16
+
+
+def files_scenes(scene_dir: str) -> list:
+    """Seeded calibrated scenes in the manner of examples/end_to_end.sh,
+    written by the port's codec: 5 bands, NIR inside the water-mask window,
+    navigation_data lat/lon, and NaN holes (stored as _FillValue) that the
+    cut drops and the scene stencil must carry."""
+    import numpy as np
+
+    from kmsr_tpu_torch.io.ncio import NCFile, write_bands
+
+    os.makedirs(scene_dir)
+    rng = np.random.default_rng(SEED + 170)
+    yy, xx = np.mgrid[0:FILES_SIDE, 0:FILES_SIDE].astype(np.float32) / FILES_SIDE
+    paths = []
+    for s in range(FILES_SCENES):
+        scene = rng.uniform(0.5, 5.0, (C, FILES_SIDE, FILES_SIDE)).astype(np.float32)
+        scene[4] = rng.uniform(0.5, 2.0, (FILES_SIDE, FILES_SIDE))  # in [1e-6, 7.0]
+        scene[:, 20:24, 30:33] = np.nan          # one corner patch dropped
+        scene[1:3, -40:, 500:520] = np.nan       # bottom edge, two bands
+        path = os.path.join(scene_dir, f"GK2B_scene{s}.nc")
+        with NCFile(path, "w") as f:
+            write_bands(f, "geophysical_data", scene, nan_to_fill=True)
+            f.create_variable("navigation_data", "latitude", 30 + yy + s, dims=("y", "x"),
+                              fill_value=None)
+            f.create_variable("navigation_data", "longitude", 120 + xx, dims=("y", "x"),
+                              fill_value=None)
+        paths.append(path)
+    return paths
+
+
+def files_codec_rate(pairs: list, out_dir: str) -> dict:
+    """The codec's own rates on the factory's files: FILES_CODEC_N pairs read
+    (hr + lr + nav: inflate, unshuffle) and written again (one handle each:
+    shuffle, deflate level 4), in MB/s of uncompressed float32 payload."""
+    import numpy as np
+
+    from kmsr_tpu_torch.io.ncio import read_band_stack, read_nav
+    from kmsr_tpu_torch.pipeline.make_train_data import save_training_sample
+
+    os.makedirs(out_dir)
+    pairs = pairs[:FILES_CODEC_N]
+    t0 = time.perf_counter()
+    data = [(read_band_stack(p, "hr"), read_band_stack(p, "lr"), read_nav(p)) for p in pairs]
+    t_read = time.perf_counter() - t0
+    payload = sum(h.nbytes + lr.nbytes + sum(a.nbytes for a in nav.values())
+                  for h, lr, nav in data)
+    t0 = time.perf_counter()
+    for i, (h, lr, nav) in enumerate(data):
+        save_training_sample(os.path.join(out_dir, f"p{i}_train.nc"), h, lr, nav)
+    t_write = time.perf_counter() - t0
+    on_disk = sum(os.path.getsize(os.path.join(out_dir, f)) for f in os.listdir(out_dir))
+    return {"files": len(pairs), "payload_mb": payload / 1e6, "file_mb": on_disk / 1e6,
+            "read_mb_s": payload / 1e6 / t_read, "write_mb_s": payload / 1e6 / t_write,
+            "read_s": t_read, "write_s": t_write}
+
+
+def phase_files(dev, card: str, smi: str, factory_res: dict, failures: list) -> dict:
+    """Phase 17 (module docstring): configs/quality_x8.json's DAG through
+    `run_all` from and to .nc files read and written by the port's codec,
+    then the scene CLI on one scene file and inspect_nc on one output."""
+    import numpy as np
+    import torch
+
+    from kmsr_tpu_torch import kernels
+    from kmsr_tpu_torch.io.ncio import read_band_stack
+    from kmsr_tpu_torch.ops.degrade import degrade
+    from kmsr_tpu_torch.pipeline import degrade_scene, factory, inspect_nc, run_all
+    from kmsr_tpu_torch.utils.profiling import timing_report
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="kmsr_chip_files_")
+    try:
+        t0 = time.perf_counter()
+        scenes = files_scenes(os.path.join(tmp, "scenes"))
+        rng = np.random.default_rng(SEED + 171)
+        k = np.exp(-((np.arange(KSIZE) - KSIZE // 2) ** 2) / 8.0)
+        k = np.outer(k, k)[None] * rng.uniform(0.5, 1.5, (C, KSIZE, KSIZE))
+        k_path = os.path.join(tmp, "kernel_per_band.npy")
+        np.save(k_path, (k / k.sum(axis=(1, 2), keepdims=True)).astype(np.float32))
+        with open(FILES_CONFIG) as f:
+            cfg = json.load(f)
+        cfg_kernel = os.path.basename(cfg["kernel_file"])
+        cfg["workdir"], cfg["input_dir"] = os.path.join(tmp, "work"), os.path.join(tmp, "scenes")
+        cfg["kernel_file"] = k_path
+        cfg["stages"]["sr_train"]["iters"] = FILES_SR_ITERS
+        cfg["stages"]["sr_infer"]["enabled"] = True
+        cuts = [f"{FILES_SCENES} seeded scenes of {C}x{FILES_SIDE}^2 (config: real scenes)",
+                f"kernel_file -> a seeded {C}x{KSIZE}x{KSIZE} .npy in the run dir "
+                f"(config: a trained {cfg_kernel}, absent from the checkout)",
+                f"sr_train.iters {FILES_SR_ITERS} (config: 20000)",
+                "sr_infer enabled (config: disabled)"]
+        t_inputs = time.perf_counter() - t0
+        # (a) the DAG, launch counts 0 before it and read after it
+        timing_report(reset=True)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        stage_s = run_all.run_pipeline(cfg, device="cuda")
+        torch.cuda.synchronize()
+        dag_s = time.perf_counter() - t0
+        dag_launches = dict(kernels.LAUNCHES)
+        timers = {n: r["total_s"] for n, r in timing_report(reset=True).items()}
+        want_stages = ["cut", "denoise", "noise_pool", "factory", "check_shapes",
+                       "sr_train", "sr_infer"]
+        if sorted(stage_s) != sorted(want_stages):
+            failures.append(f"phase 17: stages run {sorted(stage_s)}, want {want_stages}")
+        work = cfg["workdir"]
+        den_dir, pairs_dir = os.path.join(work, "denoised"), os.path.join(work, "train_pairs")
+        den = sorted(os.path.join(den_dir, f) for f in os.listdir(den_dir) if f.endswith(".nc"))
+        pairs = sorted(os.path.join(pairs_dir, f) for f in os.listdir(pairs_dir)
+                       if f.endswith("_train.nc"))
+        sr_out = [f for f in os.listdir(os.path.join(work, "sr_out")) if f.endswith("_sr.nc")]
+        n = len(den)
+        want_patches = FILES_SCENES * ((FILES_SIDE - HW) // (HW // 2) + 1) ** 2
+        if not (0.9 * want_patches <= n < want_patches) or len(pairs) != n \
+                or len(sr_out) != n:
+            failures.append(f"phase 17: {n} denoised, {len(pairs)} pairs, {len(sr_out)} SR "
+                            f"outputs, want one each of about {want_patches} patches")
+        batches = -(-n // 128)
+        if dag_launches["degrade_v3"] != batches or sum(dag_launches.values()) != batches:
+            failures.append(f"phase 17: run_all launches {dag_launches}, want degrade_v3 "
+                            f"once a 128-patch batch ({batches}) and nothing else")
+        # (b) every pair against the plain degrade(hr) + pool[idx]
+        pool, noise_of = factory.noise_inputs(den, os.path.join(work, "noise_pool.npy"),
+                                              cfg["stages"]["factory"]["seed"])
+        kernel = torch.from_numpy(factory.load_kernel(k_path)).to(dev)
+        worst, hr_ok = 0.0, True
+        for i in range(0, n, 64):
+            part = den[i:i + 64]
+            hr_in = np.stack([read_band_stack(p, "denoised") for p in part])
+            got_hr, got_lr = [], []
+            for p in part:
+                out = os.path.join(pairs_dir, os.path.basename(p)[:-3] + "_train.nc")
+                got_hr.append(read_band_stack(out, "hr"))
+                got_lr.append(read_band_stack(out, "lr"))
+            hr_ok &= np.stack(got_hr).tobytes() == hr_in.tobytes()
+            want = (degrade(torch.from_numpy(hr_in).to(dev), kernel, factor=FACTOR).cpu()
+                    + torch.from_numpy(pool[[noise_of[p] for p in part]]))
+            e = errors(torch.from_numpy(np.stack(got_lr)), want)
+            worst = max(worst, e["max_abs_err"])
+            if not e["ok"]:
+                failures.append(f"phase 17: lr of {part[0]}.. vs plain degrade + noise {e}")
+        if not hr_ok:
+            failures.append("phase 17: an hr group differs from its denoised input patch")
+        # (c) the scene CLI on one scene file
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        rc = degrade_scene.main(["--input", scenes[0], "--kernel", k_path, "--output-dir",
+                                 os.path.join(tmp, "scene_lr"), "--device", "cuda"])
+        scene_s = time.perf_counter() - t0
+        scene_launches = dict(kernels.LAUNCHES)
+        if rc not in (0, None) or scene_launches["colsplit_raw"] < 1 \
+                or sum(scene_launches.values()) != scene_launches["colsplit_raw"]:
+            failures.append(f"phase 17: degrade_scene rc {rc}, launches {scene_launches}")
+        lr_path = os.path.join(tmp, "scene_lr", os.path.basename(scenes[0])[:-3] + "_blurred.nc")
+        want, any_valid = scene_reference(read_band_stack(scenes[0], "geophysical_data"),
+                                          kernel, dev)
+        scene_e = check_scene(read_band_stack(lr_path, "blurred"), want, any_valid,
+                              "phase 17 degrade_scene CLI", failures)
+        # (d) inspect_nc on one output
+        text = inspect_nc.analyze_file(pairs[0])
+        groups_ok = "group: hr" in text and "group: lr" in text
+        if not groups_ok:
+            failures.append(f"phase 17: inspect_nc lists no hr / lr group:\n{text}")
+        codec = files_codec_rate(pairs, os.path.join(tmp, "codec"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    fac_s = stage_s.get("factory", float("nan"))
+    mem = factory_res["nc-device"]
+    split = {k.split(".", 1)[1]: timers.get(k, 0.0) for k in (
+        "factory.host_read_bg", "factory.dispatch", "factory.device_sync",
+        "factory.host_write")}
+    res = {"nvidia_smi": smi, "card": card, "cuts": cuts, "inputs_s": t_inputs,
+           "stages_s": stage_s, "dag_s": dag_s, "patches": n, "launches": dag_launches,
+           "lr_max_abs_err": worst, "hr_bit_equal": bool(hr_ok), "rtol": RTOL, "atol": ATOL,
+           "factory_patches_per_s": n / fac_s, "factory_stages_s": split,
+           "in_memory_patches_per_s": mem["patches"] / mem["timed_seconds"],
+           "scene_cli": {"seconds": scene_s, "launches": scene_launches, **scene_e},
+           "inspect_groups_ok": groups_ok, "codec": codec}
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"[files] cuts of configs/quality_x8.json: {'; '.join(cuts)}")
+    log(f"[files] run_all from .nc files, {n} patches: stages (s) "
+        + ", ".join(f"{k} {v:.2f}" for k, v in stage_s.items())
+        + f"; launches {dag_launches}; lr max_abs_err vs plain {worst:.3g} "
+        f"(rtol {RTOL} atol {ATOL}), hr bit-equal {hr_ok} ({smi})")
+    log(f"[files] factory from files: {n / fac_s:.1f} patches/s (read+decode "
+        f"{split['host_read_bg']:.2f}s on its thread, dispatch {split['dispatch']:.2f}s, "
+        f"device sync {split['device_sync']:.2f}s, encode+write {split['host_write']:.2f}s) "
+        f"vs phase 5's in-memory .nc route {res['in_memory_patches_per_s']:.1f} patches/s "
+        f"({smi})")
+    log(f"[files] codec on {codec['files']} pairs ({codec['payload_mb']:.1f} MB of float32, "
+        f"{codec['file_mb']:.1f} MB on disk): read {codec['read_mb_s']:.1f} MB/s, write "
+        f"{codec['write_mb_s']:.1f} MB/s ({smi})")
+    log(f"[files] degrade_scene CLI on {os.path.basename(scenes[0])}: launches "
+        f"{scene_launches}, max_abs_err vs plain {scene_e.get('max_abs_err', float('nan')):.3g}, "
+        f"{scene_e.get('nan_cells', 0)} NaN cells identical {scene_e.get('ok')}, "
+        f"{scene_s:.2f}s; inspect_nc groups ok {groups_ok}; phase {res['seconds']:.1f}s")
+    return res
+
+
 def main() -> int:
     # the package's trainers (phases 9-13) run under torch's deterministic
     # algorithms on the card, whose cuBLAS calls need this before cuBLAS's
@@ -4889,6 +5125,8 @@ def main() -> int:
         tools_res = phase_tools(dev, card, failures)
         tools_res["nvidia_smi"] = smi
         log(f"[tools] {'ok' if not failures else 'FAILED'} in {tools_res['seconds']:.1f}s")
+        files_res = phase_files(dev, card, smi, factory_res, failures)
+        log(f"[files] {'ok' if not failures else 'FAILED'} in {files_res['seconds']:.1f}s")
     except Exception:
         traceback.print_exc()
         return 1
@@ -4917,6 +5155,10 @@ def main() -> int:
     tools_launches = {name: {"watchdog_factory": tools_res["watchdog"]["factory"]["launches"]
                              .get(name, 0), "tp_step": 0, "quality_report": 0}
                       for name in SOURCES}
+    # phase 17's paths: run_all from .nc files and the scene CLI on a file
+    files_launches = {name: {"run_all": files_res["launches"].get(name, 0),
+                             "degrade_scene_cli": files_res["scene_cli"]["launches"]
+                             .get(name, 0)} for name in SOURCES}
     main_layout = {"degrade_v3": "nchw", "degrade_v3psn": "presplit",
                    "degrade_v3ps": "presplit_halo", "degrade_v2": "nchw",
                    "degrade_v1": "chwb", "degrade_v4": "nchw",
@@ -4930,6 +5172,7 @@ def main() -> int:
             "replaces": REPLACES[name], "launches": launches[name],
             "parallel_launches": dp_launches[name],
             "tools_launches": tools_launches[name],
+            "files_launches": files_launches[name],
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "max_rel_err": max(c["max_rel_err"] for c in mine),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
@@ -4957,6 +5200,7 @@ def main() -> int:
     log(json.dumps({"oracle": oracle_res}))
     log(json.dumps({"parallel": parallel_res}))
     log(json.dumps({"tools": tools_res}, default=str))
+    log(json.dumps({"files": files_res}))
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f}s")
     log(smi)
     log(json.dumps({"kernels": records}))

@@ -1,7 +1,7 @@
 """Visualization CLIs covering the reference's standalone viz scripts.
 
-Counterpart of `kmsr_tpu.analysis.viz_cli` (host numpy, h5py and
-matplotlib, each imported at first use; the same flags, defaults and
+Counterpart of `kmsr_tpu.analysis.viz_cli` (host numpy, the port's `.nc`
+codec and matplotlib, imported at first use; the same flags, defaults and
 printed lines).
 
 Sub-commands:

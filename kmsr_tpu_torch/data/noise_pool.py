@@ -12,7 +12,7 @@ entry), and the pool contract [N, C, h, w] float32 that
 `make_train_data.py:60-62` enforces.
 
 `noise_crops` is the per-file body on arrays (noise = raw - denoised, then
-the crops), so a pool can be built from in-memory stacks without h5py;
+the crops), so a pool can be built from in-memory stacks without files;
 `sample_noise_device` draws pool entries from a device-resident pool with
 a `torch.Generator` (a different stream from JAX's `jax.random` by
 design, as the port's other device draws are).

@@ -17,7 +17,7 @@ from typing import Iterator, Optional
 
 import numpy as np
 
-from ..io.ncio import NCFile, write_band_stack
+from ..io.ncio import NCFile, write_bands
 from ..io.schema import BAND_NAMES, GROUP_GEO, PatchProvenance
 from .mask import THRESHOLD_MAX, THRESHOLD_MIN, apply_water_mask
 
@@ -124,8 +124,8 @@ def cut_to_files(
             np.save(path, np.ascontiguousarray(p, np.float32))
         else:
             path = os.path.join(output_dir, f"{prefix}_{gi:03d}_{gj:03d}.nc")
-            write_band_stack(path, cfg.group, p, mode="w")
-            with NCFile(path, "a") as f:
+            with NCFile(path, "w") as f:  # one write of the whole patch file
+                write_bands(f, cfg.group, p)
                 f.set_attrs(
                     PatchProvenance(
                         source_file=source_file,

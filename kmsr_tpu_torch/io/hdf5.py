@@ -1,0 +1,1976 @@
+"""A reader and writer for the subset of HDF5 that netCDF-4 files use.
+
+numpy and `zlib` only. `io.ncio` keeps its grouped-file contract on this
+module, so the port reads and writes `.nc` files where h5py is not
+installed, and the files stay readable by h5py, netCDF-C and the JAX
+package's `ncio` (which writes through h5py).
+
+Reads:
+  * superblock v0 (what h5py writes by default) and v2/v3 (netCDF-C 4.x,
+    h5py with `libver >= "v108"`); 8-byte offsets and lengths;
+  * object headers v1 (continuations, NIL gaps) and v2 (`OHDR` / `OCHK`,
+    checksums not verified);
+  * groups as symbol tables (v1 B-tree type 0, `SNOD` nodes, local heap),
+    as compact link messages, and as dense links in a fractal heap indexed
+    by a v2 B-tree; attributes compact (messages v1-v3) or dense;
+  * datasets contiguous (storage never allocated reads as the fill
+    value), compact, or chunked with layout v3 through a v1 B-tree of any
+    depth, with the deflate, shuffle and fletcher32 filters (a fletcher32
+    checksum is verified, never ignored);
+  * datatypes: integers of 1-8 bytes, IEEE float16/32/64, fixed-length
+    strings, enums (read as their base integer), arrays, compounds, object
+    references, and variable-length sequences and strings (global heap).
+
+A basic slice (`ds[lo:hi]`) decompresses only the chunks it touches.
+A structure outside this subset raises `H5FormatError` naming it and its
+file offset; the layout-v4 chunk indexes (single chunk, implicit, fixed
+array, extensible array, v2 B-tree) raise `NotImplementedError`.
+
+Writes superblock v0, v1 object headers sized to their messages, symbol-
+table groups with their entries sorted by name, chunked datasets with
+h5py's guessed chunk shape through a v1 B-tree of as many levels as the
+chunk grid needs (so a port-written file decompresses the same chunks for
+a row slice as a JAX-written one), dimension scales as HDF5's H5DS API
+lays them out (`CLASS`, `NAME`, `REFERENCE_LIST`, `DIMENSION_LIST`), and
+attribute types as h5py maps them (`str` and `bytes` -> fixed-length bytes,
+`int` -> int64, `float` -> float64; numpy scalars and arrays keep their
+dtype). A file opened with "w" or "a" is written once, on `close`, to a
+temporary file in the same directory and moved into place with
+`os.replace`; "a" loads the existing tree with its chunks still
+compressed, and every object reference is rewritten to its target's new
+address (as is every reference in a file copied by `copy_tree`).
+
+The surface is the small part of h5py's that the port uses (`io.ncio`
+lists the call sites): `File(path, mode)` with mode "r", "w" or "a";
+`Group`: `keys`, `items`, `__iter__`, `__contains__`, `__getitem__`,
+`attrs`, `create_group`, `create_dataset`, `visititems`; `Dataset`:
+`shape`, `dtype`, `size`, `attrs`, `__getitem__`, `__array__`; `attrs`
+with `get`, `items`, `keys`, `__getitem__`, `__contains__`, `__setitem__`
+and `__delitem__`; plus `Dataset.make_scale` / `Dataset.attach_scale` for
+netCDF dimensions (H5DS's calls) and `copy_tree` for copies.
+"""
+from __future__ import annotations
+
+import os
+import struct
+import uuid
+import zlib
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
+
+import numpy as np
+
+__all__ = [
+    "File", "Group", "Dataset", "AttributeManager", "Reference",
+    "H5FormatError", "copy_tree", "guess_chunk",
+]
+
+SIGNATURE = b"\x89HDF\r\n\x1a\n"
+UNDEF = 0xFFFFFFFFFFFFFFFF
+
+# object header message types
+_NIL, _DATASPACE, _LINKINFO, _DATATYPE, _FILL_OLD, _FILL = 0x0, 0x1, 0x2, 0x3, 0x4, 0x5
+_LINK, _LAYOUT, _GROUPINFO, _PIPELINE, _ATTRIBUTE = 0x6, 0x8, 0xA, 0xB, 0xC
+_CONT, _STAB, _ATTRINFO = 0x10, 0x11, 0x15
+# messages that carry nothing a reader of this subset needs
+_IGNORED = {
+    0x7,   # external data files (refused below if a layout needs them)
+    0xD,   # comment
+    0xE,   # modification time (old)
+    0x12,  # modification time
+    0x13,  # B-tree 'K' values
+    0x16,  # object reference count
+    0x17,  # file space info
+}
+
+# filters
+_DEFLATE, _SHUFFLE, _FLETCHER32 = 1, 2, 3
+_FILTER_NAMES = {1: "deflate", 2: "shuffle", 3: "fletcher32", 4: "szip",
+                 5: "nbit", 6: "scaleoffset"}
+
+_CHUNK_K = 32           # v1 B-tree K of chunk indexes (superblock v0 default)
+_GROUP_NODE_K = 16      # v1 B-tree K of group indexes
+_GROUP_LEAF_K = 4       # symbol table node K
+_GHEAP_MIN = 4096       # smallest global heap collection HDF5 reads
+
+_CHUNK_BASE, _CHUNK_MIN, _CHUNK_MAX = 16 * 1024, 8 * 1024, 1024 * 1024
+
+
+class H5FormatError(ValueError):
+    """A structure outside the supported subset, or a damaged file."""
+
+    def __init__(self, structure: str, offset: int, detail: str):
+        super().__init__(f"HDF5 {structure} at offset {offset:#x}: {detail}")
+        self.structure, self.offset = structure, offset
+
+
+def _align8(n: int) -> int:
+    return (n + 7) & ~7
+
+
+def _u(b, off: int, n: int) -> int:
+    return int.from_bytes(b[off:off + n], "little")
+
+
+def _le(v: int, n: int) -> bytes:
+    return int(v).to_bytes(n, "little")
+
+
+def guess_chunk(shape, typesize: int) -> tuple:
+    """h5py's chunk shape for a dataset of `shape` (h5py._hl.filters)."""
+    chunks = np.array([x if x != 0 else 1024 for x in shape], dtype="=f8")
+    dset_size = float(np.prod(chunks)) * typesize
+    target = _CHUNK_BASE * (2 ** np.log10(dset_size / (1024.0 * 1024)))
+    target = min(max(target, _CHUNK_MIN), _CHUNK_MAX)
+    idx = 0
+    while True:
+        chunk_bytes = float(np.prod(chunks)) * typesize
+        if ((chunk_bytes < target or abs(chunk_bytes - target) / target < 0.5)
+                and chunk_bytes < _CHUNK_MAX):
+            break
+        if np.prod(chunks) == 1:
+            break
+        chunks[idx % len(shape)] = np.ceil(chunks[idx % len(shape)] / 2.0)
+        idx += 1
+    return tuple(int(x) for x in chunks)
+
+
+# ---------------------------------------------------------------------------
+# Datatypes
+# ---------------------------------------------------------------------------
+
+class Reference:
+    """An object reference: the target's object header address as read,
+    or the target object itself once resolved (for rewriting)."""
+
+    __slots__ = ("addr", "target")
+
+    def __init__(self, addr: int = UNDEF, target=None):
+        self.addr, self.target = addr, target
+
+    def __bool__(self) -> bool:
+        return self.target is not None or self.addr not in (0, UNDEF)
+
+    def __repr__(self) -> str:
+        return "<HDF5 object reference%s>" % ("" if self else " (null)")
+
+
+class _Type:
+    """A decoded HDF5 datatype.
+
+    cls: 0 integer, 1 float, 3 string, 6 compound, 7 reference, 8 enum,
+    9 variable length, 10 array. `raw` is the numpy dtype of one element's
+    bytes on disk (references as uint64, variable-length slots as V16);
+    `encoded` is the datatype message as read, re-emitted unchanged when a
+    loaded attribute is written back.
+    """
+
+    def __init__(self, cls: int, size: int, raw: np.dtype, *, members=None,
+                 base=None, is_str=False, dims=None,
+                 encoded: bytes = b""):
+        self.cls, self.size, self.raw = cls, size, np.dtype(raw)
+        self.members = members or []   # compound: [(name, offset, _Type)]
+        self.base = base               # vlen / array / enum base type
+        self.is_str, self.dims = is_str, dims
+        self.encoded = encoded
+
+    @property
+    def has_refs(self) -> bool:
+        if self.cls in (7, 9):
+            return True
+        if self.cls == 6:
+            return any(t.has_refs for _, _, t in self.members)
+        return self.cls == 10 and self.base.has_refs
+
+    def numpy_dtype(self) -> np.dtype:
+        """The dtype h5py reports (references and vlen as objects)."""
+        if self.cls in (7, 9):
+            return np.dtype("O")
+        if self.cls == 6:
+            return np.dtype({
+                "names": [m[0] for m in self.members],
+                "formats": [m[2].numpy_dtype() for m in self.members],
+                "offsets": [m[1] for m in self.members],
+                "itemsize": self.size,
+            })
+        if self.cls == 10:
+            return np.dtype((self.base.numpy_dtype(), self.dims))
+        return self.raw
+
+
+def _decode_type(b, off: int) -> Tuple[_Type, int]:
+    """Decode the datatype message at `b[off:]`; returns (type, length)."""
+    start = off
+    cv = b[off]
+    cls, ver = cv & 0x0F, cv >> 4
+    bits = b[off + 1] | (b[off + 2] << 8) | (b[off + 3] << 16)
+    size = _u(b, off + 4, 4)
+    p = off + 8
+    if cls == 0:  # fixed point
+        order = ">" if bits & 1 else "<"
+        boff, prec = struct.unpack_from("<HH", b, p)
+        p += 4
+        if size not in (1, 2, 4, 8) or boff != 0 or prec != 8 * size:
+            raise H5FormatError("integer datatype", start,
+                                f"size {size} offset {boff} precision {prec}")
+        t = _Type(0, size, np.dtype(f"{order}{'i' if bits & 8 else 'u'}{size}"))
+    elif cls == 1:  # floating point
+        if bits & 0x40:
+            raise H5FormatError("float datatype", start, "VAX byte order")
+        order = ">" if bits & 1 else "<"
+        boff, prec = struct.unpack_from("<HH", b, p)
+        eloc, esize, mloc, msize = b[p + 4], b[p + 5], b[p + 6], b[p + 7]
+        ieee = {2: (16, 10, 5, 0, 10), 4: (32, 23, 8, 0, 23), 8: (64, 52, 11, 0, 52)}
+        if size not in ieee or boff != 0 or (prec, eloc, esize, mloc, msize) != ieee[size]:
+            raise H5FormatError("float datatype", start, f"non-IEEE layout, size {size}")
+        p += 12
+        t = _Type(1, size, np.dtype(f"{order}f{size}"))
+    elif cls == 3:  # fixed-length string
+        t = _Type(3, size, np.dtype(f"S{size}"))
+    elif cls == 6:  # compound
+        members = []
+        for _ in range(bits & 0xFFFF):
+            end = bytes(b[p:p + 65536]).index(b"\0", 0)
+            name = bytes(b[p:p + end]).decode("utf-8")
+            if ver >= 3:
+                p += end + 1
+                nb = 1 if size < 256 else 2 if size < 65536 else 3 if size < 1 << 24 else 4
+                moff = _u(b, p, nb)
+                p += nb
+            else:
+                p += _align8(end + 1)
+                moff = _u(b, p, 4)
+                p += 4
+                if ver == 1:
+                    ndims = b[p]
+                    p += 28
+                    if ndims:
+                        raise H5FormatError("compound datatype", start,
+                                            f"member {name!r} with array dimensions")
+            mt, n = _decode_type(b, p)
+            p += n
+            members.append((name, moff, mt))
+        raw = np.dtype({"names": [m[0] for m in members],
+                        "formats": [m[2].raw for m in members],
+                        "offsets": [m[1] for m in members], "itemsize": size})
+        t = _Type(6, size, raw, members=members)
+    elif cls == 7:  # reference
+        if ver >= 4 or (bits & 0xF) != 0 or size != 8:
+            raise H5FormatError("reference datatype", start,
+                                f"type {bits & 0xF} version {ver}: only object references")
+        t = _Type(7, 8, np.dtype("<u8"))
+    elif cls == 8:  # enumeration: read as the base integer
+        base, n = _decode_type(b, p)
+        p += n
+        nmemb = bits & 0xFFFF
+        for _ in range(nmemb):
+            end = bytes(b[p:p + 65536]).index(b"\0")
+            p += end + 1 if ver >= 3 else _align8(end + 1)
+        p += nmemb * base.size
+        t = _Type(8, size, base.raw, base=base)
+    elif cls == 9:  # variable length
+        base, n = _decode_type(b, p)
+        p += n
+        if size != 16:
+            raise H5FormatError("vlen datatype", start, f"size {size}")
+        t = _Type(9, 16, np.dtype("V16"), base=base, is_str=(bits & 0xF) == 1)
+    elif cls == 10:  # array
+        ndims = b[p]
+        p += 1 if ver >= 3 else 4
+        dims = tuple(_u(b, p + 4 * i, 4) for i in range(ndims))
+        p += 4 * ndims
+        if ver < 3:
+            p += 4 * ndims  # permutation
+        base, n = _decode_type(b, p)
+        p += n
+        t = _Type(10, size, np.dtype((base.raw, dims)), base=base, dims=dims)
+    else:
+        names = {2: "time", 4: "bitfield", 5: "opaque"}
+        raise H5FormatError("datatype", start,
+                            f"class {cls} ({names.get(cls, 'unknown')}) not supported")
+    t.encoded = bytes(b[start:p])
+    return t, p - start
+
+
+def _float_props(size: int) -> bytes:
+    prec, eloc, esize, mloc, msize, bias = {
+        2: (16, 10, 5, 0, 10, 15), 4: (32, 23, 8, 0, 23, 127),
+        8: (64, 52, 11, 0, 52, 1023)}[size]
+    return struct.pack("<HHBBBBI", 0, prec, eloc, esize, mloc, msize, bias)
+
+
+def _type_for_dtype(dt: np.dtype) -> _Type:
+    """The datatype h5py writes for a numpy dtype (little-endian only)."""
+    dt = np.dtype(dt)
+    if dt.byteorder == ">":
+        raise TypeError(f"big-endian dtype {dt} is not written")
+    if dt.kind in "iu":
+        bits = 0x08 if dt.kind == "i" else 0
+        enc = struct.pack("<B3BI", 0x10, bits, 0, 0, dt.itemsize) + struct.pack(
+            "<HH", 0, 8 * dt.itemsize)
+        return _Type(0, dt.itemsize, dt.newbyteorder("<"), encoded=enc)
+    if dt.kind == "f" and dt.itemsize in (2, 4, 8):
+        sign = 8 * dt.itemsize - 1
+        enc = struct.pack("<B3BI", 0x11, 0x20, sign, 0, dt.itemsize) + _float_props(dt.itemsize)
+        return _Type(1, dt.itemsize, dt.newbyteorder("<"), encoded=enc)
+    if dt.kind == "S":
+        size = max(dt.itemsize, 1)
+        enc = struct.pack("<B3BI", 0x13, 0x01, 0, 0, size)  # null-padded ASCII
+        return _Type(3, size, np.dtype(f"S{size}"), encoded=enc)
+    raise TypeError(f"dtype {dt} is not written by this codec")
+
+
+def _string_type(size: int, nullterm: bool) -> _Type:
+    enc = struct.pack("<B3BI", 0x13, 0 if nullterm else 1, 0, 0, size)
+    return _Type(3, size, np.dtype(f"S{size}"), encoded=enc)
+
+
+_REF_TYPE = _Type(7, 8, np.dtype("<u8"), encoded=struct.pack("<B3BI", 0x17, 0, 0, 0, 8))
+# H5DS's REFERENCE_LIST element: {hobj_ref_t dataset; unsigned dimension}
+_U32_TYPE = _type_for_dtype(np.dtype("<u4"))
+_REFLIST_TYPE = _Type(
+    6, 16, np.dtype({"names": ["dataset", "dimension"], "formats": ["<u8", "<u4"],
+                     "offsets": [0, 8], "itemsize": 16}),
+    members=[("dataset", 0, _REF_TYPE), ("dimension", 8, _U32_TYPE)],
+    encoded=(struct.pack("<B3BI", 0x16, 2, 0, 0, 16)
+             + b"dataset\0" + struct.pack("<IB3xI4x16x", 0, 0, 0) + _REF_TYPE.encoded
+             + b"dimension\0\0\0\0\0\0\0" + struct.pack("<IB3xI4x16x", 8, 0, 0)
+             + _U32_TYPE.encoded))
+# DIMENSION_LIST: a variable-length sequence of object references
+_DIMLIST_TYPE = _Type(9, 16, np.dtype("V16"), base=_REF_TYPE,
+                      encoded=struct.pack("<B3BI", 0x19, 0, 0, 0, 16) + _REF_TYPE.encoded)
+
+
+# ---------------------------------------------------------------------------
+# Dataspaces
+# ---------------------------------------------------------------------------
+
+def _decode_space(b, off: int) -> Optional[tuple]:
+    """Shape of the dataspace message at `b[off:]`; None for a null space."""
+    ver, rank, flags = b[off], b[off + 1], b[off + 2]
+    if ver == 1:
+        p = off + 8
+    elif ver == 2:
+        if b[off + 3] == 2:
+            return None
+        p = off + 4
+    else:
+        raise H5FormatError("dataspace", off, f"version {ver}")
+    return tuple(_u(b, p + 8 * i, 8) for i in range(rank))
+
+
+def _encode_space(shape: tuple) -> bytes:
+    """A version-1 dataspace (scalar when `shape` is ())."""
+    rank = len(shape)
+    if rank == 0:
+        return struct.pack("<BBBB4x", 1, 0, 0, 0)
+    return (struct.pack("<BBBB4x", 1, rank, 1, 0)
+            + b"".join(_le(d, 8) for d in shape) * 2)
+
+
+# ---------------------------------------------------------------------------
+# Reading
+# ---------------------------------------------------------------------------
+
+class _Msg:
+    __slots__ = ("type", "flags", "data", "corder", "addr")
+
+    def __init__(self, mtype, flags, data, corder, addr):
+        self.type, self.flags, self.data, self.corder, self.addr = (
+            mtype, flags, data, corder, addr)
+
+
+class _Source:
+    """Random access to an open HDF5 file."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self.fh = open(path, "rb")
+        self.fd = self.fh.fileno()
+        self.size = os.fstat(self.fd).st_size
+        self._gheaps: Dict[int, Dict[int, bytes]] = {}
+        self._fheaps: Dict[int, "_FractalHeap"] = {}
+        self._parse_superblock()
+
+    def close(self) -> None:
+        self.fh.close()
+
+    def read(self, addr: int, n: int, what: str = "data") -> bytes:
+        if addr == UNDEF or addr + n > self.size:
+            raise H5FormatError(what, addr, f"{n} bytes past the end of the file "
+                                f"({self.size} bytes)")
+        return os.pread(self.fd, n, addr)
+
+    # -- superblock ---------------------------------------------------------
+    def _parse_superblock(self) -> None:
+        b = self.read(0, 96, "superblock")
+        if b[:8] != SIGNATURE:
+            raise H5FormatError("superblock", 0, "not an HDF5 file (no signature at 0)")
+        ver = b[8]
+        if ver in (0, 1):
+            if b[13] != 8 or b[14] != 8:
+                raise H5FormatError("superblock", 0, f"offset/length sizes {b[13]}/{b[14]}")
+            p = 24 if ver == 0 else 28
+            base = _u(b, p, 8)
+            # root group symbol table entry: name offset, header address
+            self.root_addr = _u(b, p + 32 + 8, 8)
+        elif ver in (2, 3):
+            if b[9] != 8 or b[10] != 8:
+                raise H5FormatError("superblock", 0, f"offset/length sizes {b[9]}/{b[10]}")
+            base = _u(b, 12, 8)
+            self.root_addr = _u(b, 36, 8)
+        else:
+            raise H5FormatError("superblock", 0, f"version {ver}")
+        if base != 0:
+            raise H5FormatError("superblock", 0, f"base address {base}")
+        self.superblock_version = ver
+
+    # -- object headers -------------------------------------------------------
+    def messages(self, addr: int) -> List[_Msg]:
+        """Every message of the object header at `addr`, in file order."""
+        head = self.read(addr, 16, "object header")
+        out: List[_Msg] = []
+        if head[:4] == b"OHDR":
+            if head[4] != 2:
+                raise H5FormatError("object header", addr, f"OHDR version {head[4]}")
+            flags = head[5]
+            p = 6 + (16 if flags & 0x20 else 0) + (4 if flags & 0x10 else 0)
+            nsz = 1 << (flags & 3)
+            pre = self.read(addr, p + nsz, "object header")
+            size0 = _u(pre, p, nsz)
+            start = addr + p + nsz
+            queue = [(start, self.read(start, size0, "object header"))]
+            corder = bool(flags & 0x04)
+            while queue:
+                base, buf = queue.pop(0)
+                self._v2_messages(base, buf, corder, out, queue)
+        elif head[0] == 1:
+            nmsgs, _, size0 = struct.unpack_from("<HII", head, 2)
+            queue = [(addr + 16, self.read(addr + 16, size0, "object header"))]
+            while queue:
+                base, buf = queue.pop(0)
+                p = 0
+                while p + 8 <= len(buf):
+                    mtype, msize, mflags = struct.unpack_from("<HHB", buf, p)
+                    data = buf[p + 8:p + 8 + msize]
+                    if mtype == _CONT:
+                                        caddr, clen = struct.unpack_from("<QQ", data)
+                                        queue.append((caddr, self.read(caddr, clen, "object header continuation")))
+                    elif mtype != _NIL:
+                        out.append(_Msg(mtype, mflags, data, None, base + p))
+                    p += 8 + msize
+        else:
+            raise H5FormatError("object header", addr, f"unknown version byte {head[0]}")
+        return out
+
+    def _v2_messages(self, base, buf, corder, out, queue) -> None:
+        hdr = 6 if corder else 4
+        p = 0
+        end = len(buf)
+        while p + hdr <= end:
+            mtype, msize, mflags = buf[p], _u(buf, p + 1, 2), buf[p + 3]
+            co = _u(buf, p + 4, 2) if corder else None
+            data = buf[p + hdr:p + hdr + msize]
+            if mtype == _CONT:
+                caddr, clen = struct.unpack_from("<QQ", data)
+                chunk = self.read(caddr, clen, "object header continuation")
+                if chunk[:4] != b"OCHK":
+                    raise H5FormatError("object header continuation", caddr, "no OCHK signature")
+                queue.append((caddr + 4, chunk[4:-4]))
+            elif mtype != _NIL:
+                out.append(_Msg(mtype, mflags, data, co, base + p))
+            p += hdr + msize
+
+    # -- global heap ----------------------------------------------------------
+    def gheap_object(self, addr: int, index: int) -> bytes:
+        objs = self._gheaps.get(addr)
+        if objs is None:
+            head = self.read(addr, 16, "global heap")
+            if head[:4] != b"GCOL":
+                raise H5FormatError("global heap", addr, "no GCOL signature")
+            size = _u(head, 8, 8)
+            buf = self.read(addr, size, "global heap")
+            objs = {}
+            p = 16
+            while p + 16 <= size:
+                idx, _, osize = struct.unpack_from("<HH4xQ", buf, p)
+                if idx == 0:
+                    break
+                objs[idx] = buf[p + 16:p + 16 + osize]
+                p += 16 + _align8(osize)
+            self._gheaps[addr] = objs
+        if index not in objs:
+            raise H5FormatError("global heap", addr, f"no object {index}")
+        return objs[index]
+
+    def fheap(self, addr: int) -> "_FractalHeap":
+        h = self._fheaps.get(addr)
+        if h is None:
+            h = self._fheaps[addr] = _FractalHeap(self, addr)
+        return h
+
+    # -- v1 B-trees -------------------------------------------------------------
+    def btree_v1(self, addr: int, ntype: int, key_size: int,
+                 leaf: Callable[[bytes, int, bytes], None]) -> None:
+        """Visit every level-0 child of the v1 B-tree at `addr`, in key
+        order: leaf(left key bytes, child address, right key bytes)."""
+        stack = [addr]
+        while stack:
+            a = stack.pop()
+            head = self.read(a, 24, "v1 B-tree node")
+            if head[:4] != b"TREE" or head[4] != ntype:
+                raise H5FormatError("v1 B-tree node", a,
+                                    f"signature {head[:4]!r} type {head[4]}")
+            level, n = head[5], _u(head, 6, 2)
+            body = self.read(a + 24, n * (8 + key_size) + key_size, "v1 B-tree node")
+            children = []
+            for i in range(n):
+                k0 = i * (key_size + 8)
+                child = _u(body, k0 + key_size, 8)
+                if level == 0:
+                    leaf(body[k0:k0 + key_size], child,
+                         body[k0 + key_size + 8:k0 + 2 * key_size + 8])
+                else:
+                    children.append(child)
+            stack.extend(reversed(children))
+
+
+class _FractalHeap:
+    """Managed objects of a fractal heap (dense links and attributes)."""
+
+    def __init__(self, src: _Source, addr: int):
+        self.src, self.addr = src, addr
+        h = src.read(addr, 146, "fractal heap")
+        if h[:4] != b"FRHP" or h[4] != 0:
+            raise H5FormatError("fractal heap", addr, f"signature {h[:4]!r} version {h[4]}")
+        self.id_len, self.filter_len = _u(h, 5, 2), _u(h, 7, 2)
+        self.flags = h[9]
+        max_man = _u(h, 10, 4)
+        p = 14 + 8 + 8 + 8 + 8 + 8 + 8 + 8 + 8 + 8 + 8 + 8 + 8
+        self.width = _u(h, p, 2)
+        self.start_block, self.max_direct = _u(h, p + 2, 8), _u(h, p + 10, 8)
+        self.max_heap_bits = _u(h, p + 18, 2)
+        self.root = _u(h, p + 22, 8)
+        self.root_rows = _u(h, p + 30, 2)
+        if self.filter_len:
+            raise H5FormatError("fractal heap", addr, "filtered heap blocks")
+        self.off_size = (self.max_heap_bits + 7) // 8
+        dir_off = (self.max_direct.bit_length() - 1 + 7) // 8
+        self.len_size = min(dir_off, (max_man.bit_length() - 1) // 8 + 1)
+        self.max_direct_rows = (self.max_direct.bit_length() - self.start_block.bit_length()) + 2
+        self._blocks: Optional[List[Tuple[int, int, int]]] = None
+
+    def _row_size(self, row: int) -> int:
+        return self.start_block if row == 0 else self.start_block << (row - 1)
+
+    def _walk(self) -> List[Tuple[int, int, int]]:
+        """(heap offset, size, address) of every allocated direct block."""
+        blocks: List[Tuple[int, int, int]] = []
+        if self.root == UNDEF:
+            return blocks
+        if self.root_rows == 0:
+            blocks.append((0, self.start_block, self.root))
+            return blocks
+        first_bits = (self.start_block.bit_length() - 1) + (self.width.bit_length() - 1)
+
+        def indirect(addr: int, nrows: int, heap_off: int) -> None:
+            ndirect = min(nrows, self.max_direct_rows)
+            nentries = nrows * self.width
+            hdr = 5 + 8 + self.off_size
+            buf = self.src.read(addr, hdr + 8 * nentries, "fractal heap indirect block")
+            if buf[:4] != b"FHIB":
+                raise H5FormatError("fractal heap indirect block", addr, "no FHIB signature")
+            p, off = hdr, heap_off
+            for row in range(nrows):
+                size = self._row_size(row)
+                for _ in range(self.width):
+                    child = _u(buf, p, 8)
+                    p += 8
+                    if child != UNDEF:
+                        if row < ndirect:
+                            blocks.append((off, size, child))
+                        else:
+                            indirect(child, (size.bit_length() - 1) - first_bits + 1, off)
+                    off += size
+
+        indirect(self.root, self.root_rows, 0)
+        return blocks
+
+    def get(self, heap_id: bytes) -> bytes:
+        kind = (heap_id[0] >> 4) & 3
+        if kind == 2:  # tiny: stored in the ID itself
+            if self.id_len <= 18:
+                n = (heap_id[0] & 0x0F) + 1
+                return bytes(heap_id[1:1 + n])
+            n = (((heap_id[0] & 0x0F) << 8) | heap_id[1]) + 1
+            return bytes(heap_id[2:2 + n])
+        if kind != 0:
+            raise H5FormatError("fractal heap", self.addr, "huge objects not supported")
+        off = _u(heap_id, 1, self.off_size)
+        length = _u(heap_id, 1 + self.off_size, self.len_size)
+        if self._blocks is None:
+            self._blocks = self._walk()
+        for boff, bsize, baddr in self._blocks:
+            if boff <= off < boff + bsize:
+                return self.src.read(baddr + off - boff, length, "fractal heap object")
+        raise H5FormatError("fractal heap", self.addr, f"no block holds offset {off}")
+
+
+def _btree_v2_records(src: _Source, addr: int) -> List[bytes]:
+    """Every record of the v2 B-tree at `addr` (in tree order)."""
+    h = src.read(addr, 38, "v2 B-tree header")
+    if h[:4] != b"BTHD":
+        raise H5FormatError("v2 B-tree header", addr, "no BTHD signature")
+    node_size, rec_size, depth = _u(h, 6, 4), _u(h, 10, 2), _u(h, 12, 2)
+    root, root_n = _u(h, 16, 8), _u(h, 24, 2)
+    # per-level record counts and the byte widths of the child pointers'
+    # counts, as H5B2__hdr_init computes them
+    max_nrec = [(node_size - 10) // rec_size]
+    cum = [max_nrec[0]]
+    cum_size = [0]
+    nrec_size = (max_nrec[0].bit_length() - 1) // 8 + 1
+    for d in range(1, depth + 1):
+        ptr = 8 + nrec_size + (cum_size[d - 1] if d > 1 else 0)
+        m = (node_size - (10 + ptr)) // (rec_size + ptr)
+        max_nrec.append(m)
+        cum.append((m + 1) * cum[d - 1] + m)
+        cum_size.append((cum[d].bit_length() - 1) // 8 + 1)
+    out: List[bytes] = []
+
+    def node(a: int, nrec: int, d: int) -> None:
+        if a == UNDEF or nrec == 0:
+            return
+        sig = b"BTIN" if d else b"BTLF"
+        ptr = (8 + nrec_size + (cum_size[d - 1] if d > 1 else 0)) if d else 0
+        buf = src.read(a, 6 + nrec * rec_size + (nrec + 1) * ptr, "v2 B-tree node")
+        if buf[:4] != sig:
+            raise H5FormatError("v2 B-tree node", a, f"expected {sig!r}, got {buf[:4]!r}")
+        recs = [buf[6 + i * rec_size:6 + (i + 1) * rec_size] for i in range(nrec)]
+        if d == 0:
+            out.extend(recs)
+            return
+        p = 6 + nrec * rec_size
+        for i in range(nrec + 1):
+            child, cn = _u(buf, p, 8), _u(buf, p + 8, nrec_size)
+            node(child, cn, d - 1)
+            if i < nrec:
+                out.append(recs[i])
+            p += ptr
+
+    node(root, root_n, depth)
+    return out
+
+
+def _parse_link(b, off: int = 0):
+    """(name, address or None, creation order) of a link message."""
+    if b[off] != 1:
+        raise H5FormatError("link message", off, f"version {b[off]}")
+    flags = b[off + 1]
+    p = off + 2
+    ltype = 0
+    if flags & 0x08:
+        ltype = b[p]
+        p += 1
+    corder = None
+    if flags & 0x04:
+        corder = _u(b, p, 8)
+        p += 8
+    if flags & 0x10:
+        p += 1
+    nsz = 1 << (flags & 3)
+    nlen = _u(b, p, nsz)
+    p += nsz
+    name = bytes(b[p:p + nlen]).decode("utf-8")
+    p += nlen
+    return name, (_u(b, p, 8) if ltype == 0 else None), corder, ltype
+
+
+def _parse_attribute(b, where: int):
+    """(name, type, shape, raw data bytes, creation order) of an attribute."""
+    ver = b[0]
+    if ver == 1:
+        nsz, tsz, ssz = struct.unpack_from("<HHH", b, 2)
+        p = 8
+        name = bytes(b[p:p + nsz]).split(b"\0", 1)[0].decode("utf-8")
+        p += _align8(nsz)
+        t, _ = _decode_type(b, p)
+        p += _align8(tsz)
+        shape = _decode_space(b, p)
+        p += _align8(ssz)
+    elif ver in (2, 3):
+        if b[1] & 0x3:
+            raise H5FormatError("attribute message", where, "shared datatype or dataspace")
+        nsz, tsz, ssz = struct.unpack_from("<HHH", b, 2)
+        p = 8 if ver == 2 else 9
+        name = bytes(b[p:p + nsz]).split(b"\0", 1)[0].decode("utf-8")
+        p += nsz
+        t, _ = _decode_type(b, p)
+        p += tsz
+        shape = _decode_space(b, p)
+        p += ssz
+    else:
+        raise H5FormatError("attribute message", where, f"version {ver}")
+    n = 0 if shape is None else int(np.prod(shape, dtype=np.int64))
+    return name, t, shape, bytes(b[p:p + n * t.size])
+
+
+def _unshuffle(buf: bytes, size: int) -> bytes:
+    """Undo HDF5's shuffle: byte k of every element is stored in plane k."""
+    n = len(buf) // size
+    if size <= 1 or n <= 1:
+        return buf
+    planes = np.frombuffer(buf, np.uint8, n * size).reshape(size, n)
+    out = np.empty((n, size), np.uint8)
+    for k in range(size):  # a column at a time: far faster than planes.T
+        out[:, k] = planes[k]
+    if len(buf) > n * size:
+        return out.tobytes() + buf[n * size:]
+    return out.reshape(-1)  # uint8 array: np.frombuffer takes it as it is
+
+
+def _shuffle(buf: bytes, size: int) -> bytes:
+    n = len(buf) // size
+    if size <= 1 or n <= 1:
+        return buf
+    elems = np.frombuffer(buf, np.uint8, n * size).reshape(n, size)
+    out = np.empty((size, n), np.uint8)
+    for k in range(size):
+        out[k] = elems[:, k]
+    return out.tobytes() + buf[n * size:]
+
+
+def _fletcher32(data: bytes) -> int:
+    """HDF5's H5_checksum_fletcher32 (16-bit big-endian words, 360 a block)."""
+    n = len(data) // 2
+    words = np.frombuffer(data, ">u2", n).astype(np.int64)
+    s1 = s2 = 0
+    for i in range(0, n, 360):
+        w = words[i:i + 360]
+        cs = np.cumsum(w)
+        s2 += len(w) * s1 + int(cs.sum())
+        s1 += int(cs[-1])
+        s1 = (s1 & 0xFFFF) + (s1 >> 16)
+        s2 = (s2 & 0xFFFF) + (s2 >> 16)
+    if len(data) % 2:
+        s1 += data[-1] << 8
+        s2 += s1
+        s1 = (s1 & 0xFFFF) + (s1 >> 16)
+        s2 = (s2 & 0xFFFF) + (s2 >> 16)
+    s1 = (s1 & 0xFFFF) + (s1 >> 16)
+    s2 = (s2 & 0xFFFF) + (s2 >> 16)
+    return (s2 << 16) | s1
+
+
+class _Pipeline:
+    """A filter pipeline: [(id, flags, client values)] plus the message."""
+
+    def __init__(self, filters, encoded: bytes):
+        self.filters, self.encoded = filters, encoded
+
+    @classmethod
+    def decode(cls, b, where: int) -> "_Pipeline":
+        ver, n = b[0], b[1]
+        p = 8 if ver == 1 else 2
+        filters = []
+        for _ in range(n):
+            fid = _u(b, p, 2)
+            p += 2
+            nlen = 0
+            if ver == 1 or fid >= 256:
+                nlen = _u(b, p, 2)
+                p += 2
+            flags, ncd = struct.unpack_from("<HH", b, p)
+            p += 4
+            p += nlen
+            cd = struct.unpack_from(f"<{ncd}I", b, p)
+            p += 4 * ncd
+            if ver == 1 and ncd % 2:
+                p += 4
+            if fid not in (_DEFLATE, _SHUFFLE, _FLETCHER32):
+                raise H5FormatError("filter pipeline", where,
+                                    f"filter {fid} ({_FILTER_NAMES.get(fid, 'unknown')})")
+            filters.append((fid, flags, cd))
+        return cls(filters, bytes(b))
+
+    def decode_chunk(self, buf: bytes, mask: int, itemsize: int, where: int) -> bytes:
+        for i in range(len(self.filters) - 1, -1, -1):
+            if mask & (1 << i):
+                continue
+            fid, _, cd = self.filters[i]
+            if fid == _DEFLATE:
+                buf = zlib.decompress(buf)
+            elif fid == _SHUFFLE:
+                buf = _unshuffle(buf, cd[0] if cd else itemsize)
+            else:
+                stored = _u(buf, len(buf) - 4, 4)
+                buf = buf[:-4]
+                f = _fletcher32(buf)
+                swapped = int.from_bytes(f.to_bytes(4, "little"), "big")
+                if stored not in (f, swapped):
+                    raise H5FormatError("chunk", where, "fletcher32 checksum mismatch")
+        return buf
+
+    @staticmethod
+    def gzip_shuffle(level: int, itemsize: int) -> "_Pipeline":
+        """Shuffle then deflate, encoded as HDF5 writes it (version 1)."""
+        def entry(fid, name, cd):
+            nm = name + b"\0" * (8 - len(name) % 8 if len(name) % 8 else 8)
+            body = struct.pack("<HHHH", fid, len(nm), 1, len(cd)) + nm + struct.pack(
+                f"<{len(cd)}I", *cd)
+            return body + (b"\0" * 4 if len(cd) % 2 else b"")
+        enc = (struct.pack("<BB6x", 1, 2) + entry(_SHUFFLE, b"shuffle", (itemsize,))
+               + entry(_DEFLATE, b"deflate", (level,)))
+        return _Pipeline([(_SHUFFLE, 1, (itemsize,)), (_DEFLATE, 1, (level,))], enc)
+
+    def encode_chunk(self, buf: bytes, itemsize: int) -> bytes:
+        for fid, _, cd in self.filters:
+            if fid == _SHUFFLE:
+                buf = _shuffle(buf, cd[0] if cd else itemsize)
+            elif fid == _DEFLATE:
+                buf = zlib.compress(buf, cd[0] if cd else 6)
+            else:
+                buf = buf + _le(_fletcher32(buf), 4)
+        return buf
+
+
+# ---------------------------------------------------------------------------
+# The object tree
+# ---------------------------------------------------------------------------
+
+class _Attr:
+    """One attribute: its type, shape and raw bytes, or a value to write."""
+
+    __slots__ = ("type", "shape", "raw", "_value", "file")
+
+    def __init__(self, t: _Type, shape, raw: Optional[bytes], value=None, file=None):
+        # `file`: the File whose global heap and addresses `raw` refers to
+        self.type, self.shape, self.raw, self._value, self.file = t, shape, raw, value, file
+
+    def array(self) -> Optional[np.ndarray]:
+        """Every element, as h5py returns them (objects for refs / vlen)."""
+        if self._value is None and self.shape is not None:
+            n = int(np.prod(self.shape, dtype=np.int64))
+            arr = np.frombuffer(self.raw, self.type.raw, n).reshape(self.shape)
+            self._value = _to_user(arr, self.type, self.file._src)
+        return self._value
+
+    def value(self):
+        """The attribute as h5py returns it (numpy scalar for a scalar
+        dataspace, ndarray otherwise, str for variable-length strings)."""
+        v = self.array()
+        if isinstance(v, np.ndarray) and v.shape == ():
+            return v[()]
+        return v
+
+
+def _to_user(arr: np.ndarray, t: _Type, src: Optional[_Source]):
+    """Raw on-disk values -> what h5py returns (objects for refs/vlen)."""
+    if not t.has_refs:
+        return arr.astype(t.raw.newbyteorder("="), copy=True) if t.raw.byteorder == ">" else arr.copy()
+    if t.cls == 7:
+        out = np.empty(arr.shape, object)
+        for i, a in np.ndenumerate(arr):
+            out[i] = Reference(int(a))
+        return out
+    if t.cls == 9:
+        out = np.empty(arr.shape, object)
+        for i, slot in np.ndenumerate(arr):
+            sb = bytes(slot)
+            n, gaddr, gidx = struct.unpack("<IQI", sb)
+            data = src.gheap_object(gaddr, gidx) if n else b""
+            if t.is_str:
+                out[i] = data[:n].split(b"\0", 1)[0].decode("utf-8", "replace")
+            else:
+                base = np.frombuffer(data, t.base.raw, n)
+                out[i] = _to_user(base, t.base, src)
+        return out
+    if t.cls == 6:
+        out = np.empty(arr.shape, t.numpy_dtype())
+        for name, _, mt in t.members:
+            out[name] = _to_user(np.ascontiguousarray(arr[name]), mt, src)
+        return out
+    raise H5FormatError("datatype", 0, f"class {t.cls} with references inside")
+
+
+def _to_raw(value, t: _Type, refaddr: Callable[[Reference], int],
+            gheap: Callable[[bytes], Tuple[int, int]]) -> np.ndarray:
+    """User values (with References) -> raw on-disk array of `t.raw`."""
+    value = np.asarray(value, dtype=object if t.cls in (7, 9) else None)
+    if t.cls == 7:
+        return np.vectorize(lambda r: refaddr(r), otypes=[np.uint64])(value).astype("<u8") \
+            if value.size else np.zeros(value.shape, "<u8")
+    if t.cls == 9:
+        out = np.zeros(value.shape, "V16")
+        for i, item in np.ndenumerate(value):
+            if t.is_str:
+                data = item.encode("utf-8") if isinstance(item, str) else bytes(item)
+                n = len(data)
+            else:
+                base = _to_raw(np.asarray(item, dtype=object if t.base.cls in (7, 9) else None),
+                               t.base, refaddr, gheap)
+                data, n = base.tobytes(), base.size
+            gaddr, gidx = gheap(data) if n else (0, 0)
+            out[i] = np.frombuffer(struct.pack("<IQI", n, gaddr, gidx), "V16")[0]
+        return out
+    if t.cls == 6:
+        out = np.zeros(value.shape, t.raw)
+        for name, _, mt in t.members:
+            out[name] = _to_raw(value[name], mt, refaddr, gheap)
+        return out
+    return value.astype(t.raw)
+
+
+class AttributeManager:
+    """The attributes of one object, in the order h5py iterates them."""
+
+    def __init__(self, node: "_Node"):
+        self._node = node
+
+    @property
+    def _d(self) -> Dict[str, _Attr]:
+        return self._node._attrs()
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._d
+
+    def __getitem__(self, name: str):
+        if name not in self._d:
+            raise KeyError(f"attribute {name!r} not found")
+        return self._d[name].value()
+
+    def get(self, name: str, default=None):
+        return self[name] if name in self._d else default
+
+    def keys(self):
+        return list(self._d)
+
+    def __iter__(self) -> Iterator[str]:
+        return iter(list(self._d))
+
+    def items(self):
+        return [(k, self[k]) for k in list(self._d)]
+
+    def __setitem__(self, name: str, value) -> None:
+        self._node.file._check_writable()
+        self._d[name] = _new_attr(value, self._node.file)
+
+    def __delitem__(self, name: str) -> None:
+        self._node.file._check_writable()
+        del self._d[name]
+
+
+def _new_attr(value, file: "File") -> _Attr:
+    """An attribute from a value, typed as h5py types it."""
+    if isinstance(value, bool) or isinstance(value, np.bool_):
+        raise TypeError("boolean attributes are not written by this codec")
+    if isinstance(value, str):
+        value = np.bytes_(value.encode("utf-8"))
+    elif isinstance(value, bytes):
+        value = np.bytes_(value)
+    elif isinstance(value, int):
+        value = np.int64(value)
+    elif isinstance(value, float):
+        value = np.float64(value)
+    arr = np.asarray(value)
+    if arr.dtype.kind == "U":
+        raise TypeError("unicode array attributes are not written by this codec")
+    t = _type_for_dtype(arr.dtype)
+    if arr.dtype.kind == "S":
+        arr = arr.astype(t.raw)
+    raw = np.ascontiguousarray(arr, dtype=t.raw)
+    return _Attr(t, tuple(arr.shape), raw.tobytes(), raw.copy(), file)
+
+
+class _Node:
+    """An object of the file: its header address (when read) and attrs."""
+
+    def __init__(self, file: "File", name: str, addr: Optional[int]):
+        self.file, self.name, self._addr = file, name, addr
+        self._attr_dict: Optional[Dict[str, _Attr]] = None
+        self._msgs: Optional[List[_Msg]] = None
+
+    def _messages(self) -> List[_Msg]:
+        if self._msgs is None:
+            self._msgs = [] if self._addr is None else self.file._src.messages(self._addr)
+        return self._msgs
+
+    @property
+    def attrs(self) -> AttributeManager:
+        return AttributeManager(self)
+
+    def _attrs(self) -> Dict[str, _Attr]:
+        if self._attr_dict is None:
+            self._attr_dict = self._read_attrs()
+        return self._attr_dict
+
+    def _read_attrs(self) -> Dict[str, _Attr]:
+        src = self.file._src
+        found = []  # (creation order or None, position, name, _Attr)
+        for i, m in enumerate(self._messages()):
+            if m.type == _ATTRIBUTE:
+                name, t, shape, raw = _parse_attribute(m.data, m.addr)
+                found.append((m.corder, i, name, _Attr(t, shape, raw, file=self.file)))
+            elif m.type == _ATTRINFO:
+                b = m.data
+                flags = b[1]
+                p = 2 + (2 if flags & 1 else 0)
+                heap_addr, name_bt = _u(b, p, 8), _u(b, p + 8, 8)
+                if heap_addr == UNDEF:
+                    continue
+                heap = src.fheap(heap_addr)
+                for j, rec in enumerate(_btree_v2_records(src, name_bt)):
+                    data = heap.get(rec[:8])
+                    name, t, shape, raw = _parse_attribute(data, heap_addr)
+                    corder = _u(rec, 9, 4) if flags & 1 else None
+                    found.append((corder, len(self._messages()) + j, name,
+                                  _Attr(t, shape, raw, file=self.file)))
+        # h5py's order: creation order where it is tracked, else by name
+        if found and all(f[0] is not None for f in found):
+            found.sort(key=lambda f: f[0])
+        else:
+            found.sort(key=lambda f: f[2].encode("utf-8"))
+        return {name: a for _, _, name, a in found}
+
+    def __repr__(self) -> str:
+        return f"<{type(self).__name__} {self.name!r}>"
+
+
+class Group(_Node):
+    """A group: its links in h5py's iteration order."""
+
+    def __init__(self, file: "File", name: str, addr: Optional[int]):
+        super().__init__(file, name, addr)
+        self._link_dict: Optional[Dict[str, _Node]] = None if addr is not None else {}
+
+    def _links(self) -> Dict[str, "_Node"]:
+        if self._link_dict is None:
+            self._link_dict = {}
+            for lname, addr in self._read_links():
+                self._link_dict[lname] = self.file._node_at(addr, self._child_path(lname))
+        return self._link_dict
+
+    def _child_path(self, name: str) -> str:
+        return f"/{name}" if self.name == "/" else f"{self.name}/{name}"
+
+    def _read_links(self) -> List[Tuple[str, int]]:
+        src = self.file._src
+        found = []  # (creation order, name, address)
+        for m in self._messages():
+            if m.type == _STAB:
+                btree, heap = struct.unpack_from("<QQ", m.data)
+                found += [(None, n, a) for n, a in _symbol_table(src, btree, heap)]
+            elif m.type == _LINK:
+                name, addr, corder, ltype = _parse_link(m.data)
+                if addr is None:
+                    raise H5FormatError("link message", m.addr,
+                                        f"link {name!r} of type {ltype} (only hard links)")
+                found.append((corder, name, addr))
+            elif m.type == _LINKINFO:
+                b = m.data
+                flags = b[1]
+                p = 2 + (8 if flags & 1 else 0)
+                heap_addr, name_bt = _u(b, p, 8), _u(b, p + 8, 8)
+                if heap_addr == UNDEF:
+                    continue
+                heap = src.fheap(heap_addr)
+                for rec in _btree_v2_records(src, name_bt):
+                    name, addr, corder, ltype = _parse_link(heap.get(rec[4:4 + heap.id_len]))
+                    if addr is None:
+                        raise H5FormatError("fractal heap", heap_addr,
+                                            f"link {name!r} of type {ltype} (only hard links)")
+                    found.append((corder, name, addr))
+        if found and all(f[0] is not None for f in found):
+            found.sort(key=lambda f: f[0])
+        else:
+            found.sort(key=lambda f: f[1].encode("utf-8"))
+        return [(n, a) for _, n, a in found]
+
+    # -- h5py surface ---------------------------------------------------------
+    def keys(self):
+        return list(self._links())
+
+    def __iter__(self) -> Iterator[str]:
+        return iter(list(self._links()))
+
+    def items(self):
+        return list(self._links().items())
+
+    def __contains__(self, path: str) -> bool:
+        try:
+            self[path]
+        except KeyError:
+            return False
+        return True
+
+    def __getitem__(self, path: str):
+        node: _Node = self
+        if path.startswith("/"):
+            node = self.file
+        for part in [p for p in path.split("/") if p]:
+            if not isinstance(node, Group) or part not in node._links():
+                raise KeyError(f"{path!r} not found in {self.name!r}")
+            node = node._links()[part]
+        return node
+
+    def create_group(self, name: str) -> "Group":
+        self.file._check_writable()
+        parent, leaf = self._parent_for(name)
+        if leaf in parent._links():
+            raise ValueError(f"{name!r} already exists in {self.name!r}")
+        g = Group(self.file, parent._child_path(leaf), None)
+        g._attr_dict = {}
+        parent._links()[leaf] = g
+        return g
+
+    def create_dataset(self, name: str, shape=None, dtype=None, data=None,
+                       compression=None, compression_opts=None,
+                       shuffle: bool = False) -> "Dataset":
+        """A new dataset, as h5py lays it out: contiguous, or with gzip and
+        shuffle chunked in h5py's guessed chunk shape; storage never
+        written (no data) is left unallocated."""
+        self.file._check_writable()
+        parent, leaf = self._parent_for(name)
+        if leaf in parent._links():
+            raise ValueError(f"{name!r} already exists in {self.name!r}")
+        if data is not None:
+            data = np.asarray(data, dtype=dtype)
+            shape, dt = data.shape, data.dtype
+        elif shape is None:
+            raise TypeError("create_dataset needs data or shape")
+        else:
+            shape = (shape,) if isinstance(shape, int) else tuple(shape)
+            dt = np.dtype(dtype if dtype is not None else "f4")
+        t = _type_for_dtype(dt)
+        pipeline = chunks = None
+        if compression is not None or shuffle:
+            if compression != "gzip" or not shuffle:
+                raise ValueError("the codec writes gzip with shuffle, or no filter")
+            pipeline = _Pipeline.gzip_shuffle(
+                4 if compression_opts is None else int(compression_opts), t.size)
+            chunks = guess_chunk(shape, t.size)
+        ds = Dataset(self.file, parent._child_path(leaf), None)
+        ds._attr_dict = {}
+        ds._init_new(tuple(shape), t, chunks, pipeline,
+                     None if data is None else np.ascontiguousarray(data, dtype=t.raw))
+        parent._links()[leaf] = ds
+        return ds
+
+    def _parent_for(self, name: str) -> Tuple["Group", str]:
+        parts = [p for p in name.split("/") if p]
+        if not parts:
+            raise ValueError("empty name")
+        node: Group = self.file if name.startswith("/") else self
+        for part in parts[:-1]:
+            node = node[part] if part in node else node.create_group(part)
+        return node, parts[-1]
+
+    def visititems(self, func):
+        """Call func(path relative to this group, object) on every object
+        below it, as h5py does (stop when func returns non-None)."""
+        def walk(grp: Group, prefix: str):
+            for k, v in grp.items():
+                path = f"{prefix}{k}"
+                r = func(path, v)
+                if r is not None:
+                    return r
+                if isinstance(v, Group):
+                    r = walk(v, path + "/")
+                    if r is not None:
+                        return r
+            return None
+        return walk(self, "")
+
+
+def _symbol_table(src: _Source, btree: int, heap: int) -> List[Tuple[str, int]]:
+    """(name, object header address) of every entry of a symbol table."""
+    h = src.read(heap, 32, "local heap")
+    if h[:4] != b"HEAP":
+        raise H5FormatError("local heap", heap, "no HEAP signature")
+    dsize, daddr = _u(h, 8, 8), _u(h, 24, 8)
+    names = src.read(daddr, dsize, "local heap data")
+    out = []
+
+    def leaf(_lk, snod, _rk):
+        b = src.read(snod, 8, "symbol table node")
+        if b[:4] != b"SNOD":
+            raise H5FormatError("symbol table node", snod, "no SNOD signature")
+        n = _u(b, 6, 2)
+        ents = src.read(snod + 8, 40 * n, "symbol table node")
+        for i in range(n):
+            noff, oaddr = struct.unpack_from("<QQ", ents, 40 * i)
+            end = names.index(b"\0", noff)
+            out.append((names[noff:end].decode("utf-8"), oaddr))
+
+    src.btree_v1(btree, 0, 8, leaf)
+    return out
+
+
+class Dataset(_Node):
+    """A dataset; reading slices decompresses only the chunks touched."""
+
+    def __init__(self, file: "File", name: str, addr: Optional[int]):
+        super().__init__(file, name, addr)
+        self._loaded = False
+        self._data: Optional[np.ndarray] = None   # new data, to be written
+        self._chunk_index: Optional[Dict[tuple, Tuple[int, int, int]]] = None
+        self._raw_msgs: List[Tuple[int, bytes]] = []  # fill value as read
+        self._space_raw: Optional[bytes] = None
+        self._rsrc: Optional[_Source] = None   # where the stored data lives
+
+    # -- metadata --------------------------------------------------------------
+    def _init_new(self, shape, t, chunks, pipeline, data) -> None:
+        self._loaded = True
+        self._shape, self._type, self._chunks, self._pipeline = shape, t, chunks, pipeline
+        self._layout = "chunked" if chunks else "contiguous"
+        self._contig = (UNDEF, 0)
+        self._fill = None
+        self._data = data
+
+    def _load(self) -> None:
+        if self._loaded:
+            return
+        self._loaded = True
+        self._rsrc = self.file._src
+        self._shape = self._type = self._chunks = self._pipeline = None
+        self._fill = None
+        self._layout = None
+        for m in self._messages():
+            b = m.data
+            if m.type == _DATASPACE:
+                self._shape = _decode_space(b, 0) or ()
+                self._space_raw = bytes(b)
+            elif m.type == _DATATYPE:
+                self._type, _ = _decode_type(b, 0)
+            elif m.type == _PIPELINE:
+                self._pipeline = _Pipeline.decode(b, m.addr)
+            elif m.type in (_FILL, _FILL_OLD):
+                self._fill = self._parse_fill(m)
+                self._raw_msgs.append((m.type, bytes(b)))
+            elif m.type == _LAYOUT:
+                self._parse_layout(b, m.addr)
+            elif m.type in (_ATTRIBUTE, _ATTRINFO) or m.type in _IGNORED:
+                continue
+            else:
+                raise H5FormatError("object header message", m.addr,
+                                    f"type {m.type:#x} in dataset {self.name!r}")
+        if self._shape is None or self._type is None or self._layout is None:
+            raise H5FormatError("dataset", self._addr or 0,
+                                f"{self.name!r} lacks a dataspace, datatype or layout")
+
+    @staticmethod
+    def _parse_fill(m: _Msg) -> Optional[bytes]:
+        b = m.data
+        if m.type == _FILL_OLD:
+            n = _u(b, 0, 4)
+            return bytes(b[4:4 + n]) if n else None
+        ver = b[0]
+        if ver in (1, 2):
+            if ver == 2 and not b[3]:
+                return None
+            n = _u(b, 4, 4)
+            return bytes(b[8:8 + n]) if n else None
+        if ver == 3:
+            if not b[1] & 0x20:
+                return None
+            n = _u(b, 2, 4)
+            return bytes(b[6:6 + n]) if n else None
+        raise H5FormatError("fill value message", m.addr, f"version {ver}")
+
+    def _parse_layout(self, b, where: int) -> None:
+        ver = b[0]
+        if ver not in (3, 4):
+            raise H5FormatError("data layout message", where, f"version {ver}")
+        cls = b[1]
+        if cls == 0:
+            n = _u(b, 2, 2)
+            self._layout, self._compact = "compact", bytes(b[4:4 + n])
+        elif cls == 1:
+            self._layout, self._contig = "contiguous", struct.unpack_from("<QQ", b, 2)
+        elif cls == 2 and ver == 3:
+            nd = b[2]
+            self._layout = "chunked"
+            self._btree = _u(b, 3, 8)
+            dims = struct.unpack_from(f"<{nd}I", b, 11)
+            self._chunks = tuple(dims[:-1])
+        elif cls == 2:
+            index = {1: "single chunk", 2: "implicit", 3: "fixed array",
+                     4: "extensible array", 5: "version 2 B-tree"}
+            nd, enc = b[3], b[4]
+            kind = b[5 + nd * enc]
+            raise NotImplementedError(
+                f"HDF5 data layout message at offset {where:#x} ({self.name!r}): "
+                f"layout version 4 chunk index '{index.get(kind, kind)}' is not supported")
+        else:
+            raise H5FormatError("data layout message", where,
+                                f"class {cls} (virtual datasets are not supported)")
+
+    @property
+    def shape(self) -> tuple:
+        self._load()
+        return self._shape
+
+    @property
+    def dtype(self) -> np.dtype:
+        self._load()
+        return self._type.numpy_dtype().newbyteorder("=") if self._type.cls in (0, 1) \
+            else self._type.numpy_dtype()
+
+    @property
+    def size(self) -> int:
+        return int(np.prod(self.shape, dtype=np.int64))
+
+    # -- reading --------------------------------------------------------------
+    def __array__(self, dtype=None, copy=None):
+        arr = self._read_box(tuple(slice(0, n) for n in self.shape))
+        return arr if dtype is None else arr.astype(dtype)
+
+    def __getitem__(self, key):
+        shape = self.shape
+        if not isinstance(key, tuple):
+            key = (key,)
+        if any(k is Ellipsis for k in key):
+            i = next(j for j, k in enumerate(key) if k is Ellipsis)
+            key = key[:i] + (slice(None),) * (len(shape) - len(key) + 1) + key[i + 1:]
+        key = key + (slice(None),) * (len(shape) - len(key))
+        if len(key) != len(shape) or not all(isinstance(k, (slice, int, np.integer)) for k in key):
+            return np.asarray(self)[key if len(key) else ()]
+        box, sub = [], []
+        for k, n in zip(key, shape):
+            if isinstance(k, slice):
+                lo, hi, step = k.indices(n)
+                if step > 0 and hi > lo:
+                    box.append(slice(lo, hi))
+                    sub.append(slice(0, hi - lo, step))
+                else:  # empty or reversed: read the axis, let numpy index
+                    box.append(slice(0, n))
+                    sub.append(k)
+            else:
+                i = int(k) + (n if k < 0 else 0)
+                if not 0 <= i < n:
+                    raise IndexError(f"index {k} out of range for axis of size {n}")
+                box.append(slice(i, i + 1))
+                sub.append(0)
+        arr = self._read_box(tuple(box))
+        out = arr[tuple(sub)]
+        return out.copy() if isinstance(out, np.ndarray) else out
+
+    def _fill_array(self, shape) -> np.ndarray:
+        dt = self._type.raw
+        if self._fill is not None and len(self._fill) == dt.itemsize:
+            return np.full(shape, np.frombuffer(self._fill, dt)[0], dt)
+        return np.zeros(shape, dt)
+
+    def _read_box(self, box: Tuple[slice, ...]) -> np.ndarray:
+        """The array of `self[box]` (each a slice with step 1)."""
+        self._load()
+        t = self._type
+        if self._data is not None:
+            return np.array(self._data[box], dtype=self.dtype)
+        if t.has_refs:
+            raise H5FormatError("dataset", self._addr or 0,
+                                f"{self.name!r}: datasets of references or vlen are not read")
+        out_shape = tuple(s.stop - s.start for s in box)
+        n = int(np.prod(self._shape, dtype=np.int64))
+        src = self._rsrc
+        if self._layout == "compact":
+            arr = np.frombuffer(self._compact, t.raw, n).reshape(self._shape)[box]
+        elif self._layout == "contiguous":
+            addr, size = self._contig
+            if addr == UNDEF:
+                arr = self._fill_array(out_shape)
+            else:
+                arr = self._read_contiguous(src, addr, box)
+        else:
+            arr = self._read_chunked(src, box, out_shape)
+        return np.array(arr, dtype=self.dtype, copy=True)
+
+    def _read_contiguous(self, src: _Source, addr: int, box) -> np.ndarray:
+        t, shape = self._type, self._shape
+        if not shape:
+            return np.frombuffer(src.read(addr, t.size), t.raw, 1).reshape(())
+        row = int(np.prod(shape[1:], dtype=np.int64)) * t.size
+        lo, hi = box[0].start, box[0].stop
+        buf = src.read(addr + lo * row, (hi - lo) * row, "contiguous data")
+        arr = np.frombuffer(buf, t.raw).reshape((hi - lo,) + shape[1:])
+        return arr[(slice(None),) + box[1:]]
+
+    def _index(self) -> Dict[tuple, Tuple[int, int, int]]:
+        if self._chunk_index is None:
+            rank = len(self._shape)
+            key_size = 8 + 8 * (rank + 1)
+            idx = {}
+            chunks = self._chunks
+
+            def leaf(k, addr, _rk):
+                nbytes, mask = struct.unpack_from("<II", k)
+                offs = struct.unpack_from(f"<{rank}Q", k, 8)
+                idx[tuple(o // c for o, c in zip(offs, chunks))] = (addr, nbytes, mask)
+
+            if self._btree != UNDEF:
+                self._rsrc.btree_v1(self._btree, 1, key_size, leaf)
+            self._chunk_index = idx
+        return self._chunk_index
+
+    def _read_chunked(self, src: _Source, box, out_shape) -> np.ndarray:
+        t, chunks = self._type, self._chunks
+        out = self._fill_array(out_shape)
+        index = self._index()
+        ranges = [range(s.start // c, (s.stop - 1) // c + 1) if s.stop > s.start else range(0)
+                  for s, c in zip(box, chunks)]
+        csize = int(np.prod(chunks, dtype=np.int64)) * t.size
+        wanted = [pos for pos in (tuple(r[i] for r, i in zip(ranges, cidx))
+                                  for cidx in np.ndindex(*[len(r) for r in ranges]))
+                  if pos in index]
+
+        def decode(pos):
+            addr, nbytes, mask = index[pos]
+            buf = src.read(addr, nbytes, "chunk")
+            if self._pipeline is not None:
+                buf = self._pipeline.decode_chunk(buf, mask, t.size, addr)
+            if len(buf) != csize:
+                raise H5FormatError("chunk", addr, f"{len(buf)} bytes, expected {csize}")
+            return buf
+
+        for pos, buf in zip(wanted, map(decode, wanted)):
+            chunk = np.frombuffer(buf, t.raw).reshape(chunks)
+            src_sl, dst_sl = [], []
+            for p, c, s in zip(pos, chunks, box):
+                lo, hi = max(p * c, s.start), min((p + 1) * c, s.stop)
+                src_sl.append(slice(lo - p * c, hi - p * c))
+                dst_sl.append(slice(lo - s.start, hi - s.start))
+            out[tuple(dst_sl)] = chunk[tuple(src_sl)]
+        return out
+
+    # -- dimension scales (netCDF dimensions) ---------------------------------
+    def make_scale(self, name: str = "") -> None:
+        """Flag this dataset as a dimension scale, as H5DSset_scale does."""
+        self.file._check_writable()
+        d = self._attrs()
+        d["CLASS"] = _Attr(_string_type(16, True), (), b"DIMENSION_SCALE\0", file=self.file)
+        if name:
+            d["NAME"] = _Attr(_string_type(len(name) + 1, True), (), name.encode() + b"\0",
+                              file=self.file)
+
+    def attach_scale(self, axis: int, scale: "Dataset") -> None:
+        """Attach `scale` to `axis`, as H5DSattach_scale does: the axis's
+        entry of DIMENSION_LIST names the scale and the scale's
+        REFERENCE_LIST names this dataset and axis."""
+        self.file._check_writable()
+        rank = len(self.shape)
+        d = self._attrs()
+        dl = d.get("DIMENSION_LIST")
+        lists = [[] for _ in range(rank)]
+        if dl is not None:
+            for i, refs in enumerate(dl.array()):
+                lists[i] = [_resolve(r, dl.file) for r in refs]
+        if not any(r.target is scale for r in lists[axis]):
+            lists[axis].append(Reference(target=scale))
+        val = np.empty(rank, object)
+        for i, refs in enumerate(lists):
+            val[i] = np.array(refs, dtype=object)
+        d["DIMENSION_LIST"] = _Attr(_DIMLIST_TYPE, (rank,), None, val, self.file)
+        sd = scale._attrs()
+        rows = []
+        rl = sd.get("REFERENCE_LIST")
+        if rl is not None:
+            rows = [(_resolve(r["dataset"], rl.file), int(r["dimension"]))
+                    for r in np.atleast_1d(rl.array())]
+        rows.append((Reference(target=self), axis))
+        val = np.empty(len(rows), _REFLIST_TYPE.numpy_dtype())
+        for i, row in enumerate(rows):
+            val[i] = row
+        sd["REFERENCE_LIST"] = _Attr(_REFLIST_TYPE, (len(rows),), None, val, self.file)
+
+
+def _resolve(ref: Reference, file: "File") -> Reference:
+    """`ref` with its target object looked up in `file` (a null reference
+    where there is no object at its address)."""
+    if ref.target is not None:
+        return ref
+    try:
+        return Reference(target=file._deref(ref))
+    except KeyError:
+        return Reference()
+
+
+# ---------------------------------------------------------------------------
+# The file
+# ---------------------------------------------------------------------------
+
+class File(Group):
+    """An HDF5 file. Modes: "r" (read), "w" (create or truncate), "a"
+    (read, then rewrite on close; "w" where there is no file). Writes
+    happen once, on close, through a temporary file."""
+
+    def __init__(self, path, mode: str = "r"):
+        path = os.fspath(path)
+        if mode not in ("r", "w", "a"):
+            raise ValueError(f"mode {mode!r}: the codec opens r, w or a")
+        if mode == "a" and not os.path.exists(path):
+            mode = "w"
+        self.path, self.mode = path, mode
+        self._writable = mode != "r"
+        self._src: Optional[_Source] = None
+        self._by_addr: Dict[int, _Node] = {}
+        self._copies: Dict[int, _Node] = {}   # id(copied object) -> its copy here
+        self._closed = False
+        if mode in ("r", "a"):
+            self._src = _Source(path)
+            super().__init__(self, "/", self._src.root_addr)
+            self._by_addr[self._src.root_addr] = self
+            if mode == "a":
+                _load_all(self)
+        else:
+            super().__init__(self, "/", None)
+            self._attr_dict = {}
+
+    def _check_writable(self) -> None:
+        if not self._writable or self._closed:
+            raise ValueError(f"{self.path} is not open for writing")
+
+    def _node_at(self, addr: int, path: str) -> _Node:
+        node = self._by_addr.get(addr)
+        if node is None:
+            msgs = self._src.messages(addr)
+            kinds = {m.type for m in msgs}
+            if kinds & {_STAB, _LINK, _LINKINFO, _GROUPINFO}:
+                node = Group(self, path, addr)
+            elif _LAYOUT in kinds:
+                node = Dataset(self, path, addr)
+            else:
+                raise H5FormatError("object header", addr,
+                                    f"{path!r} is neither a group nor a dataset")
+            node._msgs = msgs
+            self._by_addr[addr] = node
+        return node
+
+    def _deref(self, ref: Reference) -> _Node:
+        if ref.target is not None:
+            return ref.target
+        if not ref or self._src is None:
+            raise KeyError("null reference")
+        if ref.addr in self._by_addr:
+            return self._by_addr[ref.addr]
+        _load_all(self)  # reaches every linked object, registering them
+        if ref.addr not in self._by_addr:
+            raise KeyError(f"reference to {ref.addr:#x}: no object there")
+        return self._by_addr[ref.addr]
+
+    def __enter__(self) -> "File":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def close(self) -> None:
+        if self._closed:
+            return
+        try:
+            if self._writable:
+                _write_file(self)
+        finally:
+            self._closed = True
+            if self._src is not None:
+                self._src.close()
+
+    def __bool__(self) -> bool:  # h5py's: an open file is true
+        return not self._closed
+
+
+def _load_all(grp: Group) -> None:
+    """Read every object below `grp` into memory (datasets keep their raw,
+    still compressed chunks on disk until written)."""
+    for _, node in grp.items():
+        node._attrs()
+        if isinstance(node, Group):
+            _load_all(node)
+        else:
+            node._load()
+    grp._attrs()
+
+
+
+
+def copy_tree(src: File, dst: File) -> None:
+    """Copy every attribute and object of `src` into the empty `dst`. The
+    chunks are copied still compressed; object references are rewritten to
+    the copies when `dst` is written (h5py's `expand_refs=True`)."""
+    dst._check_writable()
+    _load_all(src)
+
+    def clone(node: _Node, path: str) -> _Node:
+        if isinstance(node, Group):
+            c = Group(dst, path, None)
+            for name, child in node.items():
+                c._links()[name] = clone(child, c._child_path(name))
+        else:
+            c = Dataset(dst, path, None)
+            c.__dict__.update({k: v for k, v in node.__dict__.items()
+                               if k not in ("file", "name", "_addr", "_msgs", "_attr_dict")})
+        c._attr_dict = dict(node._attrs())
+        dst._copies[id(node)] = c
+        return c
+
+    for name, child in src.items():
+        dst._links()[name] = clone(child, dst._child_path(name))
+    dst._attrs().update(src._attrs())
+    dst._copies[id(src)] = dst
+
+
+# ---------------------------------------------------------------------------
+# Writing
+# ---------------------------------------------------------------------------
+
+class _Out:
+    """The new file: space is handed out in address order and written with
+    pwrite, so chunks go to disk as they are compressed."""
+
+    def __init__(self, fd: int):
+        self.fd, self.size = fd, 0
+
+    def alloc(self, n: int) -> int:
+        addr = self.size
+        self.size += n
+        return addr
+
+    def put(self, addr: int, data: bytes) -> None:
+        view = memoryview(data)
+        while len(view):
+            n = os.pwrite(self.fd, view, addr)
+            view, addr = view[n:], addr + n
+
+    def append(self, data: bytes) -> int:
+        addr = self.alloc(len(data))
+        self.put(addr, data)
+        return addr
+
+
+def _pad8(b: bytes) -> bytes:
+    return b + b"\0" * (_align8(len(b)) - len(b))
+
+
+def _msg_v1(mtype: int, data: bytes, flags: int = 0) -> bytes:
+    data = _pad8(data)
+    return struct.pack("<HHB3x", mtype, len(data), flags) + data
+
+
+def _attr_msg(name: str, a: _Attr, raw: bytes) -> bytes:
+    """An attribute message, version 1 (name, type and space padded to 8)."""
+    nm = name.encode("utf-8") + b"\0"
+    tb = a.type.encoded
+    sb = _encode_space(a.shape)
+    return (struct.pack("<BBHHH", 1, 0, len(nm), len(tb), len(sb))
+            + _pad8(nm) + _pad8(tb) + _pad8(sb) + raw)
+
+
+def _header(msgs: List[bytes]) -> bytes:
+    """A version-1 object header holding `msgs` in one chunk."""
+    body = b"".join(msgs)
+    return struct.pack("<BBHII4x", 1, 0, len(msgs), 1, len(body)) + body
+
+
+def _write_file(f: File) -> None:
+    """Write the whole tree to a temporary file, then os.replace it."""
+    objects: List[_Node] = []
+
+    def collect(node: _Node) -> None:
+        objects.append(node)
+        if isinstance(node, Group):
+            links = node._links()
+            for name in sorted(links, key=lambda n: n.encode("utf-8")):
+                collect(links[name])
+
+    collect(f)
+    addr_of: Dict[int, int] = {}
+
+    def refaddr(a: _Attr) -> Callable[[Reference], int]:
+        def get(r: Reference) -> int:
+            # a reference to no object (h5py's copies of dimension scales
+            # hold such) is written as a null reference
+            r = _resolve(r, a.file)
+            if not r:
+                return 0
+            return addr_of[id(f._copies.get(id(r.target), r.target))]
+        return get
+
+    heap_objs: List[bytes] = []   # global heap objects, in encoding order
+    heap_slots: List[Tuple[int, int]] = []
+
+    def heap_dry(data: bytes) -> Tuple[int, int]:
+        heap_objs.append(data)
+        return (0, 0)
+
+    def attr_msgs(node: _Node, real: bool) -> List[bytes]:
+        msgs = []
+        slots = iter(heap_slots) if real else None
+
+        def heap_real(data: bytes) -> Tuple[int, int]:
+            k, slot = next(slots)
+            heap_objs[k] = data   # same length as in the dry run
+            return slot
+
+        for name, a in node._attrs().items():
+            raw = a.raw
+            if a.type.has_refs:
+                if real:
+                    raw = _to_raw(a.array(), a.type, refaddr(a), heap_real).tobytes()
+                else:
+                    raw = _to_raw(a.array(), a.type, lambda _r: 0, heap_dry).tobytes()
+            msgs.append(_msg_v1(_ATTRIBUTE, _attr_msg(name, a, raw)))
+        return msgs
+
+    def object_msgs(node: _Node, meta: dict) -> List[bytes]:
+        if isinstance(node, Group):
+            return [_msg_v1(_STAB, struct.pack("<QQ", meta.get("btree", 0), meta.get("heap", 0)))]
+        ds: Dataset = node
+        ds._load()
+        t = ds._type
+        msgs = [_msg_v1(_DATASPACE, ds._space_raw or _encode_space(ds._shape)),
+                _msg_v1(_DATATYPE, t.encoded, 1)]
+        if ds._raw_msgs:
+            msgs += [_msg_v1(mt, b, 1) for mt, b in ds._raw_msgs]
+        else:
+            # h5py's default fill value message: version 2, allocation
+            # incremental (chunked) or late, written if set, library default
+            msgs.append(_msg_v1(_FILL, struct.pack(
+                "<BBBBI", 2, 3 if ds._layout == "chunked" else 2, 2, 1, 0), 1))
+        data = meta.get("data", UNDEF)
+        if ds._layout == "chunked":
+            dims = ds._chunks + (t.size,)
+            msgs.append(_msg_v1(_LAYOUT, struct.pack("<BBBQ", 3, 2, len(dims), data)
+                                + struct.pack(f"<{len(dims)}I", *dims)))
+        elif ds._layout == "compact":
+            msgs.append(_msg_v1(_LAYOUT, struct.pack("<BBH", 3, 0, len(ds._compact))
+                                + ds._compact))
+        else:
+            msgs.append(_msg_v1(_LAYOUT, struct.pack("<BBQQ", 3, 1, data, ds.size * t.size)))
+        if ds._pipeline is not None:
+            msgs.append(_msg_v1(_PIPELINE, ds._pipeline.encoded, 1))
+        return msgs
+
+    # 1. header sizes (the addresses inside do not change them)
+    sizes, heap_counts = {}, {}
+    for node in objects:
+        before = len(heap_objs)
+        sizes[id(node)] = len(_header(object_msgs(node, {}) + attr_msgs(node, False)))
+        heap_counts[id(node)] = (before, len(heap_objs))
+
+    # beside the target (os.replace stays on one file system), created as
+    # open() creates files, so the umask sets its mode
+    tmp = f"{f.path}.{os.getpid()}.{uuid.uuid4().hex[:8]}.tmp"
+    fd = os.open(tmp, os.O_WRONLY | os.O_CREAT | os.O_EXCL, 0o666)
+    try:
+        out = _Out(fd)
+        out.alloc(96)  # superblock
+        # 2. addresses of headers, group structures and global heaps
+        for node in objects:
+            addr_of[id(node)] = out.alloc(sizes[id(node)])
+        groups = {id(n): _plan_group(n, out) for n in objects if isinstance(n, Group)}
+        heaps = _plan_gheap(heap_objs, out)
+        # 3. raw data, written as it is produced
+        datas = {id(n): _write_data(n, out) for n in objects if isinstance(n, Dataset)}
+        # 4. headers, groups, heaps, superblock
+        for node in objects:
+            lo, hi = heap_counts[id(node)]
+            heap_slots[:] = [(k, heaps["slots"][k]) for k in range(lo, hi)]
+            meta = groups.get(id(node)) or datas.get(id(node)) or {}
+            hb = _header(object_msgs(node, meta) + attr_msgs(node, True))
+            if len(hb) != sizes[id(node)]:
+                raise RuntimeError(f"object header of {node.name!r} changed size")
+            out.put(addr_of[id(node)], hb)
+        for node in objects:
+            if isinstance(node, Group):
+                _encode_group(node, groups, addr_of, out)
+        _encode_gheap(heap_objs, heaps, out)
+        root = groups[id(f)]
+        out.put(0, SIGNATURE + bytes([0, 0, 0, 0, 0, 8, 8, 0])
+                + struct.pack("<HHI", _GROUP_LEAF_K, _GROUP_NODE_K, 0)
+                + struct.pack("<QQQQ", 0, UNDEF, out.size, UNDEF)
+                + struct.pack("<QQII", 0, addr_of[id(f)], 1, 0)
+                + struct.pack("<QQ", root["btree"], root["heap"]))
+        os.ftruncate(fd, out.size)
+        os.close(fd)
+        fd = -1
+        os.replace(tmp, f.path)
+    except BaseException:
+        if fd >= 0:
+            os.close(fd)
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise
+
+
+def _plan_btree(out: _Out, leaves, right_key, fanout: int) -> Tuple[int, list]:
+    """A v1 B-tree over `leaves` [(left key, child address)] in as many
+    levels as nodes of `fanout` children need. Returns the root's address
+    and the nodes [(address, level, [(key, child)], right key)]."""
+    nodes = []
+    level, entries = 0, leaves
+    while True:
+        parts = [entries[i:i + fanout] for i in range(0, len(entries), fanout)] or [[]]
+        built = []
+        for i, part in enumerate(parts):
+            rk = parts[i + 1][0][0] if i + 1 < len(parts) else right_key
+            nodes.append([None, level, part, rk])  # allocated by _encode_btree
+            built.append((part[0][0] if part else right_key, len(nodes) - 1))
+        if len(built) == 1:
+            return built[0][1], nodes
+        level, entries = level + 1, built
+
+
+def _encode_btree(out: _Out, nodes, ntype: int, fanout: int, key_size: int,
+                  encode_key: Callable[[object], bytes]) -> int:
+    """Allocate and write the planned nodes (each at its full size: HDF5
+    reads 2K entries); children that are node indices become addresses."""
+    node_size = 24 + fanout * 8 + (fanout + 1) * key_size
+    for n in nodes:
+        n[0] = out.alloc(node_size)
+    by_level: Dict[int, List[int]] = {}
+    for i, n in enumerate(nodes):
+        by_level.setdefault(n[1], []).append(i)
+    for i, (addr, level, entries, rk) in enumerate(nodes):
+        sib = by_level[level]
+        k = sib.index(i)
+        left = nodes[sib[k - 1]][0] if k > 0 else UNDEF
+        right = nodes[sib[k + 1]][0] if k + 1 < len(sib) else UNDEF
+        body = [struct.pack("<4sBBHQQ", b"TREE", ntype, level, len(entries), left, right)]
+        for key, child in entries:
+            body.append(encode_key(key))
+            body.append(_le(child if level == 0 else nodes[child][0], 8))
+        body.append(encode_key(rk))
+        raw = b"".join(body)
+        out.put(addr, raw + b"\0" * (node_size - len(raw)))
+    return nodes[-1][0]
+
+
+def _plan_group(g: Group, out: _Out) -> dict:
+    """Addresses of a symbol-table group's local heap and SNODs, its
+    entries sorted by name (HDF5 looks names up by bisection)."""
+    names = sorted(g._links(), key=lambda n: n.encode("utf-8"))
+    offsets, pos = [], 8   # offset 0 holds the empty name
+    for n in names:
+        offsets.append(pos)
+        pos += _align8(len(n.encode("utf-8")) + 1)
+    heap, heap_data = out.alloc(32), out.alloc(pos)
+    per = 2 * _GROUP_LEAF_K
+    snods = [(names[i:i + per], out.alloc(8 + per * 40)) for i in range(0, len(names), per)]
+    name_off = dict(zip(names, offsets))
+    # child i covers names in (key i, key i+1]: key 0 is "", key i+1 the
+    # last name of SNOD i
+    leaves = [(0 if i == 0 else name_off[snods[i - 1][0][-1]], a)
+              for i, (_, a) in enumerate(snods)]
+    right = name_off[names[-1]] if names else 0
+    root, nodes = _plan_btree(out, leaves, right, 2 * _GROUP_NODE_K)
+    meta = {"names": names, "offsets": offsets, "heap": heap, "heap_data": heap_data,
+            "heap_size": pos, "snods": snods, "nodes": nodes}
+    meta["btree"] = _encode_btree(out, nodes, 0, 2 * _GROUP_NODE_K, 8, lambda k: _le(k, 8))
+    return meta
+
+
+def _encode_group(g: Group, groups: Dict[int, dict], addr_of, out: _Out) -> None:
+    meta = groups[id(g)]
+    data = bytearray(meta["heap_size"])
+    for n, o in zip(meta["names"], meta["offsets"]):
+        nb = n.encode("utf-8")
+        data[o:o + len(nb)] = nb
+    # free list head 1: no free block
+    out.put(meta["heap"], struct.pack("<4sB3xQQQ", b"HEAP", 0, meta["heap_size"], 1,
+                                      meta["heap_data"]))
+    out.put(meta["heap_data"], bytes(data))
+    off = dict(zip(meta["names"], meta["offsets"]))
+    links = g._links()
+    per = 2 * _GROUP_LEAF_K
+    for entries, addr in meta["snods"]:
+        body = [struct.pack("<4sBxH", b"SNOD", 1, len(entries))]
+        for n in entries:
+            child = links[n]
+            if isinstance(child, Group):  # cached B-tree and heap
+                cm = groups[id(child)]
+                body.append(struct.pack("<QQIIQQ", off[n], addr_of[id(child)], 1, 0,
+                                        cm["btree"], cm["heap"]))
+            else:
+                body.append(struct.pack("<QQII16x", off[n], addr_of[id(child)], 0, 0))
+        raw = b"".join(body)
+        out.put(addr, raw + b"\0" * (8 + per * 40 - len(raw)))
+
+
+def _plan_gheap(objs: List[bytes], out: _Out) -> dict:
+    """Global heap collections (at least 4096 bytes) for `objs`."""
+    slots, sizes, used, index = [], [], 16, 0
+    for data in objs:
+        need = 16 + _align8(len(data))
+        if index and used + need > _GHEAP_MIN:
+            sizes.append(used)
+            used, index = 16, 0
+        index += 1
+        slots.append((len(sizes), index))
+        used += need
+    if objs:
+        sizes.append(used)
+    sizes = [max(_GHEAP_MIN, s) for s in sizes]
+    addrs = [out.alloc(s) for s in sizes]
+    return {"slots": [(addrs[c], i) for c, i in slots], "sizes": sizes, "addrs": addrs,
+            "collection": [c for c, _ in slots]}
+
+
+def _encode_gheap(objs: List[bytes], plan: dict, out: _Out) -> None:
+    bufs = [[struct.pack("<4sB3xQ", b"GCOL", 1, s)] for s in plan["sizes"]]
+    used = [16] * len(bufs)
+    for data, c, (_, index) in zip(objs, plan["collection"], plan["slots"]):
+        bufs[c].append(struct.pack("<HH4xQ", index, 1, len(data)) + _pad8(data))
+        used[c] += 16 + _align8(len(data))
+    for c, parts in enumerate(bufs):
+        free = plan["sizes"][c] - used[c]
+        if free >= 16:  # object 0: the free space
+            parts.append(struct.pack("<HH4xQ", 0, 0, free))
+        raw = b"".join(parts)
+        out.put(plan["addrs"][c], raw + b"\0" * (plan["sizes"][c] - len(raw)))
+
+
+def _write_data(ds: Dataset, out: _Out) -> dict:
+    """Write a dataset's raw data; returns its layout's address."""
+    ds._load()
+    t = ds._type
+    if ds._layout == "compact":
+        return {}
+    if ds._layout == "contiguous":
+        if ds._data is not None:
+            return {"data": out.append(np.ascontiguousarray(ds._data, dtype=t.raw).tobytes())}
+        if ds._contig[0] == UNDEF:
+            return {"data": UNDEF}
+        return {"data": out.append(ds._rsrc.read(ds._contig[0], ds._contig[1], "contiguous data"))}
+    rank, chunks = len(ds._shape), ds._chunks
+    leaves = []
+    last = None
+    if ds._data is not None:
+        grid = [-(-n // c) for n, c in zip(ds._shape, chunks)]
+        positions = list(np.ndindex(*grid))
+
+        def encode(pos) -> bytes:
+            sl = tuple(slice(p * c, min((p + 1) * c, n)) for p, c, n in zip(pos, chunks, ds._shape))
+            block = ds._data[sl]
+            if block.shape != chunks:   # edge chunks are stored whole
+                full = np.zeros(chunks, t.raw)
+                full[tuple(slice(0, s) for s in block.shape)] = block
+                block = full
+            raw = np.ascontiguousarray(block, dtype=t.raw).tobytes()
+            return raw if ds._pipeline is None else ds._pipeline.encode_chunk(raw, t.size)
+
+        for pos, raw in zip(positions, map(encode, positions)):
+            leaves.append(((len(raw), 0, pos), out.append(raw)))
+            last = pos
+    else:
+        for pos, (caddr, nbytes, mask) in sorted(ds._index().items()):
+            leaves.append(((nbytes, mask, pos), out.append(ds._rsrc.read(caddr, nbytes, "chunk"))))
+            last = pos
+    if not leaves:
+        return {"data": UNDEF}
+    right = (0, 0, tuple(p + 1 for p in last))
+    key_size = 8 + 8 * (rank + 1)
+
+    def key(k) -> bytes:
+        nbytes, mask, pos = k
+        return struct.pack(f"<II{rank + 1}Q", nbytes, mask,
+                           *(p * c for p, c in zip(pos, chunks)), 0)
+
+    _, nodes = _plan_btree(out, leaves, right, 2 * _CHUNK_K)
+    return {"data": _encode_btree(out, nodes, 1, 2 * _CHUNK_K, key_size, key)}

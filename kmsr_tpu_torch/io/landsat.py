@@ -1,7 +1,7 @@
 """Landsat 8/9 Collection-2 L1 ingest: MTL calibration -> grouped NetCDF.
 
 The port's copy of `kmsr_tpu.io.landsat` (host numpy; PIL imported at
-first use, h5py through this package's `io.ncio`).
+first use, the `.nc` written through this package's `io.ncio`).
 
 Capability parity with `A_00Landsat_cal_rad.py:30-192`:
   * parse the `*_MTL.txt` key=value file;

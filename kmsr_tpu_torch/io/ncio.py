@@ -1,10 +1,23 @@
-"""NetCDF4-compatible grouped-file IO built directly on HDF5 (h5py).
+"""NetCDF4-compatible grouped-file IO built directly on HDF5.
 
 The port's own copy of `kmsr_tpu.io.ncio` (same on-disk contract, so a
-file written by either package reads in the other). One difference:
-h5py is imported at first use, not at import time, so the device-side
-modules that import this one load on hosts without h5py; reading or
-writing a `.nc` file there raises ImportError.
+file written by either package reads in the other). It runs on this
+package's own HDF5 codec, `io.hdf5` (numpy and zlib), not on h5py, so
+`.nc` files are read and written wherever the port runs. The codec's
+h5py-like surface is used here (`File`, `Group.keys/items/__contains__/
+__getitem__/attrs/create_group/create_dataset/visititems`, `Dataset.
+shape/dtype/size/attrs/__getitem__/__array__`, `attrs.get/items/
+__setitem__`) and by the port's call sites outside this module:
+`pipeline.check_shapes` (`NCFile.group`, `grp[band]`),
+`pipeline.inspect_nc` (`File`, `items`, `attrs`, `visititems`),
+`pipeline.make_train_data` and `data.patches` (`NCFile` "w",
+`write_bands`, `create_variable`, `set_attrs`), the append-a-group stages
+`pipeline.denoise_cli`, `sr_infer`, `apply_kernel`, `degrade_scene` and
+`sr_scene` (`copied` + `write_bands`; apply_kernel's in-place mode
+`NCFile` "a"), `pipeline.denoise_cli` and
+`scripts/torch_quality_report.py` (`get_attrs`), `pipeline.sr_infer`
+(`has_group`), `io.landsat` (`NCFile` "w") and
+`scripts/torch_native_lr_eval.py` (`grp[band][:]`).
 
 NetCDF-4 files *are* HDF5 files following a small set of conventions
 (dimension scales + naming attributes).  This module writes files that the
@@ -26,11 +39,13 @@ Conventions implemented for netCDF4 compatibility:
 """
 from __future__ import annotations
 
+import contextlib
 import os
-from typing import Dict, Iterable, Mapping, Optional, Sequence
+from typing import Dict, Iterable, Iterator, Mapping, Optional, Sequence
 
 import numpy as np
 
+from . import hdf5
 from .schema import BAND_NAMES, INVALID_VALUE
 
 _NC_DIM_NAME = (
@@ -38,19 +53,7 @@ _NC_DIM_NAME = (
 )
 
 
-def _h5py():
-    """h5py, imported at first use (see the module docstring)."""
-    try:
-        import h5py
-    except ImportError as e:
-        raise ImportError(
-            "reading or writing grouped .nc files needs h5py, which is not "
-            "installed in this environment"
-        ) from e
-    return h5py
-
-
-def _ensure_dim(grp: h5py.Group, name: str, size: int) -> h5py.Dataset:
+def _ensure_dim(grp: hdf5.Group, name: str, size: int) -> hdf5.Dataset:
     """Create (or fetch) a netCDF-style dimension scale in `grp`."""
     if name in grp:
         dim = grp[name]
@@ -77,8 +80,8 @@ class NCFile:
 
     def __init__(self, path: str | os.PathLike, mode: str = "r"):
         self.path = str(path)
-        self._h5 = _h5py().File(self.path, mode)
-        if mode in ("w", "w-", "x"):
+        self._h5 = hdf5.File(self.path, mode)
+        if mode == "w":
             # Stamp so netCDF4 recognizes the file as netCDF-4.
             self._h5.attrs["_NCProperties"] = np.bytes_(
                 "version=2,netcdf=kmsr_tpu-0.1,hdf5=1.10"
@@ -97,25 +100,24 @@ class NCFile:
 
     # -- structure --------------------------------------------------------
     @property
-    def h5(self) -> h5py.File:
+    def h5(self) -> hdf5.File:
         return self._h5
 
     @property
-    def groups(self) -> Dict[str, h5py.Group]:
+    def groups(self) -> Dict[str, hdf5.Group]:
         return {
-            k: v for k, v in self._h5.items()
-            if isinstance(v, _h5py().Group)
+            k: v for k, v in self._h5.items() if isinstance(v, hdf5.Group)
         }
 
     def has_group(self, name: str) -> bool:
-        return name in self._h5 and isinstance(self._h5[name], _h5py().Group)
+        return name in self._h5 and isinstance(self._h5[name], hdf5.Group)
 
-    def create_group(self, name: str) -> h5py.Group:
+    def create_group(self, name: str) -> hdf5.Group:
         if name in self._h5:
             return self._h5[name]
         return self._h5.create_group(name)
 
-    def group(self, name: str) -> h5py.Group:
+    def group(self, name: str) -> hdf5.Group:
         if not self.has_group(name):
             raise KeyError(f"group {name!r} not in {self.path}")
         return self._h5[name]
@@ -142,14 +144,14 @@ class NCFile:
     # -- variables ----------------------------------------------------------
     def create_variable(
         self,
-        group: h5py.Group | str,
+        group: hdf5.Group | str,
         name: str,
         data: np.ndarray,
         dims: Sequence[str] = ("y", "x"),
         attrs: Optional[Mapping[str, object]] = None,
         fill_value: Optional[float] = INVALID_VALUE,
         compress: bool = True,
-    ) -> h5py.Dataset:
+    ) -> hdf5.Dataset:
         """Create a variable with netCDF dimension scales attached."""
         grp = self.create_group(group) if isinstance(group, str) else group
         data = np.asarray(data)
@@ -161,7 +163,7 @@ class NCFile:
         var = grp.create_dataset(name, data=data.astype(np.float32), **kwargs)
         for axis, (dname, dsize) in enumerate(zip(dims, data.shape)):
             dim = _ensure_dim(grp, dname, dsize)
-            var.dims[axis].attach_scale(dim)
+            var.attach_scale(axis, dim)
         if fill_value is not None:
             var.attrs["_FillValue"] = np.float32(fill_value)
         if attrs:
@@ -179,7 +181,7 @@ class NCFile:
         grp = self.group(group)
         names = []
         for k, v in grp.items():
-            if not isinstance(v, _h5py().Dataset):
+            if not isinstance(v, hdf5.Dataset):
                 continue
             if v.attrs.get("CLASS") == b"DIMENSION_SCALE":
                 continue
@@ -238,19 +240,33 @@ def write_band_stack(
     nan_to_fill: bool = False,
 ) -> None:
     """Write a `[C, H, W]` stack into `group`, one variable per band."""
-    stack = np.asarray(stack, dtype=np.float32)
-    if stack.ndim != 3 or stack.shape[0] != len(band_names):
-        raise ValueError(f"expected [{len(band_names)},H,W] stack, got {stack.shape}")
     if mode == "a" and not os.path.exists(path):
         mode = "w"
     with NCFile(path, mode) as f:
-        for i, b in enumerate(band_names):
-            data = stack[i]
-            if nan_to_fill:
-                data = np.where(np.isnan(data), np.float32(INVALID_VALUE), data)
-            f.create_variable(group, b, data, dims=dims, attrs=var_attrs)
-        if group_attrs:
-            f.set_attrs(group_attrs, group=group)
+        write_bands(f, group, stack, band_names, dims, var_attrs, group_attrs, nan_to_fill)
+
+
+def write_bands(
+    f: NCFile,
+    group: str,
+    stack: np.ndarray,
+    band_names: Sequence[str] = BAND_NAMES,
+    dims: tuple[str, str] = ("y", "x"),
+    var_attrs: Optional[Mapping[str, object]] = None,
+    group_attrs: Optional[Mapping[str, object]] = None,
+    nan_to_fill: bool = False,
+) -> None:
+    """`write_band_stack` into an open file (several groups, one write)."""
+    stack = np.asarray(stack, dtype=np.float32)
+    if stack.ndim != 3 or stack.shape[0] != len(band_names):
+        raise ValueError(f"expected [{len(band_names)},H,W] stack, got {stack.shape}")
+    for i, b in enumerate(band_names):
+        data = stack[i]
+        if nan_to_fill:
+            data = np.where(np.isnan(data), np.float32(INVALID_VALUE), data)
+        f.create_variable(group, b, data, dims=dims, attrs=var_attrs)
+    if group_attrs:
+        f.set_attrs(group_attrs, group=group)
 
 
 def read_nav(path: str | os.PathLike) -> Dict[str, np.ndarray]:
@@ -266,9 +282,17 @@ def read_nav(path: str | os.PathLike) -> Dict[str, np.ndarray]:
 
 def copy_file_with_groups(src: str, dst: str) -> None:
     """Copy a grouped file (used by append-a-group pipeline stages)."""
-    h5py = _h5py()
-    with h5py.File(src, "r") as s, h5py.File(dst, "w") as d:
-        for k, v in s.attrs.items():
-            d.attrs[k] = v
-        for name in s:
-            s.copy(name, d, name=name, expand_refs=True)
+    with hdf5.File(src, "r") as s, hdf5.File(dst, "w") as d:
+        hdf5.copy_tree(s, d)
+
+
+@contextlib.contextmanager
+def copied(src: str, dst: str) -> Iterator[NCFile]:
+    """`dst` as `copy_file_with_groups(src, dst)` makes it, open to add
+    groups to; written once, on exit. An append-a-group stage's
+    `copy_file_with_groups` + `write_band_stack(mode="a")` in one write:
+    the codec's "a" mode rewrites the whole file, where h5py appends."""
+    with hdf5.File(src, "r") as s, NCFile(dst, "w") as d:
+        del d.h5.attrs["_NCProperties"]  # the root's attributes are src's
+        hdf5.copy_tree(s, d.h5)
+        yield d

@@ -36,7 +36,7 @@ import torch
 
 from ..data.sampler import list_patch_files
 from ..device import resolve_device
-from ..io.ncio import copy_file_with_groups, read_band_stack, write_band_stack
+from ..io.ncio import NCFile, copied, read_band_stack, write_bands
 from ..io.schema import GROUP_BLURRED, GROUP_DENOISED, RADIANCE_UNITS
 from ..ops.degrade import degrade_strided
 from ..parallel.local_dp import gather, local_map
@@ -205,24 +205,23 @@ def apply_kernel_to_folder(
         for path, lr, expert in zip(valid, degraded, experts):
             try:
                 base = os.path.splitext(os.path.basename(path))[0]
-                if in_place:
-                    out_path = path
-                else:
-                    out_path = os.path.join(output_dir, f"{base}{suffix}.nc")
-                    copy_file_with_groups(path, out_path)
-                write_band_stack(
-                    out_path,
-                    out_group,
-                    lr,
-                    dims=(f"y_{out_group}", f"x_{out_group}"),
-                    mode="a",
-                    var_attrs={"units": RADIANCE_UNITS},
-                    group_attrs={
-                        "history": f"blur kernel applied, {factor}x downsampled",
-                        "kernel_file": kernel_src,
-                        **({} if expert is None else {"moe_expert": int(expert)}),
-                    },
-                )
+                out_path = path if in_place else os.path.join(output_dir,
+                                                              f"{base}{suffix}.nc")
+                # in place: append to the file; else the input's copy plus
+                # the group, in one write
+                with (NCFile(out_path, "a") if in_place else copied(path, out_path)) as f:
+                    write_bands(
+                        f,
+                        out_group,
+                        lr,
+                        dims=(f"y_{out_group}", f"x_{out_group}"),
+                        var_attrs={"units": RADIANCE_UNITS},
+                        group_attrs={
+                            "history": f"blur kernel applied, {factor}x downsampled",
+                            "kernel_file": kernel_src,
+                            **({} if expert is None else {"moe_expert": int(expert)}),
+                        },
+                    )
                 ok.append(out_path)
             except Exception as e:
                 fail.append((path, str(e)))

@@ -35,7 +35,7 @@ import torch
 
 from ..data.sampler import list_patch_files
 from ..device import resolve_device
-from ..io.ncio import band_shape, copy_file_with_groups, read_band_stack, write_band_stack
+from ..io.ncio import band_shape, copied, read_band_stack, write_bands
 from ..io.schema import GROUP_BLURRED, GROUP_GEO, RADIANCE_UNITS
 from ..parallel.mesh import make_mesh
 from ..parallel.multihost import global_batch, initialize_if_needed, world_size
@@ -174,23 +174,22 @@ def process_scenes(
             if not main:
                 ok.append(out_path)
                 continue
-            copy_file_with_groups(path, out_path)
-            write_band_stack(
-                out_path,
-                out_group,
-                lr,
-                dims=(f"y_{out_group}", f"x_{out_group}"),
-                mode="a",
-                var_attrs={"units": RADIANCE_UNITS},
-                group_attrs={
-                    "history": (
-                        f"whole-scene blur + {factor}x downsample, "
-                        + (f"one row slab on {dev.type}" if mesh is None else
-                           f"{mesh.size} row slab(s) over ranks on {dev.type}")
-                    ),
-                    "kernel_file": os.path.basename(kernel_path),
-                },
-            )
+            with copied(path, out_path) as f:  # the scene's groups + the LR group
+                write_bands(
+                    f,
+                    out_group,
+                    lr,
+                    dims=(f"y_{out_group}", f"x_{out_group}"),
+                    var_attrs={"units": RADIANCE_UNITS},
+                    group_attrs={
+                        "history": (
+                            f"whole-scene blur + {factor}x downsample, "
+                            + (f"one row slab on {dev.type}" if mesh is None else
+                               f"{mesh.size} row slab(s) over ranks on {dev.type}")
+                        ),
+                        "kernel_file": os.path.basename(kernel_path),
+                    },
+                )
             ok.append(out_path)
         except Exception as e:  # per-file failure isolation
             fail.append((path, f"{type(e).__name__}: {e}"))

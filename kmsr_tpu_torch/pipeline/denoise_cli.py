@@ -32,7 +32,7 @@ import torch
 
 from ..data.sampler import list_patch_files
 from ..device import resolve_device
-from ..io.ncio import NCFile, copy_file_with_groups, read_band_stack, write_band_stack
+from ..io.ncio import NCFile, copied, read_band_stack, write_bands
 from ..io.schema import BAND_NAMES, GROUP_DENOISED, GROUP_GEO
 from ..ops.nlm import (
     PATCH_DISTANCE,
@@ -81,8 +81,6 @@ def _write_denoised(
     os.makedirs(output_dir, exist_ok=True)
     stem = os.path.splitext(os.path.basename(file_path))[0]
     out_path = os.path.join(output_dir, f"{stem}_denoised.nc")
-    copy_file_with_groups(file_path, out_path)
-
     attrs: dict = {
         "h_factor": h_factor,
         "denoising_method": "Non-Local Means (NLM)",
@@ -94,10 +92,8 @@ def _write_denoised(
         attrs[f"{band}_h"] = h_factor * sig
     attrs["average_sigma"] = float(np.mean(sigmas))
     attrs["average_h"] = h_factor * float(np.mean(sigmas))
-    write_band_stack(
-        out_path, GROUP_DENOISED, denoised, mode="a", group_attrs=attrs,
-        nan_to_fill=False,
-    )
+    with copied(file_path, out_path) as f:  # the input's groups + denoised
+        write_bands(f, GROUP_DENOISED, denoised, group_attrs=attrs, nan_to_fill=False)
     if verbose:
         print(
             f"{os.path.basename(file_path)}: avg sigma {np.mean(sigmas):.6f} "

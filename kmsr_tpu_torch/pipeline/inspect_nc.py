@@ -1,11 +1,11 @@
 """Stage: NetCDF/HDF5 structure inspector (CLI).
 
-Counterpart of `kmsr_tpu.pipeline.inspect_nc` (host-only h5py; the text it
-prints is the same, character for character). Capability parity with
-`00_check_nc.py:6-222` (groups, dims, variables, attributes; --full,
+Counterpart of `kmsr_tpu.pipeline.inspect_nc` (host-only; it reads through
+the port's HDF5 codec, `io.hdf5`, where JAX's reads through h5py, and the
+text it prints is the same, character for character). Capability parity
+with `00_check_nc.py:6-222` (groups, dims, variables, attributes; --full,
 --by-group, --list-only modes) and the 4-line `test.py` scratch inspector
-(print one group's variables). h5py is imported at first use, as
-`io.ncio` does.
+(print one group's variables).
 
 Usage:
     python -m kmsr_tpu_torch.pipeline.inspect_nc FILE [--full] [--by-group]
@@ -18,7 +18,7 @@ import argparse
 
 import numpy as np
 
-from ..io.ncio import _h5py
+from ..io import hdf5
 
 
 def _fmt_attrs(attrs, indent: str) -> list[str]:
@@ -31,7 +31,7 @@ def _fmt_attrs(attrs, indent: str) -> list[str]:
 
 
 def _is_dim_scale(ds) -> bool:
-    return isinstance(ds, _h5py().Dataset) and ds.attrs.get("CLASS") == b"DIMENSION_SCALE"
+    return isinstance(ds, hdf5.Dataset) and ds.attrs.get("CLASS") == b"DIMENSION_SCALE"
 
 
 def describe_variable(name: str, ds, full: bool) -> list[str]:
@@ -50,9 +50,8 @@ def describe_variable(name: str, ds, full: bool) -> list[str]:
 
 
 def analyze_file(path: str, full: bool = False, group: str | None = None) -> str:
-    h5py = _h5py()
     lines = [f"=== {path} ==="]
-    with h5py.File(path, "r") as f:
+    with hdf5.File(path, "r") as f:
         root_attrs = _fmt_attrs(f.attrs, "  ")
         if root_attrs:
             lines.append("root attributes:")
@@ -65,7 +64,7 @@ def analyze_file(path: str, full: bool = False, group: str | None = None) -> str
             variables = [
                 k
                 for k, v in grp.items()
-                if isinstance(v, h5py.Dataset) and not _is_dim_scale(v)
+                if isinstance(v, hdf5.Dataset) and not _is_dim_scale(v)
             ]
             lines.append(f"group: {gname or '/'}")
             if dims:
@@ -81,17 +80,16 @@ def analyze_file(path: str, full: bool = False, group: str | None = None) -> str
 
         walk(f, "")
         for name, item in f.items():
-            if isinstance(item, h5py.Group):
+            if isinstance(item, hdf5.Group):
                 walk(item, name)
     return "\n".join(lines)
 
 
 def list_variables(path: str, by_group: bool = False) -> str:
-    h5py = _h5py()
     lines = []
-    with h5py.File(path, "r") as f:
+    with hdf5.File(path, "r") as f:
         def visit(name, obj):
-            if isinstance(obj, h5py.Dataset) and not _is_dim_scale(obj):
+            if isinstance(obj, hdf5.Dataset) and not _is_dim_scale(obj):
                 lines.append(name if by_group else name.split("/")[-1])
 
         f.visititems(visit)

@@ -1,7 +1,8 @@
 """Stage: assemble SR training pairs (hr, lr) with noise-pool injection.
 
 Counterpart of `kmsr_tpu.pipeline.make_train_data` (host-only: numpy and
-h5py). Contract parity with `E_make_train_data.py:187-299`: for each input
+the port's HDF5 codec). Contract parity with
+`E_make_train_data.py:187-299`: for each input
 file, hr = `denoised` group (C,256,256), lr = `blurred` group (C,32,32) +
 one random noise-pool sample; strict shape gates; per-sample output .nc
 with `hr`/`lr`/`navigation_data` groups (zlib); seeded RNG;
@@ -24,7 +25,7 @@ import numpy as np
 
 from ..data.noise_pool import add_noise_np, load_noise_pool
 from ..data.sampler import list_patch_files
-from ..io.ncio import NCFile, read_band_stack, read_nav, write_band_stack
+from ..io.ncio import NCFile, read_band_stack, read_nav, write_bands
 from ..io.schema import GROUP_BLURRED, GROUP_DENOISED, GROUP_HR, GROUP_LR
 from .common import RunReport, run_per_file
 
@@ -38,15 +39,16 @@ def save_training_sample(
     nav: dict | None,
     lr_attrs: dict | None = None,
 ) -> None:
-    write_band_stack(output_path, GROUP_HR, hr, dims=("y_hr", "x_hr"), mode="w")
-    write_band_stack(output_path, GROUP_LR, lr, dims=("y_lr", "x_lr"), mode="a",
-                     group_attrs=lr_attrs)
-    if nav:
-        with NCFile(output_path, "a") as f:
-            for name, arr in nav.items():
-                if arr is not None and arr.size:
-                    dims = tuple(f"{name}_dim_{j}" for j in range(arr.ndim))
-                    f.create_variable("navigation_data", name, arr, dims=dims)
+    """One `<name>_train.nc`: the hr and lr groups and the nav rasters,
+    written through one handle (the JAX package opens the file three
+    times; the contents are the same)."""
+    with NCFile(output_path, "w") as f:
+        write_bands(f, GROUP_HR, hr, dims=("y_hr", "x_hr"))
+        write_bands(f, GROUP_LR, lr, dims=("y_lr", "x_lr"), group_attrs=lr_attrs)
+        for name, arr in (nav or {}).items():
+            if arr is not None and arr.size:
+                dims = tuple(f"{name}_dim_{j}" for j in range(arr.ndim))
+                f.create_variable("navigation_data", name, arr, dims=dims)
 
 
 def process_files(

@@ -36,7 +36,7 @@ import torch
 
 from ..data.sampler import list_patch_files
 from ..device import resolve_device
-from ..io.ncio import NCFile, copy_file_with_groups, read_band_stack, write_band_stack
+from ..io.ncio import NCFile, copied, read_band_stack, write_bands
 from ..io.schema import GROUP_HR, GROUP_LR
 from ..models.sr import SRConfig, init_sr, sr_forward
 from ..ops.metrics import psnr, ssim
@@ -231,12 +231,10 @@ def sr_infer_folder(
                 with stage_timer("sr_infer.host_write"):
                     base = os.path.splitext(os.path.basename(path))[0]
                     out_path = os.path.join(output_dir, f"{base}_sr.nc")
-                    copy_file_with_groups(path, out_path)
-                    write_band_stack(
-                        out_path, "sr", pred, dims=("y_sr", "x_sr"), mode="a",
-                        group_attrs={"model_file": os.path.basename(model_path),
-                                     "factor": cfg.factor},
-                    )
+                    with copied(path, out_path) as f:  # the pair + the SR group
+                        write_bands(f, "sr", pred, dims=("y_sr", "x_sr"),
+                                    group_attrs={"model_file": os.path.basename(model_path),
+                                                 "factor": cfg.factor})
                 if mets is not None:
                     metrics.append(mets[i])
                 ok.append(out_path)

@@ -51,7 +51,7 @@ import numpy as np
 import torch
 
 from ..data.sampler import list_patch_files
-from ..io.ncio import copy_file_with_groups, read_band_stack, write_band_stack
+from ..io.ncio import copied, read_band_stack, write_bands
 from ..io.schema import GROUP_LR
 from ..models.sr import SRConfig, sr_forward
 from ..parallel.mesh import launch_mesh, mesh_device, rows_of
@@ -242,16 +242,16 @@ def sr_scene_folder(
                 ok.append(path)
                 continue
             dst = os.path.join(output_dir, os.path.basename(path))
-            copy_file_with_groups(path, dst)
-            write_band_stack(
-                dst, out_group, sr, mode="a",
-                group_attrs={
-                    "source_group": in_group, "factor": cfg.factor,
-                    "tile": tile, "halo": halo if halo is not None
-                    else receptive_halo(cfg),
-                    "model": os.path.basename(model_path),
-                },
-            )
+            with copied(path, dst) as f:  # the input's groups + the SR group
+                write_bands(
+                    f, out_group, sr,
+                    group_attrs={
+                        "source_group": in_group, "factor": cfg.factor,
+                        "tile": tile, "halo": halo if halo is not None
+                        else receptive_halo(cfg),
+                        "model": os.path.basename(model_path),
+                    },
+                )
             total_px += sr.shape[1] * sr.shape[2]
             ok.append(path)
         except Exception as e:  # per-file failure isolation

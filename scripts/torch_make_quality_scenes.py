@@ -3,7 +3,7 @@
 The PyTorch port's copy of `scripts/make_quality_scenes.py`: the same
 generator, flags and printed lines, writing through `kmsr_tpu_torch.io`;
 for one seed its scenes, native-LR scenes and gt_kernel.npy are bit-equal
-to that script's. numpy only (and h5py to write the `.nc` files).
+to that script's. numpy only (the `.nc` files through the port's codec).
 
 The reference's data model (SURVEY.md section 0): 5-band TOA radiance
 scenes (`L_TOA_443/490/555/660/865`, W m^-2 sr^-1 um^-1), water pixels

@@ -9,8 +9,8 @@ training CSV's PSNR/SSIM curve, and writes the report (+ a curve PNG when
 matplotlib imports).
 
 `evaluate` is the device part on arrays (SR, bilinear and PSNR/SSIM over
-the holdout, then the oracle sweeps), so a machine that cannot read the
-`.nc` pairs (no h5py) can run it; `main` does the file IO.
+the holdout, then the oracle sweeps), so it runs on pairs held in memory;
+`main` does the file IO.
 
     python scripts/torch_quality_report.py --pairs quality_run/work/train_pairs \
         --sr quality_run/work/sr_run --holdout 24 --width 64 --n-blocks 8 \

@@ -16,7 +16,7 @@ REPO = Path(__file__).resolve().parent.parent
 
 #: the port's copies of the JAX package's SR quality scripts
 PORT_SCRIPTS = ("torch_make_quality_scenes.py", "torch_quality_report.py",
-                "torch_native_lr_eval.py")
+                "torch_native_lr_eval.py", "torch_ncio_ab.py")
 
 
 def _port_sources():
@@ -358,3 +358,41 @@ def test_running_the_quality_scripts_loads_no_jax():
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_port_sources_import_no_h5py():
+    """`.nc` files go through the port's own codec (`io.hdf5`): no module
+    of the port, nor chip_smoke.py, imports h5py (the card's machine has
+    none)."""
+    bad = [f"{path.relative_to(REPO)}: import {mod}"
+           for path in _port_sources() for mod in _imported_modules(path)
+           if mod.split(".")[0] == "h5py"]
+    assert not bad, bad
+
+
+def test_factory_sample_round_trip_with_h5py_blocked(tmp_path):
+    """With h5py made unimportable, the port writes a `<name>_train.nc`
+    (the factory's save path) and reads it back, nav rasters included."""
+    code = (
+        "import sys; sys.modules['h5py'] = None\n"
+        "import numpy as np\n"
+        "from kmsr_tpu_torch.pipeline.make_train_data import save_training_sample\n"
+        "from kmsr_tpu_torch.io.ncio import read_band_stack, read_nav, NCFile\n"
+        "rng = np.random.default_rng(0)\n"
+        "hr = rng.normal(size=(5, 256, 256)).astype(np.float32)\n"
+        "lr = rng.normal(size=(5, 32, 32)).astype(np.float32)\n"
+        "lat = rng.normal(size=(256, 256)).astype(np.float32)\n"
+        f"p = {str(tmp_path / 's_000_000_train.nc')!r}\n"
+        "save_training_sample(p, hr, lr, {'latitude': lat}, lr_attrs={'moe_expert': 1})\n"
+        "assert read_band_stack(p, 'hr').tobytes() == hr.tobytes()\n"
+        "assert read_band_stack(p, 'lr').tobytes() == lr.tobytes()\n"
+        "assert read_nav(p)['latitude'].tobytes() == lat.tobytes()\n"
+        "with NCFile(p) as f: assert int(f.get_attrs('lr')['moe_expert']) == 1\n"
+        "assert 'h5py' not in [m for m in sys.modules if sys.modules[m] is not None]\n"
+        "print('ok')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stdout + r.stderr
