@@ -260,7 +260,12 @@ and exits non-zero without them. Phases, one line each:
    chunk would take minutes), the card against the port's CPU run: the
    same chosen lam, every lam's mean PSNR within 0.01 dB, the same CG stop
    iterations, and the card's predictions no further from a float64 solve
-   on the card (same iterations) than twice the CPU's are.
+   on the card (same iterations) than twice the CPU's are. Then the whole
+   sweep once more on those 3 patches in float64 on the card (scaffolding
+   here: `oracle_sweep`'s loop over `_deconv_batch` in float64; the
+   package's oracle stays float32): seconds a lam against the float32
+   sweep on the same patches, and each lam's mean PSNR float64 - float32
+   (recorded, not held: the cost of the float64 repair ROADMAP §3 weighs).
 
 15. parallel: the multi-card layer (`parallel.local_dp`, `parallel.mesh`)
    on one card. (a) Local DP over the card list (`local_batch_dp`: one card
@@ -350,6 +355,24 @@ and exits non-zero without them. Phases, one line each:
    5's in-memory .nc route, and the codec's read and write MB/s on 16
    pairs.
 
+18. foreign files: the committed h5py-written fixtures of
+   tests/data/hdf5_foreign/ (scripts/torch_make_hdf5_fixtures.py: every
+   layout-v4 chunk index, lzf / scaleoffset / szip / nbit, soft and
+   external links, committed datatypes, a 66 KiB dense attribute, and a
+   libver="latest" scene of 5 bands of 256^2 float32 with NaN holes whose
+   fixed array indexes are paged), on a machine without h5py. (a) every
+   fixture read through the port's codec matches its manifest: the file's
+   sha256 and the sha256 of every decoded array and attribute; (b)
+   `degrade_scene`'s CLI (its `main`, in this process, so the launch
+   counts can be read; counts set to 0 before each run) with --device
+   cuda on the v4 scene and on the port's layout-v3 rewrite of it
+   (`io.ncio.copy_file_with_groups`): rc 0, exactly one `colsplit_raw`
+   (scene_stencil.cu RAW) launch and nothing else each, `_blurred` bands
+   bit-equal between the two runs with identical NaN cells, and within
+   the tolerance of the plain `degrade_strided`; (c) `inspect_nc` lists
+   the v4 scene's group. Prints each part's seconds and the codec's read
+   rate of the scene in both layouts.
+
 data_stats, viz_cli and make_train_data --vis-dir are host numpy /
 matplotlib code that reads .nc through the same codec; the CPU tests
 (tests/test_torch_analysis_tools.py) hold them against JAX, and no phase
@@ -359,11 +382,13 @@ Prints one JSON line {"factory": {...}} (per-route results), one
 {"scene": {...}}, one {"api": {...}}, one {"kernelgan": {...}}, one
 {"denoise": {...}}, one {"moe_dynamic": {...}}, one {"sr": {...}}, one
 {"fleet": {...}}, one {"oracle": {...}}, one {"parallel": {...}}, one
-{"tools": {...}}, one {"files": {...}}, then the card's nvidia-smi line,
+{"tools": {...}}, one {"files": {...}}, one {"foreign": {...}}, then the
+card's nvidia-smi line,
 one JSON line {"kernels": [...]} (each kernel's `launches` on the main
 path above, `parallel_launches` on phase 15's local-DP factory route and
 ranks scene route, `tools_launches` on phase 16's three parts,
-`files_launches` on phase 17's run_all and scene CLI) and, last,
+`files_launches` on phase 17's run_all and scene CLI, `foreign_launches`
+on phase 18's two scene CLI runs) and, last,
 {"ok": true, "device": {...}}. Any mismatch or error in any phase, timing
 included, exits non-zero before that last line.
 """
@@ -3947,8 +3972,11 @@ def oracle_run(label, lr, hr, kernel, factor, prior_kw, dev, failures) -> dict:
     m = ORACLE_CPU_N
     sub = (lr[:m], hr[:m], kernel[:m] if per_sample else kernel, factor)
     card_stops, cpu_stops = {}, {}
+    torch.cuda.synchronize()
+    t32 = time.perf_counter()
     best_c, preds_c, res_c = oracle.oracle_sweep(*sub, iters=ORACLE_ITERS, device=dev,
                                                  cg_iters=card_stops, **prior_kw)
+    f32_s = time.perf_counter() - t32
     t2 = time.perf_counter()
     best_h, preds_h, res_h = oracle.oracle_sweep(*sub, iters=ORACLE_ITERS, device="cpu",
                                                  cg_iters=cpu_stops, **prior_kw)
@@ -3968,6 +3996,12 @@ def oracle_run(label, lr, hr, kernel, factor, prior_kw, dev, failures) -> dict:
                         f"PSNR diff {psnr_diff:.3g} dB, stops {card_stops} vs {cpu_stops}, "
                         f"from float64 card {d_card:.3g} vs CPU {d_cpu:.3g}")
     no_kernel_launched(f"oracle {label} card-vs-CPU", failures)
+    res64, f64_s = oracle_f64_sweep(sub, list(res_c), prior_kw, dev)
+    no_kernel_launched(f"oracle {label} float64 sweep", failures)
+    f64_sweep = {"patches": m, "seconds_per_lam_f64": f64_s / len(res64),
+                 "seconds_per_lam_f32": f32_s / len(res_c), "cost_ratio": f64_s / f32_s,
+                 "psnr_f64_minus_f32_db": {str(k): res64[k] - res_c[k] for k in res64},
+                 "best_lam_f64": max(res64, key=res64.get)}
     n_lams = len(per_lam)
     res = {"best_lam": best, "psnr_by_lam": {str(k): v for k, v in per_lam.items()},
            "cg_stop_iters": {str(k): v for k, v in stops.items()}, "seconds": wall,
@@ -3978,7 +4012,8 @@ def oracle_run(label, lr, hr, kernel, factor, prior_kw, dev, failures) -> dict:
            "cpu_check": {"patches": m, "best_lam_card": best_c, "best_lam_cpu": best_h,
                          "max_psnr_diff_db": psnr_diff, "stops_card": card_stops,
                          "stops_cpu": cpu_stops, "card_from_f64": d_card,
-                         "cpu_from_f64": d_cpu, "cpu_seconds": cpu_s}}
+                         "cpu_from_f64": d_cpu, "cpu_seconds": cpu_s},
+           "f64_sweep": f64_sweep}
     log(f"[oracle] {label}: best lam {best} of {n_lams} ({', '.join(f'{k:g}: {v:.3f}' for k, v in per_lam.items())} dB), "
         f"CG stops {sorted(set(v for vs in stops.values() for v in vs))}; {wall:.2f}s "
         f"({wall / n_lams:.3f} s a lam), best lam's solve {solve_ms:.1f} ms for {ran} "
@@ -3987,7 +4022,46 @@ def oracle_run(label, lr, hr, kernel, factor, prior_kw, dev, failures) -> dict:
         f"{peak:.2f} GB; card vs CPU on {m} patches {'ok' if not bad else 'FAILED ' + str(bad)}"
         f" (lam {best_c} / {best_h}, PSNR within {psnr_diff:.2e} dB, from float64 card "
         f"{d_card:.3g} / CPU {d_cpu:.3g}, CPU {cpu_s:.1f}s)")
+    log(f"[oracle] {label}: float64 sweep on {m} patches {f64_sweep['seconds_per_lam_f64']:.3f}"
+        f" s a lam vs float32 {f64_sweep['seconds_per_lam_f32']:.3f} "
+        f"(x{f64_sweep['cost_ratio']:.2f}); PSNR f64 - f32 by lam "
+        + ", ".join(f"{k}: {v:+.4f}" for k, v in f64_sweep["psnr_f64_minus_f32_db"].items())
+        + f" dB; best lam f64 {f64_sweep['best_lam_f64']} / f32 {best_c}")
     return res
+
+
+def oracle_f64_sweep(sub, lams, prior_kw, dev) -> tuple:
+    """`oracle_sweep`'s work in float64 on the card (scaffolding for the
+    measurement only; the package's sweep is float32), the matched prior's
+    spectrum included: {lam: mean PSNR} over the patches, each against its
+    HR range, and the seconds."""
+    import numpy as np
+    import torch
+
+    from kmsr_tpu_torch.analysis import oracle
+    from kmsr_tpu_torch.ops.metrics import psnr
+
+    lr, hr, kernel, factor = sub
+    per_sample = np.asarray(kernel).ndim == 4
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x = torch.from_numpy(np.asarray(lr, np.float64)).to(dev)
+    k = torch.from_numpy(np.asarray(kernel, np.float64)).to(dev)
+    wp = iv = None
+    if prior_kw.get("prior") == "matched":
+        w_np, inv_np = oracle.matched_prior(prior_kw["spec_examples"], prior_kw["noise_var"])
+        wp, iv = torch.from_numpy(w_np).to(dev).double(), torch.from_numpy(inv_np).to(dev).double()
+    out = {}
+    for lam in lams:
+        preds = oracle._deconv_batch(x, k, factor, float(lam), wp, iv, iters=ORACLE_ITERS,
+                                     per_sample=per_sample).cpu().numpy()
+        scores = []
+        for i in range(len(hr)):
+            h = np.asarray(hr[i], np.float64)
+            dr = float(np.nanmax(h) - np.nanmin(h)) or 1.0
+            scores.append(float(psnr(torch.from_numpy(preds[i]), torch.from_numpy(h), dr)))
+        out[lam] = float(np.mean(scores))
+    return out, time.perf_counter() - t0
 
 
 def phase_oracle(dev, failures: list) -> dict:
@@ -4914,6 +4988,18 @@ def files_codec_rate(pairs: list, out_dir: str) -> dict:
             "read_s": t_read, "write_s": t_write}
 
 
+def seeded_kernel_file(path: str, seed: int) -> str:
+    """A seeded 5x13x13 `kernel_per_band.npy` (a sigma-2 Gaussian times
+    per-tap draws, each band summing to 1) for the file phases' CLIs."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    k = np.exp(-((np.arange(KSIZE) - KSIZE // 2) ** 2) / 8.0)
+    k = np.outer(k, k)[None] * rng.uniform(0.5, 1.5, (C, KSIZE, KSIZE))
+    np.save(path, (k / k.sum(axis=(1, 2), keepdims=True)).astype(np.float32))
+    return path
+
+
 def phase_files(dev, card: str, smi: str, factory_res: dict, failures: list) -> dict:
     """Phase 17 (module docstring): configs/quality_x8.json's DAG through
     `run_all` from and to .nc files read and written by the port's codec,
@@ -4932,11 +5018,7 @@ def phase_files(dev, card: str, smi: str, factory_res: dict, failures: list) -> 
     try:
         t0 = time.perf_counter()
         scenes = files_scenes(os.path.join(tmp, "scenes"))
-        rng = np.random.default_rng(SEED + 171)
-        k = np.exp(-((np.arange(KSIZE) - KSIZE // 2) ** 2) / 8.0)
-        k = np.outer(k, k)[None] * rng.uniform(0.5, 1.5, (C, KSIZE, KSIZE))
-        k_path = os.path.join(tmp, "kernel_per_band.npy")
-        np.save(k_path, (k / k.sum(axis=(1, 2), keepdims=True)).astype(np.float32))
+        k_path = seeded_kernel_file(os.path.join(tmp, "kernel_per_band.npy"), SEED + 171)
         with open(FILES_CONFIG) as f:
             cfg = json.load(f)
         cfg_kernel = os.path.basename(cfg["kernel_file"])
@@ -5057,6 +5139,100 @@ def phase_files(dev, card: str, smi: str, factory_res: dict, failures: list) -> 
     return res
 
 
+# --------------------------------------------------------------- phase 18
+#: phase 18: the committed h5py-written fixtures and their generator
+FOREIGN_DIR = os.path.join(REPO, "tests", "data", "hdf5_foreign")
+FOREIGN_SCRIPT = os.path.join(REPO, "scripts", "torch_make_hdf5_fixtures.py")
+
+
+def phase_foreign(dev, smi: str, failures: list) -> dict:
+    """Phase 18 (module docstring): files from outside the DAG, read by the
+    port's codec where h5py is absent, and the scene CLI from a layout-v4
+    file and from its layout-v3 rewrite."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from kmsr_tpu_torch import kernels
+    from kmsr_tpu_torch.io.ncio import copy_file_with_groups, read_band_stack
+    from kmsr_tpu_torch.pipeline import degrade_scene, inspect_nc
+
+    t_phase = time.perf_counter()
+    spec = importlib.util.spec_from_file_location("torch_make_hdf5_fixtures", FOREIGN_SCRIPT)
+    fx = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fx)
+    has_h5py = importlib.util.find_spec("h5py") is not None
+    # (a) every fixture against its manifest
+    t0 = time.perf_counter()
+    bad = fx.check_dir(FOREIGN_DIR)
+    manifest_s = time.perf_counter() - t0
+    mismatched = {name: got for name, got in bad.items() if got}
+    if mismatched or not bad:
+        failures.append(f"phase 18: fixtures unlike their manifest: {mismatched or 'none read'}")
+    tmp = tempfile.mkdtemp(prefix="kmsr_chip_foreign_")
+    try:
+        v4 = os.path.join(tmp, "v4", fx.SCENE)
+        v3 = os.path.join(tmp, "v3", fx.SCENE)
+        os.makedirs(os.path.dirname(v4))
+        os.makedirs(os.path.dirname(v3))
+        shutil.copy(os.path.join(FOREIGN_DIR, fx.SCENE), v4)
+        copy_file_with_groups(v4, v3)
+        k_path = seeded_kernel_file(os.path.join(tmp, "kernel_per_band.npy"), SEED + 180)
+        kernel = torch.from_numpy(np.load(k_path)).to(dev)
+        reads, runs, blurred = {}, {}, {}
+        for label, path in (("v4", v4), ("v3", v3)):
+            t0 = time.perf_counter()
+            scene = read_band_stack(path, "geophysical_data")
+            reads[label] = scene.nbytes / 1e6 / (time.perf_counter() - t0)
+            # (b) the CLI, counts 0 before it and read after it
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            rc = degrade_scene.main(["--input", path, "--kernel", k_path, "--output-dir",
+                                     os.path.join(tmp, f"lr_{label}"), "--device", "cuda"])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+            out = os.path.join(tmp, f"lr_{label}", fx.SCENE[:-3] + "_blurred.nc")
+            blurred[label] = read_band_stack(out, "blurred")
+            want, any_valid = scene_reference(scene, kernel, dev)
+            err = check_scene(blurred[label], want, any_valid,
+                              f"phase 18 degrade_scene CLI on the {label} scene", failures)
+            runs[label] = {"rc": rc, "seconds": secs, "launches": launches, **err}
+            if rc not in (0, None) or launches["colsplit_raw"] != 1 \
+                    or sum(launches.values()) != 1:
+                failures.append(f"phase 18: degrade_scene on the {label} scene rc {rc}, "
+                                f"launches {launches} (want colsplit_raw once, nothing else)")
+        same_bits = blurred["v4"].tobytes() == blurred["v3"].tobytes()
+        same_nan = bool(np.array_equal(np.isnan(blurred["v4"]), np.isnan(blurred["v3"])))
+        if not (same_bits and same_nan):
+            failures.append(f"phase 18: _blurred bands of the v4 and v3 scenes differ "
+                            f"(bit-equal {same_bits}, NaN cells identical {same_nan})")
+        # (c) inspect_nc on the v4 scene
+        text = inspect_nc.analyze_file(v4)
+        groups_ok = "group: geophysical_data" in text
+        if not groups_ok:
+            failures.append(f"phase 18: inspect_nc lists no geophysical_data group:\n{text}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res = {"nvidia_smi": smi, "h5py_importable": has_h5py, "fixtures": len(bad),
+           "manifest_mismatches": mismatched, "manifest_seconds": manifest_s,
+           "scene_read_mb_s": reads, "scene_cli": runs, "blurred_bit_equal": same_bits,
+           "nan_cells_identical": same_nan,
+           "nan_cells": int(np.isnan(blurred["v4"]).sum()), "inspect_groups_ok": groups_ok,
+           "seconds": time.perf_counter() - t_phase}
+    log(f"[foreign] {len(bad)} fixtures through the codec (h5py importable here: {has_h5py}): "
+        f"{'every sha256 matches' if not mismatched else 'MISMATCH ' + str(mismatched)} "
+        f"({manifest_s:.2f}s)")
+    log(f"[foreign] degrade_scene CLI on the v4 scene: launches {runs['v4']['launches']}, "
+        f"{runs['v4']['seconds']:.2f}s; on its v3 rewrite: launches {runs['v3']['launches']}, "
+        f"{runs['v3']['seconds']:.2f}s; _blurred bit-equal {same_bits}, "
+        f"{res['nan_cells']} NaN cells identical {same_nan}; scene read "
+        f"v4 {reads['v4']:.1f} / v3 {reads['v3']:.1f} MB/s; inspect_nc group ok {groups_ok}; "
+        f"phase {res['seconds']:.1f}s ({smi})")
+    return res
+
+
 def main() -> int:
     # the package's trainers (phases 9-13) run under torch's deterministic
     # algorithms on the card, whose cuBLAS calls need this before cuBLAS's
@@ -5127,6 +5303,9 @@ def main() -> int:
         log(f"[tools] {'ok' if not failures else 'FAILED'} in {tools_res['seconds']:.1f}s")
         files_res = phase_files(dev, card, smi, factory_res, failures)
         log(f"[files] {'ok' if not failures else 'FAILED'} in {files_res['seconds']:.1f}s")
+        foreign_res = phase_foreign(dev, smi, failures)
+        log(f"[foreign] {'ok' if not failures else 'FAILED'} in "
+            f"{foreign_res['seconds']:.1f}s")
     except Exception:
         traceback.print_exc()
         return 1
@@ -5159,6 +5338,10 @@ def main() -> int:
     files_launches = {name: {"run_all": files_res["launches"].get(name, 0),
                              "degrade_scene_cli": files_res["scene_cli"]["launches"]
                              .get(name, 0)} for name in SOURCES}
+    # phase 18's paths: the scene CLI on the layout-v4 scene and its v3 rewrite
+    foreign_launches = {name: {f"degrade_scene_cli_{lab}": foreign_res["scene_cli"][lab]
+                               ["launches"].get(name, 0) for lab in ("v4", "v3")}
+                        for name in SOURCES}
     main_layout = {"degrade_v3": "nchw", "degrade_v3psn": "presplit",
                    "degrade_v3ps": "presplit_halo", "degrade_v2": "nchw",
                    "degrade_v1": "chwb", "degrade_v4": "nchw",
@@ -5173,6 +5356,7 @@ def main() -> int:
             "parallel_launches": dp_launches[name],
             "tools_launches": tools_launches[name],
             "files_launches": files_launches[name],
+            "foreign_launches": foreign_launches[name],
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "max_rel_err": max(c["max_rel_err"] for c in mine),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
@@ -5201,6 +5385,7 @@ def main() -> int:
     log(json.dumps({"parallel": parallel_res}))
     log(json.dumps({"tools": tools_res}, default=str))
     log(json.dumps({"files": files_res}))
+    log(json.dumps({"foreign": foreign_res}))
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f}s")
     log(smi)
     log(json.dumps({"kernels": records}))

@@ -1,53 +1,93 @@
-"""A reader and writer for the subset of HDF5 that netCDF-4 files use.
+"""A reader and writer for HDF5 files: what h5py reads, and the subset of
+it that netCDF-4 files use for writing.
 
-numpy and `zlib` only. `io.ncio` keeps its grouped-file contract on this
-module, so the port reads and writes `.nc` files where h5py is not
-installed, and the files stay readable by h5py, netCDF-C and the JAX
-package's `ncio` (which writes through h5py).
+numpy and `zlib` only (plus `io.hdf5_filters`). `io.ncio` keeps its
+grouped-file contract on this module, so the port reads and writes `.nc`
+files where h5py is not installed, and the files stay readable by h5py,
+netCDF-C and the JAX package's `ncio` (which reads and writes through h5py).
 
 Reads:
   * superblock v0 (what h5py writes by default) and v2/v3 (netCDF-C 4.x,
     h5py with `libver >= "v108"`); 8-byte offsets and lengths;
-  * object headers v1 (continuations, NIL gaps) and v2 (`OHDR` / `OCHK`,
-    checksums not verified);
+  * object headers v1 (continuations, NIL gaps) and v2 (`OHDR` / `OCHK`);
   * groups as symbol tables (v1 B-tree type 0, `SNOD` nodes, local heap),
     as compact link messages, and as dense links in a fractal heap indexed
-    by a v2 B-tree; attributes compact (messages v1-v3) or dense;
+    by a v2 B-tree of any depth; hard links, soft links (a symbol-table
+    entry of cache type 2, or a link message of type 1; absolute or
+    relative to their group) and external links (type 64: the file is
+    opened read-only, found by its own absolute name, then beside the
+    linking file, then in the working directory), followed as HDF5 follows
+    them (16 in a row at most); a dangling link is listed and raises
+    KeyError naming it;
+  * committed datatypes (`Datatype`: `dtype`, `attrs`, `name`), and shared
+    datatype messages in datasets and attributes that point at them;
+  * attributes compact (messages v1-v3) or dense, huge fractal-heap
+    objects (over the heap's managed size, e.g. a >64 KiB attribute)
+    included, both the directly and the B-tree-indexed kind;
   * datasets contiguous (storage never allocated reads as the fill
-    value), compact, or chunked with layout v3 through a v1 B-tree of any
-    depth, with the deflate, shuffle and fletcher32 filters (a fletcher32
-    checksum is verified, never ignored);
-  * datatypes: integers of 1-8 bytes, IEEE float16/32/64, fixed-length
-    strings, enums (read as their base integer), arrays, compounds, object
-    references, and variable-length sequences and strings (global heap).
+    value), compact, or chunked: layout v3 through a v1 B-tree of any
+    depth, and layout v4 through each of its five chunk indexes (single
+    chunk, implicit, fixed array, paged or not, extensible array with its
+    super blocks and paged data blocks, the unlimited axis unswizzled,
+    and version-2 B-tree records of type 10 and 11), edge chunks left
+    unfiltered where the layout's flag says so;
+  * filters: deflate, shuffle, fletcher32 (a checksum is verified, never
+    ignored), and, decoded in `io.hdf5_filters`, lzf, scaleoffset (integer
+    and float D-scale), szip and nbit; a chunk whose filter mask skipped a
+    filter is read as stored;
+  * datatypes: integers of 1-8 bytes (an nbit field of fewer bits read as
+    HDF5 converts it), IEEE float16/32/64, fixed-length strings, enums
+    (read as their base integer), arrays, compounds, object references,
+    and variable-length sequences and strings (global heap).
+
+Not verified: the Jenkins checksums of v2 object headers, fractal heaps,
+v2 B-trees and the chunk indexes' blocks (fletcher32 on data is).
+
+Still refused, each with `H5FormatError` naming the structure and its
+file offset: filtered fractal heap blocks and shared dataspaces, fill
+values or pipelines (those live in the shared object header message
+table; h5py cannot write either, so no file here holds one); a filter
+this module has no decoder for, where a chunk needs it; virtual
+datasets; datatypes of class time, bitfield or opaque; non-IEEE floats.
 
 A basic slice (`ds[lo:hi]`) decompresses only the chunks it touches.
-A structure outside this subset raises `H5FormatError` naming it and its
-file offset; the layout-v4 chunk indexes (single chunk, implicit, fixed
-array, extensible array, v2 B-tree) raise `NotImplementedError`.
 
 Writes superblock v0, v1 object headers sized to their messages, symbol-
-table groups with their entries sorted by name, chunked datasets with
-h5py's guessed chunk shape through a v1 B-tree of as many levels as the
-chunk grid needs (so a port-written file decompresses the same chunks for
-a row slice as a JAX-written one), dimension scales as HDF5's H5DS API
-lays them out (`CLASS`, `NAME`, `REFERENCE_LIST`, `DIMENSION_LIST`), and
-attribute types as h5py maps them (`str` and `bytes` -> fixed-length bytes,
-`int` -> int64, `float` -> float64; numpy scalars and arrays keep their
-dtype). A file opened with "w" or "a" is written once, on `close`, to a
-temporary file in the same directory and moved into place with
-`os.replace`; "a" loads the existing tree with its chunks still
-compressed, and every object reference is rewritten to its target's new
-address (as is every reference in a file copied by `copy_tree`).
+table groups with their entries sorted by name (soft links as entries of
+cache type 2; a group holding an external link as link messages),
+chunked datasets with h5py's guessed chunk shape through a v1 B-tree of
+as many levels as the chunk grid needs (so a port-written file
+decompresses the same chunks for a row slice as a JAX-written one),
+dimension scales as HDF5's H5DS API lays them out (`CLASS`, `NAME`,
+`REFERENCE_LIST`, `DIMENSION_LIST`), and attribute types as h5py maps them
+(`str` and `bytes` -> fixed-length bytes, `int` -> int64, `float` ->
+float64; numpy scalars and arrays keep their dtype). A file opened with
+"w" or "a" is written once, on `close`, to a temporary file in the same
+directory and moved into place with `os.replace`; "a" loads the existing
+tree with its chunks still compressed, and every object reference is
+rewritten to its target's new address (as is every reference in a file
+copied by `copy_tree`). A loaded layout-v4 dataset is written as layout v3
+with each chunk's bytes, size and filter mask as read (an unfiltered edge
+chunk gets the mask of every filter), its dataspace message raw (so
+`maxshape` survives) and its filters as they were; a committed datatype is
+written as one and shared messages point at its new address; an object
+with an attribute too large for a message (over 64 KiB) keeps its
+attributes in dense storage (a v2 object header, one fractal-heap block,
+a one-leaf name index). New data is written with gzip 4 + shuffle or no
+filter only.
 
 The surface is the small part of h5py's that the port uses (`io.ncio`
 lists the call sites): `File(path, mode)` with mode "r", "w" or "a";
-`Group`: `keys`, `items`, `__iter__`, `__contains__`, `__getitem__`,
-`attrs`, `create_group`, `create_dataset`, `visititems`; `Dataset`:
-`shape`, `dtype`, `size`, `attrs`, `__getitem__`, `__array__`; `attrs`
-with `get`, `items`, `keys`, `__getitem__`, `__contains__`, `__setitem__`
-and `__delitem__`; plus `Dataset.make_scale` / `Dataset.attach_scale` for
-netCDF dimensions (H5DS's calls) and `copy_tree` for copies.
+`Group`: `keys`, `items`, `get`, `__iter__`, `__contains__`,
+`__getitem__`, `attrs`, `create_group`, `create_dataset`, `visititems`;
+`Dataset`: `shape`, `maxshape`, `chunks`, `dtype`, `size`, `attrs`,
+`__getitem__`, `__array__`; `Datatype`: `dtype`, `attrs`; `attrs` with
+`get`, `items`, `keys`, `__getitem__`, `__contains__`, `__setitem__` and
+`__delitem__`; `SoftLink` / `ExternalLink` (h5py's `get(name,
+getlink=True)`); plus `Dataset.make_scale` / `Dataset.attach_scale` for
+netCDF dimensions (H5DS's calls) and `copy_tree` for copies. An object
+reached through a soft link keeps the name of its hard link (h5py names it
+by the path it was opened through).
 """
 from __future__ import annotations
 
@@ -59,9 +99,11 @@ from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from . import hdf5_filters as _filters
+
 __all__ = [
-    "File", "Group", "Dataset", "AttributeManager", "Reference",
-    "H5FormatError", "copy_tree", "guess_chunk",
+    "File", "Group", "Dataset", "Datatype", "AttributeManager", "Reference",
+    "SoftLink", "ExternalLink", "H5FormatError", "copy_tree", "guess_chunk",
 ]
 
 SIGNATURE = b"\x89HDF\r\n\x1a\n"
@@ -83,9 +125,10 @@ _IGNORED = {
 }
 
 # filters
-_DEFLATE, _SHUFFLE, _FLETCHER32 = 1, 2, 3
+_DEFLATE, _SHUFFLE, _FLETCHER32, _SZIP, _NBIT, _SCALEOFFSET, _LZF = 1, 2, 3, 4, 5, 6, 32000
 _FILTER_NAMES = {1: "deflate", 2: "shuffle", 3: "fletcher32", 4: "szip",
-                 5: "nbit", 6: "scaleoffset"}
+                 5: "nbit", 6: "scaleoffset", 32000: "lzf"}
+_MAX_LINK_DEPTH = 16    # HDF5's limit on soft / external links followed in one lookup
 
 _CHUNK_K = 32           # v1 B-tree K of chunk indexes (superblock v0 default)
 _GROUP_NODE_K = 16      # v1 B-tree K of group indexes
@@ -166,12 +209,29 @@ class _Type:
 
     def __init__(self, cls: int, size: int, raw: np.dtype, *, members=None,
                  base=None, is_str=False, dims=None,
-                 encoded: bytes = b""):
+                 encoded: bytes = b"", field=None):
         self.cls, self.size, self.raw = cls, size, np.dtype(raw)
         self.members = members or []   # compound: [(name, offset, _Type)]
         self.base = base               # vlen / array / enum base type
         self.is_str, self.dims = is_str, dims
         self.encoded = encoded
+        # an integer narrower than its bytes: (bit offset, precision)
+        self.field = field
+        # the Datatype object this type was committed as, if any
+        self.committed: Optional["Datatype"] = None
+
+    def from_field(self, arr: np.ndarray) -> np.ndarray:
+        """Raw integers -> their values, as HDF5 converts an integer of
+        `precision` bits at `offset` to its full-width type."""
+        if self.field is None:
+            return arr
+        off, prec = self.field
+        u = arr.view(arr.dtype.str.replace("i", "u")).astype(np.uint64)
+        v = (u >> np.uint64(off)) & np.uint64((1 << prec) - 1)
+        if self.raw.kind == "i":
+            sign = np.uint64(1 << (prec - 1))
+            v = (v ^ sign) - sign   # wraps: sign extension in uint64
+        return (v.view(np.int64) if self.raw.kind == "i" else v).astype(arr.dtype)
 
     @property
     def has_refs(self) -> bool:
@@ -209,10 +269,11 @@ def _decode_type(b, off: int) -> Tuple[_Type, int]:
         order = ">" if bits & 1 else "<"
         boff, prec = struct.unpack_from("<HH", b, p)
         p += 4
-        if size not in (1, 2, 4, 8) or boff != 0 or prec != 8 * size:
+        if size not in (1, 2, 4, 8) or prec == 0 or boff + prec > 8 * size:
             raise H5FormatError("integer datatype", start,
                                 f"size {size} offset {boff} precision {prec}")
-        t = _Type(0, size, np.dtype(f"{order}{'i' if bits & 8 else 'u'}{size}"))
+        t = _Type(0, size, np.dtype(f"{order}{'i' if bits & 8 else 'u'}{size}"),
+                  field=None if (boff, prec) == (0, 8 * size) else (boff, prec))
     elif cls == 1:  # floating point
         if bits & 0x40:
             raise H5FormatError("float datatype", start, "VAX byte order")
@@ -356,6 +417,30 @@ def _decode_space(b, off: int) -> Optional[tuple]:
     else:
         raise H5FormatError("dataspace", off, f"version {ver}")
     return tuple(_u(b, p + 8 * i, 8) for i in range(rank))
+
+
+def _decode_maxshape(b, off: int) -> Optional[tuple]:
+    """Max dimensions of a dataspace message (None where there are none
+    stored, i.e. equal to the shape); an unlimited dimension is None."""
+    ver, rank, flags = b[off], b[off + 1], b[off + 2]
+    if not flags & 1 or (ver == 2 and b[off + 3] == 2):
+        return None
+    p = (off + 8 if ver == 1 else off + 4) + 8 * rank
+    return tuple(None if _u(b, p + 8 * i, 8) == UNDEF else _u(b, p + 8 * i, 8)
+                 for i in range(rank))
+
+
+def _shared_address(b, where: int, what: str) -> int:
+    """The object header address a shared message names (a committed
+    datatype); a message in the shared-message heap is refused."""
+    ver = b[0]
+    if ver == 1:
+        return _u(b, 8, 8)
+    if ver in (2, 3) and (ver == 2 or b[1] == 2):
+        return _u(b, 2, 8)
+    raise H5FormatError(f"shared {what} message", where,
+                        f"version {ver} type {b[1]} (the shared object header message "
+                        "table is not supported)")
 
 
 def _encode_space(shape: tuple) -> bytes:
@@ -545,6 +630,8 @@ class _FractalHeap:
         self.id_len, self.filter_len = _u(h, 5, 2), _u(h, 7, 2)
         self.flags = h[9]
         max_man = _u(h, 10, 4)
+        self.huge_btree = _u(h, 22, 8)
+        self._huge: Optional[Dict[int, Tuple[int, int]]] = None
         p = 14 + 8 + 8 + 8 + 8 + 8 + 8 + 8 + 8 + 8 + 8 + 8 + 8
         self.width = _u(h, p, 2)
         self.start_block, self.max_direct = _u(h, p + 2, 8), _u(h, p + 10, 8)
@@ -603,8 +690,10 @@ class _FractalHeap:
                 return bytes(heap_id[1:1 + n])
             n = (((heap_id[0] & 0x0F) << 8) | heap_id[1]) + 1
             return bytes(heap_id[2:2 + n])
+        if kind == 1:
+            return self._huge_object(heap_id)
         if kind != 0:
-            raise H5FormatError("fractal heap", self.addr, "huge objects not supported")
+            raise H5FormatError("fractal heap", self.addr, f"heap ID of type {kind}")
         off = _u(heap_id, 1, self.off_size)
         length = _u(heap_id, 1 + self.off_size, self.len_size)
         if self._blocks is None:
@@ -613,6 +702,23 @@ class _FractalHeap:
             if boff <= off < boff + bsize:
                 return self.src.read(baddr + off - boff, length, "fractal heap object")
         raise H5FormatError("fractal heap", self.addr, f"no block holds offset {off}")
+
+    def _huge_object(self, heap_id: bytes) -> bytes:
+        """A huge object: stored on its own, its address and length in the
+        heap ID itself where the ID is long enough (H5HFhuge.c), else in
+        the heap's huge-object v2 B-tree under the ID's number."""
+        if self.id_len - 1 >= 16:   # directly accessed (record type 3)
+            addr, length = _u(heap_id, 1, 8), _u(heap_id, 9, 8)
+        else:                       # indirectly accessed (record type 1)
+            if self._huge is None:
+                self._huge = {}
+                for rec in _btree_v2_records(self.src, self.huge_btree):
+                    self._huge[_u(rec, 16, 8)] = (_u(rec, 0, 8), _u(rec, 8, 8))
+            key = _u(heap_id, 1, min(self.id_len - 1, 8))
+            if key not in self._huge:
+                raise H5FormatError("fractal heap", self.addr, f"no huge object {key}")
+            addr, length = self._huge[key]
+        return self.src.read(addr, length, "huge fractal heap object")
 
 
 def _btree_v2_records(src: _Source, addr: int) -> List[bytes]:
@@ -660,8 +766,33 @@ def _btree_v2_records(src: _Source, addr: int) -> List[bytes]:
     return out
 
 
+class SoftLink:
+    """A soft link: a path, absolute or relative to the group holding it."""
+
+    __slots__ = ("path",)
+
+    def __init__(self, path: str):
+        self.path = path
+
+    def __repr__(self) -> str:
+        return f"<SoftLink to {self.path!r}>"
+
+
+class ExternalLink:
+    """An external link: an object path inside another HDF5 file."""
+
+    __slots__ = ("filename", "path")
+
+    def __init__(self, filename: str, path: str):
+        self.filename, self.path = filename, path
+
+    def __repr__(self) -> str:
+        return f"<ExternalLink to {self.path!r} in {self.filename!r}>"
+
+
 def _parse_link(b, off: int = 0):
-    """(name, address or None, creation order) of a link message."""
+    """(name, target, creation order) of a link message; the target is an
+    object header address, a SoftLink or an ExternalLink."""
     if b[off] != 1:
         raise H5FormatError("link message", off, f"version {b[off]}")
     flags = b[off + 1]
@@ -681,11 +812,21 @@ def _parse_link(b, off: int = 0):
     p += nsz
     name = bytes(b[p:p + nlen]).decode("utf-8")
     p += nlen
-    return name, (_u(b, p, 8) if ltype == 0 else None), corder, ltype
+    if ltype == 0:
+        return name, _u(b, p, 8), corder
+    vlen = _u(b, p, 2)
+    value = bytes(b[p + 2:p + 2 + vlen])
+    if ltype == 1:
+        return name, SoftLink(value.decode("utf-8")), corder
+    if ltype == 64:
+        fname, path = value[1:].split(b"\0")[:2]
+        return name, ExternalLink(fname.decode("utf-8"), path.decode("utf-8")), corder
+    raise H5FormatError("link message", off, f"link {name!r} of user-defined type {ltype}")
 
 
-def _parse_attribute(b, where: int):
-    """(name, type, shape, raw data bytes, creation order) of an attribute."""
+def _parse_attribute(b, where: int, file: "File"):
+    """(name, type, shape, raw data bytes) of an attribute; a shared
+    (committed) datatype is read from its object header in `file`."""
     ver = b[0]
     if ver == 1:
         nsz, tsz, ssz = struct.unpack_from("<HHH", b, 2)
@@ -697,13 +838,18 @@ def _parse_attribute(b, where: int):
         shape = _decode_space(b, p)
         p += _align8(ssz)
     elif ver in (2, 3):
-        if b[1] & 0x3:
-            raise H5FormatError("attribute message", where, "shared datatype or dataspace")
+        if b[1] & 0x2:
+            raise H5FormatError("attribute message", where,
+                                "shared dataspace (the shared object header message "
+                                "table is not supported)")
         nsz, tsz, ssz = struct.unpack_from("<HHH", b, 2)
         p = 8 if ver == 2 else 9
         name = bytes(b[p:p + nsz]).split(b"\0", 1)[0].decode("utf-8")
         p += nsz
-        t, _ = _decode_type(b, p)
+        if b[1] & 0x1:
+            t = file._committed_type(_shared_address(b[p:p + tsz], where, "datatype"))
+        else:
+            t, _ = _decode_type(b, p)
         p += tsz
         shape = _decode_space(b, p)
         p += ssz
@@ -785,28 +931,47 @@ class _Pipeline:
             p += 4 * ncd
             if ver == 1 and ncd % 2:
                 p += 4
-            if fid not in (_DEFLATE, _SHUFFLE, _FLETCHER32):
-                raise H5FormatError("filter pipeline", where,
-                                    f"filter {fid} ({_FILTER_NAMES.get(fid, 'unknown')})")
+            # an unknown filter is refused only where a chunk needs it: h5py
+            # stores a chunk an optional filter could not shrink unfiltered
             filters.append((fid, flags, cd))
         return cls(filters, bytes(b))
 
-    def decode_chunk(self, buf: bytes, mask: int, itemsize: int, where: int) -> bytes:
+    def decode_chunk(self, buf: bytes, mask: int, itemsize: int, where: int,
+                     nbytes: Optional[int] = None) -> bytes:
+        """Undo the filters not masked out, last first; `nbytes` is the
+        chunk's decoded size."""
         for i in range(len(self.filters) - 1, -1, -1):
             if mask & (1 << i):
                 continue
             fid, _, cd = self.filters[i]
-            if fid == _DEFLATE:
-                buf = zlib.decompress(buf)
-            elif fid == _SHUFFLE:
-                buf = _unshuffle(buf, cd[0] if cd else itemsize)
-            else:
-                stored = _u(buf, len(buf) - 4, 4)
-                buf = buf[:-4]
-                f = _fletcher32(buf)
-                swapped = int.from_bytes(f.to_bytes(4, "little"), "big")
-                if stored not in (f, swapped):
-                    raise H5FormatError("chunk", where, "fletcher32 checksum mismatch")
+            if fid not in _FILTER_NAMES:
+                raise H5FormatError("chunk", where, f"filter {fid} (unknown; h5py without "
+                                    "its plugin cannot decode it either)")
+            try:
+                if fid == _DEFLATE:
+                    buf = zlib.decompress(buf)
+                elif fid == _SHUFFLE:
+                    buf = _unshuffle(buf, cd[0] if cd else itemsize)
+                elif fid == _FLETCHER32:
+                    stored = _u(buf, len(buf) - 4, 4)
+                    buf = buf[:-4]
+                    f = _fletcher32(buf)
+                    swapped = int.from_bytes(f.to_bytes(4, "little"), "big")
+                    if stored not in (f, swapped):
+                        raise H5FormatError("chunk", where, "fletcher32 checksum mismatch")
+                elif fid == _LZF:
+                    buf = _filters.lzf_decode(bytes(buf), cd[2] if len(cd) > 2 and cd[2]
+                                              else nbytes or 1 << 62)
+                elif fid == _SCALEOFFSET:
+                    buf = _filters.scaleoffset_decode(bytes(buf), cd)
+                elif fid == _SZIP:
+                    buf = _filters.szip_decode(bytes(buf), cd)
+                else:
+                    buf = _filters.nbit_decode(bytes(buf), cd, nbytes)
+            except H5FormatError:
+                raise
+            except (ValueError, zlib.error) as e:
+                raise H5FormatError("chunk", where, f"{_FILTER_NAMES[fid]} filter: {e}") from e
         return buf
 
     @staticmethod
@@ -865,6 +1030,7 @@ class _Attr:
 def _to_user(arr: np.ndarray, t: _Type, src: Optional[_Source]):
     """Raw on-disk values -> what h5py returns (objects for refs/vlen)."""
     if not t.has_refs:
+        arr = t.from_field(arr)
         return arr.astype(t.raw.newbyteorder("="), copy=True) if t.raw.byteorder == ">" else arr.copy()
     if t.cls == 7:
         out = np.empty(arr.shape, object)
@@ -1007,7 +1173,7 @@ class _Node:
         found = []  # (creation order or None, position, name, _Attr)
         for i, m in enumerate(self._messages()):
             if m.type == _ATTRIBUTE:
-                name, t, shape, raw = _parse_attribute(m.data, m.addr)
+                name, t, shape, raw = _parse_attribute(m.data, m.addr, self.file)
                 found.append((m.corder, i, name, _Attr(t, shape, raw, file=self.file)))
             elif m.type == _ATTRINFO:
                 b = m.data
@@ -1019,7 +1185,7 @@ class _Node:
                 heap = src.fheap(heap_addr)
                 for j, rec in enumerate(_btree_v2_records(src, name_bt)):
                     data = heap.get(rec[:8])
-                    name, t, shape, raw = _parse_attribute(data, heap_addr)
+                    name, t, shape, raw = _parse_attribute(data, heap_addr, self.file)
                     corder = _u(rec, 9, 4) if flags & 1 else None
                     found.append((corder, len(self._messages()) + j, name,
                                   _Attr(t, shape, raw, file=self.file)))
@@ -1035,35 +1201,36 @@ class _Node:
 
 
 class Group(_Node):
-    """A group: its links in h5py's iteration order."""
+    """A group: its links in h5py's iteration order. A link is to an
+    object of this file, or a SoftLink or ExternalLink followed on lookup."""
 
     def __init__(self, file: "File", name: str, addr: Optional[int]):
         super().__init__(file, name, addr)
-        self._link_dict: Optional[Dict[str, _Node]] = None if addr is not None else {}
+        self._link_dict: Optional[Dict[str, object]] = None if addr is not None else {}
 
-    def _links(self) -> Dict[str, "_Node"]:
+    def _links(self) -> Dict[str, object]:
+        """name -> object, SoftLink or ExternalLink (links not followed)."""
         if self._link_dict is None:
             self._link_dict = {}
-            for lname, addr in self._read_links():
-                self._link_dict[lname] = self.file._node_at(addr, self._child_path(lname))
+            for lname, target in self._read_links():
+                if isinstance(target, int):
+                    target = self.file._node_at(target, self._child_path(lname))
+                self._link_dict[lname] = target
         return self._link_dict
 
     def _child_path(self, name: str) -> str:
         return f"/{name}" if self.name == "/" else f"{self.name}/{name}"
 
-    def _read_links(self) -> List[Tuple[str, int]]:
+    def _read_links(self) -> List[Tuple[str, object]]:
         src = self.file._src
-        found = []  # (creation order, name, address)
+        found = []  # (creation order, name, target)
         for m in self._messages():
             if m.type == _STAB:
                 btree, heap = struct.unpack_from("<QQ", m.data)
                 found += [(None, n, a) for n, a in _symbol_table(src, btree, heap)]
             elif m.type == _LINK:
-                name, addr, corder, ltype = _parse_link(m.data)
-                if addr is None:
-                    raise H5FormatError("link message", m.addr,
-                                        f"link {name!r} of type {ltype} (only hard links)")
-                found.append((corder, name, addr))
+                name, target, corder = _parse_link(m.data)
+                found.append((corder, name, target))
             elif m.type == _LINKINFO:
                 b = m.data
                 flags = b[1]
@@ -1073,16 +1240,39 @@ class Group(_Node):
                     continue
                 heap = src.fheap(heap_addr)
                 for rec in _btree_v2_records(src, name_bt):
-                    name, addr, corder, ltype = _parse_link(heap.get(rec[4:4 + heap.id_len]))
-                    if addr is None:
-                        raise H5FormatError("fractal heap", heap_addr,
-                                            f"link {name!r} of type {ltype} (only hard links)")
-                    found.append((corder, name, addr))
+                    name, target, corder = _parse_link(heap.get(rec[4:4 + heap.id_len]))
+                    found.append((corder, name, target))
         if found and all(f[0] is not None for f in found):
             found.sort(key=lambda f: f[0])
         else:
             found.sort(key=lambda f: f[1].encode("utf-8"))
         return [(n, a) for _, n, a in found]
+
+    def _follow(self, name: str, depth: int = 0):
+        """The object `name` links to, soft and external links followed
+        as HDF5 follows them; KeyError for a missing or dangling link."""
+        target = self._links()[name]
+        if isinstance(target, _Node):
+            return target
+        if depth >= _MAX_LINK_DEPTH:
+            raise KeyError(f"link {self._child_path(name)!r}: more than "
+                           f"{_MAX_LINK_DEPTH} soft or external links in a row")
+        try:
+            if isinstance(target, SoftLink):
+                base = self.file if target.path.startswith("/") else self
+                return base._walk(target.path, depth + 1)
+            return self.file._external(target)._walk(target.path, depth + 1)
+        except KeyError as e:
+            raise KeyError(f"link {self._child_path(name)!r} in {self.file.path} "
+                           f"({target!r}) does not resolve: {e.args[0] if e.args else e}") from None
+
+    def _walk(self, path: str, depth: int = 0):
+        node: _Node = self.file if path.startswith("/") else self
+        for part in [p for p in path.split("/") if p and p != "."]:
+            if not isinstance(node, Group) or part not in node._links():
+                raise KeyError(f"{path!r} not found in {self.file.path}:{self.name}")
+            node = node._follow(part, depth)
+        return node
 
     # -- h5py surface ---------------------------------------------------------
     def keys(self):
@@ -1091,8 +1281,20 @@ class Group(_Node):
     def __iter__(self) -> Iterator[str]:
         return iter(list(self._links()))
 
+    def get(self, name: str, default=None, getlink: bool = False):
+        """h5py's `get`: the object (default where the name or its link's
+        target is missing), or with getlink=True the link itself (a
+        SoftLink, an ExternalLink, or the object of a hard link)."""
+        if getlink:
+            return self._links().get(name, default)
+        try:
+            return self[name]
+        except KeyError:
+            return default
+
     def items(self):
-        return list(self._links().items())
+        """(name, object) in link order; None for a dangling link, as h5py."""
+        return [(k, self.get(k)) for k in list(self._links())]
 
     def __contains__(self, path: str) -> bool:
         try:
@@ -1102,14 +1304,7 @@ class Group(_Node):
         return True
 
     def __getitem__(self, path: str):
-        node: _Node = self
-        if path.startswith("/"):
-            node = self.file
-        for part in [p for p in path.split("/") if p]:
-            if not isinstance(node, Group) or part not in node._links():
-                raise KeyError(f"{path!r} not found in {self.name!r}")
-            node = node._links()[part]
-        return node
+        return self._walk(path)
 
     def create_group(self, name: str) -> "Group":
         self.file._check_writable()
@@ -1165,9 +1360,15 @@ class Group(_Node):
 
     def visititems(self, func):
         """Call func(path relative to this group, object) on every object
-        below it, as h5py does (stop when func returns non-None)."""
+        below it, as h5py (H5Ovisit) does: through hard links only, each
+        object once; stop when func returns non-None."""
+        seen = {id(self)}
+
         def walk(grp: Group, prefix: str):
-            for k, v in grp.items():
+            for k, v in grp._links().items():
+                if not isinstance(v, _Node) or id(v) in seen:
+                    continue
+                seen.add(id(v))
                 path = f"{prefix}{k}"
                 r = func(path, v)
                 if r is not None:
@@ -1180,8 +1381,10 @@ class Group(_Node):
         return walk(self, "")
 
 
-def _symbol_table(src: _Source, btree: int, heap: int) -> List[Tuple[str, int]]:
-    """(name, object header address) of every entry of a symbol table."""
+def _symbol_table(src: _Source, btree: int, heap: int) -> List[Tuple[str, object]]:
+    """(name, object header address or SoftLink) of every entry of a
+    symbol table (an entry of cache type 2 is a soft link, its value in
+    the local heap at the offset its scratch pad holds)."""
     h = src.read(heap, 32, "local heap")
     if h[:4] != b"HEAP":
         raise H5FormatError("local heap", heap, "no HEAP signature")
@@ -1196,9 +1399,13 @@ def _symbol_table(src: _Source, btree: int, heap: int) -> List[Tuple[str, int]]:
         n = _u(b, 6, 2)
         ents = src.read(snod + 8, 40 * n, "symbol table node")
         for i in range(n):
-            noff, oaddr = struct.unpack_from("<QQ", ents, 40 * i)
-            end = names.index(b"\0", noff)
-            out.append((names[noff:end].decode("utf-8"), oaddr))
+            noff, oaddr, cache = struct.unpack_from("<QQI", ents, 40 * i)
+            name = names[noff:names.index(b"\0", noff)].decode("utf-8")
+            if cache == 2:
+                voff = _u(ents, 40 * i + 24, 4)
+                out.append((name, SoftLink(names[voff:names.index(b"\0", voff)].decode("utf-8"))))
+            else:
+                out.append((name, oaddr))
 
     src.btree_v1(btree, 0, 8, leaf)
     return out
@@ -1214,6 +1421,8 @@ class Dataset(_Node):
         self._chunk_index: Optional[Dict[tuple, Tuple[int, int, int]]] = None
         self._raw_msgs: List[Tuple[int, bytes]] = []  # fill value as read
         self._space_raw: Optional[bytes] = None
+        self._maxshape: Optional[tuple] = None
+        self._v4: Optional[tuple] = None       # layout v4: (index, flags, params, address)
         self._rsrc: Optional[_Source] = None   # where the stored data lives
 
     # -- metadata --------------------------------------------------------------
@@ -1235,11 +1444,21 @@ class Dataset(_Node):
         self._layout = None
         for m in self._messages():
             b = m.data
+            if m.flags & 0x2 and m.type != _DATATYPE:
+                raise H5FormatError("object header message", m.addr,
+                                    f"shared message of type {m.type:#x} in {self.name!r} "
+                                    "(shared dataspaces, fill values and pipelines live in "
+                                    "the shared object header message table, not supported)")
             if m.type == _DATASPACE:
                 self._shape = _decode_space(b, 0) or ()
+                self._maxshape = _decode_maxshape(b, 0)
                 self._space_raw = bytes(b)
             elif m.type == _DATATYPE:
-                self._type, _ = _decode_type(b, 0)
+                if m.flags & 0x2:
+                    self._type = self.file._committed_type(
+                        _shared_address(b, m.addr, "datatype"))
+                else:
+                    self._type, _ = _decode_type(b, 0)
             elif m.type == _PIPELINE:
                 self._pipeline = _Pipeline.decode(b, m.addr)
             elif m.type in (_FILL, _FILL_OLD):
@@ -1292,13 +1511,28 @@ class Dataset(_Node):
             dims = struct.unpack_from(f"<{nd}I", b, 11)
             self._chunks = tuple(dims[:-1])
         elif cls == 2:
-            index = {1: "single chunk", 2: "implicit", 3: "fixed array",
-                     4: "extensible array", 5: "version 2 B-tree"}
-            nd, enc = b[3], b[4]
-            kind = b[5 + nd * enc]
-            raise NotImplementedError(
-                f"HDF5 data layout message at offset {where:#x} ({self.name!r}): "
-                f"layout version 4 chunk index '{index.get(kind, kind)}' is not supported")
+            # version 4: flags, rank + 1 dimensions of `enc` bytes (the last
+            # the element size), the index type, its parameters, its address
+            flags, nd, enc = b[2], b[3], b[4]
+            dims = [_u(b, 5 + i * enc, enc) for i in range(nd)]
+            p = 5 + nd * enc
+            kind = b[p]
+            p += 1
+            params: tuple = ()
+            if kind == 1 and flags & 0x2:     # single chunk, filtered
+                params = (_u(b, p, 8), _u(b, p + 8, 4))
+                p += 12
+            elif kind == 3:                   # fixed array: page bits
+                p += 1
+            elif kind == 4:                   # extensible array: 5 parameters
+                p += 5
+            elif kind == 5:                   # v2 B-tree: node size, split, merge
+                p += 6
+            elif kind not in (1, 2):
+                raise H5FormatError("data layout message", where, f"chunk index type {kind}")
+            self._layout = "chunked"
+            self._chunks = tuple(dims[:-1])
+            self._v4 = (kind, flags, params, _u(b, p, 8))
         else:
             raise H5FormatError("data layout message", where,
                                 f"class {cls} (virtual datasets are not supported)")
@@ -1317,6 +1551,17 @@ class Dataset(_Node):
     @property
     def size(self) -> int:
         return int(np.prod(self.shape, dtype=np.int64))
+
+    @property
+    def maxshape(self) -> tuple:
+        """h5py's maxshape: None for an unlimited dimension."""
+        self._load()
+        return self._shape if self._maxshape is None else self._maxshape
+
+    @property
+    def chunks(self) -> Optional[tuple]:
+        self._load()
+        return self._chunks
 
     # -- reading --------------------------------------------------------------
     def __array__(self, dtype=None, copy=None):
@@ -1371,17 +1616,19 @@ class Dataset(_Node):
         out_shape = tuple(s.stop - s.start for s in box)
         n = int(np.prod(self._shape, dtype=np.int64))
         src = self._rsrc
+        fresh = True   # an array of its own (a view of a buffer is copied)
         if self._layout == "compact":
-            arr = np.frombuffer(self._compact, t.raw, n).reshape(self._shape)[box]
+            arr, fresh = np.frombuffer(self._compact, t.raw, n).reshape(self._shape)[box], False
         elif self._layout == "contiguous":
             addr, size = self._contig
             if addr == UNDEF:
                 arr = self._fill_array(out_shape)
             else:
-                arr = self._read_contiguous(src, addr, box)
+                arr, fresh = self._read_contiguous(src, addr, box), False
         else:
             arr = self._read_chunked(src, box, out_shape)
-        return np.array(arr, dtype=self.dtype, copy=True)
+        arr = t.from_field(arr)
+        return np.asarray(arr, dtype=self.dtype) if fresh else np.array(arr, dtype=self.dtype)
 
     def _read_contiguous(self, src: _Source, addr: int, box) -> np.ndarray:
         t, shape = self._type, self._shape
@@ -1394,6 +1641,10 @@ class Dataset(_Node):
         return arr[(slice(None),) + box[1:]]
 
     def _index(self) -> Dict[tuple, Tuple[int, int, int]]:
+        """{chunk position: (address, stored bytes, filter mask)} of every
+        allocated chunk."""
+        if self._chunk_index is None and self._v4 is not None:
+            self._chunk_index = _v4_index(self)
         if self._chunk_index is None:
             rank = len(self._shape)
             key_size = 8 + 8 * (rank + 1)
@@ -1425,7 +1676,7 @@ class Dataset(_Node):
             addr, nbytes, mask = index[pos]
             buf = src.read(addr, nbytes, "chunk")
             if self._pipeline is not None:
-                buf = self._pipeline.decode_chunk(buf, mask, t.size, addr)
+                buf = self._pipeline.decode_chunk(buf, mask, t.size, addr, csize)
             if len(buf) != csize:
                 raise H5FormatError("chunk", addr, f"{len(buf)} bytes, expected {csize}")
             return buf
@@ -1481,6 +1732,30 @@ class Dataset(_Node):
         sd["REFERENCE_LIST"] = _Attr(_REFLIST_TYPE, (len(rows),), None, val, self.file)
 
 
+class Datatype(_Node):
+    """A committed (named) datatype: an object header holding a datatype
+    message and no dataspace or layout."""
+
+    def __init__(self, file: "File", name: Optional[str], addr: Optional[int]):
+        super().__init__(file, name, addr)
+        self._type: Optional[_Type] = None
+
+    def _load_type(self) -> _Type:
+        if self._type is None:
+            m = next((m for m in self._messages() if m.type == _DATATYPE), None)
+            if m is None:
+                raise H5FormatError("object header", self._addr or 0,
+                                    f"{self.name!r} holds no datatype message")
+            self._type, _ = _decode_type(m.data, 0)
+            self._type.committed = self
+        return self._type
+
+    @property
+    def dtype(self) -> np.dtype:
+        t = self._load_type()
+        return t.numpy_dtype().newbyteorder("=") if t.cls in (0, 1) else t.numpy_dtype()
+
+
 def _resolve(ref: Reference, file: "File") -> Reference:
     """`ref` with its target object looked up in `file` (a null reference
     where there is no object at its address)."""
@@ -1490,6 +1765,215 @@ def _resolve(ref: Reference, file: "File") -> Reference:
         return Reference(target=file._deref(ref))
     except KeyError:
         return Reference()
+
+
+# ---------------------------------------------------------------------------
+# Layout v4 chunk indexes (HDF5 1.10+: H5Dsingle, H5Dnone, H5Dfarray,
+# H5Dearray, H5Dbt2). Each gives {chunk position: (address, stored bytes,
+# filter mask)}, as the v1 B-tree of layout v3 does.
+# ---------------------------------------------------------------------------
+
+_INDEX_NAMES = {1: "single chunk", 2: "implicit", 3: "fixed array",
+                4: "extensible array", 5: "version 2 B-tree"}
+
+
+def _chunk_size_len(chunk_bytes: int) -> int:
+    """Bytes of a filtered chunk's size in an index entry (H5D_*_idx)."""
+    return min(8, 1 + ((chunk_bytes.bit_length() - 1) + 8) // 8)
+
+
+def _grid(shape, chunks) -> tuple:
+    return tuple(-(-n // c) for n, c in zip(shape, chunks))
+
+
+def _v4_index(ds: "Dataset") -> Dict[tuple, Tuple[int, int, int]]:
+    kind, flags, params, addr = ds._v4
+    src, chunks, shape = ds._rsrc, ds._chunks, ds._shape
+    csize = int(np.prod(chunks, dtype=np.int64)) * ds._type.size
+    maxshape = ds._maxshape or shape
+    grid = _grid(shape, chunks)
+    # the index's linear order runs over the grid of the maximum dimensions
+    max_grid = [None if m is None else -(-m // c) for m, c in zip(maxshape, chunks)]
+    filtered = ds._pipeline is not None
+    where = f"{_INDEX_NAMES[kind]} chunk index of {ds.name!r}"
+    entries: Dict[tuple, Tuple[int, int, int]] = {}
+    if addr == UNDEF:
+        return entries
+    if kind == 1:
+        nbytes, mask = params if params else (csize, 0)
+        entries[(0,) * len(shape)] = (addr, nbytes, mask)
+    elif kind == 2:
+        for pos in np.ndindex(*grid):
+            entries[pos] = (addr + _linear(pos, max_grid) * csize, csize, 0)
+    elif kind in (3, 4):
+        slen = _chunk_size_len(csize)
+        if kind == 3:
+            raw = _fixed_array(src, addr, where)
+            order = list(range(len(shape)))
+        else:
+            raw = _extensible_array(src, addr, where)
+            unlim = next((d for d, m in enumerate(max_grid) if m is None), 0)
+            order = [unlim] + [d for d in range(len(shape)) if d != unlim]
+        sizes = [max_grid[d] for d in order]
+        for i, elem in enumerate(raw):
+            if elem is None or _u(elem, 0, 8) == UNDEF:
+                continue
+            spos = _unlinear(i, sizes)
+            pos = [0] * len(shape)
+            for d, v in zip(order, spos):
+                pos[d] = v
+            e = (_u(elem, 0, 8), _u(elem, 8, slen), _u(elem, 8 + slen, 4)) if filtered \
+                else (_u(elem, 0, 8), csize, 0)
+            entries[tuple(pos)] = e
+    else:
+        slen = _chunk_size_len(csize)
+        rank = len(shape)
+        for rec in _btree_v2_records(src, addr):
+            caddr = _u(rec, 0, 8)
+            if filtered:   # type 11: address, size, mask, scaled offsets
+                nbytes, mask, p = _u(rec, 8, slen), _u(rec, 8 + slen, 4), 12 + slen
+            else:          # type 10: address, scaled offsets
+                nbytes, mask, p = csize, 0, 8
+            entries[tuple(_u(rec, p + 8 * d, 8) for d in range(rank))] = (caddr, nbytes, mask)
+    inside = {pos: e for pos, e in entries.items() if all(p < g for p, g in zip(pos, grid))}
+    if flags & 0x1 and filtered:
+        # DONT_FILTER_PARTIAL_BOUND_CHUNKS: edge chunks are stored unfiltered;
+        # a mask of every filter says so to the reader (and to layout v3)
+        every = (1 << len(ds._pipeline.filters)) - 1
+        for pos, (a, n, m) in inside.items():
+            if any((p + 1) * c > d for p, c, d in zip(pos, chunks, shape)):
+                inside[pos] = (a, n, every)
+    return inside
+
+
+def _linear(pos, sizes) -> int:
+    i = 0
+    for p, n in zip(pos, sizes):
+        i = i * (n or 1) + p
+    return i
+
+
+def _unlinear(i: int, sizes) -> tuple:
+    """Row-major position of linear index i (the first size may be None:
+    the unlimited, slowest dimension)."""
+    out = []
+    for n in reversed(sizes[1:]):
+        i, r = divmod(i, n)
+        out.append(r)
+    out.append(i)
+    return tuple(reversed(out))
+
+
+def _bit_set(bitmap: bytes, i: int) -> bool:
+    return bool(bitmap[i // 8] & (0x80 >> (i % 8)))
+
+
+def _fixed_array(src: "_Source", addr: int, where: str) -> list:
+    """Every element's bytes of a fixed array (None where a page was
+    never written)."""
+    h = src.read(addr, 28, "fixed array header")
+    if h[:4] != b"FAHD":
+        raise H5FormatError("fixed array header", addr, f"no FAHD signature ({where})")
+    esize, page_bits, n, dblk = h[6], h[7], _u(h, 8, 8), _u(h, 16, 8)
+    if dblk == UNDEF:
+        return []
+    head = src.read(dblk, 14, "fixed array data block")
+    if head[:4] != b"FADB":
+        raise H5FormatError("fixed array data block", dblk, f"no FADB signature ({where})")
+    page = 1 << page_bits
+    if n <= page:
+        buf = src.read(dblk + 14, n * esize, "fixed array data block")
+        return [buf[i * esize:(i + 1) * esize] for i in range(n)]
+    npages = -(-n // page)
+    bitmap = src.read(dblk + 14, (npages + 7) // 8, "fixed array page bitmap")
+    base = dblk + 14 + len(bitmap) + 4
+    out: list = []
+    for pg in range(npages):
+        cnt = min(page, n - pg * page)
+        if not _bit_set(bitmap, pg):
+            out += [None] * cnt
+            continue
+        buf = src.read(base + pg * (page * esize + 4), cnt * esize, "fixed array page")
+        out += [buf[i * esize:(i + 1) * esize] for i in range(cnt)]
+    return out
+
+
+def _extensible_array(src: "_Source", addr: int, where: str) -> list:
+    """Every element's bytes of an extensible array up to its highest
+    index set: the index block's own elements, then the data blocks of
+    its super blocks (the first ones' addresses in the index block, the
+    rest through super blocks), paged past 2^page_bits elements
+    (H5EA__hdr_init's geometry)."""
+    h = src.read(addr, 72, "extensible array header")
+    if h[:4] != b"EAHD":
+        raise H5FormatError("extensible array header", addr, f"no EAHD signature ({where})")
+    esize, max_bits, ib_elmts, min_elmts, min_ptrs, page_bits = h[6:12]
+    remaining, iblock = _u(h, 44, 8), _u(h, 60, 8)
+    if iblock == UNDEF:
+        return []
+    nsblks = 1 + max_bits - (min_elmts.bit_length() - 1)
+    ib_nsblks = 2 * (min_ptrs.bit_length() - 1)
+    ndblk_addrs, nsblk_addrs = 2 * (min_ptrs - 1), nsblks - ib_nsblks
+    arr_off = (max_bits + 7) // 8
+    page = 1 << page_bits
+    ib = src.read(iblock, 14 + ib_elmts * esize + 8 * (ndblk_addrs + nsblk_addrs),
+                  "extensible array index block")
+    if ib[:4] != b"EAIB":
+        raise H5FormatError("extensible array index block", iblock, f"no EAIB signature ({where})")
+
+    def split(buf, n):
+        return [buf[i * esize:(i + 1) * esize] for i in range(n)]
+
+    out = split(ib[14:], min(ib_elmts, remaining))
+    remaining -= len(out)
+    p = 14 + ib_elmts * esize
+    dblk_addrs = [_u(ib, p + 8 * i, 8) for i in range(ndblk_addrs)]
+    sblk_addrs = [_u(ib, p + 8 * (ndblk_addrs + i), 8) for i in range(nsblk_addrs)]
+
+    def data_block(a: int, n: int, bitmap: Optional[bytes]) -> list:
+        if a == UNDEF:
+            return [None] * n
+        if n <= page:
+            return split(src.read(a + 14 + arr_off, n * esize, "extensible array data block"), n)
+        res: list = []
+        for pg in range(n // page):   # pages after the block's prefix and checksum
+            if bitmap is not None and not _bit_set(bitmap, pg):
+                res += [None] * page
+            else:
+                res += split(src.read(a + 14 + arr_off + 4 + pg * (page * esize + 4),
+                                      page * esize, "extensible array data block page"), page)
+        return res
+
+    used = 0
+    for u in range(nsblks):
+        if remaining <= 0:
+            break
+        ndblks, dn = 1 << (u // 2), (1 << ((u + 1) // 2)) * min_elmts
+        bitmaps: List[Optional[bytes]] = [None] * ndblks
+        if u < ib_nsblks:
+            addrs = dblk_addrs[used:used + ndblks]
+            used += ndblks
+        else:
+            sa = sblk_addrs[u - ib_nsblks]
+            addrs = [UNDEF] * ndblks
+            if sa != UNDEF:
+                bm = ((dn // page) + 7) // 8 if dn > page else 0
+                sb = src.read(sa, 14 + arr_off + ndblks * (bm + 8), "extensible array super block")
+                if sb[:4] != b"EASB":
+                    raise H5FormatError("extensible array super block", sa,
+                                        f"no EASB signature ({where})")
+                q = 14 + arr_off
+                if bm:
+                    bitmaps = [sb[q + i * bm:q + (i + 1) * bm] for i in range(ndblks)]
+                q += ndblks * bm
+                addrs = [_u(sb, q + 8 * i, 8) for i in range(ndblks)]
+        for a, bm_bytes in zip(addrs, bitmaps):
+            if remaining <= 0:
+                break
+            els = data_block(a, dn, bm_bytes)[:remaining]
+            out += els
+            remaining -= len(els)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1512,6 +1996,7 @@ class File(Group):
         self._src: Optional[_Source] = None
         self._by_addr: Dict[int, _Node] = {}
         self._copies: Dict[int, _Node] = {}   # id(copied object) -> its copy here
+        self._externals: Dict[str, "File"] = {}   # files reached by external links
         self._closed = False
         if mode in ("r", "a"):
             self._src = _Source(path)
@@ -1527,7 +2012,7 @@ class File(Group):
         if not self._writable or self._closed:
             raise ValueError(f"{self.path} is not open for writing")
 
-    def _node_at(self, addr: int, path: str) -> _Node:
+    def _node_at(self, addr: int, path: Optional[str]) -> _Node:
         node = self._by_addr.get(addr)
         if node is None:
             msgs = self._src.messages(addr)
@@ -1536,12 +2021,47 @@ class File(Group):
                 node = Group(self, path, addr)
             elif _LAYOUT in kinds:
                 node = Dataset(self, path, addr)
+            elif _DATATYPE in kinds and not kinds & {_DATASPACE, _LAYOUT}:
+                node = Datatype(self, path, addr)
             else:
                 raise H5FormatError("object header", addr,
-                                    f"{path!r} is neither a group nor a dataset")
+                                    f"{path!r} is neither a group, a dataset nor a "
+                                    "committed datatype")
             node._msgs = msgs
             self._by_addr[addr] = node
+        elif node.name is None and path is not None:
+            node.name = path   # reached first through a shared message
         return node
+
+    def _committed_type(self, addr: int) -> _Type:
+        """The type of the committed datatype at `addr` (a shared datatype
+        message's target)."""
+        node = self._node_at(addr, None)
+        if not isinstance(node, Datatype):
+            raise H5FormatError("shared datatype message", addr,
+                                "its target is not a committed datatype")
+        return node._load_type()
+
+    def _external(self, link: "ExternalLink") -> "File":
+        """The file an external link names, opened read-only as HDF5 finds
+        it: the name itself if absolute, then in the directory of this
+        file, then in the working directory."""
+        name = link.filename
+        here = os.path.dirname(os.path.abspath(self.path))
+        tries = ([name] if os.path.isabs(name) else []) + [
+            os.path.join(here, os.path.basename(name) if os.path.isabs(name) else name)]
+        if not os.path.isabs(name):
+            tries.append(os.path.abspath(name))
+        for cand in tries:
+            if os.path.isfile(cand):
+                key = os.path.realpath(cand)
+                if key == os.path.realpath(self.path):
+                    return self
+                if key not in self._externals:
+                    self._externals[key] = File(cand, "r")
+                return self._externals[key]
+        raise KeyError(f"external file {name!r} linked from {self.path} not found "
+                       f"(looked for {', '.join(tries)})")
 
     def _deref(self, ref: Reference) -> _Node:
         if ref.target is not None:
@@ -1571,20 +2091,30 @@ class File(Group):
             self._closed = True
             if self._src is not None:
                 self._src.close()
+            for ext in self._externals.values():
+                ext.close()
 
     def __bool__(self) -> bool:  # h5py's: an open file is true
         return not self._closed
 
 
-def _load_all(grp: Group) -> None:
+def _load_all(grp: Group, seen: Optional[set] = None) -> None:
     """Read every object below `grp` into memory (datasets keep their raw,
-    still compressed chunks on disk until written)."""
-    for _, node in grp.items():
+    still compressed chunks on disk until written). Soft and external
+    links are kept as links, not followed."""
+    seen = set() if seen is None else seen
+    seen.add(id(grp))
+    for node in grp._links().values():
+        if not isinstance(node, _Node) or id(node) in seen:
+            continue
+        seen.add(id(node))
         node._attrs()
         if isinstance(node, Group):
-            _load_all(node)
-        else:
+            _load_all(node, seen)
+        elif isinstance(node, Dataset):
             node._load()
+        else:
+            node._load_type()
     grp._attrs()
 
 
@@ -1597,20 +2127,25 @@ def copy_tree(src: File, dst: File) -> None:
     dst._check_writable()
     _load_all(src)
 
-    def clone(node: _Node, path: str) -> _Node:
+    def clone(node, path: str):
+        if not isinstance(node, _Node):
+            return node   # a soft or external link, copied as the link
+        if id(node) in dst._copies:
+            return dst._copies[id(node)]   # a second hard link to one object
         if isinstance(node, Group):
             c = Group(dst, path, None)
-            for name, child in node.items():
+            dst._copies[id(node)] = c
+            for name, child in node._links().items():
                 c._links()[name] = clone(child, c._child_path(name))
         else:
-            c = Dataset(dst, path, None)
+            c = (Dataset if isinstance(node, Dataset) else Datatype)(dst, path, None)
             c.__dict__.update({k: v for k, v in node.__dict__.items()
                                if k not in ("file", "name", "_addr", "_msgs", "_attr_dict")})
+            dst._copies[id(node)] = c
         c._attr_dict = dict(node._attrs())
-        dst._copies[id(node)] = c
         return c
 
-    for name, child in src.items():
+    for name, child in src._links().items():
         dst._links()[name] = clone(child, dst._child_path(name))
     dst._attrs().update(src._attrs())
     dst._copies[id(src)] = dst
@@ -1653,34 +2188,93 @@ def _msg_v1(mtype: int, data: bytes, flags: int = 0) -> bytes:
     return struct.pack("<HHB3x", mtype, len(data), flags) + data
 
 
-def _attr_msg(name: str, a: _Attr, raw: bytes) -> bytes:
-    """An attribute message, version 1 (name, type and space padded to 8)."""
+_MAX_MSG = 0xFFFF - 8   # an object header message's size field is 16 bits
+
+
+def _shared_msg(addr: int) -> bytes:
+    """A shared message naming a committed datatype (version 2, as HDF5
+    encodes one)."""
+    return struct.pack("<BBQ", 2, 2, addr)
+
+
+def _attr_msg(name: str, a: _Attr, raw: bytes, shared: Optional[int] = None) -> bytes:
+    """An attribute message: version 1 (name, type and space padded to 8),
+    or version 2 with a shared datatype where the type is committed at the
+    object header `shared` (version 1 has no flags to say so)."""
     nm = name.encode("utf-8") + b"\0"
-    tb = a.type.encoded
     sb = _encode_space(a.shape)
-    return (struct.pack("<BBHHH", 1, 0, len(nm), len(tb), len(sb))
-            + _pad8(nm) + _pad8(tb) + _pad8(sb) + raw)
+    if shared is None:
+        tb = a.type.encoded
+        return (struct.pack("<BBHHH", 1, 0, len(nm), len(tb), len(sb))
+                + _pad8(nm) + _pad8(tb) + _pad8(sb) + raw)
+    tb = _shared_msg(shared)
+    return struct.pack("<BBHHH", 2, 1, len(nm), len(tb), len(sb)) + nm + tb + sb + raw
 
 
-def _header(msgs: List[bytes]) -> bytes:
-    """A version-1 object header holding `msgs` in one chunk."""
-    body = b"".join(msgs)
+def _header(msgs: List[Tuple[int, int, bytes]]) -> bytes:
+    """A version-1 object header holding (type, flags, data) messages in
+    one chunk."""
+    body = b"".join(_msg_v1(t, d, fl) for t, fl, d in msgs)
     return struct.pack("<BBHII4x", 1, 0, len(msgs), 1, len(body)) + body
+
+
+def _header_v2(msgs: List[Tuple[int, int, bytes]]) -> bytes:
+    """A version-2 object header (`OHDR`, 4-byte chunk size, lookup3
+    checksum): what an object with dense attribute storage needs, since
+    HDF5 reads no attribute info message from a version-1 header."""
+    body = b"".join(struct.pack("<BHB", t, len(d), fl) + d for t, fl, d in msgs)
+    raw = b"OHDR" + bytes([2, 0x02]) + struct.pack("<I", len(body)) + body
+    return raw + _le(_filters.lookup3(raw), 4)
+
+
+def _link_msg(name: str, target, addr: int) -> bytes:
+    """A link message (version 1): hard (to `addr`), soft or external."""
+    nb = name.encode("utf-8")
+    nsz = 0 if len(nb) < 1 << 8 else 1 if len(nb) < 1 << 16 else 2
+    if isinstance(target, SoftLink):
+        v = target.path.encode("utf-8")
+        ltype, info = 1, struct.pack("<H", len(v)) + v
+    elif isinstance(target, ExternalLink):
+        v = b"\0" + target.filename.encode("utf-8") + b"\0" + target.path.encode("utf-8") + b"\0"
+        ltype, info = 64, struct.pack("<H", len(v)) + v
+    else:
+        ltype, info = 0, _le(addr, 8)
+    return (bytes([1, nsz | (0x08 if ltype else 0)]) + (bytes([ltype]) if ltype else b"")
+            + _le(len(nb), 1 << nsz) + nb + info)
+
+
+def _link_messages(g: Group) -> bool:
+    """Whether `g` is written with link messages (an external link has no
+    symbol-table form) instead of a symbol table."""
+    return any(isinstance(v, ExternalLink) for v in g._links().values())
 
 
 def _write_file(f: File) -> None:
     """Write the whole tree to a temporary file, then os.replace it."""
     objects: List[_Node] = []
+    seen: set = set()
 
     def collect(node: _Node) -> None:
         objects.append(node)
+        seen.add(id(node))
         if isinstance(node, Group):
             links = node._links()
             for name in sorted(links, key=lambda n: n.encode("utf-8")):
-                collect(links[name])
+                child = links[name]
+                if isinstance(child, _Node) and id(child) not in seen:
+                    collect(child)
 
     collect(f)
     addr_of: Dict[int, int] = {}
+
+    def committed_at(t: _Type) -> Optional[int]:
+        """The new address of the committed datatype `t` came from, None
+        where it is not written (the type then goes inline)."""
+        c = t.committed
+        if c is None:
+            return None
+        c = f._copies.get(id(c), c)
+        return addr_of.get(id(c), 0) if id(c) in seen else None
 
     def refaddr(a: _Attr) -> Callable[[Reference], int]:
         def get(r: Reference) -> int:
@@ -1699,8 +2293,8 @@ def _write_file(f: File) -> None:
         heap_objs.append(data)
         return (0, 0)
 
-    def attr_msgs(node: _Node, real: bool) -> List[bytes]:
-        msgs = []
+    def attr_bodies(node: _Node, real: bool) -> List[Tuple[str, bytes]]:
+        out = []
         slots = iter(heap_slots) if real else None
 
         def heap_real(data: bytes) -> Tuple[int, int]:
@@ -1715,43 +2309,62 @@ def _write_file(f: File) -> None:
                     raw = _to_raw(a.array(), a.type, refaddr(a), heap_real).tobytes()
                 else:
                     raw = _to_raw(a.array(), a.type, lambda _r: 0, heap_dry).tobytes()
-            msgs.append(_msg_v1(_ATTRIBUTE, _attr_msg(name, a, raw)))
-        return msgs
+            out.append((name, _attr_msg(name, a, raw, committed_at(a.type))))
+        return out
 
-    def object_msgs(node: _Node, meta: dict) -> List[bytes]:
+    def object_msgs(node: _Node, meta: dict) -> List[Tuple[int, int, bytes]]:
+        if isinstance(node, Datatype):
+            return [(_DATATYPE, 1, node._load_type().encoded)]
         if isinstance(node, Group):
-            return [_msg_v1(_STAB, struct.pack("<QQ", meta.get("btree", 0), meta.get("heap", 0)))]
+            if not _link_messages(node):
+                return [(_STAB, 0, struct.pack("<QQ", meta.get("btree", 0), meta.get("heap", 0)))]
+            links = node._links()
+            return [(_LINKINFO, 0, struct.pack("<BBQQ", 0, 0, UNDEF, UNDEF)),
+                    (_GROUPINFO, 0, b"\0\0")] + [
+                (_LINK, 0, _link_msg(n, links[n], addr_of.get(id(links[n]), 0)))
+                for n in sorted(links, key=lambda n: n.encode("utf-8"))]
         ds: Dataset = node
         ds._load()
         t = ds._type
-        msgs = [_msg_v1(_DATASPACE, ds._space_raw or _encode_space(ds._shape)),
-                _msg_v1(_DATATYPE, t.encoded, 1)]
+        at = committed_at(t)
+        msgs = [(_DATASPACE, 0, ds._space_raw or _encode_space(ds._shape)),
+                (_DATATYPE, 1, t.encoded) if at is None else (_DATATYPE, 3, _shared_msg(at))]
         if ds._raw_msgs:
-            msgs += [_msg_v1(mt, b, 1) for mt, b in ds._raw_msgs]
+            msgs += [(mt, 1, b) for mt, b in ds._raw_msgs]
         else:
             # h5py's default fill value message: version 2, allocation
             # incremental (chunked) or late, written if set, library default
-            msgs.append(_msg_v1(_FILL, struct.pack(
-                "<BBBBI", 2, 3 if ds._layout == "chunked" else 2, 2, 1, 0), 1))
+            msgs.append((_FILL, 1, struct.pack(
+                "<BBBBI", 2, 3 if ds._layout == "chunked" else 2, 2, 1, 0)))
         data = meta.get("data", UNDEF)
         if ds._layout == "chunked":
             dims = ds._chunks + (t.size,)
-            msgs.append(_msg_v1(_LAYOUT, struct.pack("<BBBQ", 3, 2, len(dims), data)
-                                + struct.pack(f"<{len(dims)}I", *dims)))
+            msgs.append((_LAYOUT, 0, struct.pack("<BBBQ", 3, 2, len(dims), data)
+                         + struct.pack(f"<{len(dims)}I", *dims)))
         elif ds._layout == "compact":
-            msgs.append(_msg_v1(_LAYOUT, struct.pack("<BBH", 3, 0, len(ds._compact))
-                                + ds._compact))
+            msgs.append((_LAYOUT, 0, struct.pack("<BBH", 3, 0, len(ds._compact)) + ds._compact))
         else:
-            msgs.append(_msg_v1(_LAYOUT, struct.pack("<BBQQ", 3, 1, data, ds.size * t.size)))
+            msgs.append((_LAYOUT, 0, struct.pack("<BBQQ", 3, 1, data, ds.size * t.size)))
         if ds._pipeline is not None:
-            msgs.append(_msg_v1(_PIPELINE, ds._pipeline.encoded, 1))
+            msgs.append((_PIPELINE, 1, ds._pipeline.encoded))
         return msgs
 
-    # 1. header sizes (the addresses inside do not change them)
-    sizes, heap_counts = {}, {}
+    def header(node: _Node, meta: dict, bodies, dense: Optional[dict]) -> bytes:
+        msgs = object_msgs(node, meta)
+        if dense is None:
+            return _header(msgs + [(_ATTRIBUTE, 0, b) for _, b in bodies])
+        return _header_v2(msgs + [(_ATTRINFO, 0, struct.pack(
+            "<BBQQ", 0, 0, dense.get("heap", 0), dense.get("btree", 0)))])
+
+    # 1. header sizes (the addresses inside do not change them); objects
+    # with an attribute too large for a message keep them in dense storage
+    sizes, heap_counts, dense_of = {}, {}, {}
     for node in objects:
         before = len(heap_objs)
-        sizes[id(node)] = len(_header(object_msgs(node, {}) + attr_msgs(node, False)))
+        bodies = attr_bodies(node, False)
+        if any(len(b) > _MAX_MSG for _, b in bodies):
+            dense_of[id(node)] = [(n, len(b)) for n, b in bodies]
+        sizes[id(node)] = len(header(node, {}, bodies, {} if id(node) in dense_of else None))
         heap_counts[id(node)] = (before, len(heap_objs))
 
     # beside the target (os.replace stays on one file system), created as
@@ -1761,11 +2374,13 @@ def _write_file(f: File) -> None:
     try:
         out = _Out(fd)
         out.alloc(96)  # superblock
-        # 2. addresses of headers, group structures and global heaps
+        # 2. addresses of headers, group structures, heaps, dense storage
         for node in objects:
             addr_of[id(node)] = out.alloc(sizes[id(node)])
-        groups = {id(n): _plan_group(n, out) for n in objects if isinstance(n, Group)}
+        groups = {id(n): _plan_group(n, out) for n in objects
+                  if isinstance(n, Group) and not _link_messages(n)}
         heaps = _plan_gheap(heap_objs, out)
+        dense = {k: _plan_dense(v, out) for k, v in dense_of.items()}
         # 3. raw data, written as it is produced
         datas = {id(n): _write_data(n, out) for n in objects if isinstance(n, Dataset)}
         # 4. headers, groups, heaps, superblock
@@ -1773,20 +2388,24 @@ def _write_file(f: File) -> None:
             lo, hi = heap_counts[id(node)]
             heap_slots[:] = [(k, heaps["slots"][k]) for k in range(lo, hi)]
             meta = groups.get(id(node)) or datas.get(id(node)) or {}
-            hb = _header(object_msgs(node, meta) + attr_msgs(node, True))
+            bodies = attr_bodies(node, True)
+            hb = header(node, meta, bodies, dense.get(id(node)))
             if len(hb) != sizes[id(node)]:
                 raise RuntimeError(f"object header of {node.name!r} changed size")
             out.put(addr_of[id(node)], hb)
+            if id(node) in dense:
+                _encode_dense(bodies, dense[id(node)], out)
         for node in objects:
-            if isinstance(node, Group):
+            if id(node) in groups:
                 _encode_group(node, groups, addr_of, out)
         _encode_gheap(heap_objs, heaps, out)
-        root = groups[id(f)]
+        root = groups.get(id(f))
+        entry = (struct.pack("<QQII", 0, addr_of[id(f)], 1, 0)
+                 + struct.pack("<QQ", root["btree"], root["heap"]) if root
+                 else struct.pack("<QQII16x", 0, addr_of[id(f)], 0, 0))
         out.put(0, SIGNATURE + bytes([0, 0, 0, 0, 0, 8, 8, 0])
                 + struct.pack("<HHI", _GROUP_LEAF_K, _GROUP_NODE_K, 0)
-                + struct.pack("<QQQQ", 0, UNDEF, out.size, UNDEF)
-                + struct.pack("<QQII", 0, addr_of[id(f)], 1, 0)
-                + struct.pack("<QQ", root["btree"], root["heap"]))
+                + struct.pack("<QQQQ", 0, UNDEF, out.size, UNDEF) + entry)
         os.ftruncate(fd, out.size)
         os.close(fd)
         fd = -1
@@ -1797,6 +2416,52 @@ def _write_file(f: File) -> None:
         if os.path.exists(tmp):
             os.unlink(tmp)
         raise
+
+
+_DENSE_BLOCK_HDR = 17   # FHDB, version, heap header address, 4-byte block offset
+
+
+def _plan_dense(attrs: List[Tuple[str, int]], out: _Out) -> dict:
+    """Addresses of an object's dense attribute storage: a fractal heap
+    whose root is one direct block holding every attribute message, and
+    a one-leaf v2 B-tree indexing them by name."""
+    offsets, pos = [], _DENSE_BLOCK_HDR
+    for _, n in attrs:
+        offsets.append(pos)
+        pos += n
+    block = max(512, 1 << (pos - 1).bit_length())
+    if block > 1 << 24:
+        raise ValueError("attributes of one object over 16 MiB are not written by this codec")
+    node_size = max(512, 10 + 17 * len(attrs))
+    return {"heap": out.alloc(146), "block": out.alloc(block), "bsize": block,
+            "offsets": offsets, "btree": out.alloc(38), "leaf": out.alloc(node_size),
+            "node_size": node_size}
+
+
+def _encode_dense(bodies: List[Tuple[str, bytes]], meta: dict, out: _Out) -> None:
+    size, n = meta["bsize"], len(bodies)
+    blk = bytearray(size)
+    blk[:_DENSE_BLOCK_HDR] = b"FHDB\0" + _le(meta["heap"], 8) + _le(0, 4)
+    for (_, body), off in zip(bodies, meta["offsets"]):
+        blk[off:off + len(body)] = body
+    out.put(meta["block"], bytes(blk))
+    h = (b"FRHP\0" + struct.pack("<HHBI", 8, 0, 0, size)   # ID length, no filter, flags, max object
+         + struct.pack("<QQQQ", 0, UNDEF, 0, UNDEF)        # huge objects; free space
+         + struct.pack("<QQQQ", size, size, size, n)        # managed space, objects
+         + struct.pack("<QQQQ", 0, 0, 0, 0)                 # huge and tiny objects
+         + struct.pack("<HQQHHQH", 4, size, size, 32, 1, meta["block"], 0))
+    out.put(meta["heap"], h + _le(_filters.lookup3(h), 4))
+    len_size = min((size.bit_length() - 1 + 7) // 8, (size.bit_length() - 1) // 8 + 1)
+    recs = sorted((_filters.lookup3(name.encode("utf-8")), name.encode("utf-8"), i,
+                   (b"\0" + _le(off, 4) + _le(len(body), len_size)).ljust(8, b"\0"))
+                  for i, ((name, body), off) in enumerate(zip(bodies, meta["offsets"])))
+    leaf = b"BTLF\0\x08" + b"".join(hid + b"\0" + _le(i, 4) + _le(hsh, 4)
+                                    for hsh, _, i, hid in recs)
+    leaf += _le(_filters.lookup3(leaf), 4)
+    out.put(meta["leaf"], leaf + b"\0" * (meta["node_size"] - len(leaf)))
+    bt = b"BTHD\0\x08" + struct.pack("<IHHBBQHQ", meta["node_size"], 17, 0, 100, 40,
+                                     meta["leaf"], n, n)
+    out.put(meta["btree"], bt + _le(_filters.lookup3(bt), 4))
 
 
 def _plan_btree(out: _Out, leaves, right_key, fanout: int) -> Tuple[int, list]:
@@ -1845,11 +2510,17 @@ def _encode_btree(out: _Out, nodes, ntype: int, fanout: int, key_size: int,
 def _plan_group(g: Group, out: _Out) -> dict:
     """Addresses of a symbol-table group's local heap and SNODs, its
     entries sorted by name (HDF5 looks names up by bisection)."""
-    names = sorted(g._links(), key=lambda n: n.encode("utf-8"))
+    links = g._links()
+    names = sorted(links, key=lambda n: n.encode("utf-8"))
     offsets, pos = [], 8   # offset 0 holds the empty name
     for n in names:
         offsets.append(pos)
         pos += _align8(len(n.encode("utf-8")) + 1)
+    values = {}            # soft links' paths follow the names
+    for n in names:
+        if isinstance(links[n], SoftLink):
+            values[n] = pos
+            pos += _align8(len(links[n].path.encode("utf-8")) + 1)
     heap, heap_data = out.alloc(32), out.alloc(pos)
     per = 2 * _GROUP_LEAF_K
     snods = [(names[i:i + per], out.alloc(8 + per * 40)) for i in range(0, len(names), per)]
@@ -1861,7 +2532,7 @@ def _plan_group(g: Group, out: _Out) -> dict:
     right = name_off[names[-1]] if names else 0
     root, nodes = _plan_btree(out, leaves, right, 2 * _GROUP_NODE_K)
     meta = {"names": names, "offsets": offsets, "heap": heap, "heap_data": heap_data,
-            "heap_size": pos, "snods": snods, "nodes": nodes}
+            "heap_size": pos, "snods": snods, "nodes": nodes, "values": values}
     meta["btree"] = _encode_btree(out, nodes, 0, 2 * _GROUP_NODE_K, 8, lambda k: _le(k, 8))
     return meta
 
@@ -1869,7 +2540,9 @@ def _plan_group(g: Group, out: _Out) -> dict:
 def _encode_group(g: Group, groups: Dict[int, dict], addr_of, out: _Out) -> None:
     meta = groups[id(g)]
     data = bytearray(meta["heap_size"])
-    for n, o in zip(meta["names"], meta["offsets"]):
+    links = g._links()
+    for n, o in list(zip(meta["names"], meta["offsets"])) + [
+            (links[n].path, o) for n, o in meta["values"].items()]:
         nb = n.encode("utf-8")
         data[o:o + len(nb)] = nb
     # free list head 1: no free block
@@ -1877,13 +2550,14 @@ def _encode_group(g: Group, groups: Dict[int, dict], addr_of, out: _Out) -> None
                                       meta["heap_data"]))
     out.put(meta["heap_data"], bytes(data))
     off = dict(zip(meta["names"], meta["offsets"]))
-    links = g._links()
     per = 2 * _GROUP_LEAF_K
     for entries, addr in meta["snods"]:
         body = [struct.pack("<4sBxH", b"SNOD", 1, len(entries))]
         for n in entries:
             child = links[n]
-            if isinstance(child, Group):  # cached B-tree and heap
+            if isinstance(child, SoftLink):  # cache type 2: the path's heap offset
+                body.append(struct.pack("<QQIII12x", off[n], UNDEF, 2, 0, meta["values"][n]))
+            elif isinstance(child, Group) and id(child) in groups:  # cached B-tree and heap
                 cm = groups[id(child)]
                 body.append(struct.pack("<QQIIQQ", off[n], addr_of[id(child)], 1, 0,
                                         cm["btree"], cm["heap"]))

@@ -149,9 +149,9 @@ def diagnose_sync_state(cpu_sample_s: float = 0.5, event=None) -> tuple[str, dic
             return "device_error", {"error": str(e)}
     cpu0 = _proc_cpu_seconds()
     time.sleep(cpu_sample_s)
-    busy = (_proc_cpu_seconds() - cpu0) / cpu_sample_s
-    detail = {"host_cpu_util": round(busy, 3),
-              "event": "done" if event is not None else None}
+    # decided on the share it reports, so the two never disagree at 0.05
+    busy = round((_proc_cpu_seconds() - cpu0) / cpu_sample_s, 3)
+    detail = {"host_cpu_util": busy, "event": "done" if event is not None else None}
     if busy < 0.05:
         return "suspected_wedge", detail
     return "host_busy", detail

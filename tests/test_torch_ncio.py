@@ -9,6 +9,7 @@ the oracle here; the port itself never imports it.
 from __future__ import annotations
 
 import os
+import struct
 
 import h5py
 import numpy as np
@@ -442,12 +443,18 @@ def test_netcdf_c_layout_dense_fixture(tmp_path):
     ("single chunk", dict(chunks=(16, 24))),
 ])
 def test_layout_v4_chunk_indexes_raise(tmp_path, index, kwargs):
+    """Once refused, each layout-v4 chunk index now reads as h5py reads it
+    (the name is kept; `tests/test_torch_hdf5_foreign.py` covers each
+    index further)."""
+    data = np.random.default_rng(10).normal(size=(16, 24)).astype("f4")
     p = str(tmp_path / "v4.h5")
     with h5py.File(p, "w", libver="latest") as f:
-        f.create_dataset("v", data=np.zeros((16, 24), "f4"), compression="gzip", **kwargs)
+        f.create_dataset("v", data=data, compression="gzip", **kwargs)
     with hdf5.File(p) as f:
-        with pytest.raises(NotImplementedError, match=index):
-            f["v"][()]
+        v = f["v"]
+        v._load()
+        assert hdf5._INDEX_NAMES[v._v4[0]] == index
+        assert _same(v[()], data) and v.maxshape == kwargs.get("maxshape", data.shape)
 
 
 def test_fletcher32_is_verified_and_unknown_filters_raise(tmp_path):
@@ -458,10 +465,9 @@ def test_fletcher32_is_verified_and_unknown_filters_raise(tmp_path):
         f.create_dataset("v", data=data, chunks=(32, 32), fletcher32=True, shuffle=True)
         f.create_dataset("s", data=data, chunks=(32, 32), scaleoffset=3)
         addr = f["v"].id.get_chunk_info(0).byte_offset
-    with hdf5.File(p) as f:
+    with hdf5.File(p) as f, h5py.File(p) as fh:
         assert _same(f["v"][()], data)
-        with pytest.raises(hdf5.H5FormatError, match="scaleoffset"):
-            f["s"][()]
+        assert _same(f["s"][()], fh["s"][()])   # scaleoffset is decoded now
     with open(p, "r+b") as fh:
         fh.seek(addr + 100)
         byte = fh.read(1)
@@ -470,6 +476,24 @@ def test_fletcher32_is_verified_and_unknown_filters_raise(tmp_path):
     with hdf5.File(p) as f:
         with pytest.raises(hdf5.H5FormatError, match="fletcher32"):
             f["v"][()]
+    # an unknown filter (32015, zstd: h5py here has no plugin for it either)
+    # raises where a chunk needs it; h5py stores the chunk unfiltered with
+    # the filter's mask bit set, which is cleared here in the B-tree key
+    from h5py import h5d, h5p, h5s, h5t, h5z
+    q = str(tmp_path / "zstd.h5")
+    with h5py.File(q, "w") as f:
+        dcpl = h5p.create(h5p.DATASET_CREATE)
+        dcpl.set_chunk((8, 8))
+        dcpl.set_filter(32015, h5z.FLAG_OPTIONAL)
+        h5d.create(f.id, b"z", h5t.IEEE_F32LE, h5s.create_simple((8, 8)), dcpl=dcpl).write(
+            h5s.ALL, h5s.ALL, data[:8, :8].copy())
+    raw = bytearray(open(q, "rb").read())
+    i = raw.index(struct.pack("<II3Q", 256, 1, 0, 0, 0))
+    raw[i + 4] = 0
+    open(q, "wb").write(bytes(raw))
+    with hdf5.File(q) as f:
+        with pytest.raises(hdf5.H5FormatError, match="filter 32015"):
+            f["z"][()]
 
 
 def test_not_hdf5_raises_naming_the_structure(tmp_path):
