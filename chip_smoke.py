@@ -260,12 +260,14 @@ and exits non-zero without them. Phases, one line each:
    chunk would take minutes), the card against the port's CPU run: the
    same chosen lam, every lam's mean PSNR within 0.01 dB, the same CG stop
    iterations, and the card's predictions no further from a float64 solve
-   on the card (same iterations) than twice the CPU's are. Then the whole
-   sweep once more on those 3 patches in float64 on the card (scaffolding
-   here: `oracle_sweep`'s loop over `_deconv_batch` in float64; the
-   package's oracle stays float32): seconds a lam against the float32
-   sweep on the same patches, and each lam's mean PSNR float64 - float32
-   (recorded, not held: the cost of the float64 repair ROADMAP §3 weighs).
+   on the card (same iterations) than twice the CPU's are. The package's
+   solve runs its normal operator in float64 (one rounding to float32 an
+   application; CG's state stays float32). Beside it, on all 24 patches, a
+   sweep whose operator runs in float32 (scaffolding here,
+   `oracle_f32_op_sweep`: the spelling before that repair, through the
+   package's CG), each sweep timed once more after the first, alternating:
+   seconds a lam of both, and each lam's mean PSNR repaired - float32
+   operator (recorded, not held).
 
 15. parallel: the multi-card layer (`parallel.local_dp`, `parallel.mesh`)
    on one card. (a) Local DP over the card list (`local_batch_dp`: one card
@@ -355,23 +357,34 @@ and exits non-zero without them. Phases, one line each:
    5's in-memory .nc route, and the codec's read and write MB/s on 16
    pairs.
 
-18. foreign files: the committed h5py-written fixtures of
-   tests/data/hdf5_foreign/ (scripts/torch_make_hdf5_fixtures.py: every
-   layout-v4 chunk index, lzf / scaleoffset / szip / nbit, soft and
-   external links, committed datatypes, a 66 KiB dense attribute, and a
-   libver="latest" scene of 5 bands of 256^2 float32 with NaN holes whose
-   fixed array indexes are paged), on a machine without h5py. (a) every
-   fixture read through the port's codec matches its manifest: the file's
-   sha256 and the sha256 of every decoded array and attribute; (b)
-   `degrade_scene`'s CLI (its `main`, in this process, so the launch
+18. foreign files: the committed fixtures of tests/data/hdf5_foreign/
+   (scripts/torch_make_hdf5_fixtures.py; by h5py: every layout-v4 chunk
+   index, lzf / scaleoffset / szip / nbit, soft and external links,
+   committed datatypes, a 66 KiB dense attribute, a libver="latest" scene
+   of 5 bands of 256^2 float32 with NaN holes whose fixed array indexes
+   are paged; by libhdf5's own calls: the shared object header message
+   table in list and B-tree form, a deflated link heap, unfiltered edge
+   chunks, 4 patches and a scene whose messages all live in the table),
+   on a machine without h5py. (a) every fixture read through the port's
+   codec matches its manifest: the file's sha256 and the sha256 of every
+   decoded array and attribute; (b) the factory's x8 `.nc` route
+   (`run_factory`, configs/quality_x8.json's width: 5x256^2 float32,
+   13x13, x8, counts set to 0 before it) over the 4 shared-message
+   patches, whose root links live in a deflated heap, with a seeded
+   [16, 5, 32, 32] pool: one `degrade_v3` (degrade_stencil.cu NCHW)
+   launch and nothing else, lr within rtol 1e-4 / atol 1e-5 of the plain
+   `degrade_strided` + pool[idx], hr bit-equal to the denoised input;
+   (c) `degrade_scene`'s CLI (its `main`, in this process, so the launch
    counts can be read; counts set to 0 before each run) with --device
-   cuda on the v4 scene and on the port's layout-v3 rewrite of it
-   (`io.ncio.copy_file_with_groups`): rc 0, exactly one `colsplit_raw`
-   (scene_stencil.cu RAW) launch and nothing else each, `_blurred` bands
-   bit-equal between the two runs with identical NaN cells, and within
-   the tolerance of the plain `degrade_strided`; (c) `inspect_nc` lists
-   the v4 scene's group. Prints each part's seconds and the codec's read
-   rate of the scene in both layouts.
+   cuda on the v4 scene, on the shared-message scene, and on the port's
+   layout-v3 rewrite of each (`io.ncio.copy_file_with_groups`): rc 0,
+   exactly one `colsplit_raw` (scene_stencil.cu RAW) launch and nothing
+   else each, `_blurred` bands bit-equal between a scene and its rewrite
+   with identical NaN cells, and within the tolerance of the plain
+   `degrade_strided`; (d) `inspect_nc` lists the v4 scene's group. Prints
+   each part's seconds and the codec's read rate of each scene file.
+   Depth is cut to 4 patches and 256^2 scenes to keep the fixtures small;
+   phase 6 runs the scene kernel at 8192^2.
 
 data_stats, viz_cli and make_train_data --vis-dir are host numpy /
 matplotlib code that reads .nc through the same codec; the CPU tests
@@ -388,7 +401,7 @@ one JSON line {"kernels": [...]} (each kernel's `launches` on the main
 path above, `parallel_launches` on phase 15's local-DP factory route and
 ranks scene route, `tools_launches` on phase 16's three parts,
 `files_launches` on phase 17's run_all and scene CLI, `foreign_launches`
-on phase 18's two scene CLI runs) and, last,
+on phase 18's factory run and four scene CLI runs) and, last,
 {"ok": true, "device": {...}}. Any mismatch or error in any phase, timing
 included, exits non-zero before that last line.
 """
@@ -3996,12 +4009,21 @@ def oracle_run(label, lr, hr, kernel, factor, prior_kw, dev, failures) -> dict:
                         f"PSNR diff {psnr_diff:.3g} dB, stops {card_stops} vs {cpu_stops}, "
                         f"from float64 card {d_card:.3g} vs CPU {d_cpu:.3g}")
     no_kernel_launched(f"oracle {label} card-vs-CPU", failures)
-    res64, f64_s = oracle_f64_sweep(sub, list(res_c), prior_kw, dev)
-    no_kernel_launched(f"oracle {label} float64 sweep", failures)
-    f64_sweep = {"patches": m, "seconds_per_lam_f64": f64_s / len(res64),
-                 "seconds_per_lam_f32": f32_s / len(res_c), "cost_ratio": f64_s / f32_s,
-                 "psnr_f64_minus_f32_db": {str(k): res64[k] - res_c[k] for k in res64},
-                 "best_lam_f64": max(res64, key=res64.get)}
+    # the package's sweep (float64 operator) beside a float32-operator
+    # sweep on all the patches, each timed again after the first
+    full, lams = (lr, hr, kernel, factor), list(per_lam)
+    oracle_f32_op_sweep(full, lams, prior_kw, dev)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    oracle.oracle_sweep(*full, iters=ORACLE_ITERS, device=dev, **prior_kw)
+    torch.cuda.synchronize()
+    again_s = time.perf_counter() - t3
+    res32, f32op_s = oracle_f32_op_sweep(full, lams, prior_kw, dev)
+    no_kernel_launched(f"oracle {label} float32-operator sweep", failures)
+    f32_op = {"patches": len(hr), "seconds_per_lam": again_s / len(lams),
+              "seconds_per_lam_f32_op": f32op_s / len(lams), "cost_ratio": again_s / f32op_s,
+              "psnr_minus_f32_op_db": {str(k): per_lam[k] - res32[k] for k in lams},
+              "best_lam_f32_op": max(res32, key=res32.get)}
     n_lams = len(per_lam)
     res = {"best_lam": best, "psnr_by_lam": {str(k): v for k, v in per_lam.items()},
            "cg_stop_iters": {str(k): v for k, v in stops.items()}, "seconds": wall,
@@ -4013,7 +4035,7 @@ def oracle_run(label, lr, hr, kernel, factor, prior_kw, dev, failures) -> dict:
                          "max_psnr_diff_db": psnr_diff, "stops_card": card_stops,
                          "stops_cpu": cpu_stops, "card_from_f64": d_card,
                          "cpu_from_f64": d_cpu, "cpu_seconds": cpu_s},
-           "f64_sweep": f64_sweep}
+           "f32_op_sweep": f32_op}
     log(f"[oracle] {label}: best lam {best} of {n_lams} ({', '.join(f'{k:g}: {v:.3f}' for k, v in per_lam.items())} dB), "
         f"CG stops {sorted(set(v for vs in stops.values() for v in vs))}; {wall:.2f}s "
         f"({wall / n_lams:.3f} s a lam), best lam's solve {solve_ms:.1f} ms for {ran} "
@@ -4022,45 +4044,65 @@ def oracle_run(label, lr, hr, kernel, factor, prior_kw, dev, failures) -> dict:
         f"{peak:.2f} GB; card vs CPU on {m} patches {'ok' if not bad else 'FAILED ' + str(bad)}"
         f" (lam {best_c} / {best_h}, PSNR within {psnr_diff:.2e} dB, from float64 card "
         f"{d_card:.3g} / CPU {d_cpu:.3g}, CPU {cpu_s:.1f}s)")
-    log(f"[oracle] {label}: float64 sweep on {m} patches {f64_sweep['seconds_per_lam_f64']:.3f}"
-        f" s a lam vs float32 {f64_sweep['seconds_per_lam_f32']:.3f} "
-        f"(x{f64_sweep['cost_ratio']:.2f}); PSNR f64 - f32 by lam "
-        + ", ".join(f"{k}: {v:+.4f}" for k, v in f64_sweep["psnr_f64_minus_f32_db"].items())
-        + f" dB; best lam f64 {f64_sweep['best_lam_f64']} / f32 {best_c}")
+    log(f"[oracle] {label}: on {len(hr)} patches, again {f32_op['seconds_per_lam']:.3f} s a lam"
+        f" vs a float32-operator sweep {f32_op['seconds_per_lam_f32_op']:.3f} "
+        f"(x{f32_op['cost_ratio']:.2f}); PSNR minus the float32 operator's by lam "
+        + ", ".join(f"{k}: {v:+.4f}" for k, v in f32_op["psnr_minus_f32_op_db"].items())
+        + f" dB; best lam {best} / float32 operator {f32_op['best_lam_f32_op']}")
     return res
 
 
-def oracle_f64_sweep(sub, lams, prior_kw, dev) -> tuple:
-    """`oracle_sweep`'s work in float64 on the card (scaffolding for the
-    measurement only; the package's sweep is float32), the matched prior's
-    spectrum included: {lam: mean PSNR} over the patches, each against its
-    HR range, and the seconds."""
+def oracle_f32_op_sweep(full, lams, prior_kw, dev) -> tuple:
+    """`oracle_sweep`'s work with `_deconv_batch`'s normal operator in
+    float32 (scaffolding for the measurement only: the spelling before the
+    package ran it in float64), through the package's CG, the matched
+    prior's spectrum included: {lam: mean PSNR} over the patches, each
+    against its HR range, and the seconds."""
     import numpy as np
     import torch
+    from torch.func import vjp
 
     from kmsr_tpu_torch.analysis import oracle
+    from kmsr_tpu_torch.ops.degrade import (degrade, degrade_batch_kernels, fp32_convs,
+                                            normalize_kernel)
     from kmsr_tpu_torch.ops.metrics import psnr
 
-    lr, hr, kernel, factor = sub
-    per_sample = np.asarray(kernel).ndim == 4
+    lr, hr, kernel, factor = full
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    x = torch.from_numpy(np.asarray(lr, np.float64)).to(dev)
-    k = torch.from_numpy(np.asarray(kernel, np.float64)).to(dev)
-    wp = iv = None
+    x = torch.from_numpy(np.asarray(lr, np.float32)).to(dev)
+    k = torch.from_numpy(np.asarray(kernel, np.float32)).to(dev)
+    if k.ndim == 4:
+        kn = normalize_kernel(k)
+
+        def fwd(v):
+            return degrade_batch_kernels(v, kn, factor=factor, padding="replicate")
+    else:
+        def fwd(v):
+            return degrade(v, k, factor=factor)
+    dscale, pen = 1.0, oracle._grad_sq_op
     if prior_kw.get("prior") == "matched":
         w_np, inv_np = oracle.matched_prior(prior_kw["spec_examples"], prior_kw["noise_var"])
-        wp, iv = torch.from_numpy(w_np).to(dev).double(), torch.from_numpy(inv_np).to(dev).double()
+        wp = torch.from_numpy(w_np).to(dev)
+        dscale = torch.from_numpy(inv_np).to(dev)[None, :, None, None]
+
+        def pen(v):
+            return torch.fft.ifft2(wp * torch.fft.fft2(v)).real.to(v.dtype)
+    n, c, h, w = x.shape
     out = {}
-    for lam in lams:
-        preds = oracle._deconv_batch(x, k, factor, float(lam), wp, iv, iters=ORACLE_ITERS,
-                                     per_sample=per_sample).cpu().numpy()
-        scores = []
-        for i in range(len(hr)):
-            h = np.asarray(hr[i], np.float64)
-            dr = float(np.nanmax(h) - np.nanmin(h)) or 1.0
-            scores.append(float(psnr(torch.from_numpy(preds[i]), torch.from_numpy(h), dr)))
-        out[lam] = float(np.mean(scores))
+    with fp32_convs():
+        _, at = vjp(fwd, torch.zeros(n, c, h * factor, w * factor, device=dev))
+        b = at(x * dscale)[0]
+        for lam in lams:
+            preds, _ = oracle.cg(lambda v: at(fwd(v) * dscale)[0] + float(lam) * pen(v), b,
+                                 oracle._zero_order_hold(x, factor), maxiter=ORACLE_ITERS)
+            preds = preds.cpu().numpy()
+            scores = []
+            for i in range(len(hr)):
+                dr = float(np.nanmax(hr[i]) - np.nanmin(hr[i])) or 1.0
+                scores.append(float(psnr(torch.from_numpy(preds[i]),
+                                         torch.from_numpy(np.asarray(hr[i], np.float32)), dr)))
+            out[lam] = float(np.mean(scores))
     return out, time.perf_counter() - t0
 
 
@@ -5145,10 +5187,63 @@ FOREIGN_DIR = os.path.join(REPO, "tests", "data", "hdf5_foreign")
 FOREIGN_SCRIPT = os.path.join(REPO, "scripts", "torch_make_hdf5_fixtures.py")
 
 
+def foreign_factory(fx, tmp: str, k_path: str, kernel, dev, failures: list) -> dict:
+    """Phase 18 (b): the factory's x8 `.nc` route over the 4 patches whose
+    messages live in the shared message table and whose root links live
+    in a deflated heap; counts set to 0 before it and read after it."""
+    import numpy as np
+    import torch
+
+    from kmsr_tpu_torch import kernels
+    from kmsr_tpu_torch.data.sampler import list_patch_files
+    from kmsr_tpu_torch.io.ncio import read_band_stack
+    from kmsr_tpu_torch.ops.degrade import degrade_strided
+    from kmsr_tpu_torch.pipeline import factory
+
+    src, out = os.path.join(tmp, "patches"), os.path.join(tmp, "pairs")
+    os.makedirs(src)
+    for name in fx.PATCHES:
+        shutil.copy(os.path.join(FOREIGN_DIR, name), src)
+    pool_path = os.path.join(tmp, "pool.npy")
+    np.save(pool_path, np.random.default_rng(SEED + 181).normal(
+        0, 0.05, (16, C, HW // FACTOR, HW // FACTOR)).astype(np.float32))
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rep = factory.run_factory(src, k_path, pool_path, out, factor=FACTOR, seed=SEED,
+                              progress=False, device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    if rep.n_fail or len(rep.succeeded) != len(fx.PATCHES) or launches["degrade_v3"] != 1 \
+            or sum(launches.values()) != 1:
+        failures.append(f"phase 18: factory over the shared-message patches: "
+                        f"{len(rep.succeeded)} written, failed {rep.failed}, launches "
+                        f"{launches} (want degrade_v3 once, nothing else)")
+    files = list_patch_files(src, "*.nc")
+    pool, noise_of = factory.noise_inputs(files, pool_path, SEED)
+    hr_in = np.stack([read_band_stack(p, "denoised") for p in files])
+    got_hr, got_lr = [], []
+    for p in files:
+        pair = os.path.join(out, os.path.basename(p)[:-3] + "_train.nc")
+        got_hr.append(read_band_stack(pair, "hr"))
+        got_lr.append(read_band_stack(pair, "lr"))
+    want = (degrade_strided(torch.from_numpy(hr_in).to(dev), kernel, factor=FACTOR)
+            + torch.from_numpy(pool[[noise_of[p] for p in files]]).to(dev)).cpu()
+    err = errors(torch.from_numpy(np.stack(got_lr)), want)
+    hr_ok = np.stack(got_hr).tobytes() == hr_in.tobytes()
+    if not err["ok"] or not hr_ok:
+        failures.append(f"phase 18: factory lr vs plain degrade_strided + noise {err}, "
+                        f"hr bit-equal to the denoised patches {hr_ok}")
+    return {"patches": len(rep.succeeded), "seconds": secs, "launches": launches,
+            "hr_bit_equal": hr_ok, "rtol": RTOL, "atol": ATOL, **err}
+
+
 def phase_foreign(dev, smi: str, failures: list) -> dict:
     """Phase 18 (module docstring): files from outside the DAG, read by the
-    port's codec where h5py is absent, and the scene CLI from a layout-v4
-    file and from its layout-v3 rewrite."""
+    port's codec where h5py is absent; the factory's x8 `.nc` route over
+    patches whose messages are in the shared message table; and the scene
+    CLI on a layout-v4 scene and on a shared-message scene, each beside
+    its layout-v3 rewrite."""
     import importlib.util
 
     import numpy as np
@@ -5172,44 +5267,50 @@ def phase_foreign(dev, smi: str, failures: list) -> dict:
         failures.append(f"phase 18: fixtures unlike their manifest: {mismatched or 'none read'}")
     tmp = tempfile.mkdtemp(prefix="kmsr_chip_foreign_")
     try:
-        v4 = os.path.join(tmp, "v4", fx.SCENE)
-        v3 = os.path.join(tmp, "v3", fx.SCENE)
-        os.makedirs(os.path.dirname(v4))
-        os.makedirs(os.path.dirname(v3))
-        shutil.copy(os.path.join(FOREIGN_DIR, fx.SCENE), v4)
-        copy_file_with_groups(v4, v3)
         k_path = seeded_kernel_file(os.path.join(tmp, "kernel_per_band.npy"), SEED + 180)
         kernel = torch.from_numpy(np.load(k_path)).to(dev)
-        reads, runs, blurred = {}, {}, {}
-        for label, path in (("v4", v4), ("v3", v3)):
-            t0 = time.perf_counter()
-            scene = read_band_stack(path, "geophysical_data")
-            reads[label] = scene.nbytes / 1e6 / (time.perf_counter() - t0)
-            # (b) the CLI, counts 0 before it and read after it
-            kernels.reset_launches()
-            t0 = time.perf_counter()
-            rc = degrade_scene.main(["--input", path, "--kernel", k_path, "--output-dir",
-                                     os.path.join(tmp, f"lr_{label}"), "--device", "cuda"])
-            torch.cuda.synchronize()
-            secs = time.perf_counter() - t0
-            launches = dict(kernels.LAUNCHES)
-            out = os.path.join(tmp, f"lr_{label}", fx.SCENE[:-3] + "_blurred.nc")
-            blurred[label] = read_band_stack(out, "blurred")
-            want, any_valid = scene_reference(scene, kernel, dev)
-            err = check_scene(blurred[label], want, any_valid,
-                              f"phase 18 degrade_scene CLI on the {label} scene", failures)
-            runs[label] = {"rc": rc, "seconds": secs, "launches": launches, **err}
-            if rc not in (0, None) or launches["colsplit_raw"] != 1 \
-                    or sum(launches.values()) != 1:
-                failures.append(f"phase 18: degrade_scene on the {label} scene rc {rc}, "
-                                f"launches {launches} (want colsplit_raw once, nothing else)")
-        same_bits = blurred["v4"].tobytes() == blurred["v3"].tobytes()
-        same_nan = bool(np.array_equal(np.isnan(blurred["v4"]), np.isnan(blurred["v3"])))
-        if not (same_bits and same_nan):
-            failures.append(f"phase 18: _blurred bands of the v4 and v3 scenes differ "
-                            f"(bit-equal {same_bits}, NaN cells identical {same_nan})")
-        # (c) inspect_nc on the v4 scene
-        text = inspect_nc.analyze_file(v4)
+        # (b) the factory over the shared-message patches
+        fac = foreign_factory(fx, tmp, k_path, kernel, dev, failures)
+        # (c) the scene CLI on each scene and on its layout-v3 rewrite
+        reads, runs, blurred, same = {}, {}, {}, {}
+        for scene_name, tag in ((fx.SCENE, "v4"), (fx.SHARED_SCENE, "table")):
+            given = os.path.join(tmp, tag, scene_name)
+            v3 = os.path.join(tmp, f"{tag}_v3", scene_name)
+            os.makedirs(os.path.dirname(given))
+            os.makedirs(os.path.dirname(v3))
+            shutil.copy(os.path.join(FOREIGN_DIR, scene_name), given)
+            copy_file_with_groups(given, v3)
+            for label, path in ((tag, given), (f"{tag}_v3", v3)):
+                t0 = time.perf_counter()
+                scene = read_band_stack(path, "geophysical_data")
+                reads[label] = scene.nbytes / 1e6 / (time.perf_counter() - t0)
+                kernels.reset_launches()
+                t0 = time.perf_counter()
+                rc = degrade_scene.main(["--input", path, "--kernel", k_path, "--output-dir",
+                                         os.path.join(tmp, f"lr_{label}"), "--device", "cuda"])
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                launches = dict(kernels.LAUNCHES)
+                out = os.path.join(tmp, f"lr_{label}", scene_name[:-3] + "_blurred.nc")
+                blurred[label] = read_band_stack(out, "blurred")
+                want, any_valid = scene_reference(scene, kernel, dev)
+                err = check_scene(blurred[label], want, any_valid,
+                                  f"phase 18 degrade_scene CLI on the {label} scene", failures)
+                runs[label] = {"rc": rc, "seconds": secs, "launches": launches, **err}
+                if rc not in (0, None) or launches["colsplit_raw"] != 1 \
+                        or sum(launches.values()) != 1:
+                    failures.append(f"phase 18: degrade_scene on the {label} scene rc {rc}, "
+                                    f"launches {launches} (want colsplit_raw once, nothing "
+                                    "else)")
+            a, b = blurred[tag], blurred[f"{tag}_v3"]
+            same[tag] = {"bit_equal": a.tobytes() == b.tobytes(),
+                         "nan_cells_identical": bool(np.array_equal(np.isnan(a), np.isnan(b))),
+                         "nan_cells": int(np.isnan(a).sum())}
+            if not (same[tag]["bit_equal"] and same[tag]["nan_cells_identical"]):
+                failures.append(f"phase 18: _blurred bands of the {tag} scene and its v3 "
+                                f"rewrite differ {same[tag]}")
+        # (d) inspect_nc on the v4 scene
+        text = inspect_nc.analyze_file(os.path.join(tmp, "v4", fx.SCENE))
         groups_ok = "group: geophysical_data" in text
         if not groups_ok:
             failures.append(f"phase 18: inspect_nc lists no geophysical_data group:\n{text}")
@@ -5217,19 +5318,23 @@ def phase_foreign(dev, smi: str, failures: list) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
     res = {"nvidia_smi": smi, "h5py_importable": has_h5py, "fixtures": len(bad),
            "manifest_mismatches": mismatched, "manifest_seconds": manifest_s,
-           "scene_read_mb_s": reads, "scene_cli": runs, "blurred_bit_equal": same_bits,
-           "nan_cells_identical": same_nan,
-           "nan_cells": int(np.isnan(blurred["v4"]).sum()), "inspect_groups_ok": groups_ok,
+           "factory": fac, "scene_read_mb_s": reads, "scene_cli": runs,
+           "blurred_same": same, "inspect_groups_ok": groups_ok,
            "seconds": time.perf_counter() - t_phase}
     log(f"[foreign] {len(bad)} fixtures through the codec (h5py importable here: {has_h5py}): "
         f"{'every sha256 matches' if not mismatched else 'MISMATCH ' + str(mismatched)} "
         f"({manifest_s:.2f}s)")
-    log(f"[foreign] degrade_scene CLI on the v4 scene: launches {runs['v4']['launches']}, "
-        f"{runs['v4']['seconds']:.2f}s; on its v3 rewrite: launches {runs['v3']['launches']}, "
-        f"{runs['v3']['seconds']:.2f}s; _blurred bit-equal {same_bits}, "
-        f"{res['nan_cells']} NaN cells identical {same_nan}; scene read "
-        f"v4 {reads['v4']:.1f} / v3 {reads['v3']:.1f} MB/s; inspect_nc group ok {groups_ok}; "
-        f"phase {res['seconds']:.1f}s ({smi})")
+    log(f"[foreign] factory x8 over {fac['patches']} shared-message patches: launches "
+        f"{fac['launches']}, {fac['seconds']:.2f}s, lr max_abs_err vs plain "
+        f"{fac['max_abs_err']:.3g} (rtol {RTOL} atol {ATOL}), hr bit-equal {fac['hr_bit_equal']}")
+    for tag in same:
+        log(f"[foreign] degrade_scene CLI on the {tag} scene: launches {runs[tag]['launches']}, "
+            f"{runs[tag]['seconds']:.2f}s; on its v3 rewrite: launches "
+            f"{runs[tag + '_v3']['launches']}, {runs[tag + '_v3']['seconds']:.2f}s; _blurred "
+            f"bit-equal {same[tag]['bit_equal']}, {same[tag]['nan_cells']} NaN cells identical "
+            f"{same[tag]['nan_cells_identical']}; scene read {reads[tag]:.1f} / v3 "
+            f"{reads[tag + '_v3']:.1f} MB/s")
+    log(f"[foreign] inspect_nc group ok {groups_ok}; phase {res['seconds']:.1f}s ({smi})")
     return res
 
 
@@ -5338,9 +5443,11 @@ def main() -> int:
     files_launches = {name: {"run_all": files_res["launches"].get(name, 0),
                              "degrade_scene_cli": files_res["scene_cli"]["launches"]
                              .get(name, 0)} for name in SOURCES}
-    # phase 18's paths: the scene CLI on the layout-v4 scene and its v3 rewrite
-    foreign_launches = {name: {f"degrade_scene_cli_{lab}": foreign_res["scene_cli"][lab]
-                               ["launches"].get(name, 0) for lab in ("v4", "v3")}
+    # phase 18's paths: the factory over the shared-message patches, and the
+    # scene CLI on each scene and its v3 rewrite
+    foreign_launches = {name: {"factory": foreign_res["factory"]["launches"].get(name, 0),
+                               **{f"degrade_scene_cli_{lab}": run["launches"].get(name, 0)
+                                  for lab, run in foreign_res["scene_cli"].items()}}
                         for name in SOURCES}
     main_layout = {"degrade_v3": "nchw", "degrade_v3psn": "presplit",
                    "degrade_v3ps": "presplit_halo", "degrade_v2": "nchw",

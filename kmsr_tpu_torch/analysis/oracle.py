@@ -3,8 +3,9 @@
 Counterpart of `kmsr_tpu.analysis.oracle`: reconstruct the holdout HR from
 its LR with the EXACT factory degradation operator (`ops.degrade.degrade`:
 replicate-pad depthwise blur with the known kernel + factor x factor block
-mean), knowledge the SR network does not have, so that SR-vs-oracle turns
-"+N dB over bilinear" into a share of the measured oracle-bilinear gap.
+mean, spelt as `degrade_strided`'s one strided correlation), knowledge the
+SR network does not have, so that SR-vs-oracle turns "+N dB over
+bilinear" into a share of the measured oracle-bilinear gap.
 
 Method: Tikhonov-regularized least squares,
 
@@ -29,7 +30,14 @@ host sync an iteration) and looks at the stop on the host once every
 the same as with maxiter frozen iterations, and at most `_STOP_CHECK - 1`
 iterations past the stop run.
 Everything runs under `fp32_convs()` (backward convs included): cuDNN's
-TF32 default would keep ~3 digits, and CG amplifies every rounding.
+TF32 default would keep ~3 digits, and CG amplifies every rounding. The
+normal operator (forward, adjoint, data weights, prior) runs in float64
+and rounds once to the solve's dtype an application; CG's state, inner
+products and stop test stay in that dtype, as in JAX's cg, so float32
+solves stop where JAX's do. A float32 operator rounds each pixel of
+ATen's convolutions ~3x more than XLA's, and CG carried that into the x8
+null space (2.96-8.63x JAX's distance from a float64 solve, against
+0.28-0.34x now: `scripts/torch_oracle_adjoint_ab.py`).
 """
 from __future__ import annotations
 
@@ -37,13 +45,17 @@ from typing import Callable, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.func import vjp
 
 from ..device import resolve_device
-from ..ops.degrade import degrade, degrade_batch_kernels, fp32_convs, normalize_kernel
+from ..ops.degrade import (compose_with_box, degrade_strided, fp32_convs, normalize_kernel,
+                           replicate_pad)
 
 #: iterations between two host reads of CG's stop flag
 _STOP_CHECK = 10
+#: the dtype the normal operator runs in, whatever the solve's
+_WIDE = torch.float64
 
 
 def _grad_sq_op(x: torch.Tensor) -> torch.Tensor:
@@ -100,6 +112,26 @@ def cg(
     return x, k
 
 
+def _forward(kernel: torch.Tensor, factor: int, per_sample: bool = False):
+    """The factory's degrade as one stride-`factor` correlation with the
+    blur composed with the factor x factor box (`degrade_strided`: the
+    same operator as `degrade`'s blur then block mean, with
+    ~(k+f-1)^2 / (k f)^2 of its work); per-sample [N, C, k, k] kernels,
+    normalized, folded into the groups (JAX's vmap of `degrade`)."""
+    if not per_sample:
+        return lambda x: degrade_strided(x, kernel, factor=factor)
+    kh, kw = kernel.shape[-2:]
+    comp = compose_with_box(normalize_kernel(kernel), factor)
+
+    def fwd(x):
+        n, c = x.shape[:2]
+        xp = replicate_pad(x, kh // 2, kw // 2)
+        y = F.conv2d(xp.reshape(1, n * c, *xp.shape[2:]), comp.reshape(n * c, 1, *comp.shape[2:]),
+                     stride=factor, groups=n * c)
+        return y.reshape(n, c, *y.shape[2:])
+    return fwd
+
+
 def _zero_order_hold(lr: torch.Tensor, factor: int) -> torch.Tensor:
     return lr.repeat_interleave(factor, dim=-2).repeat_interleave(factor, dim=-1)
 
@@ -118,19 +150,16 @@ def known_kernel_deconv(
     hr_shape: (C, H, W); lam: Tikhonov gradient weight; iters: CG steps.
     Initialized at the zero-order hold upsample. Runs where `lr` lies.
     """
-    kernel = kernel.to(lr.device)
-
-    def fwd(x):
-        return degrade(x, kernel, factor=factor)
-
+    fwd = _forward(kernel.to(lr.device, _WIDE), factor)
     with fp32_convs():
         x0 = _zero_order_hold(lr, factor)
-        _, at = vjp(fwd, torch.zeros(hr_shape, dtype=lr.dtype, device=lr.device))
+        _, at = vjp(fwd, torch.zeros(hr_shape, dtype=_WIDE, device=lr.device))
 
         def normal_op(x):
-            return at(fwd(x))[0] + lam * _grad_sq_op(x)
+            w = x.to(_WIDE)
+            return (at(fwd(w))[0] + lam * _grad_sq_op(w)).to(x.dtype)
 
-        x, _ = cg(normal_op, at(lr)[0], x0, maxiter=iters)
+        x, _ = cg(normal_op, at(lr.to(_WIDE))[0].to(lr.dtype), x0, maxiter=iters)
     return x
 
 
@@ -151,37 +180,30 @@ def _deconv_batch(
     switches the penalty from the gradient Laplacian (None) to the matched
     spectral prior; inv_nvar [C] adds the per-band noise weighting of the
     data term. Per-sample kernels are JAX's vmap of `degrade`: normalized,
-    replicate padding, block mean. With return_iters, returns (x, the CG
-    stop iteration)."""
+    replicate padding, block mean (`_forward`). With return_iters, returns
+    (x, the CG stop iteration)."""
     n, c, h, w = lr_b.shape
     hr_shape = (n, c, h * factor, w * factor)
-    kernel = kernel.to(lr_b.device)
-    if per_sample:
-        kernel = normalize_kernel(kernel)
-
-        def fwd(x):
-            return degrade_batch_kernels(x, kernel, factor=factor, padding="replicate")
-    else:
-        def fwd(x):
-            return degrade(x, kernel, factor=factor)
-
-    dscale = 1.0 if inv_nvar is None else inv_nvar.to(lr_b.device)[None, :, None, None]
+    fwd = _forward(kernel.to(lr_b.device, _WIDE), factor, per_sample)
+    dscale = 1.0 if inv_nvar is None else inv_nvar.to(lr_b.device, _WIDE)[None, :, None, None]
     if w_prior is None:
         pen = _grad_sq_op
     else:
-        w_prior = w_prior.to(lr_b.device)
+        w_prior = w_prior.to(lr_b.device, _WIDE)
 
         def pen(x):
             return torch.fft.ifft2(w_prior * torch.fft.fft2(x)).real.to(x.dtype)
 
     with fp32_convs():
         x0 = _zero_order_hold(lr_b, factor)
-        _, at = vjp(fwd, torch.zeros(hr_shape, dtype=lr_b.dtype, device=lr_b.device))
+        _, at = vjp(fwd, torch.zeros(hr_shape, dtype=_WIDE, device=lr_b.device))
 
         def normal_op(x):
-            return at(fwd(x) * dscale)[0] + lam * pen(x)
+            w = x.to(_WIDE)
+            return (at(fwd(w) * dscale)[0] + lam * pen(w)).to(x.dtype)
 
-        x, k = cg(normal_op, at(lr_b * dscale)[0], x0, maxiter=iters)
+        b = at(lr_b.to(_WIDE) * dscale)[0].to(lr_b.dtype)
+        x, k = cg(normal_op, b, x0, maxiter=iters)
     return (x, k) if return_iters else x
 
 

@@ -12,18 +12,25 @@ Reads:
   * object headers v1 (continuations, NIL gaps) and v2 (`OHDR` / `OCHK`);
   * groups as symbol tables (v1 B-tree type 0, `SNOD` nodes, local heap),
     as compact link messages, and as dense links in a fractal heap indexed
-    by a v2 B-tree of any depth; hard links, soft links (a symbol-table
-    entry of cache type 2, or a link message of type 1; absolute or
-    relative to their group) and external links (type 64: the file is
-    opened read-only, found by its own absolute name, then beside the
-    linking file, then in the working directory), followed as HDF5 follows
-    them (16 in a row at most); a dangling link is listed and raises
-    KeyError naming it;
+    by a v2 B-tree of any depth, the heap filtered or not (each direct
+    block decoded whole through the heap's pipeline); hard links, soft
+    links (a symbol-table entry of cache type 2, or a link message of type
+    1; absolute or relative to their group) and external links (type 64:
+    the file is opened read-only, found by its own absolute name, then
+    beside the linking file, then in the working directory), followed as
+    HDF5 follows them (16 in a row at most); a dangling link is listed and
+    raises KeyError naming it;
   * committed datatypes (`Datatype`: `dtype`, `attrs`, `name`), and shared
     datatype messages in datasets and attributes that point at them;
+  * the shared object header message table (superblock extension message
+    0x0F -> `SMTB`, its indexes a list or a v2 B-tree): a message shared
+    through it (dataspace, datatype, fill value, pipeline, attribute, and
+    an attribute's own datatype and dataspace) is read from its index's
+    fractal heap by the heap ID the object header holds;
   * attributes compact (messages v1-v3) or dense, huge fractal-heap
     objects (over the heap's managed size, e.g. a >64 KiB attribute)
-    included, both the directly and the B-tree-indexed kind;
+    included, both the directly and the B-tree-indexed kind, filtered or
+    not;
   * datasets contiguous (storage never allocated reads as the fill
     value), compact, or chunked: layout v3 through a v1 B-tree of any
     depth, and layout v4 through each of its five chunk indexes (single
@@ -44,11 +51,11 @@ Not verified: the Jenkins checksums of v2 object headers, fractal heaps,
 v2 B-trees and the chunk indexes' blocks (fletcher32 on data is).
 
 Still refused, each with `H5FormatError` naming the structure and its
-file offset: filtered fractal heap blocks and shared dataspaces, fill
-values or pipelines (those live in the shared object header message
-table; h5py cannot write either, so no file here holds one); a filter
-this module has no decoder for, where a chunk needs it; virtual
-datasets; datatypes of class time, bitfield or opaque; non-IEEE floats.
+file offset: a non-datatype message shared in another object header
+(libhdf5 1.8+ shares them only through the table), a message of a type
+the table has no index for; a filter this module has no decoder for,
+where a chunk needs it; virtual datasets; datatypes of class time,
+bitfield or opaque; non-IEEE floats.
 
 A basic slice (`ds[lo:hi]`) decompresses only the chunks it touches.
 
@@ -69,8 +76,11 @@ rewritten to its target's new address (as is every reference in a file
 copied by `copy_tree`). A loaded layout-v4 dataset is written as layout v3
 with each chunk's bytes, size and filter mask as read (an unfiltered edge
 chunk gets the mask of every filter), its dataspace message raw (so
-`maxshape` survives) and its filters as they were; a committed datatype is
-written as one and shared messages point at its new address; an object
+`maxshape` survives) and its filters as they were; a message read from
+the shared message table is written inline, unshared, and a group whose
+links lived in a (filtered) heap in the codec's own layout; a committed
+datatype is written as one and shared messages point at its new address;
+an object
 with an attribute too large for a message (over 64 KiB) keeps its
 attributes in dense storage (a v2 object header, one fractal-heap block,
 a one-leaf name index). New data is written with gzip 4 + shuffle or no
@@ -112,7 +122,8 @@ UNDEF = 0xFFFFFFFFFFFFFFFF
 # object header message types
 _NIL, _DATASPACE, _LINKINFO, _DATATYPE, _FILL_OLD, _FILL = 0x0, 0x1, 0x2, 0x3, 0x4, 0x5
 _LINK, _LAYOUT, _GROUPINFO, _PIPELINE, _ATTRIBUTE = 0x6, 0x8, 0xA, 0xB, 0xC
-_CONT, _STAB, _ATTRINFO = 0x10, 0x11, 0x15
+_SHARED_TABLE, _CONT, _STAB, _ATTRINFO = 0x0F, 0x10, 0x11, 0x15
+_MSG_SHARED = 0x2       # message flag: the body lives elsewhere
 # messages that carry nothing a reader of this subset needs
 _IGNORED = {
     0x7,   # external data files (refused below if a layout needs them)
@@ -430,17 +441,21 @@ def _decode_maxshape(b, off: int) -> Optional[tuple]:
                  for i in range(rank))
 
 
+def _in_table(b) -> bool:
+    """Whether a shared message's encoding names a message of the shared
+    object header message table (version 3, type 1: its heap ID)."""
+    return b[0] == 3 and b[1] == 1
+
+
 def _shared_address(b, where: int, what: str) -> int:
     """The object header address a shared message names (a committed
-    datatype); a message in the shared-message heap is refused."""
+    datatype)."""
     ver = b[0]
     if ver == 1:
         return _u(b, 8, 8)
     if ver in (2, 3) and (ver == 2 or b[1] == 2):
         return _u(b, 2, 8)
-    raise H5FormatError(f"shared {what} message", where,
-                        f"version {ver} type {b[1]} (the shared object header message "
-                        "table is not supported)")
+    raise H5FormatError(f"shared {what} message", where, f"version {ver} type {b[1]}")
 
 
 def _encode_space(shape: tuple) -> bytes:
@@ -474,6 +489,8 @@ class _Source:
         self.size = os.fstat(self.fd).st_size
         self._gheaps: Dict[int, Dict[int, bytes]] = {}
         self._fheaps: Dict[int, "_FractalHeap"] = {}
+        self._table: Optional[Dict[int, int]] = None
+        self.ext_addr = UNDEF
         self._parse_superblock()
 
     def close(self) -> None:
@@ -502,6 +519,7 @@ class _Source:
             if b[9] != 8 or b[10] != 8:
                 raise H5FormatError("superblock", 0, f"offset/length sizes {b[9]}/{b[10]}")
             base = _u(b, 12, 8)
+            self.ext_addr = _u(b, 20, 8)
             self.root_addr = _u(b, 36, 8)
         else:
             raise H5FormatError("superblock", 0, f"version {ver}")
@@ -545,7 +563,37 @@ class _Source:
                     p += 8 + msize
         else:
             raise H5FormatError("object header", addr, f"unknown version byte {head[0]}")
+        for m in out:
+            if m.flags & _MSG_SHARED and _in_table(m.data):
+                m.data = self.table_message(m.type, m.data[2:10], m.addr)
+                m.flags &= ~_MSG_SHARED
         return out
+
+    # -- the shared object header message table -----------------------------
+    def table_message(self, mtype: int, heap_id: bytes, where: int) -> bytes:
+        """The body of a message of type `mtype` that the shared object
+        header message table holds, by its heap ID: each of the table's
+        indexes (superblock extension message 0x0F -> `SMTB`) keeps the
+        messages of its types in a fractal heap of its own."""
+        if self._table is None:
+            self._table = {}
+            for m in self.messages(self.ext_addr) if self.ext_addr != UNDEF else []:
+                if m.type != _SHARED_TABLE:
+                    continue
+                addr, n = _u(m.data, 1, 8), m.data[9]
+                b = self.read(addr, 4 + 30 * n, "shared message table")
+                if b[:4] != b"SMTB":
+                    raise H5FormatError("shared message table", addr, "no SMTB signature")
+                for i in range(n):
+                    # version, index type, message type flags, minimum size,
+                    # list and B-tree cut-offs, count, index address, heap
+                    e = 4 + 30 * i
+                    flags, heap = _u(b, e + 2, 2), _u(b, e + 22, 8)
+                    self._table.update({t: heap for t in range(16) if flags >> t & 1})
+        if mtype not in self._table:
+            raise H5FormatError("shared message", where, f"type {mtype:#x} in the shared "
+                                "message table, which has no index of that type")
+        return self.fheap(self._table[mtype]).get(bytes(heap_id))
 
     def _v2_messages(self, base, buf, corder, out, queue) -> None:
         hdr = 6 if corder else 4
@@ -620,7 +668,9 @@ class _Source:
 
 
 class _FractalHeap:
-    """Managed objects of a fractal heap (dense links and attributes)."""
+    """Managed objects of a fractal heap (dense links and attributes, the
+    shared message table's messages). A filtered heap's direct blocks are
+    decoded whole through its pipeline, then addressed as stored ones."""
 
     def __init__(self, src: _Source, addr: int):
         self.src, self.addr = src, addr
@@ -628,6 +678,15 @@ class _FractalHeap:
         if h[:4] != b"FRHP" or h[4] != 0:
             raise H5FormatError("fractal heap", addr, f"signature {h[:4]!r} version {h[4]}")
         self.id_len, self.filter_len = _u(h, 5, 2), _u(h, 7, 2)
+        # filtered: the root direct block's stored size and filter mask,
+        # then the pipeline message
+        self.pipeline: Optional[_Pipeline] = None
+        self.root_filtered: Tuple[Optional[int], int] = (None, 0)
+        if self.filter_len:
+            f = src.read(addr + 142, 12 + self.filter_len, "fractal heap")
+            self.root_filtered = (_u(f, 0, 8), _u(f, 8, 4))
+            self.pipeline = _Pipeline.decode(f[12:], addr + 154)
+        self._decoded: Dict[int, bytes] = {}
         self.flags = h[9]
         max_man = _u(h, 10, 4)
         self.huge_btree = _u(h, 22, 8)
@@ -638,32 +697,33 @@ class _FractalHeap:
         self.max_heap_bits = _u(h, p + 18, 2)
         self.root = _u(h, p + 22, 8)
         self.root_rows = _u(h, p + 30, 2)
-        if self.filter_len:
-            raise H5FormatError("fractal heap", addr, "filtered heap blocks")
         self.off_size = (self.max_heap_bits + 7) // 8
         dir_off = (self.max_direct.bit_length() - 1 + 7) // 8
         self.len_size = min(dir_off, (max_man.bit_length() - 1) // 8 + 1)
         self.max_direct_rows = (self.max_direct.bit_length() - self.start_block.bit_length()) + 2
-        self._blocks: Optional[List[Tuple[int, int, int]]] = None
+        self._blocks: Optional[List[tuple]] = None
 
     def _row_size(self, row: int) -> int:
         return self.start_block if row == 0 else self.start_block << (row - 1)
 
-    def _walk(self) -> List[Tuple[int, int, int]]:
-        """(heap offset, size, address) of every allocated direct block."""
-        blocks: List[Tuple[int, int, int]] = []
+    def _walk(self) -> List[tuple]:
+        """(heap offset, size, address, stored size or None, filter mask)
+        of every allocated direct block."""
+        blocks: List[tuple] = []
         if self.root == UNDEF:
             return blocks
         if self.root_rows == 0:
-            blocks.append((0, self.start_block, self.root))
+            blocks.append((0, self.start_block, self.root) + self.root_filtered)
             return blocks
         first_bits = (self.start_block.bit_length() - 1) + (self.width.bit_length() - 1)
+        # a filtered heap's direct-block entry adds its stored size and mask
+        dentry = 20 if self.pipeline else 8
 
         def indirect(addr: int, nrows: int, heap_off: int) -> None:
             ndirect = min(nrows, self.max_direct_rows)
-            nentries = nrows * self.width
             hdr = 5 + 8 + self.off_size
-            buf = self.src.read(addr, hdr + 8 * nentries, "fractal heap indirect block")
+            nbytes = hdr + self.width * (dentry * ndirect + 8 * (nrows - ndirect))
+            buf = self.src.read(addr, nbytes, "fractal heap indirect block")
             if buf[:4] != b"FHIB":
                 raise H5FormatError("fractal heap indirect block", addr, "no FHIB signature")
             p, off = hdr, heap_off
@@ -671,10 +731,14 @@ class _FractalHeap:
                 size = self._row_size(row)
                 for _ in range(self.width):
                     child = _u(buf, p, 8)
-                    p += 8
+                    if row < ndirect and self.pipeline:
+                        stored = (_u(buf, p + 8, 8), _u(buf, p + 16, 4))
+                    else:
+                        stored = (None, 0)
+                    p += dentry if row < ndirect else 8
                     if child != UNDEF:
                         if row < ndirect:
-                            blocks.append((off, size, child))
+                            blocks.append((off, size, child) + stored)
                         else:
                             indirect(child, (size.bit_length() - 1) - first_bits + 1, off)
                     off += size
@@ -698,27 +762,41 @@ class _FractalHeap:
         length = _u(heap_id, 1 + self.off_size, self.len_size)
         if self._blocks is None:
             self._blocks = self._walk()
-        for boff, bsize, baddr in self._blocks:
+        for boff, bsize, baddr, stored, mask in self._blocks:
             if boff <= off < boff + bsize:
-                return self.src.read(baddr + off - boff, length, "fractal heap object")
+                if stored is None:
+                    return self.src.read(baddr + off - boff, length, "fractal heap object")
+                if baddr not in self._decoded:
+                    self._decoded[baddr] = bytes(self.pipeline.decode_chunk(
+                        self.src.read(baddr, stored, "fractal heap direct block"), mask, 1,
+                        baddr, bsize))
+                return self._decoded[baddr][off - boff:off - boff + length]
         raise H5FormatError("fractal heap", self.addr, f"no block holds offset {off}")
 
     def _huge_object(self, heap_id: bytes) -> bytes:
-        """A huge object: stored on its own, its address and length in the
-        heap ID itself where the ID is long enough (H5HFhuge.c), else in
-        the heap's huge-object v2 B-tree under the ID's number."""
-        if self.id_len - 1 >= 16:   # directly accessed (record type 3)
-            addr, length = _u(heap_id, 1, 8), _u(heap_id, 9, 8)
-        else:                       # indirectly accessed (record type 1)
+        """A huge object: stored on its own, its address and length (in a
+        filtered heap also its filter mask and decoded size) in the heap ID
+        itself where the ID is long enough (H5HFhuge.c), else in the heap's
+        huge-object v2 B-tree under the ID's number (record type 1, or 2
+        when filtered)."""
+        filtered = self.pipeline is not None
+        fields = 4 if filtered else 2    # address, length[, mask, size]
+        if self.id_len - 1 >= 8 * fields - 4 * filtered:   # directly accessed
+            rec = heap_id[1:]
+        else:
             if self._huge is None:
-                self._huge = {}
-                for rec in _btree_v2_records(self.src, self.huge_btree):
-                    self._huge[_u(rec, 16, 8)] = (_u(rec, 0, 8), _u(rec, 8, 8))
+                key_at = 28 if filtered else 16
+                self._huge = {_u(r, key_at, 8): r
+                              for r in _btree_v2_records(self.src, self.huge_btree)}
             key = _u(heap_id, 1, min(self.id_len - 1, 8))
             if key not in self._huge:
                 raise H5FormatError("fractal heap", self.addr, f"no huge object {key}")
-            addr, length = self._huge[key]
-        return self.src.read(addr, length, "huge fractal heap object")
+            rec = self._huge[key]
+        data = self.src.read(_u(rec, 0, 8), _u(rec, 8, 8), "huge fractal heap object")
+        if filtered:
+            data = bytes(self.pipeline.decode_chunk(data, _u(rec, 16, 4), 1, self.addr,
+                                                    _u(rec, 20, 8)))
+        return data
 
 
 def _btree_v2_records(src: _Source, addr: int) -> List[bytes]:
@@ -838,20 +916,27 @@ def _parse_attribute(b, where: int, file: "File"):
         shape = _decode_space(b, p)
         p += _align8(ssz)
     elif ver in (2, 3):
-        if b[1] & 0x2:
-            raise H5FormatError("attribute message", where,
-                                "shared dataspace (the shared object header message "
-                                "table is not supported)")
         nsz, tsz, ssz = struct.unpack_from("<HHH", b, 2)
         p = 8 if ver == 2 else 9
         name = bytes(b[p:p + nsz]).split(b"\0", 1)[0].decode("utf-8")
         p += nsz
-        if b[1] & 0x1:
-            t = file._committed_type(_shared_address(b[p:p + tsz], where, "datatype"))
+        tb = b[p:p + tsz]
+        if b[1] & 0x1 and _in_table(tb):
+            t, _ = _decode_type(file._src.table_message(_DATATYPE, tb[2:10], where), 0)
+        elif b[1] & 0x1:
+            t = file._committed_type(_shared_address(tb, where, "datatype"))
         else:
             t, _ = _decode_type(b, p)
         p += tsz
-        shape = _decode_space(b, p)
+        sb = b[p:p + ssz]
+        if not b[1] & 0x2:
+            shape = _decode_space(b, p)
+        elif _in_table(sb):
+            shape = _decode_space(file._src.table_message(_DATASPACE, sb[2:10], where), 0)
+        else:
+            raise H5FormatError("attribute message", where,
+                                f"dataspace shared outside the shared message table "
+                                f"(version {sb[0]} type {sb[1]})")
         p += ssz
     else:
         raise H5FormatError("attribute message", where, f"version {ver}")
@@ -1184,7 +1269,9 @@ class _Node:
                     continue
                 heap = src.fheap(heap_addr)
                 for j, rec in enumerate(_btree_v2_records(src, name_bt)):
-                    data = heap.get(rec[:8])
+                    # record: heap ID, message flags, creation order, hash
+                    data = (src.table_message(_ATTRIBUTE, rec[:8], heap_addr)
+                            if rec[8] & _MSG_SHARED else heap.get(rec[:8]))
                     name, t, shape, raw = _parse_attribute(data, heap_addr, self.file)
                     corder = _u(rec, 9, 4) if flags & 1 else None
                     found.append((corder, len(self._messages()) + j, name,
@@ -1444,17 +1531,16 @@ class Dataset(_Node):
         self._layout = None
         for m in self._messages():
             b = m.data
-            if m.flags & 0x2 and m.type != _DATATYPE:
+            if m.flags & _MSG_SHARED and m.type != _DATATYPE:
                 raise H5FormatError("object header message", m.addr,
-                                    f"shared message of type {m.type:#x} in {self.name!r} "
-                                    "(shared dataspaces, fill values and pipelines live in "
-                                    "the shared object header message table, not supported)")
+                                    f"message of type {m.type:#x} in {self.name!r} shared "
+                                    f"in another object header (version {b[0]} type {b[1]})")
             if m.type == _DATASPACE:
                 self._shape = _decode_space(b, 0) or ()
                 self._maxshape = _decode_maxshape(b, 0)
                 self._space_raw = bytes(b)
             elif m.type == _DATATYPE:
-                if m.flags & 0x2:
+                if m.flags & _MSG_SHARED:
                     self._type = self.file._committed_type(
                         _shared_address(b, m.addr, "datatype"))
                 else:

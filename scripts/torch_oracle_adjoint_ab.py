@@ -1,6 +1,7 @@
 """How far the port's float32 oracle lies from a float64 solve, against JAX's,
-with the operator's adjoint taken by `torch.func.vjp` (the port's spelling)
-and spelt out by hand.
+with the normal operator run in float64 (the port's spelling since the
+oracle's repair: one rounding to float32 an application) and in float32,
+its adjoint taken by `torch.func.vjp` or spelt out by hand.
 
 The x8 case of `tests/test_torch_oracle.py` (3 structured 5x64^2 HR
 patches, a 13x13 Gaussian, 30 CG iterations) through
@@ -8,8 +9,9 @@ patches, a 13x13 Gaussian, 30 CG iterations) through
 prior with its 1/sigma^2 data weights, per-sample kernels). For each route
 it prints the largest distance of the port's float32 prediction from the
 port's float64 solve over JAX's float32 distance from it (per image and
-overall), once with each adjoint, and checks first that the written-out
-adjoint equals the vjp in float64.
+overall), once for each spelling, and checks first that the written-out
+adjoint equals the vjp in float64. The tests hold the port to a ratio of
+at most 2 where it is not within rtol 1e-3 / atol 1e-4 of JAX.
 
 The written-out adjoint of degrade = replicate pad -> depthwise
 correlation -> block mean: the block mean's adjoint (repeat each pixel
@@ -95,9 +97,11 @@ def adjoint(y: torch.Tensor, kernel: torch.Tensor, factor: int,
     return out
 
 
-def deconv(lr_b, kernel, lam, w_prior, inv_nvar, per_sample, explicit):
-    """`to._deconv_batch`, with the written-out adjoint when `explicit`."""
-    if not explicit:
+def deconv(lr_b, kernel, lam, w_prior, inv_nvar, per_sample, spelling):
+    """`to._deconv_batch` ("float64 op"), or its float32 operator with the
+    vjp ("float32 op, vjp") or the written-out adjoint ("float32 op,
+    written-out")."""
+    if spelling == "float64 op":
         return to._deconv_batch(lr_b, kernel, FACTOR, lam, w_prior, inv_nvar, iters=ITERS,
                                 per_sample=per_sample)
     if per_sample:
@@ -115,14 +119,23 @@ def deconv(lr_b, kernel, lam, w_prior, inv_nvar, per_sample, explicit):
         def pen(x):
             return torch.fft.ifft2(w_prior * torch.fft.fft2(x)).real.to(x.dtype)
 
-    def at(y):
-        return adjoint(y, kernel, FACTOR, per_sample)
-
     with fp32_convs():
+        if spelling == "float32 op, written-out":
+            def at(y):
+                return adjoint(y, kernel, FACTOR, per_sample)
+        else:
+            n, c, h, w = lr_b.shape
+            _, vjp_at = vjp(fwd, torch.zeros(n, c, h * FACTOR, w * FACTOR, dtype=lr_b.dtype))
+
+            def at(y):
+                return vjp_at(y)[0]
         x0 = to._zero_order_hold(lr_b, FACTOR)
         x, _ = to.cg(lambda x: at(fwd(x) * dscale) + lam * pen(x), at(lr_b * dscale), x0,
                      maxiter=ITERS)
     return x
+
+
+SPELLINGS = ("float64 op", "float32 op, vjp", "float32 op, written-out")
 
 
 def main() -> None:
@@ -157,14 +170,14 @@ def main() -> None:
             None if w is None else jnp.asarray(w), None if inv is None else jnp.asarray(inv),
             iters=ITERS, per_sample=per_sample))
         f64 = deconv(t(l, torch.float64), t(k, torch.float64), lam, t(w, torch.float64),
-                     t(inv, torch.float64), per_sample, False).numpy()
+                     t(inv, torch.float64), per_sample, SPELLINGS[0]).numpy()
         d_jax = [float(np.abs(want[i] - f64[i]).max()) for i in range(N)]
-        for explicit in (False, True):
+        for spelling in SPELLINGS:
             got = deconv(t(l, torch.float32), t(k, torch.float32), lam, t(w, torch.float32),
-                         t(inv, torch.float32), per_sample, explicit).numpy()
+                         t(inv, torch.float32), per_sample, spelling).numpy()
             d = [float(np.abs(got[i] - f64[i]).max()) for i in range(N)]
             ratio = max(d) / max(d_jax)
-            print(f"{route:10s} {'written-out' if explicit else 'vjp':11s} "
+            print(f"{route:10s} {spelling:23s} "
                   f"d_port/d_jax overall {ratio:.2f}, per image "
                   + ", ".join(f"{a / b:.2f}" for a, b in zip(d, d_jax)))
 

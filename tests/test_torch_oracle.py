@@ -1,17 +1,15 @@
-"""The port's known-kernel deconvolution oracle against the JAX package's.
+"""The port's known-kernel deconvolution oracle against the JAX package's:
+the operator, the batch solves, the matched prior and CG.
 
 `kmsr_tpu_torch.analysis.oracle` vs `kmsr_tpu.analysis.oracle` on the same
-seeded numpy inputs (the JAX oracle is XLA: no Pallas kernel on this path).
-In float64 (JAX under `jax.enable_x64`) the two solves agree to ~1e-11 of
-the HR range: the operator, its adjoint, the priors and CG are JAX's. In
-float32 CG amplifies each package's rounding: where a prediction is off
-the JAX one by more than rtol 1e-3 / atol 1e-4 of the HR range, the port's
-distance from a float64 solve (the port's own, on the CPU) must be at most
-twice JAX's. The matched prior's float32 predictions miss that yardstick
-(2.8-3.8x JAX's distance: ATen's conv^T rounds each pixel ~3x more than
-XLA's, and the 1/sigma^2 data weights amplify it), so they are held in
-float64, and in float32 by what the oracle reports (the chosen lam, each
-lam's PSNR).
+seeded numpy inputs (the JAX oracle is XLA: no Pallas kernel on this path;
+the sweeps are in `test_torch_oracle_sweep.py`). In float64 (JAX under
+`jax.enable_x64`) the two solves agree to ~1e-11 of the HR range: the
+operator, its adjoint, the priors and CG are JAX's. In float32 CG
+amplifies each package's rounding: where a prediction is off the JAX one
+by more than rtol 1e-3 / atol 1e-4 of the HR range, the port's distance
+from a float64 solve (the port's own, on the CPU) must be at most twice
+JAX's, in every route.
 """
 import jax
 import jax.numpy as jnp
@@ -20,48 +18,11 @@ import pytest
 import torch
 
 from kmsr_tpu.analysis import oracle as jo
-from kmsr_tpu.ops.degrade import degrade as jax_degrade
 from kmsr_tpu_torch.analysis import oracle as to
-
-FACTOR, N, C, HW, ITERS = 8, 3, 5, 64, 30
-
-
-def _gauss_kernel(c, k, sigma):
-    ax = np.arange(k) - k // 2
-    g = np.exp(-(ax[:, None] ** 2 + ax[None, :] ** 2) / (2 * sigma**2))
-    return np.broadcast_to(g / g.sum(), (c, k, k)).astype(np.float32).copy()
-
-
-def _scene(n, hw, seed):
-    """n structured [C, hw, hw] HR patches (waves plus fine noise)."""
-    rng = np.random.default_rng(seed)
-    yy, xx = np.meshgrid(np.linspace(0, 1, hw), np.linspace(0, 1, hw), indexing="ij")
-    return np.stack([np.stack([
-        5 + np.sin((8 + i + c) * xx) * np.cos((6 + c) * yy)
-        + 0.1 * rng.normal(size=xx.shape) for c in range(C)]) for i in range(n)]
-    ).astype(np.float32)
-
-
-def _lr(hr, kernel, factor, seed, sigma=0.02):
-    lr = np.stack([np.asarray(jax_degrade(jnp.asarray(h), jnp.asarray(k), factor=factor))
-                   for h, k in zip(hr, kernel if kernel.ndim == 4 else [kernel] * len(hr))])
-    return lr + np.random.default_rng(seed).normal(0, sigma, lr.shape).astype(np.float32)
-
-
-def _assert_close_or_f64(got, want, f64, hr_range):
-    """Within rtol 1e-3 / atol 1e-4 of the HR range, or no further from
-    the float64 solve than twice JAX's float32 distance from it."""
-    if np.allclose(got, want, rtol=1e-3, atol=1e-4 * hr_range):
-        return
-    d_port, d_jax = np.abs(got - f64).max(), np.abs(want - f64).max()
-    assert d_port <= 2 * d_jax, (np.abs(got - want).max(), d_port, d_jax)
-
-
-@pytest.fixture(scope="module")
-def x8_case():
-    hr = _scene(N, HW, seed=0)
-    kernel = _gauss_kernel(C, 13, 2.0)
-    return hr, kernel, _lr(hr, kernel, FACTOR, seed=1)
+from tests.helpers.torch_oracle import (  # noqa: F401
+    C, FACTOR, ITERS, assert_close_or_f64 as _assert_close_or_f64,
+    gauss_kernel as _gauss_kernel, jax_batch as _jax_batch, make_lr as _lr,
+    one_torch_thread, port_batch as _port_batch, route as _route, x8_case)
 
 
 def test_grad_sq_op_matches_jax(rng):
@@ -98,33 +59,7 @@ def test_known_kernel_deconv_x8_matches_jax(x8_case):
     _assert_close_or_f64(got, want, f64, float(np.ptp(hr[0])))
 
 
-def _port_batch(lr, kernel, lam, w, inv, per_sample, dtype=torch.float32):
-    t = lambda a: None if a is None else torch.from_numpy(a).to(dtype)  # noqa: E731
-    return to._deconv_batch(t(lr), t(kernel), FACTOR, lam, t(w), t(inv), iters=ITERS,
-                            per_sample=per_sample).numpy()
-
-
-def _route(x8_case, route):
-    """(hr, kernel, lr, lam, w_prior, inv_nvar) of one _deconv_batch route."""
-    hr, kernel, lr = x8_case
-    w = inv = None
-    lam = 1e-3
-    if route == "matched":
-        w, inv = jo.matched_prior(_scene(4, HW, seed=5), np.full(C, 4e-4))
-        lam = 1.0
-    if route == "per_sample":
-        kernel = np.stack([_gauss_kernel(C, 13, s) for s in (1.5, 2.0, 2.5)])
-        lr = _lr(hr, kernel, FACTOR, seed=2)
-    return hr, kernel, lr, lam, w, inv
-
-
-def _jax_batch(lr, kernel, lam, w, inv, per_sample, dtype=jnp.float32):
-    a = lambda x: None if x is None else jnp.asarray(x, dtype)  # noqa: E731
-    return np.asarray(jo._deconv_batch(a(lr), a(kernel), FACTOR, dtype(lam), a(w), a(inv),
-                                       iters=ITERS, per_sample=per_sample))
-
-
-@pytest.mark.parametrize("route", ["grad", "per_sample"])
+@pytest.mark.parametrize("route", ["grad", "matched", "per_sample"])
 def test_deconv_batch_matches_jax(x8_case, route):
     hr, kernel, lr, lam, w, inv = _route(x8_case, route)
     got = _port_batch(lr, kernel, lam, w, inv, route == "per_sample")
@@ -152,50 +87,6 @@ def test_matched_prior_bit_equal(rng):
     nvar = np.array([0.5, 2.0, 1e-3, 0.1, 1.0])
     for got, want in zip(to.matched_prior(hr, nvar), jo.matched_prior(hr, nvar)):
         assert got.dtype == want.dtype and np.array_equal(got, want)
-
-
-@pytest.mark.parametrize("prior", ["grad", "matched"])
-def test_oracle_sweep_matches_jax(x8_case, prior):
-    """N=3 5x64^2 at x8, 30 iterations: the same chosen lam, every lam's
-    mean PSNR within 0.01 dB, the predictions at the tolerance."""
-    hr, kernel, lr = x8_case
-    extra = {}
-    if prior == "matched":
-        extra = {"noise_var": np.full(C, 4e-4), "spec_examples": _scene(4, HW, seed=5)}
-    best_j, preds_j, res_j = jo.oracle_sweep(lr, hr, kernel, FACTOR, iters=ITERS,
-                                             prior=prior, **extra)
-    best_t, preds_t, res_t = to.oracle_sweep(lr, hr, kernel, FACTOR, iters=ITERS,
-                                             prior=prior, device="cpu", **extra)
-    assert best_t == best_j
-    assert list(res_t) == list(res_j)
-    for lam in res_j:
-        assert abs(res_t[lam] - res_j[lam]) < 0.01, (lam, res_t[lam], res_j[lam])
-    prior_args = (to.matched_prior(extra["spec_examples"], extra["noise_var"])
-                  if extra else (None, None))
-    # the returned predictions are the chosen lam's solve
-    np.testing.assert_array_equal(preds_t, _port_batch(lr, kernel, best_t, *prior_args, False))
-    if prior == "grad":
-        f64 = _port_batch(lr, kernel, best_j, *prior_args, False, torch.float64)
-        _assert_close_or_f64(preds_t, preds_j, f64, float(np.ptp(hr)))
-
-
-def test_oracle_sweep_per_sample_chunks_match_jax(x8_case):
-    """Per-sample kernels swept in chunks of 2 over N=3 (each chunk its
-    own joint system, its own kernels): JAX's lam and PSNRs."""
-    hr, _, _ = x8_case
-    kernel = np.stack([_gauss_kernel(C, 13, s) for s in (1.5, 2.0, 2.5)])
-    lr = _lr(hr, kernel, FACTOR, seed=4)
-    lams = (1e-4, 1e-3, 1e-2)
-    best_j, preds_j, res_j = jo.oracle_sweep(lr, hr, kernel, FACTOR, lams=lams,
-                                             iters=ITERS, chunk=2)
-    stops = {}
-    best_t, preds_t, res_t = to.oracle_sweep(lr, hr, kernel, FACTOR, lams=lams, iters=ITERS,
-                                             chunk=2, device="cpu", cg_iters=stops)
-    assert best_t == best_j and list(stops) == list(lams)
-    assert all(len(v) == 2 and all(0 < k <= ITERS for k in v) for v in stops.values())
-    for lam in lams:
-        assert abs(res_t[lam] - res_j[lam]) < 0.01, (lam, res_t[lam], res_j[lam])
-    assert preds_t.shape == hr.shape and np.isfinite(preds_t).all()
 
 
 def test_cg_stops_before_maxiter_where_jax_does(x8_case):
@@ -247,9 +138,10 @@ def test_cg_matches_a_plain_solve_on_a_small_spd_system(rng):
 
 def test_per_sample_route_uses_replicate_padding(x8_case, monkeypatch):
     """Per-sample kernels are JAX's vmap of `degrade` (replicate padding,
-    block mean). The same solve with `degrade_batch_kernels`' zero padding
-    (the MoE model's default) lands off JAX's by far more than the
-    tolerance: this route's padding is under test."""
+    block mean). The same solve with zero padding in place of the
+    replicate pad (`degrade_batch_kernels`' default, the MoE model's)
+    lands off JAX's by far more than the tolerance: this route's padding
+    is under test."""
     hr, _, _ = x8_case
     kernel = np.stack([_gauss_kernel(C, 13, s) for s in (1.5, 2.0, 2.5)])
     lr = _lr(hr, kernel, FACTOR, seed=3)
@@ -260,21 +152,8 @@ def test_per_sample_route_uses_replicate_padding(x8_case, monkeypatch):
     got = _port_batch(lr, kernel, 1e-3, None, None, True)
     np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-4 * rng_hr)
 
-    real = to.degrade_batch_kernels
-    monkeypatch.setattr(to, "degrade_batch_kernels",
-                        lambda x, k, factor, padding: real(x, k, factor=factor,
-                                                           padding="same"))
+    monkeypatch.setattr(to, "replicate_pad",
+                        lambda x, ph, pw: torch.nn.functional.pad(x, (pw, pw, ph, ph)))
     zero = _port_batch(lr, kernel, 1e-3, None, None, True)
     assert np.abs(zero - want).max() > 100 * np.abs(got - want).max()
     assert not np.allclose(zero, want, rtol=1e-3, atol=1e-3 * rng_hr)
-
-
-def test_oracle_sweep_refuses_bad_priors_and_a_missing_card(x8_case):
-    hr, kernel, lr = x8_case
-    with pytest.raises(ValueError, match="needs noise_var"):
-        to.oracle_sweep(lr, hr, kernel, FACTOR, prior="matched", device="cpu")
-    with pytest.raises(ValueError, match="unknown prior"):
-        to.oracle_sweep(lr, hr, kernel, FACTOR, prior="tv", device="cpu")
-    if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="CUDA is not available"):
-            to.oracle_sweep(lr, hr, kernel, FACTOR)

@@ -9,8 +9,8 @@ native_lr_eval.py), on the CPU at small sizes.
   pairs, holdout 4) with a JAX `init_sr` model saved in JAX's `.npz`
   format: every holdout pair's SR and bilinear PSNR within 1e-4 dB and
   SSIM within 1e-5, the same chosen lam per prior and every lam's mean
-  PSNR within 0.01 dB (the oracle's float32 CG drifts further from a
-  float64 solve in the port than in JAX: ROADMAP.md section 3), the
+  PSNR within 0.01 dB (float32 CG rounds differently in each package:
+  ROADMAP.md section 3), the
   printed lines and the markdown equal but for the model row's label (and
   the reference's kernel trainer named without an absolute path); the
   plain route (`--config`'s kernel) and the per-scene `--kernel-root`
@@ -43,6 +43,7 @@ from kmsr_tpu.models.sr import init_sr as jinit_sr
 from kmsr_tpu.utils.params_io import save_params as jsave_params
 from kmsr_tpu_torch.io.ncio import read_band_stack
 from kmsr_tpu_torch.pipeline.make_train_data import save_training_sample
+from tests.helpers.torch_oracle import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 PSNR_ABS, SSIM_ABS, LAM_PSNR_ABS = 1e-4, 1e-5, 0.01
