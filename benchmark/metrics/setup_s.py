@@ -1,0 +1,5 @@
+"""Set-up: process start to the window's start (host clock)."""
+
+
+def read(run):
+    return run.setup_s
