@@ -91,21 +91,26 @@ def data_range(hr: torch.Tensor) -> torch.Tensor:
 
 
 def dispatch(params: dict, lrs: list, hrs: Optional[list], cfg: SRConfig,
-             dev: torch.device) -> tuple:
+             dev: torch.device, item=None) -> tuple:
     """Queue one shape group on `dev`: upload, bfloat16 forward, PSNR/SSIM
     against hrs (when given) on the device, and the copies back. Returns
     (preds host tensor, metrics host tensor [b, 2] or None, done event or
-    None); the host tensors are valid once the event has completed."""
-    pred = sr_forward(params, _staged(lrs, dev), cfg)
-    metrics = None
-    if hrs is not None:
-        hr = _staged(hrs, dev)
-        if hr.shape != pred.shape:
-            raise ValueError(f"{GROUP_HR} {tuple(hr.shape[1:])} != sr "
-                             f"{tuple(pred.shape[1:])}")
-        dr = data_range(hr)
-        metrics = to_host(torch.stack([psnr(pred, hr, dr), ssim(pred, hr, dr)], dim=1))
-    return to_host(pred), metrics, queued_event(dev)
+    None); the host tensors are valid once the event has completed. Spans
+    `sr_infer.stage` (the uploads) and `sr_infer.launch` (the rest), with
+    `item`."""
+    with stage_timer("sr_infer.stage", item=item):
+        lr = _staged(lrs, dev)
+        hr = None if hrs is None else _staged(hrs, dev)
+    with stage_timer("sr_infer.launch", item=item):
+        pred = sr_forward(params, lr, cfg)
+        metrics = None
+        if hr is not None:
+            if hr.shape != pred.shape:
+                raise ValueError(f"{GROUP_HR} {tuple(hr.shape[1:])} != sr "
+                                 f"{tuple(pred.shape[1:])}")
+            dr = data_range(hr)
+            metrics = to_host(torch.stack([psnr(pred, hr, dr), ssim(pred, hr, dr)], dim=1))
+        return to_host(pred), metrics, queued_event(dev)
 
 
 def _blocks(arrays: list, n_dev: int) -> list[list]:
@@ -141,11 +146,11 @@ def run_batches(
     fail: list = []
     sync_guard = DeviceSyncGuard()
 
-    def finish(paths, outs):
+    def finish(paths, outs, k):
         # device-side failures surface at this sync: fail the group, not
         # the run (unless the guard sees the device persistently wedged)
         try:
-            with stage_timer("sr_infer.device_sync"):
+            with stage_timer("sr_infer.device_sync", item=k):
                 for _, _, done in outs:
                     if done is not None:
                         done.synchronize()
@@ -155,13 +160,22 @@ def run_batches(
             sync_guard.failed(e)
             return
         b = len(paths)
-        preds = np.concatenate([o[0].numpy() for o in outs])[:b]
-        metrics = (None if outs[0][1] is None
-                   else np.concatenate([o[1].numpy() for o in outs])[:b])
-        on_batch(paths, preds, metrics)
+        with stage_timer("sr_infer.assemble", item=k) as counts:
+            preds = np.concatenate([o[0].numpy() for o in outs])[:b]
+            metrics = (None if outs[0][1] is None
+                       else np.concatenate([o[1].numpy() for o in outs])[:b])
+            counts["bytes"] = preds.nbytes + (0 if metrics is None else metrics.nbytes)
+        with stage_timer("sr_infer.deliver", item=k):
+            on_batch(paths, preds, metrics)
 
-    pending = None
-    for paths, items, chunk_fail in chunks:
+    # group g's spans carry item=g; source_wait carries the next group's
+    pending, k, source = None, 0, iter(chunks)
+    while True:
+        with stage_timer("sr_infer.source_wait", item=k):
+            chunk = next(source, None)
+        if chunk is None:
+            break
+        paths, items, chunk_fail = chunk
         fail.extend(chunk_fail)
         # per-shape groups: mixed-size inputs must not kill the run
         groups: dict = {}
@@ -170,21 +184,22 @@ def run_batches(
             groups.setdefault(key, []).append((p, lr, hr))
         for (_, hr_shape), items_g in groups.items():
             paths_g = [p for p, _, _ in items_g]
+            g, k = k, k + 1
             try:
-                with stage_timer("sr_infer.dispatch"):
+                with stage_timer("sr_infer.dispatch", item=g):
                     lrs = _blocks([lr for _, lr, _ in items_g], n_dev)
                     hrs = (_blocks([hr for _, _, hr in items_g], n_dev)
                            if hr_shape is not None else [None] * n_dev)
                     outs = []
                     for d, lr_b, hr_b in zip(devs, lrs, hrs):
                         with torch.cuda.device(d) if d.type == "cuda" else nullcontext():
-                            outs.append(dispatch(params_on[d], lr_b, hr_b, cfg, d))
+                            outs.append(dispatch(params_on[d], lr_b, hr_b, cfg, d, item=g))
             except Exception as e:  # per-group failure isolation
                 fail.extend((p, f"{type(e).__name__}: {e}") for p in paths_g)
                 continue
             if pending is not None:
                 finish(*pending)
-            pending = (paths_g, outs)
+            pending = (paths_g, outs, g)
     if pending is not None:
         finish(*pending)
     return fail

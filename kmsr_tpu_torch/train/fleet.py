@@ -50,6 +50,7 @@ from ..device import deterministic
 from ..models.generator import extract_kernels
 from ..parallel.mesh import mesh_device
 from ..parallel.multihost import global_batch
+from ..utils.profiling import stage_timer
 from .single_kernel import (
     _CHUNK_KEYS,
     _LOG_KEYS,
@@ -170,9 +171,11 @@ def make_fleet_step(cfg: SingleKernelConfig, scenes: int) -> Callable:
 
     def fleet_step(state, pool, crop_pool, hr_idx, crop_idx):
         dev = pool.device
-        if dev not in rows:
-            rows[dev] = torch.arange(scenes, device=dev)[:, None]
-        return step(state, pool[rows[dev], hr_idx], crop_pool[rows[dev], crop_idx])
+        with stage_timer("fleet.gather", item=state.step, scene_its=scenes):
+            if dev not in rows:
+                rows[dev] = torch.arange(scenes, device=dev)[:, None]
+            hr, crops = pool[rows[dev], hr_idx], crop_pool[rows[dev], crop_idx]
+        return step(state, hr, crops)
 
     return fleet_step
 
@@ -190,14 +193,18 @@ def make_fleet_chunk_step(cfg: SingleKernelConfig, scenes: int) -> Callable:
 
     def chunk(state, pool, crop_pool, sizes, crop_sizes):
         dev = pool.device
-        rows = []
+        rows, t0 = [], state.step
         for _ in range(k_steps):
-            idx = [(batch_indices(g, n, bs, dev), batch_indices(g, nc, bs, dev))
-                   for g, n, nc in zip(state.rng, sizes, crop_sizes)]
-            state, m = step(state, pool, crop_pool, torch.stack([h for h, _ in idx]),
-                            torch.stack([c for _, c in idx]))
+            with stage_timer("fleet.draw", item=state.step):
+                idx = [(batch_indices(g, n, bs, dev), batch_indices(g, nc, bs, dev))
+                       for g, n, nc in zip(state.rng, sizes, crop_sizes)]
+                hr_idx = torch.stack([h for h, _ in idx])
+                crop_idx = torch.stack([c for _, c in idx])
+            state, m = step(state, pool, crop_pool, hr_idx, crop_idx)
             rows.append(m)
-        return state, {k: torch.stack([m[k] for m in rows], dim=1) for k in _CHUNK_KEYS}
+        with stage_timer("fleet.collect", item=t0):
+            out = {k: torch.stack([m[k] for m in rows], dim=1) for k in _CHUNK_KEYS}
+        return state, out
 
     return chunk
 
@@ -225,7 +232,13 @@ def make_fleet_advance(cfg: SingleKernelConfig, states: list, pool: torch.Tensor
     (equal widths), updated in place; the pools and sizes are every local
     scene's, in order. K = 1: each scene's host RNG draws its HR indices,
     then its crop indices (a standalone run's draw order), and every
-    scene's go up in one copy. Nothing waits for the device."""
+    scene's go up in one copy. Nothing waits for the device.
+
+    Spans (`utils.profiling.stage_timer`, the step count as item), beside
+    the step's `kernelgan.*`: `fleet.draw` (the index draws and, at K = 1,
+    their upload), `fleet.gather` (the pool gather, counting
+    `scene_its=m`), `fleet.collect` (K > 1: stacking the K rows of
+    metrics)."""
     m = len(states[0].rng)
     chunks = [slice(c * m, (c + 1) * m) for c in range(len(states))]
     if cfg.steps_per_call > 1:
@@ -244,9 +257,11 @@ def make_fleet_advance(cfg: SingleKernelConfig, states: list, pool: torch.Tensor
     bs = cfg.batch_size
 
     def advance():
-        idx = _to_device(np.stack([
-            np.stack([r.integers(0, sizes[s], size=bs), r.integers(0, crop_sizes[s], size=bs)])
-            for s, r in enumerate(host_rngs)]), pool.device)  # [S, 2, B]
+        with stage_timer("fleet.draw", item=states[0].step):
+            idx = _to_device(np.stack([
+                np.stack([r.integers(0, sizes[s], size=bs),
+                          r.integers(0, crop_sizes[s], size=bs)])
+                for s, r in enumerate(host_rngs)]), pool.device)  # [S, 2, B]
         out = []
         for i, c in enumerate(chunks):
             states[i], ms = step_fn(states[i], pool[c], crop_pool[c], idx[c, 0], idx[c, 1])

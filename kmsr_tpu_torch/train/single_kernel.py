@@ -65,6 +65,7 @@ from ..parallel.mesh import (
     replicate_state,
     shard_batch,
 )
+from ..utils.profiling import stage_timer
 from .state import (
     GANTrainState,
     check_mesh_vs_scan,
@@ -181,6 +182,13 @@ def make_base_step(cfg: SingleKernelConfig) -> Callable:
     recomputation gives (same params, same hr). Besides the JAX package's
     metrics, "grads_D" / "grads_G" hold the gradients before clipping, in
     the parameters' layout.
+
+    Each phase is a `utils.profiling.stage_timer` span with the step count
+    as its item: `kernelgan.g_forward` (real crops, G, D's fake noise),
+    `kernelgan.d_forward` (D's two passes and its loss),
+    `kernelgan.d_backward`, `kernelgan.d_update`, `kernelgan.g_loss` (G's
+    noise, D on the fake, adv, reg, raw-sum), `kernelgan.g_backward`,
+    `kernelgan.g_update`.
     """
     g_tx = make_gan_optimizers(cfg.lr_rate, grad_clip_norm=cfg.grad_clip_norm)
     d_tx = make_gan_optimizers(cfg.d_lr_rate or cfg.lr_rate,
@@ -209,40 +217,49 @@ def make_base_step(cfg: SingleKernelConfig) -> Callable:
             return _step(state, hr, crop_src)
 
     def _step(state: GANTrainState, hr: torch.Tensor, crop_src: torch.Tensor):
-        g_params, d_params = state.g_params, state.d_params
-        if cfg.real_is_lr:
-            real = crop_src
-        else:
-            real = random_crops(state.rng, crop_src, cfg.lr_crop_size)
-        fake = generator_forward(g_params, hr, factor=factor, forward_mode=fwd_mode)
-        fake_d = fake
-        if noise_on:
-            fake_d = fake + _normal(state.rng, fake) * _sigma_of(g_params, fake.device)
+        g_params, d_params, t = state.g_params, state.d_params, state.step
+        with stage_timer("kernelgan.g_forward", item=t):
+            if cfg.real_is_lr:
+                real = crop_src
+            else:
+                real = random_crops(state.rng, crop_src, cfg.lr_crop_size)
+            fake = generator_forward(g_params, hr, factor=factor, forward_mode=fwd_mode)
+            fake_d = fake
+            if noise_on:
+                fake_d = fake + _normal(state.rng, fake) * _sigma_of(g_params, fake.device)
 
         # ---- D step -------------------------------------------------------
         d_leaves = tree_leaves(d_params)
-        pred_real, st = discriminator_forward(d_params, state.d_state, _trim(real), train=True)
-        pred_fake, st = discriminator_forward(d_params, st, _trim(fake_d.detach()), train=True)
-        loss_d = lsgan_d_loss(pred_real, pred_fake)
-        d_grads = reduce_grads(torch.autograd.grad(loss_d, d_leaves))
-        d_grad_norm = d_tx.step(d_params, list(d_grads), state.d_opt_state)
+        with stage_timer("kernelgan.d_forward", item=t):
+            pred_real, st = discriminator_forward(d_params, state.d_state, _trim(real),
+                                                  train=True)
+            pred_fake, st = discriminator_forward(d_params, st, _trim(fake_d.detach()),
+                                                  train=True)
+            loss_d = lsgan_d_loss(pred_real, pred_fake)
+        with stage_timer("kernelgan.d_backward", item=t):
+            d_grads = reduce_grads(torch.autograd.grad(loss_d, d_leaves))
+        with stage_timer("kernelgan.d_update", item=t):
+            d_grad_norm = d_tx.step(d_params, list(d_grads), state.d_opt_state)
 
         # ---- G step (against the freshly updated D, reference order) -------
-        fake_g = fake
-        if noise_on:
-            fake_g = fake + _normal(state.rng, fake) * _sigma_of(g_params, fake.device)
-        pred_fake, d_state = discriminator_forward(d_params, st, _trim(fake_g), train=True)
-        adv = lsgan_g_loss(pred_fake)
-        ks = extract_kernels(g_params, differentiable=cfg.differentiable_reg)
-        reg = per_band_kernel_regularization(ks, cfg.reg_weights)
-        total = adv + cfg.reg_weight * reg
-        if cfg.raw_sum_reg:
-            raw_sums = extract_kernels_raw(g_params).sum(dim=(1, 2))
-            total = total + cfg.raw_sum_reg * torch.mean((raw_sums - 1.0) ** 2)
+        with stage_timer("kernelgan.g_loss", item=t):
+            fake_g = fake
+            if noise_on:  # G's noise draw follows D's update, as the reference's
+                fake_g = fake + _normal(state.rng, fake) * _sigma_of(g_params, fake.device)
+            pred_fake, d_state = discriminator_forward(d_params, st, _trim(fake_g), train=True)
+            adv = lsgan_g_loss(pred_fake)
+            ks = extract_kernels(g_params, differentiable=cfg.differentiable_reg)
+            reg = per_band_kernel_regularization(ks, cfg.reg_weights)
+            total = adv + cfg.reg_weight * reg
+            if cfg.raw_sum_reg:
+                raw_sums = extract_kernels_raw(g_params).sum(dim=(1, 2))
+                total = total + cfg.raw_sum_reg * torch.mean((raw_sums - 1.0) ** 2)
         g_leaves = tree_leaves(g_params)
-        g_grads = reduce_grads([g if g is not None else torch.zeros_like(p) for g, p in zip(
-            torch.autograd.grad(total, g_leaves, allow_unused=True), g_leaves)])
-        g_grad_norm = g_tx.step(g_params, g_grads, state.g_opt_state)
+        with stage_timer("kernelgan.g_backward", item=t):
+            g_grads = reduce_grads([g if g is not None else torch.zeros_like(p) for g, p in zip(
+                torch.autograd.grad(total, g_leaves, allow_unused=True), g_leaves)])
+        with stage_timer("kernelgan.g_update", item=t):
+            g_grad_norm = g_tx.step(g_params, g_grads, state.g_opt_state)
 
         state.step += 1
         state.d_state = d_state
@@ -295,7 +312,8 @@ def make_scenes_step(cfg: SingleKernelConfig, scenes: int) -> Callable:
 
     At m = 1 the step is `make_base_step` on the scene's views of the
     state, bit for bit: a batched matmul or a reduction over a scene axis
-    may round otherwise.
+    may round otherwise. Either way its phases are `make_base_step`'s
+    spans (here both noise draws fall in `kernelgan.g_forward`).
     """
     base = make_base_step(cfg)
     if scenes == 1:
@@ -336,47 +354,55 @@ def make_scenes_step(cfg: SingleKernelConfig, scenes: int) -> Callable:
             return _step(state, hr, crop_src)
 
     def _step(state: GANTrainState, hr: torch.Tensor, crop_src: torch.Tensor):
-        g_params, d_params, gens = state.g_params, state.d_params, state.rng
-        if cfg.real_is_lr:
-            real = _fold(crop_src)
-        else:
-            real = _fold(torch.stack([random_crops(g, crop_src[s], cfg.lr_crop_size)
-                                      for s, g in enumerate(gens)]))
-        g_fold = fold_scenes(g_params)
-        fake = generator_forward(g_fold, _fold(hr), factor=cfg.generator.factor,
-                                 forward_mode=cfg.generator.forward_mode)
-        fake_d = fake_g = fake
-        if noise_on:
-            like = fake[:, : hr.shape[2]]
-            draws = [(_normal(g, like), _normal(g, like)) for g in gens]  # D's, G's
-            sigma = _sigma_of(g_fold, fake.device)
-            fake_d = fake + torch.cat([d for d, _ in draws], dim=1) * sigma
-            fake_g = fake + torch.cat([g for _, g in draws], dim=1) * sigma
+        g_params, d_params, gens, t = state.g_params, state.d_params, state.rng, state.step
+        with stage_timer("kernelgan.g_forward", item=t):
+            if cfg.real_is_lr:
+                real = _fold(crop_src)
+            else:
+                real = _fold(torch.stack([random_crops(g, crop_src[s], cfg.lr_crop_size)
+                                          for s, g in enumerate(gens)]))
+            g_fold = fold_scenes(g_params)
+            fake = generator_forward(g_fold, _fold(hr), factor=cfg.generator.factor,
+                                     forward_mode=cfg.generator.forward_mode)
+            fake_d = fake_g = fake
+            if noise_on:
+                like = fake[:, : hr.shape[2]]
+                draws = [(_normal(g, like), _normal(g, like)) for g in gens]  # D's, G's
+                sigma = _sigma_of(g_fold, fake.device)
+                fake_d = fake + torch.cat([d for d, _ in draws], dim=1) * sigma
+                fake_g = fake + torch.cat([g for _, g in draws], dim=1) * sigma
 
         # ---- D step -------------------------------------------------------
         d_leaves = tree_leaves(d_params)
-        pred_real, st = discriminator_forward(d_params, state.d_state, _trim(real),
-                                              train=True, scenes=m)
-        pred_fake, st = discriminator_forward(d_params, st, _trim(fake_d.detach()),
-                                              train=True, scenes=m)
-        loss_d = lsgan_d_loss(pred_real, pred_fake, scenes=m)
-        d_grads = list(torch.autograd.grad(loss_d.sum(), d_leaves))
-        d_grad_norm = d_tx.step(d_params, d_grads, state.d_opt_state, scenes=m)
+        with stage_timer("kernelgan.d_forward", item=t):
+            pred_real, st = discriminator_forward(d_params, state.d_state, _trim(real),
+                                                  train=True, scenes=m)
+            pred_fake, st = discriminator_forward(d_params, st, _trim(fake_d.detach()),
+                                                  train=True, scenes=m)
+            loss_d = lsgan_d_loss(pred_real, pred_fake, scenes=m)
+        with stage_timer("kernelgan.d_backward", item=t):
+            d_grads = list(torch.autograd.grad(loss_d.sum(), d_leaves))
+        with stage_timer("kernelgan.d_update", item=t):
+            d_grad_norm = d_tx.step(d_params, d_grads, state.d_opt_state, scenes=m)
 
         # ---- G step (against the freshly updated D, reference order) -------
-        pred_fake, d_state = discriminator_forward(d_params, st, _trim(fake_g),
-                                                   train=True, scenes=m)
-        adv = lsgan_g_loss(pred_fake, scenes=m)
-        ks = extract_kernels(g_fold, differentiable=cfg.differentiable_reg).unflatten(0, (m, -1))
-        reg = per_band_kernel_regularization(ks, cfg.reg_weights)
-        total = adv + cfg.reg_weight * reg
-        if cfg.raw_sum_reg:
-            raw_sums = extract_kernels_raw(g_fold).sum(dim=(1, 2))
-            total = total + cfg.raw_sum_reg * scene_mean((raw_sums - 1.0) ** 2, m, dim=0)
+        with stage_timer("kernelgan.g_loss", item=t):
+            pred_fake, d_state = discriminator_forward(d_params, st, _trim(fake_g),
+                                                       train=True, scenes=m)
+            adv = lsgan_g_loss(pred_fake, scenes=m)
+            ks = extract_kernels(g_fold, differentiable=cfg.differentiable_reg).unflatten(
+                0, (m, -1))
+            reg = per_band_kernel_regularization(ks, cfg.reg_weights)
+            total = adv + cfg.reg_weight * reg
+            if cfg.raw_sum_reg:
+                raw_sums = extract_kernels_raw(g_fold).sum(dim=(1, 2))
+                total = total + cfg.raw_sum_reg * scene_mean((raw_sums - 1.0) ** 2, m, dim=0)
         g_leaves = tree_leaves(g_params)
-        g_grads = [g if g is not None else torch.zeros_like(p) for g, p in zip(
-            torch.autograd.grad(total.sum(), g_leaves, allow_unused=True), g_leaves)]
-        g_grad_norm = g_tx.step(g_params, g_grads, state.g_opt_state, scenes=m)
+        with stage_timer("kernelgan.g_backward", item=t):
+            g_grads = [g if g is not None else torch.zeros_like(p) for g, p in zip(
+                torch.autograd.grad(total.sum(), g_leaves, allow_unused=True), g_leaves)]
+        with stage_timer("kernelgan.g_update", item=t):
+            g_grad_norm = g_tx.step(g_params, g_grads, state.g_opt_state, scenes=m)
 
         state.step += 1
         state.d_state = d_state

@@ -1,11 +1,16 @@
-"""Wall-clock stage scopes and CUDA-event kernel timing.
+"""Program spans and CUDA-event kernel timing.
 
-* `stage_timer` / `timing_report`: the same process-wide wall-clock
-  registry as `kmsr_tpu.utils.profiling`, used by the pipeline runners.
-* `bench_windows`: the median of k timing windows with min/max spread,
-  JAX's return shape, each window fenced by a device synchronize;
-* `detect_sync_stall`: flags a stage whose device-sync time dwarfs its
-  host work (a pure host copy of the JAX package's rule);
+* `stage_timer`: a span of host time around a block. Each records its
+  id, its parent (the innermost span open on the same thread; a span on
+  another thread has none), its thread, its start and end on the
+  `time.perf_counter_ns` clock, an optional `item` (what the spans of one
+  batch or step share) and integer counts. While a torch.profiler
+  records, the span is also a host op of its name in that trace, on the
+  same clock as the kernels it launched;
+* `timing_report`: per-name aggregates (calls, total, mean, max) of the
+  spans since the last reset;
+* `spans`: the newest `RING_SPANS` records, or those in a window of the
+  clock;
 * `device_trace`: a torch.profiler trace of a block (host ops, and the
   card's kernels when one is present);
 * `cuda_time_ms`: device time of one call, taken with CUDA events;
@@ -14,117 +19,112 @@
 """
 from __future__ import annotations
 
+import collections
 import contextlib
+import dataclasses
+import itertools
 import os
+import threading
 import time
-from collections import defaultdict
-from typing import Callable, Iterator
+from typing import Callable, Iterator, NamedTuple, Optional
 
 import torch
+from torch._C._profiler import _RecordFunctionFast
+from torch.autograd import profiler as _autograd_profiler
 
-_TIMINGS: dict[str, list[float]] = defaultdict(list)
+#: the records `spans` can return; the aggregates count every span
+RING_SPANS = 65_536
+
+
+class Span(NamedTuple):
+    id: int
+    parent: Optional[int]
+    name: str
+    thread: int  # threading.get_native_id()
+    start_ns: int  # time.perf_counter_ns()
+    end_ns: int
+    item: object
+    counts: dict
+
+
+@dataclasses.dataclass
+class _Totals:
+    calls: int = 0
+    total_ns: int = 0
+    max_ns: int = 0
+
+
+_RING: collections.deque = collections.deque(maxlen=RING_SPANS)
+_TOTALS: dict[str, _Totals] = {}
+_LOCK = threading.Lock()
+_IDS = itertools.count(1)
+_OPEN = threading.local()  # .stack: the ids of the spans open on this thread
 
 
 @contextlib.contextmanager
-def stage_timer(name: str) -> Iterator[None]:
-    t0 = time.perf_counter()
+def stage_timer(name: str, item=None, **counts: int) -> Iterator[dict]:
+    """A span named `name` around the block; yields its counts, which the
+    block may add to (what it copied, once known). The span is recorded
+    when the block ends, by an exception too."""
+    sid = next(_IDS)
+    stack = getattr(_OPEN, "stack", None)
+    if stack is None:
+        stack = _OPEN.stack = []
+    parent = stack[-1] if stack else None
+    stack.append(sid)
+    # reading the flag costs ~0.1 us, a host op ~1 us. A host op, not
+    # torch.profiler.record_function: that one (a user annotation, ~10 us
+    # even unprofiled) also puts a range on the card's timeline, which a
+    # trace's reader takes for device work
+    traced = _autograd_profiler._is_profiler_enabled
+    if traced:
+        rf = _RecordFunctionFast(name)
+        rf.__enter__()
+    t0 = time.perf_counter_ns()
     try:
-        yield
+        yield counts
     finally:
-        _TIMINGS[name].append(time.perf_counter() - t0)
+        t1 = time.perf_counter_ns()
+        if traced:
+            rf.__exit__(None, None, None)
+        stack.remove(sid)
+        span = Span(sid, parent, name, threading.get_native_id(), t0, t1, item, counts)
+        with _LOCK:
+            _RING.append(span)
+            tot = _TOTALS.get(name)
+            if tot is None:
+                tot = _TOTALS[name] = _Totals()
+            tot.calls += 1
+            tot.total_ns += t1 - t0
+            tot.max_ns = max(tot.max_ns, t1 - t0)
 
 
 def timing_report(reset: bool = False) -> dict[str, dict]:
-    out = {}
-    for name, vals in _TIMINGS.items():
-        out[name] = {
-            "calls": len(vals),
-            "total_s": sum(vals),
-            "mean_s": sum(vals) / len(vals),
-            "max_s": max(vals),
-        }
-    if reset:
-        _TIMINGS.clear()
+    """{name: {"calls", "total_s", "mean_s", "max_s"}}; reset empties the
+    aggregates and the ring after reading them."""
+    with _LOCK:
+        out = {}
+        for name, tot in _TOTALS.items():
+            out[name] = {
+                "calls": tot.calls,
+                "total_s": tot.total_ns / 1e9,
+                "mean_s": tot.total_ns / tot.calls / 1e9,
+                "max_s": tot.max_ns / 1e9,
+            }
+        if reset:
+            _TOTALS.clear()
+            _RING.clear()
     return out
 
 
-def bench_windows(fn, *args, iters: int, windows: int = 5,
-                  drain=None) -> dict:
-    """Median-of-k timing windows with min/max spread.
-
-    Throughput drifts across hours, so a single sample makes deltas
-    uninterpretable; this reports {median_s, min_s, max_s} per iteration
-    from k back-to-back windows instead. `drain(out)` fences the device
-    queue at each window's end; by default `torch.cuda.synchronize()` in a
-    process that uses a card, and nothing on the CPU (its ops return when
-    done).
-    """
-    if drain is None:
-        def drain(_):
-            if torch.cuda.is_initialized():
-                torch.cuda.synchronize()
-
-    drain(fn(*args))  # first call (kernel builds, cuDNN autotuning)
-    for _ in range(2):
-        out = fn(*args)
-    drain(out)  # warm queue
-    samples = []
-    for _ in range(windows):
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            out = fn(*args)
-        drain(out)
-        samples.append((time.perf_counter() - t0) / iters)
-    samples.sort()
-    return {
-        "median_s": samples[len(samples) // 2],
-        "min_s": samples[0],
-        "max_s": samples[-1],
-    }
-
-
-def detect_sync_stall(
-    scopes: dict[str, dict],
-    stage_seconds: dict[str, float] | None = None,
-    ratio: float = 5.0,
-    floor_s: float = 120.0,
-) -> list[dict]:
-    """Flag stages whose main-thread device-sync time dwarfs their host work.
-
-    A wedged device shows up as a stage spending nearly all its wall time
-    blocked in `<stage>.device_sync` while its host scopes stay tiny. A
-    stage is flagged when
-
-        device_sync > max(ratio * host_s, floor_s)
-
-    where `host_s` sums the stage's other MAIN-THREAD scopes (`*_bg`
-    reader-thread scopes overlap device compute and are excluded).
-    `floor_s` absorbs legitimate first-call time (kernel builds) and honest
-    queue drains so short clean runs never false-positive. Returns one
-    record per flagged stage; callers mark their report `"tainted": true`
-    when non-empty.
-    """
-    stage_seconds = stage_seconds or {}
-    prefixes = sorted({n.split(".", 1)[0] for n in scopes if "." in n})
-    flags = []
-    for stage in prefixes:
-        sync = scopes.get(f"{stage}.device_sync", {}).get("total_s", 0.0)
-        host = sum(
-            rec.get("total_s", 0.0)
-            for name, rec in scopes.items()
-            if name.startswith(stage + ".")
-            and not name.endswith("device_sync")
-            and not name.endswith("_bg")
-        )
-        if sync > max(ratio * host, floor_s):
-            flags.append({
-                "stage": stage,
-                "device_sync_s": round(sync, 2),
-                "host_s": round(host, 2),
-                "wall_s": round(stage_seconds.get(stage, float("nan")), 2),
-                "sync_to_host_ratio": round(sync / host, 1) if host else None,
-            })
-    return flags
+def spans(since_ns: Optional[int] = None, until_ns: Optional[int] = None) -> list[Span]:
+    """The ring's records that overlap [since_ns, until_ns] (either end
+    open when None), oldest first."""
+    with _LOCK:
+        rows = list(_RING)
+    lo = -1 if since_ns is None else since_ns
+    hi = float("inf") if until_ns is None else until_ns
+    return [s for s in rows if s.end_ns >= lo and s.start_ns <= hi]
 
 
 @contextlib.contextmanager

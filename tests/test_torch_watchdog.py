@@ -1,6 +1,6 @@
-"""Port parity: the device-sync watchdog and the sync-stall tools
-(kmsr_tpu_torch.pipeline.common, kmsr_tpu_torch.utils.profiling vs
-kmsr_tpu.pipeline.common, kmsr_tpu.utils.profiling), on the CPU.
+"""Port parity: the device-sync watchdog (kmsr_tpu_torch.pipeline.common
+vs kmsr_tpu.pipeline.common) and the port's `utils.profiling.device_trace`,
+on the CPU.
 
 The port keeps JAX's watchdog (thresholds, history, abort, one monitor
 thread per label, the KMSR_SYNC_* variables) and replaces the diagnosis:
@@ -18,7 +18,6 @@ import numpy as np
 import pytest
 
 from kmsr_tpu.pipeline import common as jcommon
-from kmsr_tpu.utils import profiling as jprof
 from kmsr_tpu_torch.pipeline import common as tcommon
 from kmsr_tpu_torch.utils import profiling as tprof
 
@@ -272,57 +271,6 @@ def test_factory_and_denoise_syncs_are_watched(tmp_path, monkeypatch):
 
 
 # -------------------------------------------------------- profiling tools
-def _rec(s):
-    return {"calls": 1, "total_s": s, "mean_s": s, "max_s": s}
-
-
-@pytest.mark.parametrize("case", ["incident", "clean", "first_call", "over_floor", "knobs"])
-def test_detect_sync_stall_matches_jax(case):
-    """`tests/test_checkpoint_viz.py::test_detect_sync_stall`'s records
-    through both packages: the same flags, record for record."""
-    scopes, stages, kw = {
-        "incident": ({"factory.device_sync": _rec(555.95), "factory.host_write": _rec(19.0),
-                      "factory.host_read_bg": _rec(40.0), "denoise.device_sync": _rec(35.0),
-                      "denoise.host_write": _rec(30.0), "denoise.host_read": _rec(22.0)},
-                     {"factory": 580.0, "denoise": 95.0}, {}),
-        "clean": ({"factory.device_sync": _rec(45.0), "factory.host_write": _rec(20.0),
-                   "denoise.device_sync": _rec(35.0), "denoise.host_write": _rec(30.0)}, {}, {}),
-        "first_call": ({"factory.device_sync": _rec(100.0)}, {}, {}),
-        "over_floor": ({"factory.device_sync": _rec(130.0)}, {}, {}),
-        "knobs": ({"sr_infer.device_sync": _rec(12.0), "sr_infer.h2d": _rec(1.0),
-                   "factory.device_sync": _rec(3.0)}, {"sr_infer": 14.0},
-                  {"ratio": 2.0, "floor_s": 5.0}),
-    }[case]
-    got = tprof.detect_sync_stall(scopes, stages, **kw)
-    want = jprof.detect_sync_stall(scopes, stages, **kw)
-    np.testing.assert_equal(got, want)
-    if case == "incident":
-        assert [f["stage"] for f in got] == ["factory"] and got[0]["host_s"] == 19.0
-    if case == "over_floor":
-        assert got and got[0]["sync_to_host_ratio"] is None
-
-
-def test_bench_windows_return_shape():
-    """JAX's return keys, min <= median <= max, and the same number of
-    calls (one first call, two warm-up calls, windows x iters); `drain`
-    sees each window's last output."""
-    def counter():
-        calls = []
-        return calls, lambda x: calls.append(x) or len(calls)
-
-    tc, tfn = counter()
-    jc, jfn = counter()
-    drained = []
-    got = tprof.bench_windows(tfn, 1, iters=3, windows=4, drain=drained.append)
-    want = jprof.bench_windows(jfn, 1, iters=3, windows=4, drain=lambda o: None)
-    assert set(got) == set(want) == {"median_s", "min_s", "max_s"}
-    assert got["min_s"] <= got["median_s"] <= got["max_s"]
-    assert len(tc) == len(jc) == 1 + 2 + 4 * 3
-    assert drained == [1, 3, 6, 9, 12, 15]
-    res = tprof.bench_windows(lambda: None, iters=2, windows=3)  # default drain on the CPU
-    assert set(res) == {"median_s", "min_s", "max_s"}
-
-
 def test_device_trace_writes_a_chrome_trace(tmp_path, capsys):
     import torch
 
