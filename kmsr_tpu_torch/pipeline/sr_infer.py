@@ -11,8 +11,10 @@ PSNR/SSIM against `hr` (data range nanmax - nanmin of each file's hr).
 The device loop (`run_batches`) takes any source of chunks, so it runs on
 in-memory stacks too. It keeps a one-deep pipeline: group k+1 is staged
 (pinned memory), uploaded and dispatched before group k is synchronized,
-and each group's predictions and metrics come back through pinned memory
-on the same stream, so the host's file writes overlap the next forward.
+and each group's predictions and metrics are copied, on the same stream,
+into one pinned host buffer a group, which the callback receives as numpy
+views (no copy on the host; a callback that keeps them keeps that
+buffer), so the host's file writes overlap the next forward.
 A failed group fails its files only; `DeviceSyncGuard` aborts the run
 when the device keeps failing. Each group is split over the host's cards
 (`parallel.local_dp`: the SR forward has no cross-sample state), as JAX
@@ -90,12 +92,21 @@ def data_range(hr: torch.Tensor) -> torch.Tensor:
     return torch.where(dr == 0, 1.0, dr)
 
 
+def _landed(t: torch.Tensor, out: Optional[torch.Tensor]) -> torch.Tensor:
+    """`to_host(t)`, or t's copy queued into the host tensor `out`."""
+    return to_host(t) if out is None else out.copy_(t, non_blocking=True)
+
+
 def dispatch(params: dict, lrs: list, hrs: Optional[list], cfg: SRConfig,
-             dev: torch.device, item=None) -> tuple:
+             dev: torch.device, item=None, out: Optional[torch.Tensor] = None,
+             metrics_out: Optional[torch.Tensor] = None) -> tuple:
     """Queue one shape group on `dev`: upload, bfloat16 forward, PSNR/SSIM
     against hrs (when given) on the device, and the copies back. Returns
     (preds host tensor, metrics host tensor [b, 2] or None, done event or
-    None); the host tensors are valid once the event has completed. Spans
+    None); the host tensors are valid once the event has completed. The
+    copies land in the host tensors `out` ([b, C, H, W]) and `metrics_out`
+    ([b, 2]) where given (pinned, when dev is a card, for the copies to be
+    asynchronous), else in new host tensors. Spans
     `sr_infer.stage` (the uploads) and `sr_infer.launch` (the rest), with
     `item`."""
     with stage_timer("sr_infer.stage", item=item):
@@ -109,8 +120,9 @@ def dispatch(params: dict, lrs: list, hrs: Optional[list], cfg: SRConfig,
                 raise ValueError(f"{GROUP_HR} {tuple(hr.shape[1:])} != sr "
                                  f"{tuple(pred.shape[1:])}")
             dr = data_range(hr)
-            metrics = to_host(torch.stack([psnr(pred, hr, dr), ssim(pred, hr, dr)], dim=1))
-        return to_host(pred), metrics, queued_event(dev)
+            metrics = _landed(torch.stack([psnr(pred, hr, dr), ssim(pred, hr, dr)], dim=1),
+                              metrics_out)
+        return _landed(pred, out), metrics, queued_event(dev)
 
 
 def _blocks(arrays: list, n_dev: int) -> list[list]:
@@ -139,19 +151,25 @@ def run_batches(
 
     Each group is split over the host's cards (for device "cuda", every
     visible card; `devices` names them explicitly), one contiguous block a
-    card with the model copied to each, and the blocks' results are
-    concatenated in order."""
+    card with the model copied to each. Each block's results are copied
+    into its own rows of one host buffer a group (pinned when the devices
+    are cards, from torch's caching host allocator), and preds and
+    metrics are numpy views of that buffer's first b rows: no copy is made
+    on the host. Holding preds holds the group's buffer; its memory goes
+    back to the allocator only when the caller drops every view, so a
+    kept preds is never overwritten."""
     devs, n_dev = local_batch_dp(device, devices)
     params_on = {d: tree_map(lambda t, d=d: t.to(d), params) for d in devs}
+    pin = any(d.type == "cuda" for d in devs)
     fail: list = []
     sync_guard = DeviceSyncGuard()
 
-    def finish(paths, outs, k):
+    def finish(paths, buf, mbuf, events, k):
         # device-side failures surface at this sync: fail the group, not
         # the run (unless the guard sees the device persistently wedged)
         try:
             with stage_timer("sr_infer.device_sync", item=k):
-                for _, _, done in outs:
+                for done in events:
                     if done is not None:
                         done.synchronize()
             sync_guard.succeeded()
@@ -161,9 +179,8 @@ def run_batches(
             return
         b = len(paths)
         with stage_timer("sr_infer.assemble", item=k) as counts:
-            preds = np.concatenate([o[0].numpy() for o in outs])[:b]
-            metrics = (None if outs[0][1] is None
-                       else np.concatenate([o[1].numpy() for o in outs])[:b])
+            preds = buf[:b].numpy()
+            metrics = None if mbuf is None else mbuf[:b].numpy()
             counts["bytes"] = preds.nbytes + (0 if metrics is None else metrics.nbytes)
         with stage_timer("sr_infer.deliver", item=k):
             on_batch(paths, preds, metrics)
@@ -182,7 +199,7 @@ def run_batches(
         for p, (lr, hr) in zip(paths, items):
             key = (lr.shape, None if hr is None else hr.shape)
             groups.setdefault(key, []).append((p, lr, hr))
-        for (_, hr_shape), items_g in groups.items():
+        for (lr_shape, hr_shape), items_g in groups.items():
             paths_g = [p for p, _, _ in items_g]
             g, k = k, k + 1
             try:
@@ -190,16 +207,25 @@ def run_batches(
                     lrs = _blocks([lr for _, lr, _ in items_g], n_dev)
                     hrs = (_blocks([hr for _, _, hr in items_g], n_dev)
                            if hr_shape is not None else [None] * n_dev)
-                    outs = []
-                    for d, lr_b, hr_b in zip(devs, lrs, hrs):
+                    step = len(lrs[0])
+                    c, h, w = lr_shape
+                    buf = torch.empty((step * n_dev, c, h * cfg.factor, w * cfg.factor),
+                                      dtype=torch.float32, pin_memory=pin)
+                    mbuf = (None if hr_shape is None else
+                            torch.empty((step * n_dev, 2), dtype=torch.float32, pin_memory=pin))
+                    events = []
+                    for i, (d, lr_b, hr_b) in enumerate(zip(devs, lrs, hrs)):
+                        rows = slice(i * step, (i + 1) * step)
                         with torch.cuda.device(d) if d.type == "cuda" else nullcontext():
-                            outs.append(dispatch(params_on[d], lr_b, hr_b, cfg, d, item=g))
+                            events.append(dispatch(
+                                params_on[d], lr_b, hr_b, cfg, d, item=g, out=buf[rows],
+                                metrics_out=None if mbuf is None else mbuf[rows])[2])
             except Exception as e:  # per-group failure isolation
                 fail.extend((p, f"{type(e).__name__}: {e}") for p in paths_g)
                 continue
             if pending is not None:
                 finish(*pending)
-            pending = (paths_g, outs, g)
+            pending = (paths_g, buf, mbuf, events, g)
     if pending is not None:
         finish(*pending)
     return fail

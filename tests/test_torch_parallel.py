@@ -189,7 +189,9 @@ def test_nlm_chunk_over_two_devices_is_bit_equal():
 
 def test_sr_infer_over_two_devices_is_bit_equal():
     """run_batches over [cpu, cpu]: groups of 3 and 2 (one padded block)
-    and a group with no hr: predictions and PSNR/SSIM bit-equal."""
+    and a group with no hr: predictions and PSNR/SSIM bit-equal, exactly
+    b rows handed over (the padding cut off), and no two groups' views
+    sharing memory (each group lands in a buffer of its own)."""
     cfg = SRConfig(width=8, n_blocks=1, factor=4)
     params = init_sr(cfg, seed=1, device="cpu")
     rng = np.random.default_rng(6)
@@ -213,6 +215,11 @@ def test_sr_infer_over_two_devices_is_bit_equal():
         assert (m1 is None) == (m2 is None)
         if m1 is not None:
             np.testing.assert_array_equal(m1, m2)
+    for paths, preds, mets in seen["two"]:
+        assert preds.shape == (len(paths), 5, 32, 32)
+        assert mets is None or mets.shape == (len(paths), 2)
+    views = [v for _, preds, mets in seen["two"] for v in (preds, mets) if v is not None]
+    assert not any(np.shares_memory(a, b) for i, a in enumerate(views) for b in views[i + 1:])
 
 
 def test_apply_kernel_over_two_devices_is_bit_equal(tmp_path):

@@ -114,6 +114,40 @@ def test_card_run_batches_matches_cpu(cuda):
 
 
 @pytest.mark.cuda
+def test_card_run_batches_kept_views_stay_own_groups(cuda):
+    """Six groups of one shape, every preds / metrics the callback gets
+    kept to the end: each is a view of pinned memory (no host copy), no
+    two share memory, and each still equals its own group's forward and
+    metrics, so no kept buffer went back to the allocator and was reused."""
+    cfg = tsr.SRConfig(width=8, n_blocks=1, factor=4)
+    params = _to(tsr.init_sr(cfg, seed=3, device="cpu"), cuda)
+    rng = np.random.default_rng(7)
+    items = [(rng.normal(3, 1, (5, 8, 8)).astype(np.float32),
+              rng.normal(3, 1, (5, 32, 32)).astype(np.float32)) for _ in range(24)]
+    chunks = [([f"p{i}" for i in range(j, j + 4)], items[j:j + 4], []) for j in range(0, 24, 4)]
+    seen = []
+    assert sr_infer.run_batches(chunks, params, cfg,
+                                lambda p, preds, m: seen.append((p, preds, m)), cuda) == []
+    assert len(seen) == 6
+    for paths, preds, mets in seen:
+        assert preds.shape == (4, 5, 32, 32) and mets.shape == (4, 2)
+        assert torch.from_numpy(preds).is_pinned() and torch.from_numpy(mets).is_pinned()
+    views = [v for _, preds, mets in seen for v in (preds, mets)]
+    assert not any(np.shares_memory(a, b)
+                   for i, a in enumerate(views) for b in views[i + 1:])
+    for paths, preds, mets in seen:
+        idx = [int(p[1:]) for p in paths]
+        lr = torch.from_numpy(np.stack([items[i][0] for i in idx])).to(cuda)
+        hr = torch.from_numpy(np.stack([items[i][1] for i in idx])).to(cuda)
+        want = tsr.sr_forward(params, lr, cfg)
+        np.testing.assert_array_equal(preds, want.cpu().numpy())
+        dr = sr_infer.data_range(hr)
+        np.testing.assert_allclose(
+            mets, torch.stack([psnr(want, hr, dr), ssim(want, hr, dr)], dim=1).cpu().numpy(),
+            rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
 def test_card_train_step_matches_cpu(tmp_path, cuda):
     """One float32 step (TF32 off, backward included) from the same weights:
     loss at RTOL, gradients at RTOL / ATOL of the largest (or the float64

@@ -164,8 +164,14 @@ def test_no_profiler_no_host_op(monkeypatch):
 
 
 # ------------------------------------------------------- the SR loop
+@pytest.mark.parametrize("devices", [None, ["cpu", "cpu"]])
 @pytest.mark.parametrize("with_hr", [False, True])
-def test_run_batches_spans_one_of_each_a_group(with_hr):
+def test_run_batches_spans_one_of_each_a_group(with_hr, devices):
+    """Each `sr_infer.*` span once a group (`stage` and `launch` once a
+    device's block) with the group's number as item, and
+    `sr_infer.assemble` counting the bytes handed to the callback: b = 3
+    rows of predictions (and of metrics with hr), on one device and over
+    two, where the group is padded to 4."""
     cfg = SRConfig(width=8, n_blocks=1, factor=4)
     params = init_sr(cfg, seed=1, device="cpu")
     rng = np.random.default_rng(2)
@@ -177,19 +183,25 @@ def test_run_batches_spans_one_of_each_a_group(with_hr):
     chunks = [([f"{k}:{j}" for j in range(3)], [item() for _ in range(3)], []) for k in range(4)]
     seen = []
     fail = sr_infer.run_batches(chunks, params, cfg,
-                                lambda p, preds, m: seen.append((preds, m)), device="cpu")
+                                lambda p, preds, m: seen.append((preds, m)), device="cpu",
+                                devices=devices)
     assert fail == [] and len(seen) == 4
     by = _by_name(tprof.spans())
+    blocks = 1 if devices is None else len(devices)
+    per_block = [g for g in range(4) for _ in range(blocks)]
+    want = {"sr_infer.source_wait": [0, 1, 2, 3, 4],
+            "sr_infer.stage": per_block, "sr_infer.launch": per_block}
     for name in SR_NAMES:
-        want = [0, 1, 2, 3, 4] if name == "sr_infer.source_wait" else [0, 1, 2, 3]
-        assert [s.item for s in by[name]] == want, name
+        assert [s.item for s in by[name]] == want.get(name, [0, 1, 2, 3]), name
     dispatch = {s.item: s.id for s in by["sr_infer.dispatch"]}
     for name in ("sr_infer.stage", "sr_infer.launch"):
         assert all(s.parent == dispatch[s.item] for s in by[name])
     for name in set(SR_NAMES) - {"sr_infer.stage", "sr_infer.launch"}:
         assert all(s.parent is None for s in by[name]), name
-    for s, (preds, mets) in zip(by["sr_infer.assemble"], seen):
-        assert s.counts == {"bytes": preds.nbytes + (mets.nbytes if with_hr else 0)}
+    nbytes = 3 * (5 * 32 * 32 + (2 if with_hr else 0)) * 4
+    for s, (preds, mets) in zip(by["sr_infer.assemble"], seen, strict=True):
+        assert s.counts == {"bytes": nbytes}
+        assert preds.nbytes + (mets.nbytes if with_hr else 0) == nbytes
 
 
 # ------------------------------------------------------- the fleet
