@@ -25,6 +25,9 @@ same parameter tree and the same arithmetic:
 Two upsamplers (`SRConfig.upsampler`): "progressive" (×2 pixel-shuffle
 stages, the last one folded into the output conv at factor/2) and
 "oneshot" (one width -> in_ch·factor² conv at LR, one shuffle).
+
+`sr_forward` is the one forward entry of the SR stage: given a
+`models.swinir.SwinIRConfig` it runs SwinIR instead.
 """
 from __future__ import annotations
 
@@ -174,10 +177,17 @@ def sr_forward(
     cfg: SRConfig = SRConfig(),
     compute_dtype: torch.dtype = torch.bfloat16,
     channels_last: bool = True,
+    item=None,
 ) -> torch.Tensor:
-    """x: [B, C, h, w] -> [B, C, h*factor, w*factor], float32 (contiguous).
-    channels_last=False runs the trunk on NCHW activations instead (same
-    arithmetic; for timing the layout)."""
+    """x: [B, C, h, w] -> [B, C, h*factor, w*factor], float32 (contiguous),
+    through the network `cfg` configures: this EDSR for an `SRConfig`,
+    `models.swinir.swinir_forward` for a `SwinIRConfig` (`item` goes to
+    its spans). channels_last=False runs the EDSR's trunk on NCHW
+    activations instead (same arithmetic; for timing the layout)."""
+    if not isinstance(cfg, SRConfig):
+        from .swinir import swinir_forward
+
+        return swinir_forward(params, x, cfg, compute_dtype, item=item)
     dt = compute_dtype
     fmt = torch.channels_last if channels_last else torch.contiguous_format
     # JAX's weakly typed `res_scale * r`: the scale rounded to the dtype
@@ -201,6 +211,14 @@ def sr_forward(
             out = shuffle(_conv(up, params["tail"], dt), 2)
         # skip first: the sum takes its contiguous NCHW layout
         return torch.add(skip.float(), out)
+
+
+def require_edsr(cfg, what: str) -> None:
+    """ValueError unless cfg is the EDSR's `SRConfig`: `what` runs no other
+    network."""
+    if not isinstance(cfg, SRConfig):
+        raise ValueError(f"{what} runs the EDSR (SRConfig) only, not "
+                         f"{type(cfg).__name__}: SwinIR is served by sr_infer")
 
 
 def count_params(params: dict) -> int:

@@ -1,0 +1,380 @@
+"""SwinIR (Liang et al., "SwinIR: Image Restoration Using Swin
+Transformer", arXiv:2108.10257), the classical-SR network with the
+pixel-shuffle upsampler, as a function on a dict of tensors.
+
+The parameters are a flat dict keyed by the published module names
+(`models/network_swinir.py` of https://github.com/JingyunLiang/SwinIR):
+`conv_first.weight`, `layers.{i}.residual_group.blocks.{j}.attn.qkv.weight`,
+`...attn.relative_position_bias_table`, `layers.{i}.conv.weight`,
+`norm.weight`, `conv_before_upsample.0.weight`, `upsample.{0,2,4}.weight`,
+`conv_last.weight`, ... in their published shapes (convs OIHW, linears
+[out, in]), so a published `params` state dict loads by name
+(`from_state_dict`). `relative_position_index` and `attn_mask` are
+derived from the shapes, never loaded.
+
+The forward, one residual stream at LR resolution:
+
+    x = pad_reflect(x, to a multiple of window_size) * img_range   (mean 0)
+    x = conv_first(x)
+    f = LN(x)                                            (patch_embed)
+    6 RSTBs: f = conv3x3(STL^depth(f)) + f
+      STL j: f = f + proj(WMSA(LN1(f))); f = f + fc2(GELU(fc1(LN2(f))))
+      WMSA: odd j rolls the map by (-s, -s), s = window_size // 2; 8x8
+        windows of N tokens; A = softmax(q k^T / sqrt(d) + B_rel + M) v,
+        B_rel[h, i, j] = table[idx(i, j), h], M = -100 between the shift's
+        regions (odd j only); the roll undone after
+    x = conv_after_body(LN(f)) + x
+    x = LeakyReLU_0.01(conv_before_upsample(x))
+    x = PixelShuffle_2(conv 64 -> 256 (x)), log2(factor) times
+    y = conv_last(x) / img_range, cropped to (h * factor, w * factor)
+
+Window `window_size` with shift `window_size // 2` on odd STLs at every
+input size: the published model's construction at its `img_size` 64.
+
+Arithmetic: the residual stream, matmuls and convs run in the compute
+dtype (bfloat16 by default) with float32 accumulation; LayerNorm's
+statistics and the softmax run in float32 (inside `F.layer_norm` and
+`F.scaled_dot_product_attention`). conv_first alone runs in float32 (TF32
+off) on the unrounded input: with mean 0 the network reads radiances of
+8-60 whose 1 % noise and texture are what it resolves, and bfloat16 would
+round a radiance of 60 by up to 0.125 (0.07 of the tile's operations).
+Under compute_dtype=float32 TF32 is off (`models.sr.precision`). The
+convs are the EDSR's `_conv` (bias added after the rounding), the
+shuffles its `_pixel_shuffle_cl`.
+
+Layout: the stream is [B, H, W, C] (channels_last storage of the convs'
+[B, C, H, W]), so patch_embed and unembed are views. Roll and window
+partition are one token gather (`_window_order`); the attention runs
+through `F.scaled_dot_product_attention` with B_rel and M folded into one
+additive tensor in the compute dtype, the head dim zero-padded to a
+multiple of 8 (in the weights, so q, k and v come out padded) because
+the fused backends refuse other head dims (SwinIR-M's 30 falls to the
+plain math path, in float32); the padding adds zero to every product,
+and the scale stays 1/sqrt(head dim). `_SDPA_BACKENDS` says which kernels.
+
+Spans (`utils.profiling.stage_timer`): `swinir.forward` (item: the
+caller's; counts `tiles` and `windows`, the attention windows of all
+STLs), and inside it `swinir.rstb` (item: the RSTB's index i) and
+`swinir.upsample`.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch.nn.attention import SDPBackend, sdpa_kernel
+
+from ..device import resolve_device
+from ..utils.profiling import stage_timer
+from .sr import _conv, _pixel_shuffle_cl, precision
+
+#: LayerNorm's epsilon (nn.LayerNorm's default, as published)
+LN_EPS = 1e-5
+#: the shift mask's value between tokens of different regions (published)
+MASK_VALUE = -100.0
+#: state-dict entries SwinIR registers as buffers: derived, never loaded
+DERIVED = ("relative_position_index", "attn_mask")
+#: the attention's backends, in order: on the card the memory-efficient
+#: (CUTLASS) kernel, which took SwinIR-M's batch (2,048 windows x 6 heads,
+#: head dim 32, a bias) in 0.19 ms against cuDNN's 0.32 (cuDNN is first in
+#: PyTorch's own order); flash attention on the CPU; the plain math last
+#: (float64, and any shape the others refuse)
+_SDPA_BACKENDS = [SDPBackend.EFFICIENT_ATTENTION, SDPBackend.FLASH_ATTENTION, SDPBackend.MATH]
+
+
+@dataclasses.dataclass(frozen=True)
+class SwinIRConfig:
+    """SwinIR-M x8 classical SR (`001_classicalSR_DF2K_s64w8_SwinIR-M_x8`)
+    with `in_ch` bands in and out."""
+    in_ch: int = 5
+    embed_dim: int = 180
+    depths: tuple = (6,) * 6
+    num_heads: tuple = (6,) * 6
+    window_size: int = 8
+    mlp_ratio: float = 2.0
+    num_feat: int = 64
+    factor: int = 8
+    img_range: float = 1.0
+    resi_connection: str = "1conv"
+    upsampler: str = "pixelshuffle"
+
+    def __post_init__(self):
+        if self.resi_connection != "1conv" or self.upsampler != "pixelshuffle":
+            raise ValueError("SwinIRConfig runs resi_connection '1conv' with upsampler "
+                             f"'pixelshuffle', not {self.resi_connection!r} / "
+                             f"{self.upsampler!r}")
+        upsample_stages(self.factor)
+        if len(self.depths) != len(self.num_heads):
+            raise ValueError(f"depths {self.depths} and num_heads {self.num_heads} differ "
+                             "in length")
+        for h in self.num_heads:
+            if self.embed_dim % h:
+                raise ValueError(f"embed_dim {self.embed_dim} is not a multiple of {h} heads")
+
+
+def upsample_stages(factor: int) -> int:
+    """The x2 pixel-shuffle stages of SwinIR's `Upsample`: log2(factor)
+    (its x3 variant is not ported)."""
+    if factor < 2 or factor & (factor - 1):
+        raise ValueError(f"SwinIR's pixel-shuffle upsampler here takes a power of 2, not {factor}")
+    return factor.bit_length() - 1
+
+
+def _pair(name: str, weight: tuple) -> dict:
+    """A module's weight shape and its bias's (the weight's first axis)."""
+    return {f"{name}.weight": weight, f"{name}.bias": weight[:1]}
+
+
+def param_shapes(cfg: SwinIRConfig = SwinIRConfig()) -> dict[str, tuple]:
+    """{published name: shape} of every parameter, in the published order."""
+    e, hid, nf = cfg.embed_dim, int(cfg.embed_dim * cfg.mlp_ratio), cfg.num_feat
+    shapes = {**_pair("conv_first", (e, cfg.in_ch, 3, 3)), **_pair("patch_embed.norm", (e,))}
+    for i, (depth, heads) in enumerate(zip(cfg.depths, cfg.num_heads)):
+        for j in range(depth):
+            b = f"layers.{i}.residual_group.blocks.{j}."
+            shapes.update({**_pair(b + "norm1", (e,)),
+                           b + "attn.relative_position_bias_table":
+                               ((2 * cfg.window_size - 1) ** 2, heads),
+                           **_pair(b + "attn.qkv", (3 * e, e)), **_pair(b + "attn.proj", (e, e)),
+                           **_pair(b + "norm2", (e,)), **_pair(b + "mlp.fc1", (hid, e)),
+                           **_pair(b + "mlp.fc2", (e, hid))})
+        shapes.update(_pair(f"layers.{i}.conv", (e, e, 3, 3)))
+    shapes.update({**_pair("norm", (e,)), **_pair("conv_after_body", (e, e, 3, 3)),
+                   **_pair("conv_before_upsample.0", (nf, e, 3, 3))})
+    for k in range(upsample_stages(cfg.factor)):
+        shapes.update(_pair(f"upsample.{2 * k}", (4 * nf, nf, 3, 3)))
+    shapes.update(_pair("conv_last", (cfg.in_ch, nf, 3, 3)))
+    return shapes
+
+
+def init_swinir(cfg: SwinIRConfig = SwinIRConfig(), seed: int = 0,
+                device: str | torch.device = "cuda") -> dict:
+    """SwinIR's own initialisation, drawn from a CPU `torch.Generator`
+    seeded with `seed`, then moved to `device`: linears and the
+    relative-position tables trunc-normal(0.02) with zero biases,
+    LayerNorms 1 / 0, convs PyTorch's default (uniform +-1/sqrt(fan_in),
+    weight and bias)."""
+    dev = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+    shapes = param_shapes(cfg)
+    params = {}
+    for name, shape in shapes.items():
+        module, kind = name.rsplit(".", 1)
+        layer = module.rsplit(".", 1)[-1]
+        t = torch.empty(shape)
+        if layer in ("norm", "norm1", "norm2"):
+            t.fill_(1.0 if kind == "weight" else 0.0)
+        elif kind == "relative_position_bias_table" or (
+                layer in ("qkv", "proj", "fc1", "fc2") and kind == "weight"):
+            torch.nn.init.trunc_normal_(t, std=0.02, generator=gen)
+        elif layer in ("qkv", "proj", "fc1", "fc2"):
+            t.zero_()
+        else:  # a conv's weight or bias
+            bound = 1.0 / math.sqrt(math.prod(shapes[module + ".weight"][1:]))
+            t.uniform_(-bound, bound, generator=gen)
+        params[name] = t.to(dev)
+    return params
+
+
+def from_state_dict(state: dict, cfg: SwinIRConfig = SwinIRConfig(),
+                    device: str | torch.device = "cpu") -> dict:
+    """The parameters of a published SwinIR state dict (its `params`
+    entry, or the dict itself) as float32 tensors on `device`; the derived
+    buffers are dropped. A missing, extra or misshapen entry raises
+    ValueError."""
+    state = state.get("params", state)
+    shapes = param_shapes(cfg)
+    given = {k: v for k, v in state.items() if k.rsplit(".", 1)[-1] not in DERIVED}
+    if set(given) != set(shapes):
+        missing, extra = sorted(set(shapes) - set(given)), sorted(set(given) - set(shapes))
+        raise ValueError(f"state dict does not fit {cfg}: missing {missing[:4]}, "
+                         f"unexpected {extra[:4]}")
+    out = {}
+    for name, shape in shapes.items():
+        t = torch.as_tensor(given[name])
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+        out[name] = t.detach().to(resolve_device(device), torch.float32)
+    return out
+
+
+# ------------------------------------------------------------ derived tensors
+@functools.lru_cache(maxsize=8)
+def relative_position_index(ws: int) -> np.ndarray:
+    """[N, N] int64, N = ws^2: (dy + ws - 1) * (2 ws - 1) + (dx + ws - 1) for
+    query token i and key token j of a window (dy = y_i - y_j, dx = x_i -
+    x_j). Callers must not write to the cached array."""
+    y, x = np.divmod(np.arange(ws * ws), ws)
+    return (y[:, None] - y[None, :] + ws - 1) * (2 * ws - 1) + (x[:, None] - x[None, :] + ws - 1)
+
+
+@functools.lru_cache(maxsize=16)
+def shift_mask(h: int, w: int, ws: int, shift: int) -> np.ndarray:
+    """[nW, N, N] float32: 0 between tokens of one region of the rolled
+    (h, w) map's 3 x 3 labelling, MASK_VALUE between regions; windows in
+    row-major order. Callers must not write to the cached array."""
+    label = np.zeros((h, w), np.int64)
+    cuts = (slice(0, -ws), slice(-ws, -shift), slice(-shift, None))
+    for a, rows in enumerate(cuts):
+        for b, cols in enumerate(cuts):
+            label[rows, cols] = 3 * a + b
+    win = label.reshape(h // ws, ws, w // ws, ws).transpose(0, 2, 1, 3).reshape(-1, ws * ws)
+    return np.where(win[:, None, :] != win[:, :, None], MASK_VALUE, 0.0).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=32)
+def _window_order(h: int, w: int, ws: int, shift: int,
+                  device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(fwd, inv), int64 on `device`: the windowed order's token p (windows
+    row-major, tokens row-major in each) is token fwd[p] of the (h, w) map
+    rolled by (-shift, -shift), i.e. torch.roll then window partition as
+    one gather; inv undoes it (window reverse, then the roll back)."""
+    wy, wx, iy, ix = np.meshgrid(np.arange(h // ws), np.arange(w // ws), np.arange(ws),
+                                 np.arange(ws), indexing="ij")
+    fwd = (((wy * ws + iy + shift) % h) * w + (wx * ws + ix + shift) % w).reshape(-1)
+    return (torch.from_numpy(fwd).to(device),
+            torch.from_numpy(np.argsort(fwd)).to(device))
+
+
+@functools.lru_cache(maxsize=16)
+def _device_index(ws: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(relative_position_index(ws).reshape(-1)).to(device)
+
+
+@functools.lru_cache(maxsize=16)
+def _device_mask(h: int, w: int, ws: int, shift: int, device: torch.device) -> torch.Tensor:
+    """`shift_mask` on `device` as [nW, 1, N, N], uploaded once."""
+    return torch.from_numpy(shift_mask(h, w, ws, shift))[:, None].to(device)
+
+
+def attn_bias(table: torch.Tensor, h: int, w: int, ws: int, shift: int,
+              dtype: torch.dtype) -> torch.Tensor:
+    """B_rel (+ M when shift) in `dtype`: [1, heads, N, N] unshifted,
+    [nW, heads, N, N] shifted."""
+    n = ws * ws
+    rel = table[_device_index(ws, table.device)].view(n, n, -1).permute(2, 0, 1)
+    if not shift:  # contiguous: the fused attention refuses a strided last dim
+        return rel.to(dtype, memory_format=torch.contiguous_format)[None]
+    return (_device_mask(h, w, ws, shift, table.device) + rel).to(dtype)
+
+
+# ----------------------------------------------------------------- forward
+def _head_pad(e: int, heads: int) -> tuple[int, int]:
+    """(head dim, zeros to pad it with up to a multiple of 8)."""
+    hd = e // heads
+    return hd, -hd % 8
+
+
+def _qkv_weights(p: dict, b: str, heads: int, dtype: torch.dtype) -> tuple:
+    """qkv's weight and bias in `dtype` with each head's rows zero-padded
+    (`_head_pad`): q, k and v come out [.., 3, heads, padded]."""
+    w, bias = p[b + "attn.qkv.weight"], p[b + "attn.qkv.bias"]
+    e = w.shape[1]
+    hd, pad = _head_pad(e, heads)
+    w = F.pad(w.to(dtype).view(3, heads, hd, e), (0, 0, 0, pad))
+    return w.reshape(-1, e), F.pad(bias.to(dtype).view(3, heads, hd), (0, pad)).reshape(-1)
+
+
+def _proj_weight(p: dict, b: str, heads: int, dtype: torch.dtype) -> torch.Tensor:
+    """proj's weight in `dtype` with zero columns where the heads are padded."""
+    w = p[b + "attn.proj.weight"]
+    e = w.shape[0]
+    hd, pad = _head_pad(e, heads)
+    return F.pad(w.to(dtype).view(e, heads, hd), (0, pad)).reshape(e, -1)
+
+
+def _ln(x: torch.Tensor, p: dict, name: str) -> torch.Tensor:
+    return F.layer_norm(x, x.shape[-1:], p[name + ".weight"].to(x.dtype),
+                        p[name + ".bias"].to(x.dtype), LN_EPS)
+
+
+def _linear(x: torch.Tensor, p: dict, name: str) -> torch.Tensor:
+    return F.linear(x, p[name + ".weight"].to(x.dtype), p[name + ".bias"].to(x.dtype))
+
+
+def _stl(f: torch.Tensor, p: dict, b: str, heads: int, ws: int, shift: int,
+         hw: tuple) -> torch.Tensor:
+    """One Swin transformer layer on the stream f [B, H*W, C]."""
+    bsz, _, e = f.shape
+    h, w = hw
+    dt = f.dtype
+    n = ws * ws
+    fwd, inv = _window_order(h, w, ws, shift, f.device)
+    x = _ln(f, p, b + "norm1").index_select(1, fwd)  # rolled, in windows
+    wq, bq = _qkv_weights(p, b, heads, dt)
+    d = wq.shape[0] // (3 * heads)
+    q, k, v = F.linear(x, wq, bq).view(-1, n, 3, heads, d).permute(2, 0, 3, 1, 4).unbind(0)
+    bias = attn_bias(p[b + "attn.relative_position_bias_table"], h, w, ws, shift, dt)
+    n_win = q.shape[0]
+    if bias.shape[0] == 1:
+        bias = bias.expand(n_win, -1, -1, -1)
+    else:  # one mask a window of each map
+        bias = bias.expand(bsz, *bias.shape).reshape(n_win, *bias.shape[1:])
+    a = F.scaled_dot_product_attention(q, k, v, attn_mask=bias, scale=(e // heads) ** -0.5)
+    a = a.transpose(1, 2).reshape(bsz, h * w, heads * d)
+    a = F.linear(a, _proj_weight(p, b, heads, dt), p[b + "attn.proj.bias"].to(dt))
+    f = f + a.index_select(1, inv)
+    y = F.gelu(_linear(_ln(f, p, b + "norm2"), p, b + "mlp.fc1"))
+    return f + _linear(y, p, b + "mlp.fc2")
+
+
+def _oihw(p: dict, name: str) -> dict:
+    """The conv `name` as `models.sr._conv` takes it ({"w": HWIO, "b"})."""
+    return {"w": p[name + ".weight"].permute(2, 3, 1, 0), "b": p[name + ".bias"]}
+
+
+def _cl_map(f: torch.Tensor, hw: tuple) -> torch.Tensor:
+    """The stream [B, H*W, C] as a channels_last [B, C, H, W] view."""
+    return f.view(f.shape[0], *hw, f.shape[-1]).permute(0, 3, 1, 2)
+
+
+def _stream(x: torch.Tensor) -> torch.Tensor:
+    """A channels_last [B, C, H, W] map as the stream [B, H*W, C] (a view)."""
+    b, c, h, w = x.shape
+    return x.permute(0, 2, 3, 1).reshape(b, h * w, c)
+
+
+def swinir_forward(params: dict, x: torch.Tensor, cfg: SwinIRConfig = SwinIRConfig(),
+                   compute_dtype: torch.dtype = torch.bfloat16,
+                   item: Optional[object] = None) -> torch.Tensor:
+    """x: [B, C, h, w] -> [B, C, h*factor, w*factor], float32 (contiguous)."""
+    dt = compute_dtype
+    bsz, _, h0, w0 = x.shape
+    ws = cfg.window_size
+    ph, pw = -h0 % ws, -w0 % ws
+    hp, wp = h0 + ph, w0 + pw
+    windows = bsz * (hp // ws) * (wp // ws) * sum(cfg.depths)
+    with stage_timer("swinir.forward", item=item, tiles=bsz, windows=windows), \
+            precision(dt), sdpa_kernel(_SDPA_BACKENDS):
+        if ph or pw:
+            x = F.pad(x, (0, pw, 0, ph), mode="reflect")
+        if cfg.img_range != 1.0:
+            x = x * cfg.img_range
+        with precision(torch.float32):  # the radiances unrounded (module docstring)
+            x = _conv(x.float().contiguous(memory_format=torch.channels_last),
+                      _oihw(params, "conv_first"), torch.float32).to(dt)
+        f = _ln(_stream(x), params, "patch_embed.norm")
+        for i, (depth, heads) in enumerate(zip(cfg.depths, cfg.num_heads)):
+            with stage_timer("swinir.rstb", item=i):
+                g = f
+                for j in range(depth):
+                    g = _stl(g, params, f"layers.{i}.residual_group.blocks.{j}.", heads, ws,
+                             ws // 2 if j % 2 else 0, (hp, wp))
+                f = _stream(_conv(_cl_map(g, (hp, wp)), _oihw(params, f"layers.{i}.conv"),
+                                  dt)) + f
+        x = _conv(_cl_map(_ln(f, params, "norm"), (hp, wp)), _oihw(params, "conv_after_body"),
+                  dt) + x
+        with stage_timer("swinir.upsample"):
+            x = F.leaky_relu(_conv(x, _oihw(params, "conv_before_upsample.0"), dt), 0.01)
+            for k in range(upsample_stages(cfg.factor)):
+                x = _pixel_shuffle_cl(_conv(x, _oihw(params, f"upsample.{2 * k}"), dt), 2)
+            y = _conv(x, _oihw(params, "conv_last"), dt)
+            y = y[:, :, :h0 * cfg.factor, :w0 * cfg.factor]
+            if cfg.img_range != 1.0:
+                y = y / cfg.img_range
+            return y.to(torch.float32, memory_format=torch.contiguous_format)

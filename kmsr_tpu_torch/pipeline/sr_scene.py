@@ -53,7 +53,7 @@ import torch
 from ..data.sampler import list_patch_files
 from ..io.ncio import copied, read_band_stack, write_bands
 from ..io.schema import GROUP_LR
-from ..models.sr import SRConfig, sr_forward
+from ..models.sr import SRConfig, require_edsr, sr_forward
 from ..parallel.mesh import launch_mesh, mesh_device, rows_of
 from ..parallel.multihost import global_batch
 from ..utils.profiling import stage_timer
@@ -142,7 +142,9 @@ def sr_scene(
     """[C, H, W] LR scene -> [C, H*factor, W*factor] SR scene (host array).
     With `mesh` (a 'data' mesh; every rank passes the same scene), each
     chunk's tiles are split over the ranks and the scene is assembled on
-    rank 0, which returns it; the other ranks return None."""
+    rank 0, which returns it; the other ranks return None. The EDSR only
+    (ValueError for another network)."""
+    require_edsr(cfg, "sr_scene")
     dev = mesh_device(device, mesh)
     n_rank = 1 if mesh is None else mesh.size
     if chunk % n_rank:  # even blocks per rank: round up, don't fail mid-run
@@ -222,6 +224,7 @@ def sr_scene_folder(
 ) -> RunReport:
     """Super-resolve every scene; with `mesh` every rank takes part in every
     scene (`sr_scene`) and rank 0 writes each output file."""
+    require_edsr(cfg, "sr_scene")
     t0 = time.time()
     dev = mesh_device(device, mesh)
     main = mesh is None or mesh.is_main

@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from ..device import deterministic
-from ..models.sr import SRConfig, init_sr, precision, sr_forward
+from ..models.sr import SRConfig, init_sr, precision, require_edsr, sr_forward
 from ..ops.metrics import psnr, ssim
 from ..parallel.mesh import (
     data_parallel,
@@ -108,7 +108,9 @@ def _dtype(cfg: SRTrainConfig) -> torch.dtype:
 def make_sr_train_step(cfg: SRTrainConfig) -> tuple[Callable, ClippedAdam]:
     """(step, tx): step(state, lr_batch, hr_batch) -> (state, {"l1": loss,
     "grads": the gradients in the parameters' layout}), updating `state`
-    in place. Nothing in a step waits for the device."""
+    in place. Nothing in a step waits for the device. The EDSR only
+    (ValueError for another network)."""
+    require_edsr(cfg.model, "SR training")
     tx = make_optimizer(cfg)
     dtype = _dtype(cfg)
 
@@ -129,6 +131,7 @@ def make_sr_train_step(cfg: SRTrainConfig) -> tuple[Callable, ClippedAdam]:
 def init_sr_training(cfg: SRTrainConfig, device: str | torch.device = "cuda") -> SRTrainState:
     """The initial state on `device`: `init_sr(cfg.model, seed=cfg.seed)`
     and Adam's zero moments."""
+    require_edsr(cfg.model, "SR training")
     params = _trainable(init_sr(cfg.model, seed=cfg.seed, device=device))
     return SRTrainState(0, params, make_optimizer(cfg).init(params))
 
@@ -166,6 +169,7 @@ def train_sr(
     run is reproducible (CUBLAS_WORKSPACE_CONFIG must be set before the
     process first uses cuBLAS; the training CLIs set it).
     """
+    require_edsr(cfg.model, "SR training")
     lr_all, hr_all = pairs
     if lr_all.shape[0] != hr_all.shape[0]:
         raise ValueError(f"{lr_all.shape[0]} lr vs {hr_all.shape[0]} hr arrays")

@@ -5,7 +5,9 @@ under enumerated keys `arr_NNNN` (for reload against a template of the
 same structure) beside their path names `name_NNNN` (for inspection), in
 JAX's leaf order (dict keys sorted, lists in order) and with its path
 strings (`['selector']['convs'][0]['w']`). A model written by either
-package loads in the other.
+package loads in the other. A flat dict keyed by module names (SwinIR's
+published names, `models.swinir`) is a tree of one level: its arrays are
+stored in sorted-name order under paths like `['conv_first.weight']`.
 """
 from __future__ import annotations
 

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from kmsr_tpu_torch.models import sr as tsr
+from kmsr_tpu_torch.models import swinir as sw
 from kmsr_tpu_torch.ops.metrics import psnr, ssim
 from kmsr_tpu_torch.pipeline import sr_infer, sr_scene
 from kmsr_tpu_torch.train import sr as ttrain
@@ -62,6 +63,30 @@ def test_card_forward_matches_cpu(cuda, case):
     assert _f32_close(card32, cpu32, f64)
     cpu16 = tsr.sr_forward(params, x, cfg)
     card16 = tsr.sr_forward(_to(params, cuda), x.to(cuda), cfg).cpu()
+    assert float((card16 - cpu32).abs().max()) <= 2 * float((cpu16 - cpu32).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("factor,hw", [(2, (10, 6)), (8, (8, 8))])
+def test_card_swinir_forward_matches_cpu(cuda, factor, hw):
+    """SwinIR (embed 24, depths (2, 2), heads (2, 2), window 4) on the card,
+    through its fused attention, against the port on the CPU by the rules
+    above; weights fan-in uniform (qkv twice), tables in +-6."""
+    cfg = sw.SwinIRConfig(embed_dim=24, depths=(2, 2), num_heads=(2, 2), window_size=4,
+                          factor=factor)
+    gen = torch.Generator().manual_seed(factor)
+    params = {k: (torch.rand(s, generator=gen) * 2 - 1) * (
+        6.0 if k.endswith("table") else 1.0 if len(s) == 1 else 2.0 / np.sqrt(np.prod(s[1:])))
+        for k, s in sw.param_shapes(cfg).items()}
+    x = torch.from_numpy(np.random.default_rng(factor).standard_normal((3, 5, *hw))
+                         .astype(np.float32))
+    cpu32 = sw.swinir_forward(params, x, cfg, torch.float32)
+    card32 = sw.swinir_forward(_to(params, cuda), x.to(cuda), cfg, torch.float32)
+    f64 = sw.swinir_forward(_to(params, cuda, torch.float64), x.to(cuda).double(), cfg,
+                            torch.float64)
+    assert _f32_close(card32, cpu32, f64)
+    cpu16 = sw.swinir_forward(params, x, cfg)
+    card16 = sw.swinir_forward(_to(params, cuda), x.to(cuda), cfg).cpu()
     assert float((card16 - cpu32).abs().max()) <= 2 * float((cpu16 - cpu32).abs().max())
 
 
