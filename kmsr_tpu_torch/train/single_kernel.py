@@ -66,6 +66,7 @@ from ..parallel.mesh import (
     shard_batch,
 )
 from ..utils.profiling import stage_timer
+from .graphed import graphed_step
 from .state import (
     GANTrainState,
     check_mesh_vs_scan,
@@ -173,6 +174,13 @@ def _normal(gen: torch.Generator, like: torch.Tensor) -> torch.Tensor:
                                   dtype=like.dtype))
 
 
+def _optimizers(cfg: SingleKernelConfig) -> tuple:
+    """(G's, D's) clipped Adam."""
+    return (make_gan_optimizers(cfg.lr_rate, grad_clip_norm=cfg.grad_clip_norm),
+            make_gan_optimizers(cfg.d_lr_rate or cfg.lr_rate,
+                                grad_clip_norm=cfg.grad_clip_norm))
+
+
 def make_base_step(cfg: SingleKernelConfig) -> Callable:
     """The combined D+G step: step(state, hr, crop_src) -> (state, metrics).
 
@@ -189,10 +197,12 @@ def make_base_step(cfg: SingleKernelConfig) -> Callable:
     `kernelgan.d_backward`, `kernelgan.d_update`, `kernelgan.g_loss` (G's
     noise, D on the fake, adv, reg, raw-sum), `kernelgan.g_backward`,
     `kernelgan.g_update`.
+
+    A fourth argument, {"g": ..., "d": ...}, gives each optimizer's bias
+    corrections as device scalars (`ClippedAdam.step`'s `corrections`), as
+    a CUDA graph's capture does (`train.graphed`).
     """
-    g_tx = make_gan_optimizers(cfg.lr_rate, grad_clip_norm=cfg.grad_clip_norm)
-    d_tx = make_gan_optimizers(cfg.d_lr_rate or cfg.lr_rate,
-                               grad_clip_norm=cfg.grad_clip_norm)
+    g_tx, d_tx = _optimizers(cfg)
     factor = cfg.generator.factor
     fwd_mode = cfg.generator.forward_mode
     bc = cfg.d_border_crop
@@ -210,13 +220,15 @@ def make_base_step(cfg: SingleKernelConfig) -> Callable:
                 cfg.fake_noise_sigma, dtype=torch.float32, device=dev)[None, :, None, None]
         return fixed_sigma[dev]
 
-    def step(state: GANTrainState, hr: torch.Tensor, crop_src: torch.Tensor):
+    def step(state: GANTrainState, hr: torch.Tensor, crop_src: torch.Tensor,
+             corrections: Optional[dict] = None):
         # the backward convs too: autograd runs them after the forward
         # functions' own fp32 scopes have closed (TF32 is cuDNN's default)
         with fp32_convs():
-            return _step(state, hr, crop_src)
+            return _step(state, hr, crop_src, corrections or {})
 
-    def _step(state: GANTrainState, hr: torch.Tensor, crop_src: torch.Tensor):
+    def _step(state: GANTrainState, hr: torch.Tensor, crop_src: torch.Tensor,
+              corrections: dict):
         g_params, d_params, t = state.g_params, state.d_params, state.step
         with stage_timer("kernelgan.g_forward", item=t):
             if cfg.real_is_lr:
@@ -239,7 +251,8 @@ def make_base_step(cfg: SingleKernelConfig) -> Callable:
         with stage_timer("kernelgan.d_backward", item=t):
             d_grads = reduce_grads(torch.autograd.grad(loss_d, d_leaves))
         with stage_timer("kernelgan.d_update", item=t):
-            d_grad_norm = d_tx.step(d_params, list(d_grads), state.d_opt_state)
+            d_grad_norm = d_tx.step(d_params, list(d_grads), state.d_opt_state,
+                                    corrections=corrections.get("d"))
 
         # ---- G step (against the freshly updated D, reference order) -------
         with stage_timer("kernelgan.g_loss", item=t):
@@ -259,7 +272,8 @@ def make_base_step(cfg: SingleKernelConfig) -> Callable:
             g_grads = reduce_grads([g if g is not None else torch.zeros_like(p) for g, p in zip(
                 torch.autograd.grad(total, g_leaves, allow_unused=True), g_leaves)])
         with stage_timer("kernelgan.g_update", item=t):
-            g_grad_norm = g_tx.step(g_params, g_grads, state.g_opt_state)
+            g_grad_norm = g_tx.step(g_params, g_grads, state.g_opt_state,
+                                    corrections=corrections.get("g"))
 
         state.step += 1
         state.d_state = d_state
@@ -314,22 +328,28 @@ def make_scenes_step(cfg: SingleKernelConfig, scenes: int) -> Callable:
     state, bit for bit: a batched matmul or a reduction over a scene axis
     may round otherwise. Either way its phases are `make_base_step`'s
     spans (here both noise draws fall in `kernelgan.g_forward`).
+
+    On a CUDA device, outside a data-parallel or model mesh (the step then
+    has no collectives) and with a constant learning rate, the step is
+    captured once per stacked state as a CUDA graph and replayed
+    (`train.graphed.graphed_step`): the same kernels on the same data, one
+    host call a step; the phase spans then fire only at the capture.
+    Elsewhere it runs eagerly.
     """
     base = make_base_step(cfg)
     if scenes == 1:
-        def one_scene(state: GANTrainState, hr: torch.Tensor, crop_src: torch.Tensor):
-            view, metrics = base(_scene_view(state), hr[0], crop_src[0])
+        def one_scene(state: GANTrainState, hr: torch.Tensor, crop_src: torch.Tensor,
+                      corrections: Optional[dict] = None):
+            view, metrics = base(_scene_view(state), hr[0], crop_src[0], corrections)
             state.step, state.d_state = view.step, tree_map(lambda t: t[None], view.d_state)
             state.g_opt_state["count"] = view.g_opt_state["count"]
             state.d_opt_state["count"] = view.d_opt_state["count"]
             return state, tree_map(lambda t: t[None], metrics)
 
-        return one_scene
+        return graphed_step(one_scene, _optimizers(cfg), 1)
 
     m = scenes
-    g_tx = make_gan_optimizers(cfg.lr_rate, grad_clip_norm=cfg.grad_clip_norm)
-    d_tx = make_gan_optimizers(cfg.d_lr_rate or cfg.lr_rate,
-                               grad_clip_norm=cfg.grad_clip_norm)
+    g_tx, d_tx = _optimizers(cfg)
     bc = cfg.d_border_crop
     noise_on = cfg.fake_noise_sigma is not None
     fixed_sigma: dict = {}  # device -> [1, m*C, 1, 1], uploaded once
@@ -349,11 +369,13 @@ def make_scenes_step(cfg: SingleKernelConfig, scenes: int) -> Callable:
                 device=dev)[None, :, None, None]
         return fixed_sigma[dev]
 
-    def step(state: GANTrainState, hr: torch.Tensor, crop_src: torch.Tensor):
+    def step(state: GANTrainState, hr: torch.Tensor, crop_src: torch.Tensor,
+             corrections: Optional[dict] = None):
         with fp32_convs():  # the backward convs too, as in make_base_step
-            return _step(state, hr, crop_src)
+            return _step(state, hr, crop_src, corrections or {})
 
-    def _step(state: GANTrainState, hr: torch.Tensor, crop_src: torch.Tensor):
+    def _step(state: GANTrainState, hr: torch.Tensor, crop_src: torch.Tensor,
+              corrections: dict):
         g_params, d_params, gens, t = state.g_params, state.d_params, state.rng, state.step
         with stage_timer("kernelgan.g_forward", item=t):
             if cfg.real_is_lr:
@@ -383,7 +405,8 @@ def make_scenes_step(cfg: SingleKernelConfig, scenes: int) -> Callable:
         with stage_timer("kernelgan.d_backward", item=t):
             d_grads = list(torch.autograd.grad(loss_d.sum(), d_leaves))
         with stage_timer("kernelgan.d_update", item=t):
-            d_grad_norm = d_tx.step(d_params, d_grads, state.d_opt_state, scenes=m)
+            d_grad_norm = d_tx.step(d_params, d_grads, state.d_opt_state, scenes=m,
+                                    corrections=corrections.get("d"))
 
         # ---- G step (against the freshly updated D, reference order) -------
         with stage_timer("kernelgan.g_loss", item=t):
@@ -402,7 +425,8 @@ def make_scenes_step(cfg: SingleKernelConfig, scenes: int) -> Callable:
             g_grads = [g if g is not None else torch.zeros_like(p) for g, p in zip(
                 torch.autograd.grad(total.sum(), g_leaves, allow_unused=True), g_leaves)]
         with stage_timer("kernelgan.g_update", item=t):
-            g_grad_norm = g_tx.step(g_params, g_grads, state.g_opt_state, scenes=m)
+            g_grad_norm = g_tx.step(g_params, g_grads, state.g_opt_state, scenes=m,
+                                    corrections=corrections.get("g"))
 
         state.step += 1
         state.d_state = d_state
@@ -418,7 +442,7 @@ def make_scenes_step(cfg: SingleKernelConfig, scenes: int) -> Callable:
             "grads_G": tree_unflatten(g_params, g_grads),
         }
 
-    return step
+    return graphed_step(step, (g_tx, d_tx), m)
 
 
 def make_train_step(cfg: SingleKernelConfig, device_pool: bool = False) -> Callable:

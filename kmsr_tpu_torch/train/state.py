@@ -92,7 +92,9 @@ class ClippedAdam:
     `lr` is a number or a schedule: a callable of the count before this
     step's increment, as optax calls a schedule (the SR trainer's cosine
     decay). The count lives on the host (the step count is known there),
-    so a step never waits for the device.
+    so a step never waits for the device. A step replayed from a CUDA
+    graph (`train.graphed`) takes its bias corrections as device scalars,
+    which the host refills before each replay.
     """
 
     lr: float | Callable[[int], float]
@@ -107,9 +109,25 @@ class ClippedAdam:
                 "mu": [torch.zeros_like(p) for p in leaves],
                 "nu": [torch.zeros_like(p) for p in leaves]}
 
+    def corrections(self, count: int) -> tuple[float, float]:
+        """Adam's bias corrections (1 - b1^t, 1 - b2^t) of the step that
+        brings the count to t = `count`."""
+        return 1 - self.b1**count, 1 - self.b2**count
+
+    def device_corrections(self, count: int, dev: torch.device) -> tuple[float, float]:
+        """`corrections(count)` in the form `step(corrections=...)` takes
+        them for leaves on `dev`, the form in which dividing a float32
+        tensor there by a host number applies it: ATen multiplies a CUDA
+        tensor by the number's reciprocal (taken in double, rounded to
+        float32) and divides a CPU tensor by the number (rounded to
+        float32). So on a card these are the reciprocals."""
+        c = self.corrections(count)
+        return (1 / c[0], 1 / c[1]) if torch.device(dev).type == "cuda" else c
+
     @torch.no_grad()
     def step(self, params, grads: list[torch.Tensor], opt_state: dict,
-             scenes: Optional[int] = None) -> torch.Tensor:
+             scenes: Optional[int] = None,
+             corrections: Optional[tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
         """Update `params` and `opt_state` in place from `grads` (in
         `tree_leaves(params)` order); returns the global norm of the
         gradients before clipping, as a device scalar. Under a model mesh,
@@ -118,7 +136,14 @@ class ClippedAdam:
         scenes=m: every leaf holds m independent models on its leading axis
         (optax's chain vmapped over the fleet's scenes): each scene is
         clipped by its own global norm, the norms [m] are returned, and the
-        Adam arithmetic, elementwise, is the unstacked one."""
+        Adam arithmetic, elementwise, is the unstacked one.
+
+        corrections: this step's `device_corrections(count + 1, device)`
+        as two 0-dim float32 tensors on the parameters' device, in place of
+        the host numbers (a captured graph reads them at replay): the moments
+        are multiplied by them on a card and divided by them on the CPU,
+        which is what dividing by the host numbers does there, so the update
+        is the same bit for bit."""
         if scenes is None:
             sharded = None
             if model_mesh() is not None:
@@ -143,10 +168,15 @@ class ClippedAdam:
         torch._foreach_mul_(nu, self.b2)
         torch._foreach_add_(nu, torch._foreach_mul(torch._foreach_mul(grads, grads),
                                                    1 - self.b2))
-        denom = torch._foreach_div(nu, 1 - self.b2**count)
+        if corrections is None:
+            (c1, c2), apply = self.corrections(count), torch._foreach_div
+        else:
+            (c1, c2), apply = corrections, (torch._foreach_mul if mu[0].is_cuda
+                                            else torch._foreach_div)
+        denom = apply(nu, c2)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
-        upd = torch._foreach_div(mu, 1 - self.b1**count)
+        upd = apply(mu, c1)
         torch._foreach_div_(upd, denom)
         torch._foreach_mul_(upd, -lr)
         torch._foreach_add_(tree_leaves(params), upd)

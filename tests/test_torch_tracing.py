@@ -328,3 +328,27 @@ def test_bench_assemble_rate_is_bytes_over_span_time(monkeypatch):
     done = [s for s in tprof.spans() if s.name == "sr_infer.assemble"]
     ns = sum(s.end_ns - s.start_ns for s in done)
     assert _metric("sr_infer.assemble_gb_per_s").read(run) == pytest.approx(2e6 / ns)
+
+
+@pytest.mark.parametrize("replayed", [2, 1, 0])
+def test_bench_replay_share_is_the_window_replays_over_its_gathers(monkeypatch, replayed):
+    """`fleet.replay_share` on the ring's spans: 100 x the `scene_its` of
+    the `kernelgan.replay` spans started in the window over those its
+    `fleet.gather` spans counted (a replay before the window left out);
+    nothing when the window holds no replay."""
+    import time
+    import types
+
+    monkeypatch.syspath_prepend(str(BENCH))
+    with tprof.stage_timer("kernelgan.replay", item=0, scene_its=3):
+        pass
+    t0 = time.perf_counter()
+    for i in range(2):
+        with tprof.stage_timer("fleet.gather", item=i, scene_its=3):
+            pass
+        name = "kernelgan.replay" if i < replayed else "kernelgan.d_update"
+        with tprof.stage_timer(name, item=i, **({"scene_its": 3} if i < replayed else {})):
+            pass
+    run = types.SimpleNamespace(trace_t0=t0, trace_t1=time.perf_counter())
+    got = _metric("fleet.replay_share").read(run)
+    assert got == (50.0 * replayed if replayed else None)
