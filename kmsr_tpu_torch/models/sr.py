@@ -42,6 +42,7 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..ops.degrade import fp32_convs
+from ..utils.tree import tree_leaves
 
 
 @dataclasses.dataclass(frozen=True)
@@ -222,6 +223,4 @@ def require_edsr(cfg, what: str) -> None:
 
 
 def count_params(params: dict) -> int:
-    from ..train.state import tree_leaves
-
     return sum(t.numel() for t in tree_leaves(params))

@@ -55,6 +55,7 @@ import torch
 import torch.distributed as dist
 
 from ..device import resolve_device
+from ..utils.tree import tree_leaves
 from .multihost import is_initialized, local_card
 
 
@@ -203,8 +204,6 @@ def replicate_state(mesh: Mesh, tree):
     state; returns `tree`."""
     if mesh.group is None:
         return tree
-    from ..train.state import tree_leaves
-
     if dataclasses.is_dataclass(tree):
         leaves = [t for f in dataclasses.fields(tree)
                   for t in tree_leaves(getattr(tree, f.name))]

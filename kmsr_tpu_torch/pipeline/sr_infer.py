@@ -47,9 +47,9 @@ from ..io.schema import GROUP_HR, GROUP_LR
 from ..models.sr import SRConfig, init_sr, sr_forward
 from ..models.swinir import SwinIRConfig, init_swinir
 from ..ops.metrics import psnr, ssim
-from ..train.state import tree_map
 from ..utils.params_io import load_params
 from ..utils.profiling import stage_timer
+from ..utils.tree import tree_map
 from .common import DeviceSyncGuard, RunReport, chunked_reader, local_batch_dp
 
 #: one chunk of input: (paths, [(lr [C,h,w], hr [C,H,W] or None)], failures)

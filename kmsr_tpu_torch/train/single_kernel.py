@@ -181,8 +181,10 @@ def _optimizers(cfg: SingleKernelConfig) -> tuple:
                                 grad_clip_norm=cfg.grad_clip_norm))
 
 
-def make_base_step(cfg: SingleKernelConfig) -> Callable:
-    """The combined D+G step: step(state, hr, crop_src) -> (state, metrics).
+def _gan_step(cfg: SingleKernelConfig, scenes: Optional[int]) -> Callable:
+    """The combined D+G step: step(state, hr, crop_src) -> (state, metrics),
+    of one scene (`scenes=None`) or of m = `scenes` scenes stacked on the
+    state's leading axis.
 
     Updates `state` in place and returns it. The fake batch is generated
     once: the D step sees it detached (plus its own noise draw), the G step
@@ -190,6 +192,15 @@ def make_base_step(cfg: SingleKernelConfig) -> Callable:
     recomputation gives (same params, same hr). Besides the JAX package's
     metrics, "grads_D" / "grads_G" hold the gradients before clipping, in
     the parameters' layout.
+
+    Stacked, the scenes fold into the channels of one generator pass
+    (`models.generator.fold_scenes`) and of each discriminator pass
+    (`discriminator_forward(scenes=m)`); the losses are per scene and
+    summed for the gradients (the scenes are independent, so each scene's
+    gradient is its own); each optimizer clips each scene by its own norm
+    (`ClippedAdam.step(scenes=m)`); every draw comes from the scene's own
+    generator in the one-scene order (real crop offsets, D's noise, G's
+    noise). The layout's pieces below are chosen once, here.
 
     Each phase is a `utils.profiling.stage_timer` span with the step count
     as its item: `kernelgan.g_forward` (real crops, G, D's fake noise),
@@ -203,76 +214,104 @@ def make_base_step(cfg: SingleKernelConfig) -> Callable:
     a CUDA graph's capture does (`train.graphed`).
     """
     g_tx, d_tx = _optimizers(cfg)
-    factor = cfg.generator.factor
-    fwd_mode = cfg.generator.forward_mode
-    bc = cfg.d_border_crop
+    bc, crop = cfg.d_border_crop, cfg.lr_crop_size
     noise_on = cfg.fake_noise_sigma is not None
-    fixed_sigma: dict = {}  # device -> [1, C, 1, 1], uploaded once
+    fixed_sigma: dict = {}  # device -> [1, C (m*C stacked), 1, 1], uploaded once
+
+    if scenes is None:  # the identity and the state's one generator
+        def fold(x):
+            return x
+
+        def real_crops(gen, src):
+            return random_crops(gen, src, crop)
+
+        def noise(gen, fake):
+            return _normal(gen, fake)
+
+        g_view = by_scene = total_of = fold
+        raw_mean = torch.mean
+    else:
+        def fold(x):  # [m, B, C, H, W] -> [B, m*C, H, W], scene-major
+            return x.transpose(0, 1).flatten(1, 2)
+
+        def real_crops(gens, src):
+            return fold(torch.stack([random_crops(g, src[s], crop) for s, g in enumerate(gens)]))
+
+        def noise(gens, fake):
+            like = fake[:, : fake.shape[1] // scenes]
+            return torch.cat([_normal(g, like) for g in gens], dim=1)
+
+        def by_scene(ks):  # [m*C, kH, kW] -> [m, C, kH, kW]
+            return ks.unflatten(0, (scenes, -1))
+
+        def raw_mean(x):
+            return scene_mean(x, scenes, dim=0)
+
+        g_view, total_of = fold_scenes, torch.sum
 
     def _trim(x):
         return x[..., bc:-bc, bc:-bc] if bc else x
 
-    def _sigma_of(g_params, dev):
+    def _sigma_of(g_fold, dev):
         if cfg.fake_noise_learnable:
-            return torch.clamp(torch.exp(g_params["log_sigma"]), 1e-4, 4.0)[None, :, None, None]
+            return torch.clamp(torch.exp(g_fold["log_sigma"]), 1e-4, 4.0)[None, :, None, None]
         if dev not in fixed_sigma:
-            fixed_sigma[dev] = torch.tensor(
-                cfg.fake_noise_sigma, dtype=torch.float32, device=dev)[None, :, None, None]
+            fixed_sigma[dev] = torch.tensor(tuple(cfg.fake_noise_sigma) * (scenes or 1),
+                                            dtype=torch.float32, device=dev)[None, :, None, None]
         return fixed_sigma[dev]
 
+    def _noisy(fake, gens, g_fold):  # one draw from each scene's generator
+        if not noise_on:
+            return fake
+        return fake + noise(gens, fake) * _sigma_of(g_fold, fake.device)
+
+    # the backward convs too: autograd runs them after the forward
+    # functions' own fp32 scopes have closed (TF32 is cuDNN's default)
+    @fp32_convs()
     def step(state: GANTrainState, hr: torch.Tensor, crop_src: torch.Tensor,
              corrections: Optional[dict] = None):
-        # the backward convs too: autograd runs them after the forward
-        # functions' own fp32 scopes have closed (TF32 is cuDNN's default)
-        with fp32_convs():
-            return _step(state, hr, crop_src, corrections or {})
-
-    def _step(state: GANTrainState, hr: torch.Tensor, crop_src: torch.Tensor,
-              corrections: dict):
-        g_params, d_params, t = state.g_params, state.d_params, state.step
+        corrections = corrections or {}
+        g_params, d_params, gens, t = state.g_params, state.d_params, state.rng, state.step
         with stage_timer("kernelgan.g_forward", item=t):
-            if cfg.real_is_lr:
-                real = crop_src
-            else:
-                real = random_crops(state.rng, crop_src, cfg.lr_crop_size)
-            fake = generator_forward(g_params, hr, factor=factor, forward_mode=fwd_mode)
-            fake_d = fake
-            if noise_on:
-                fake_d = fake + _normal(state.rng, fake) * _sigma_of(g_params, fake.device)
+            real = fold(crop_src) if cfg.real_is_lr else real_crops(gens, crop_src)
+            g_fold = g_view(g_params)
+            fake = generator_forward(g_fold, fold(hr), factor=cfg.generator.factor,
+                                     forward_mode=cfg.generator.forward_mode)
+            fake_d = _noisy(fake, gens, g_fold)
 
         # ---- D step -------------------------------------------------------
         d_leaves = tree_leaves(d_params)
         with stage_timer("kernelgan.d_forward", item=t):
             pred_real, st = discriminator_forward(d_params, state.d_state, _trim(real),
-                                                  train=True)
+                                                  train=True, scenes=scenes)
             pred_fake, st = discriminator_forward(d_params, st, _trim(fake_d.detach()),
-                                                  train=True)
-            loss_d = lsgan_d_loss(pred_real, pred_fake)
+                                                  train=True, scenes=scenes)
+            loss_d = lsgan_d_loss(pred_real, pred_fake, scenes=scenes)
         with stage_timer("kernelgan.d_backward", item=t):
-            d_grads = reduce_grads(torch.autograd.grad(loss_d, d_leaves))
+            d_grads = reduce_grads(torch.autograd.grad(total_of(loss_d), d_leaves))
         with stage_timer("kernelgan.d_update", item=t):
-            d_grad_norm = d_tx.step(d_params, list(d_grads), state.d_opt_state,
+            d_grad_norm = d_tx.step(d_params, d_grads, state.d_opt_state, scenes=scenes,
                                     corrections=corrections.get("d"))
 
         # ---- G step (against the freshly updated D, reference order) -------
         with stage_timer("kernelgan.g_loss", item=t):
-            fake_g = fake
-            if noise_on:  # G's noise draw follows D's update, as the reference's
-                fake_g = fake + _normal(state.rng, fake) * _sigma_of(g_params, fake.device)
-            pred_fake, d_state = discriminator_forward(d_params, st, _trim(fake_g), train=True)
-            adv = lsgan_g_loss(pred_fake)
-            ks = extract_kernels(g_params, differentiable=cfg.differentiable_reg)
+            # G's noise draw follows D's update, as the reference's
+            fake_g = _noisy(fake, gens, g_fold)
+            pred_fake, d_state = discriminator_forward(d_params, st, _trim(fake_g),
+                                                       train=True, scenes=scenes)
+            adv = lsgan_g_loss(pred_fake, scenes=scenes)
+            ks = by_scene(extract_kernels(g_fold, differentiable=cfg.differentiable_reg))
             reg = per_band_kernel_regularization(ks, cfg.reg_weights)
             total = adv + cfg.reg_weight * reg
             if cfg.raw_sum_reg:
-                raw_sums = extract_kernels_raw(g_params).sum(dim=(1, 2))
-                total = total + cfg.raw_sum_reg * torch.mean((raw_sums - 1.0) ** 2)
+                raw_sums = extract_kernels_raw(g_fold).sum(dim=(1, 2))
+                total = total + cfg.raw_sum_reg * raw_mean((raw_sums - 1.0) ** 2)
         g_leaves = tree_leaves(g_params)
         with stage_timer("kernelgan.g_backward", item=t):
             g_grads = reduce_grads([g if g is not None else torch.zeros_like(p) for g, p in zip(
-                torch.autograd.grad(total, g_leaves, allow_unused=True), g_leaves)])
+                torch.autograd.grad(total_of(total), g_leaves, allow_unused=True), g_leaves)])
         with stage_timer("kernelgan.g_update", item=t):
-            g_grad_norm = g_tx.step(g_params, g_grads, state.g_opt_state,
+            g_grad_norm = g_tx.step(g_params, g_grads, state.g_opt_state, scenes=scenes,
                                     corrections=corrections.get("g"))
 
         state.step += 1
@@ -284,13 +323,19 @@ def make_base_step(cfg: SingleKernelConfig) -> Callable:
             "loss_reg_weighted": (cfg.reg_weight * reg).detach(),
             "grad_norm_D": d_grad_norm,
             "grad_norm_G": g_grad_norm,
-            "kernels": ks.detach(),  # [C, kH, kW], extracted in-step
+            "kernels": ks.detach(),  # [C, kH, kW]; stacked [m, C, kH, kW]
             "grads_D": tree_unflatten(d_params, d_grads),
             "grads_G": tree_unflatten(g_params, g_grads),
         }
         return state, metrics_mean(metrics, ("loss_D", "loss_G_adv"))
 
     return step
+
+
+def make_base_step(cfg: SingleKernelConfig) -> Callable:
+    """The combined D+G step of one scene: step(state, hr, crop_src[,
+    corrections]) -> (state, metrics) (`_gan_step` at `scenes=None`)."""
+    return _gan_step(cfg, None)
 
 
 def _scene_view(state: GANTrainState) -> GANTrainState:
@@ -306,143 +351,37 @@ def _scene_view(state: GANTrainState) -> GANTrainState:
 
 
 def make_scenes_step(cfg: SingleKernelConfig, scenes: int) -> Callable:
-    """`make_base_step` over m = `scenes` scenes stacked in one state, the
-    JAX fleet's vmap of the combined step: step(state, hr, crop_src) ->
-    (state, metrics). Every state tensor, hr [m, B, C, H, W] and crop_src
-    [m, B, C, h, w] carry the scenes on their leading axis; `state.rng` is
-    the list of the scenes' generators.
-
-    One call advances the m scenes. They fold into the channels of one
-    generator pass (`models.generator.fold_scenes`) and of each
-    discriminator pass (`discriminator_forward(scenes=m)`); the losses are
-    per scene and summed for the gradients (the scenes are independent, so
-    each scene's gradient is its own); each optimizer clips each scene by
-    its own norm (`ClippedAdam.step(scenes=m)`). Every draw comes from the
-    scene's own generator in the standalone step's order (real crop
-    offsets, D noise, G noise), so scene s draws what its standalone run
-    draws. Metrics are per scene: [m], kernels [m, C, K, K], the gradients
-    in the stacked layout. Values equal the scenes' standalone steps to
-    float32 reduction order.
+    """The combined step over m = `scenes` scenes stacked in one state, the
+    JAX fleet's vmap of it: `_gan_step` at `scenes=m`, step(state, hr,
+    crop_src) -> (state, metrics). Every state tensor, hr [m, B, C, H, W]
+    and crop_src [m, B, C, h, w] carry the scenes on their leading axis;
+    `state.rng` is the list of the scenes' generators. Metrics are per
+    scene: [m], kernels [m, C, K, K], the gradients in the stacked layout.
+    Values equal the scenes' standalone steps to float32 reduction order.
 
     At m = 1 the step is `make_base_step` on the scene's views of the
     state, bit for bit: a batched matmul or a reduction over a scene axis
-    may round otherwise. Either way its phases are `make_base_step`'s
-    spans (here both noise draws fall in `kernelgan.g_forward`).
+    may round otherwise.
 
-    On a CUDA device, outside a data-parallel or model mesh (the step then
-    has no collectives) and with a constant learning rate, the step is
-    captured once per stacked state as a CUDA graph and replayed
-    (`train.graphed.graphed_step`): the same kernels on the same data, one
-    host call a step; the phase spans then fire only at the capture.
-    Elsewhere it runs eagerly.
+    On a CUDA device outside a mesh and with a constant learning rate, the
+    step replays as a CUDA graph captured once per stacked state
+    (`train.graphed.graphed_step`: the same kernels on the same data, one
+    host call a step; the phase spans fire only at the capture); elsewhere
+    it runs eagerly. `.eager` is the step without the graph.
     """
+    if scenes > 1:
+        return graphed_step(_gan_step(cfg, scenes), _optimizers(cfg), scenes)
     base = make_base_step(cfg)
-    if scenes == 1:
-        def one_scene(state: GANTrainState, hr: torch.Tensor, crop_src: torch.Tensor,
-                      corrections: Optional[dict] = None):
-            view, metrics = base(_scene_view(state), hr[0], crop_src[0], corrections)
-            state.step, state.d_state = view.step, tree_map(lambda t: t[None], view.d_state)
-            state.g_opt_state["count"] = view.g_opt_state["count"]
-            state.d_opt_state["count"] = view.d_opt_state["count"]
-            return state, tree_map(lambda t: t[None], metrics)
 
-        return graphed_step(one_scene, _optimizers(cfg), 1)
+    def one_scene(state: GANTrainState, hr: torch.Tensor, crop_src: torch.Tensor,
+                  corrections: Optional[dict] = None):
+        view, metrics = base(_scene_view(state), hr[0], crop_src[0], corrections)
+        state.step, state.d_state = view.step, tree_map(lambda t: t[None], view.d_state)
+        state.g_opt_state["count"] = view.g_opt_state["count"]
+        state.d_opt_state["count"] = view.d_opt_state["count"]
+        return state, tree_map(lambda t: t[None], metrics)
 
-    m = scenes
-    g_tx, d_tx = _optimizers(cfg)
-    bc = cfg.d_border_crop
-    noise_on = cfg.fake_noise_sigma is not None
-    fixed_sigma: dict = {}  # device -> [1, m*C, 1, 1], uploaded once
-
-    def _trim(x):
-        return x[..., bc:-bc, bc:-bc] if bc else x
-
-    def _fold(x):  # [m, B, C, H, W] -> [B, m*C, H, W], scene-major
-        return x.transpose(0, 1).flatten(1, 2)
-
-    def _sigma_of(g_fold, dev):
-        if cfg.fake_noise_learnable:
-            return torch.clamp(torch.exp(g_fold["log_sigma"]), 1e-4, 4.0)[None, :, None, None]
-        if dev not in fixed_sigma:
-            fixed_sigma[dev] = torch.tensor(
-                tuple(cfg.fake_noise_sigma) * m, dtype=torch.float32,
-                device=dev)[None, :, None, None]
-        return fixed_sigma[dev]
-
-    def step(state: GANTrainState, hr: torch.Tensor, crop_src: torch.Tensor,
-             corrections: Optional[dict] = None):
-        with fp32_convs():  # the backward convs too, as in make_base_step
-            return _step(state, hr, crop_src, corrections or {})
-
-    def _step(state: GANTrainState, hr: torch.Tensor, crop_src: torch.Tensor,
-              corrections: dict):
-        g_params, d_params, gens, t = state.g_params, state.d_params, state.rng, state.step
-        with stage_timer("kernelgan.g_forward", item=t):
-            if cfg.real_is_lr:
-                real = _fold(crop_src)
-            else:
-                real = _fold(torch.stack([random_crops(g, crop_src[s], cfg.lr_crop_size)
-                                          for s, g in enumerate(gens)]))
-            g_fold = fold_scenes(g_params)
-            fake = generator_forward(g_fold, _fold(hr), factor=cfg.generator.factor,
-                                     forward_mode=cfg.generator.forward_mode)
-            fake_d = fake_g = fake
-            if noise_on:
-                like = fake[:, : hr.shape[2]]
-                draws = [(_normal(g, like), _normal(g, like)) for g in gens]  # D's, G's
-                sigma = _sigma_of(g_fold, fake.device)
-                fake_d = fake + torch.cat([d for d, _ in draws], dim=1) * sigma
-                fake_g = fake + torch.cat([g for _, g in draws], dim=1) * sigma
-
-        # ---- D step -------------------------------------------------------
-        d_leaves = tree_leaves(d_params)
-        with stage_timer("kernelgan.d_forward", item=t):
-            pred_real, st = discriminator_forward(d_params, state.d_state, _trim(real),
-                                                  train=True, scenes=m)
-            pred_fake, st = discriminator_forward(d_params, st, _trim(fake_d.detach()),
-                                                  train=True, scenes=m)
-            loss_d = lsgan_d_loss(pred_real, pred_fake, scenes=m)
-        with stage_timer("kernelgan.d_backward", item=t):
-            d_grads = list(torch.autograd.grad(loss_d.sum(), d_leaves))
-        with stage_timer("kernelgan.d_update", item=t):
-            d_grad_norm = d_tx.step(d_params, d_grads, state.d_opt_state, scenes=m,
-                                    corrections=corrections.get("d"))
-
-        # ---- G step (against the freshly updated D, reference order) -------
-        with stage_timer("kernelgan.g_loss", item=t):
-            pred_fake, d_state = discriminator_forward(d_params, st, _trim(fake_g),
-                                                       train=True, scenes=m)
-            adv = lsgan_g_loss(pred_fake, scenes=m)
-            ks = extract_kernels(g_fold, differentiable=cfg.differentiable_reg).unflatten(
-                0, (m, -1))
-            reg = per_band_kernel_regularization(ks, cfg.reg_weights)
-            total = adv + cfg.reg_weight * reg
-            if cfg.raw_sum_reg:
-                raw_sums = extract_kernels_raw(g_fold).sum(dim=(1, 2))
-                total = total + cfg.raw_sum_reg * scene_mean((raw_sums - 1.0) ** 2, m, dim=0)
-        g_leaves = tree_leaves(g_params)
-        with stage_timer("kernelgan.g_backward", item=t):
-            g_grads = [g if g is not None else torch.zeros_like(p) for g, p in zip(
-                torch.autograd.grad(total.sum(), g_leaves, allow_unused=True), g_leaves)]
-        with stage_timer("kernelgan.g_update", item=t):
-            g_grad_norm = g_tx.step(g_params, g_grads, state.g_opt_state, scenes=m,
-                                    corrections=corrections.get("g"))
-
-        state.step += 1
-        state.d_state = d_state
-        return state, {
-            "loss_D": loss_d.detach(),
-            "loss_G_adv": adv.detach(),
-            "loss_reg": reg.detach(),
-            "loss_reg_weighted": (cfg.reg_weight * reg).detach(),
-            "grad_norm_D": d_grad_norm,
-            "grad_norm_G": g_grad_norm,
-            "kernels": ks.detach(),  # [m, C, kH, kW]
-            "grads_D": tree_unflatten(d_params, d_grads),
-            "grads_G": tree_unflatten(g_params, g_grads),
-        }
-
-    return graphed_step(step, (g_tx, d_tx), m)
+    return graphed_step(one_scene, _optimizers(cfg), 1)
 
 
 def make_train_step(cfg: SingleKernelConfig, device_pool: bool = False) -> Callable:

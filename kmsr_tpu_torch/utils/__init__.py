@@ -1,2 +1,3 @@
-"""Host utilities: profiling, `.npz` model files (`params_io`) and the
-reference's torch checkpoints (`torch_import`)."""
+"""Host utilities: profiling, `.npz` model files (`params_io`), the
+reference's torch checkpoints (`torch_import`) and pytrees of tensors
+(`tree`)."""

@@ -253,6 +253,22 @@ def test_importing_the_sr_stages_loads_no_jax():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+def test_importing_the_sr_serving_path_loads_no_trainer():
+    """SR inference and the SR network import nothing of the trainers: the
+    pytree helpers they share with them live in `utils.tree`."""
+    code = (
+        "import sys; import kmsr_tpu_torch.pipeline.sr_infer, kmsr_tpu_torch.models.sr; "
+        "bad = [m for m in sys.modules if m == 'kmsr_tpu_torch.train' "
+        "or m.startswith('kmsr_tpu_torch.train.')]; print(bad); "
+        "sys.exit(1 if bad else 0)"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 def test_sr_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device; the check is for hosts without")
