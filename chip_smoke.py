@@ -385,6 +385,23 @@ and exits non-zero without them. Phases, one line each:
    each part's seconds and the codec's read rate of each scene file.
    Depth is cut to 4 patches and 256^2 scenes to keep the fixtures small;
    phase 6 runs the scene kernel at 8192^2.
+19. swin-norm: SwinIR's row-norm kernel (`kernels/swin_norm.cu`) at
+   SwinIR-M's stream, 32 maps of 64x64 tokens x 180 bf16 (131,072 rows),
+   the shifted window order: `norm_rows` against the plain F.layer_norm +
+   index_select and `add_norm_rows` against the plain add of the gathered
+   branch + F.layer_norm, f_new bit for bit and y within one bf16 unit in
+   the last place or 1e-6 (float32's floor, where w * t and b cancel; the
+   ulp distance is tests/test_torch_swin_norm.py's). Then one SwinIR-M
+   forward at swinir-x8-tiles64's batch (32 x 5 x 64 x 64, bf16), the
+   counts set to 0 just before it and read after it: 38 `swin_norm_rows`
+   and 36 `swin_add_norm_rows` launches, and `norm_kernels` 74 on its
+   `swinir.forward` span, or the phase fails; its card time (the
+   profiler's, the kernels' own: a slow host cannot stretch it, as it does
+   CUDA events around the forward) and the host time of one tile's forward
+   (where the card never holds the host back). Then each entry point's profiler device time beside its
+   byte bound (norm: f read, y written; add norm: f and a read, f_new and
+   y written, at the card's HBM rate), the plain spelling it replaces and
+   F.layer_norm alone.
 
 data_stats, viz_cli and make_train_data --vis-dir are host numpy /
 matplotlib code that reads .nc through the same codec; the CPU tests
@@ -395,10 +412,10 @@ Prints one JSON line {"factory": {...}} (per-route results), one
 {"scene": {...}}, one {"api": {...}}, one {"kernelgan": {...}}, one
 {"denoise": {...}}, one {"moe_dynamic": {...}}, one {"sr": {...}}, one
 {"fleet": {...}}, one {"oracle": {...}}, one {"parallel": {...}}, one
-{"tools": {...}}, one {"files": {...}}, one {"foreign": {...}}, then the
-card's nvidia-smi line,
+{"tools": {...}}, one {"files": {...}}, one {"foreign": {...}}, one
+{"swin_norm": {...}}, then the card's nvidia-smi line,
 one JSON line {"kernels": [...]} (each kernel's `launches` on the main
-path above, `parallel_launches` on phase 15's local-DP factory route and
+path above, the row norm's in phase 19's SwinIR-M forward, `parallel_launches` on phase 15's local-DP factory route and
 ranks scene route, `tools_launches` on phase 16's three parts,
 `files_launches` on phase 17's run_all and scene CLI, `foreign_launches`
 on phase 18's factory run and four scene CLI runs) and, last,
@@ -442,6 +459,8 @@ SOURCES = {
     "degrade_v4": "kmsr_tpu_torch/kernels/degrade_dense.cu",
     "colsplit_raw": "kmsr_tpu_torch/kernels/scene_stencil.cu",
     "colsplit": "kmsr_tpu_torch/kernels/scene_stencil.cu",
+    "swin_norm_rows": "kmsr_tpu_torch/kernels/swin_norm.cu",
+    "swin_add_norm_rows": "kmsr_tpu_torch/kernels/swin_norm.cu",
 }
 REPLACES = {
     "degrade_v3": "kmsr_tpu/ops/degrade_pallas.py:253",
@@ -452,6 +471,8 @@ REPLACES = {
     "degrade_v4": "kmsr_tpu/ops/degrade_pallas.py:634",
     "colsplit_raw": "kmsr_tpu/ops/degrade_scene_fast.py:358",
     "colsplit": "kmsr_tpu/ops/degrade_scene_fast.py:215",
+    "swin_norm_rows": "none (the JAX package's SwinIR runs XLA's LayerNorm and gathers)",
+    "swin_add_norm_rows": "none (the JAX package's SwinIR runs XLA's LayerNorm and gathers)",
 }
 #: published peaks (NVIDIA data sheets, dense, no sparsity): HBM bytes/s,
 #: fp32 (non-tensor core) FLOP/s and bf16 tensor-core FLOP/s, by a
@@ -5338,6 +5359,119 @@ def phase_foreign(dev, smi: str, failures: list) -> dict:
     return res
 
 
+def _test_module(name: str):
+    """tests/<name>.py, imported by its path, for a helper a phase shares
+    with the card tests."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", name + ".py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_swin_norm(dev, card: str, failures: list) -> dict:
+    """Phase 19 (module docstring)."""
+    import torch
+    import torch.nn.functional as F
+
+    from kmsr_tpu_torch import kernels
+    from kmsr_tpu_torch.models import swinir as sw
+    from kmsr_tpu_torch.utils import profiling
+
+    bf16_ulps = _test_module("test_torch_swin_norm").bf16_ulps
+    t0 = time.perf_counter()
+    maps, side, c, ws = 32, 64, 180, 8
+    gen = torch.Generator().manual_seed(SEED)
+    f = (torch.randn(maps, side * side, c, generator=gen) * 2 + 0.5).to(dev, torch.bfloat16)
+    a = torch.randn(maps, side * side, c, generator=gen).to(dev, torch.bfloat16)
+    w = (1 + (torch.rand(c, generator=gen) * 2 - 1) / 4).to(dev, torch.bfloat16)
+    b = ((torch.rand(c, generator=gen) * 2 - 1) / 4).to(dev, torch.bfloat16)
+    fwd, inv = sw._window_order(side, side, ws, ws // 2, dev)
+
+    def plain_norm():
+        return F.layer_norm(f, (c,), w, b, sw.LN_EPS).index_select(1, fwd)
+
+    def plain_add_norm():
+        g = f + a.index_select(1, inv)
+        return g, F.layer_norm(g, (c,), w, b, sw.LN_EPS)
+
+    y = sw.norm_rows(f, w, b, fwd)
+    f_new, y2 = sw.add_norm_rows(f, a, inv, w, b)
+    want_f, want_y2 = plain_add_norm()
+    checks = {}
+    for k, got, want in (("norm_rows", y, plain_norm()), ("add_norm_rows", y2, want_y2)):
+        u, d = bf16_ulps(got, want), (got.float() - want.float()).abs()
+        checks[k] = {"max_ulps": int(u.max()), "past_one_ulp": int((u > 1).sum()),
+                     "off_by_one_ulp": int((u == 1).sum()),
+                     "max_abs_past_one_ulp": float(d[u > 1].max()) if (u > 1).any() else 0.0,
+                     "past_one_ulp_and_1e-6": int(((u > 1) & (d > 1e-6)).sum())}
+    checks["add_norm_rows"]["f_new_bit_equal"] = bool(torch.equal(f_new, want_f))
+    for k, r in checks.items():
+        if r["past_one_ulp_and_1e-6"] or not r.get("f_new_bit_equal", True):
+            failures.append(f"swin-norm {k}: {r}")
+    del y, f_new, y2, want_f, want_y2
+
+    # one SwinIR-M forward at swinir-x8-tiles64's batch: its launches, its
+    # span's count, its card time and (one tile, so the card never holds the
+    # host back) the host time its launches take
+    cfg = sw.SwinIRConfig()
+    params = sw.init_swinir(cfg, seed=SEED, device=dev)
+    x = (torch.rand(maps, cfg.in_ch, side, side, generator=gen) * 52 + 8).to(dev)
+    sw.swinir_forward(params, x, cfg)
+    torch.cuda.synchronize()
+    profiling.timing_report(reset=True)
+    kernels.reset_launches()
+    sw.swinir_forward(params, x, cfg)
+    torch.cuda.synchronize()
+    launches = {k: n for k, n in kernels.LAUNCHES.items() if n}
+    span_counts = [s.counts.get("norm_kernels") for s in profiling.spans()
+                   if s.name == "swinir.forward"]
+    profiling.timing_report(reset=True)
+    want = {"swin_norm_rows": sum(cfg.depths) + 2, "swin_add_norm_rows": sum(cfg.depths)}
+    if launches != want or span_counts != [2 * sum(cfg.depths) + 2]:
+        failures.append(f"swin-norm: one SwinIR-M forward launched {launches} "
+                        f"(span counts {span_counts}), expected {want}")
+    host = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        sw.swinir_forward(params, x[:1], cfg)
+        host.append((time.perf_counter() - t) * 1e3)
+    torch.cuda.synchronize()
+    card = device_time(lambda: sw.swinir_forward(params, x, cfg))
+    forward = {"shape": list(x.shape), "launches": launches, "span_norm_kernels": span_counts,
+               "card_ms": card["device_ms"], "card_ms_from": card["device_ms_from"],
+               "host_ms_one_tile": sorted(host)[len(host) // 2]}
+    log(f"[swin-norm] SwinIR-M forward of {maps} tiles: {launches}, "
+        f"card {forward['card_ms']:.2f} ms, host {forward['host_ms_one_tile']:.2f} ms")
+    del params, x
+
+    hbm = peaks(card)[0]
+    stream = f.numel() * f.element_size()
+    res = {"shape": [maps, side * side, c], "dtype": "bfloat16", "checks": checks,
+           "plan": kernels.norm_plan(c, 2, (f.data_ptr(),)), "forward": forward}
+    for name, kernel, plain, library, nbytes in (
+            ("norm_rows", lambda: sw.norm_rows(f, w, b, fwd), plain_norm,
+             lambda: F.layer_norm(f, (c,), w, b, sw.LN_EPS), 2 * stream),
+            ("add_norm_rows", lambda: sw.add_norm_rows(f, a, inv, w, b), plain_add_norm,
+             lambda: F.layer_norm(f, (c,), w, b, sw.LN_EPS), 4 * stream)):
+        t = device_time(kernel)
+        bound = nbytes / hbm * 1e3
+        res[name] = {"ms": t["device_ms"], "ms_from": t["device_ms_from"],
+                     "device_kernels": t["device_kernels"], "bound_ms": bound,
+                     "x_bound": t["device_ms"] / bound, "bytes": nbytes,
+                     "plain_ms": device_time(plain)["device_ms"],
+                     "library_ms": device_time(library)["device_ms"],
+                     "library_call": "F.layer_norm alone"}
+        log(f"[swin-norm] {name}: {t['device_ms']:.4f} ms, bound {bound:.4f} ms "
+            f"(x{t['device_ms'] / bound:.2f}), plain {res[name]['plain_ms']:.4f}, "
+            f"F.layer_norm {res[name]['library_ms']:.4f}; {checks[name]}")
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
 def main() -> int:
     # the package's trainers (phases 9-13) run under torch's deterministic
     # algorithms on the card, whose cuBLAS calls need this before cuBLAS's
@@ -5411,6 +5545,10 @@ def main() -> int:
         foreign_res = phase_foreign(dev, smi, failures)
         log(f"[foreign] {'ok' if not failures else 'FAILED'} in "
             f"{foreign_res['seconds']:.1f}s")
+        swin_norm_res = phase_swin_norm(dev, card, failures)
+        swin_norm_res["nvidia_smi"] = smi
+        log(f"[swin-norm] {'ok' if not failures else 'FAILED'} in "
+            f"{swin_norm_res['seconds']:.1f}s")
     except Exception:
         traceback.print_exc()
         return 1
@@ -5480,6 +5618,21 @@ def main() -> int:
             "other_layouts_ms": {lay: r["ms"] for (n, lay), r in timing.items()
                                  if n == name and lay != layout},
         })
+    # phase 19's: launches in one SwinIR-M forward, times at its stream
+    for name in ("swin_norm_rows", "swin_add_norm_rows"):
+        t = swin_norm_res[name.removeprefix("swin_")]
+        records.append({
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name],
+            "launches": swin_norm_res["forward"]["launches"].get(name, 0),
+            "parallel_launches": dp_launches[name],
+            "tools_launches": tools_launches[name],
+            "files_launches": files_launches[name],
+            "foreign_launches": foreign_launches[name],
+            **{k: t[k] for k in ("ms", "ms_from", "device_kernels", "plain_ms", "bound_ms",
+                                 "library_ms", "library_call")},
+            "bound_by": "hbm", "checks": swin_norm_res["checks"][name.removeprefix("swin_")],
+        })
     log(json.dumps({"factory": factory_res}))
     log(json.dumps({"scene": scene_res}))
     log(json.dumps({"api": api_res}))
@@ -5493,6 +5646,7 @@ def main() -> int:
     log(json.dumps({"tools": tools_res}, default=str))
     log(json.dumps({"files": files_res}))
     log(json.dumps({"foreign": foreign_res}))
+    log(json.dumps({"swin_norm": swin_norm_res}))
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f}s")
     log(smi)
     log(json.dumps({"kernels": records}))

@@ -16,7 +16,11 @@ with a plain C interface, at first use, into `_build/` beside this file
   counterpart; `dense_tiles` is its tile and band table);
 * `scene_stencil.cu` — the whole-scene slab stencil (`scene_stencil_raw`,
   `scene_stencil_ext`), the same row ring on a [C, rows, W] plane
-  (`scene_tiles` is its plan).
+  (`scene_tiles` is its plan);
+* `swin_norm.cu` — SwinIR's LayerNorm over the stream's rows with the
+  window attention's token gather and residual add folded in
+  (`swin_norm_rows`, `swin_add_norm_rows`; `norm_plan` is its plan). It
+  replaces no TPU kernel: the JAX package's SwinIR has none.
 
 The ring and wide sources also hold a global-read instantiation, planned
 (`RING_DIRECT`, `WIDE_DIRECT`) only where no tile fits a block's shared
@@ -35,8 +39,9 @@ raises. Nothing here falls back to a plain version: a build or launch
 failure is an error.
 
 `LAUNCHES` counts the launches of each kernel, by the name of the TPU
-kernel it replaces, so a run can show which kernels its path went through
-(`reset_launches()` sets every count to 0).
+kernel it replaces (the SwinIR norm's by its own entry points), so a run
+can show which kernels its path went through (`reset_launches()` sets every
+count to 0).
 """
 from __future__ import annotations
 
@@ -53,7 +58,7 @@ import torch
 
 _DIR = Path(__file__).parent
 _BUILD_DIR = _DIR / "_build"
-SOURCES = ("degrade_stencil", "degrade_wide", "degrade_dense", "scene_stencil")
+SOURCES = ("degrade_stencil", "degrade_wide", "degrade_dense", "scene_stencil", "swin_norm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -70,10 +75,12 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 #: degrade_v1 <- degrade_pallas.py:_degrade_kernel,
 #: degrade_v4 <- degrade_pallas.py:_degrade_kernel_v4,
 #: colsplit_raw <- degrade_scene_fast.py:_colsplit_raw_kernel,
-#: colsplit <- degrade_scene_fast.py:_colsplit_kernel
+#: colsplit <- degrade_scene_fast.py:_colsplit_kernel;
+#: swin_norm_rows, swin_add_norm_rows <- none (SwinIR's XLA LayerNorms)
 LAUNCHES = {"degrade_v3": 0, "degrade_v3psn": 0, "degrade_v3ps": 0,
             "degrade_v2": 0, "degrade_v1": 0, "degrade_v4": 0,
-            "colsplit_raw": 0, "colsplit": 0}
+            "colsplit_raw": 0, "colsplit": 0,
+            "swin_norm_rows": 0, "swin_add_norm_rows": 0}
 
 LAYOUTS = {"nchw": 0, "chwb": 1, "presplit": 2, "presplit_halo": 3}
 #: the wide-span kernel's tap order, by the JAX version it follows
@@ -93,9 +100,10 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 def _call(dev: torch.device, fn, *args) -> int:
     """fn(*args, stream) with `dev` current and PyTorch's current stream on
-    it (the kernels launch there); the device switch is skipped when `dev`
-    is current already, a few microseconds of host time a launch."""
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    it (the kernels launch there). The stream is read as its raw handle, not
+    built into a `torch.cuda.Stream`, and the device switch is skipped when
+    `dev` is current already: a few microseconds of host time a launch each."""
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
     if dev.index == torch.cuda.current_device():
         return fn(*args, stream)
     with torch.cuda.device(dev):
@@ -183,6 +191,14 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         ]
         lib.kmsr_dense_cuda_error_string.restype = ctypes.c_char_p
         lib.kmsr_dense_cuda_error_string.argtypes = [ci]
+    elif name == "swin_norm":
+        lib.kmsr_swin_norm.restype = ci
+        lib.kmsr_swin_norm.argtypes = [
+            ci, ci, vp, vp, vp, vp, vp, vp, vp, cl, cl, ci, ci, ci,
+            ctypes.c_double, vp,
+        ]
+        lib.kmsr_swin_norm_error_string.restype = ctypes.c_char_p
+        lib.kmsr_swin_norm_error_string.argtypes = [ci]
     else:
         lib.kmsr_scene_stencil.restype = ci
         lib.kmsr_scene_stencil.argtypes = [
@@ -194,6 +210,9 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
 
 
 def _lib(name: str = "degrade_stencil") -> ctypes.CDLL:
+    lib = _LIBS.get(name)  # built and bound: no lock
+    if lib is not None:
+        return lib
     with _LOCK:
         if name not in _LIBS:
             lib = ctypes.CDLL(str(build(name)))
@@ -639,3 +658,102 @@ def scene_stencil_ext(
     `scene_stencil_raw`."""
     return _scene_launch(False, x_ext, x_ext, x_ext, comp, out, factor, top,
                          out.shape[1] * factor)
+
+
+#: the SwinIR norm's element types (swin_norm.cu's dtype codes)
+_NORM_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
+#: vectors a lane of the SwinIR norm keeps in registers (swin_norm.cu's kChunks)
+NORM_CHUNKS = 8
+
+
+def norm_plan(c: int, esize: int, ptrs: tuple[int, ...]) -> tuple[int, int]:
+    """The SwinIR norm's plan for rows of `c` elements of `esize` bytes:
+    (vec_bytes, lpr). A lane loads vectors of the widest of 16, 8, 4 or 2
+    bytes, no fewer than one element, that divides the row's bytes and the
+    address of every tensor `ptrs` holds (one element always does); a row
+    takes the fewest lanes, a power of 2 up to a warp, that hold its vectors
+    in NORM_CHUNKS each."""
+    low = 0
+    for p in ptrs:  # a power of 2 divides every address iff it divides their OR
+        low |= p
+    return _norm_plan(c, esize, low & 15)
+
+
+@functools.lru_cache(maxsize=None)
+def _norm_plan(c: int, esize: int, low: int) -> tuple[int, int]:
+    vb = next(v for v in (16, 8, 4, 2) if v >= esize and c * esize % v == 0 and low % v == 0)
+    nvec = c * esize // vb
+    lpr = 1
+    while lpr < 32 and lpr * NORM_CHUNKS < nvec:
+        lpr *= 2
+    return vb, lpr
+
+
+def _swin_norm(f, a, idx, w, b, eps: float):
+    """Check the inputs, allocate the outputs and launch: (f_new or None, y)."""
+    dev = f.device
+    if dev.type != "cuda":
+        raise ValueError(f"the SwinIR norm needs CUDA tensors, got {dev}")
+    if f.dtype not in _NORM_DTYPES:
+        raise TypeError(f"the SwinIR norm takes {tuple(_NORM_DTYPES)}, got {f.dtype}")
+    if f.ndim != 3:
+        raise ValueError(f"the stream must be [B, P, C], got {tuple(f.shape)}")
+    if not f.is_contiguous():
+        raise ValueError("f must be contiguous")
+    bsz, p, c = f.shape
+    dt = f.dtype
+    if a is not None:
+        _check(a, "a", dev, (dt,))
+        if a.shape != f.shape:
+            raise ValueError(f"a shape {tuple(a.shape)} != {tuple(f.shape)}")
+    for t, what in ((w, "w"), (b, "b")):
+        _check(t, what, dev, (dt,))
+        if t.shape != (c,):
+            raise ValueError(f"{what} shape {tuple(t.shape)} != {(c,)}")
+    if idx is not None:
+        _check(idx, "idx", dev, (torch.int64,))
+        if idx.shape != (p,):
+            raise ValueError(f"idx shape {tuple(idx.shape)} != {(p,)}")
+    add = a is not None
+    y = torch.empty_like(f)  # contiguous, as f is
+    f_new = torch.empty_like(f) if add else None
+    if f.numel() == 0:
+        return f_new, y
+    fp, wp, bp, yp = f.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr()
+    ap, fnp = (a.data_ptr(), f_new.data_ptr()) if add else (0, 0)
+    vec_bytes, lpr = norm_plan(c, f.element_size(), (fp, wp, bp, yp, ap, fnp))
+    rc = _call(dev, _lib("swin_norm").kmsr_swin_norm, int(add), _NORM_DTYPES[dt], fp,
+               ap or None, None if idx is None else idx.data_ptr(), wp, bp, fnp or None, yp,
+               bsz * p, p, c, vec_bytes, lpr, eps)
+    if rc != 0:
+        reason = ("arguments refused" if rc < 0
+                  else _lib("swin_norm").kmsr_swin_norm_error_string(rc).decode())
+        raise RuntimeError(
+            f"SwinIR norm launch failed ({rc}: {reason}) for f {tuple(f.shape)} "
+            f"{f.dtype}, add={add}, vec_bytes={vec_bytes}, lpr={lpr}")
+    LAUNCHES["swin_add_norm_rows" if add else "swin_norm_rows"] += 1
+    return f_new, y
+
+
+def swin_norm_rows(f: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                   idx: torch.Tensor | None, eps: float) -> torch.Tensor:
+    """Launch the SwinIR norm: y[:, p] = LN(f[:, idx[p]]) (idx None: f[:, p]),
+    LN over the last axis with weight w and bias b, in float32 statistics
+    (float64 for float64 rows).
+
+    f: [B, P, C] float32, bfloat16 or float64; w, b: [C] in f's dtype; idx:
+    None or int64 [P], a permutation of the P tokens (not checked: an index
+    out of range reads out of bounds). All on one CUDA device and
+    contiguous. Returns y (new, f's shape and dtype); launches on the
+    current stream, does not synchronize."""
+    return _swin_norm(f, None, idx, w, b, eps)[1]
+
+
+def swin_add_norm_rows(f: torch.Tensor, a: torch.Tensor, idx: torch.Tensor,
+                       w: torch.Tensor, b: torch.Tensor,
+                       eps: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the SwinIR norm after the residual add: f_new[:, q] = f[:, q] +
+    a[:, idx[q]] rounded to f's dtype, y = LN(f_new) as in
+    `swin_norm_rows`. a: f's shape and dtype; the rest as there. Returns
+    (f_new, y), both new: f is never written."""
+    return _swin_norm(f, a, idx, w, b, eps)

@@ -33,8 +33,12 @@ input size: the published model's construction at its `img_size` 64.
 
 Arithmetic: the residual stream, matmuls and convs run in the compute
 dtype (bfloat16 by default) with float32 accumulation; LayerNorm's
-statistics and the softmax run in float32 (inside `F.layer_norm` and
-`F.scaled_dot_product_attention`). conv_first alone runs in float32 (TF32
+statistics and the softmax run in float32 (float64 under compute_dtype
+float64): the norms in `norm_rows` / `add_norm_rows` (on a card the row-norm
+kernel, two sums in registers, within an ulp of `F.layer_norm`; on the CPU
+`F.layer_norm` itself), the softmax in `F.scaled_dot_product_attention`.
+The attention branch's add is rounded to the compute dtype before LN2
+reads it, on both paths alike. conv_first alone runs in float32 (TF32
 off) on the unrounded input: with mean 0 the network reads radiances of
 8-60 whose 1 % noise and texture are what it resolves, and bfloat16 would
 round a radiance of 60 by up to 0.125 (0.07 of the tile's operations).
@@ -43,8 +47,14 @@ convs are the EDSR's `_conv` (bias added after the rounding), the
 shuffles its `_pixel_shuffle_cl`.
 
 Layout: the stream is [B, H, W, C] (channels_last storage of the convs'
-[B, C, H, W]), so patch_embed and unembed are views. Roll and window
-partition are one token gather (`_window_order`); the attention runs
+[B, C, H, W]), so patch_embed and unembed are views (a copy where a conv
+leaves its map NCHW). Roll and window partition are one token permutation
+(`_window_order`), read by the norms rather than gathered on its own: an
+STL's LN1 writes its rows already rolled and in windows (`norm_rows` with
+fwd), and LN2 reads the attention branch back through inv as it adds it to
+the stream (`add_norm_rows`), so on a card one kernel pass each replaces
+F.layer_norm, index_select and the add (`kernels/swin_norm.cu`); on the
+CPU the same three ops run as before. The attention runs
 through `F.scaled_dot_product_attention` with B_rel and M folded into one
 additive tensor in the compute dtype, the head dim zero-padded to a
 multiple of 8 (in the weights, so q, k and v come out padded) because
@@ -52,10 +62,19 @@ the fused backends refuse other head dims (SwinIR-M's 30 falls to the
 plain math path, in float32); the padding adds zero to every product,
 and the scale stays 1/sqrt(head dim). `_SDPA_BACKENDS` says which kernels.
 
+Weights: every weight the forward reads is cast to the compute dtype (and
+padded, and B_rel + M built) once a parameter set, compute dtype and map
+size (`_prepared`), not at every forward: the same ops on the same values,
+so the output is the same bit for bit, and a forward launches about half
+as many host ops. A parameter set is the dict `params` itself, its tensors
+unreplaced and unwritten (their version counters), so a weight written in
+place or a new dict is prepared anew; the last few sets are kept.
+
 Spans (`utils.profiling.stage_timer`): `swinir.forward` (item: the
-caller's; counts `tiles` and `windows`, the attention windows of all
-STLs), and inside it `swinir.rstb` (item: the RSTB's index i) and
-`swinir.upsample`.
+caller's; counts `tiles`, `windows`, the attention windows of all STLs, and
+`norm_kernels`, the row-norm kernel's launches in the forward: 2 an STL and
+2 more on a card, 74 at SwinIR-M, 0 on the CPU), and inside it
+`swinir.rstb` (item: the RSTB's index i) and `swinir.upsample`.
 """
 from __future__ import annotations
 
@@ -69,6 +88,7 @@ import torch
 import torch.nn.functional as F
 from torch.nn.attention import SDPBackend, sdpa_kernel
 
+from .. import kernels
 from ..device import resolve_device
 from ..utils.profiling import stage_timer
 from .sr import _conv, _pixel_shuffle_cl, precision
@@ -288,28 +308,61 @@ def _proj_weight(p: dict, b: str, heads: int, dtype: torch.dtype) -> torch.Tenso
     return F.pad(w.to(dtype).view(e, heads, hd), (0, pad)).reshape(e, -1)
 
 
-def _ln(x: torch.Tensor, p: dict, name: str) -> torch.Tensor:
-    return F.layer_norm(x, x.shape[-1:], p[name + ".weight"].to(x.dtype),
-                        p[name + ".bias"].to(x.dtype), LN_EPS)
+def norm_rows(f: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+              idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """y[:, p] = LN(f[:, idx[p]]) (idx None: LN(f)) for the stream f [B, P, C],
+    LN over C with weight w and bias b (taken in f's dtype), epsilon LN_EPS.
+    On a card the hand-written kernel (`kernels.swin_norm_rows`; the tensors
+    contiguous, on f's card); on the CPU its plain version, F.layer_norm
+    then index_select."""
+    w, b = w.to(f.dtype), b.to(f.dtype)
+    if f.device.type == "cuda":
+        return kernels.swin_norm_rows(f, w, b, idx, LN_EPS)
+    y = F.layer_norm(f, f.shape[-1:], w, b, LN_EPS)
+    return y if idx is None else y.index_select(1, idx)
 
 
-def _linear(x: torch.Tensor, p: dict, name: str) -> torch.Tensor:
-    return F.linear(x, p[name + ".weight"].to(x.dtype), p[name + ".bias"].to(x.dtype))
+def add_norm_rows(f: torch.Tensor, a: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
+                  b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(f_new, y): f_new[:, q] = f[:, q] + a[:, idx[q]] in f's dtype (a new
+    tensor: f is never written), y = LN(f_new) as in `norm_rows`. On a card
+    the hand-written kernel (`kernels.swin_add_norm_rows`; a in f's dtype);
+    on the CPU its plain version, the add then F.layer_norm."""
+    w, b = w.to(f.dtype), b.to(f.dtype)
+    if f.device.type == "cuda":
+        return kernels.swin_add_norm_rows(f, a, idx, w, b, LN_EPS)
+    f = f + a.index_select(1, idx)
+    return f, F.layer_norm(f, f.shape[-1:], w, b, LN_EPS)
 
 
-def _stl(f: torch.Tensor, p: dict, b: str, heads: int, ws: int, shift: int,
+def _pair_in(p: dict, name: str, dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
+    """The module `name`'s weight and bias in `dtype`."""
+    return p[name + ".weight"].to(dtype), p[name + ".bias"].to(dtype)
+
+
+def _stl_weights(p: dict, b: str, heads: int, ws: int, shift: int, hw: tuple,
+                 dt: torch.dtype) -> dict:
+    """The STL `b`'s weights as `_stl` reads them, in dt."""
+    return {"norm1": _pair_in(p, b + "norm1", dt), "qkv": _qkv_weights(p, b, heads, dt),
+            "bias": attn_bias(p[b + "attn.relative_position_bias_table"], *hw, ws, shift, dt),
+            "proj": (_proj_weight(p, b, heads, dt), p[b + "attn.proj.bias"].to(dt)),
+            "norm2": _pair_in(p, b + "norm2", dt), "fc1": _pair_in(p, b + "mlp.fc1", dt),
+            "fc2": _pair_in(p, b + "mlp.fc2", dt)}
+
+
+def _stl(f: torch.Tensor, s: dict, heads: int, ws: int, shift: int,
          hw: tuple) -> torch.Tensor:
-    """One Swin transformer layer on the stream f [B, H*W, C]."""
+    """One Swin transformer layer on the stream f [B, H*W, C], with its
+    weights s (`_stl_weights`, in f's dtype)."""
     bsz, _, e = f.shape
     h, w = hw
-    dt = f.dtype
     n = ws * ws
     fwd, inv = _window_order(h, w, ws, shift, f.device)
-    x = _ln(f, p, b + "norm1").index_select(1, fwd)  # rolled, in windows
-    wq, bq = _qkv_weights(p, b, heads, dt)
+    x = norm_rows(f, *s["norm1"], fwd)  # rolled, in windows
+    wq, bq = s["qkv"]
     d = wq.shape[0] // (3 * heads)
     q, k, v = F.linear(x, wq, bq).view(-1, n, 3, heads, d).permute(2, 0, 3, 1, 4).unbind(0)
-    bias = attn_bias(p[b + "attn.relative_position_bias_table"], h, w, ws, shift, dt)
+    bias = s["bias"]
     n_win = q.shape[0]
     if bias.shape[0] == 1:
         bias = bias.expand(n_win, -1, -1, -1)
@@ -317,15 +370,65 @@ def _stl(f: torch.Tensor, p: dict, b: str, heads: int, ws: int, shift: int,
         bias = bias.expand(bsz, *bias.shape).reshape(n_win, *bias.shape[1:])
     a = F.scaled_dot_product_attention(q, k, v, attn_mask=bias, scale=(e // heads) ** -0.5)
     a = a.transpose(1, 2).reshape(bsz, h * w, heads * d)
-    a = F.linear(a, _proj_weight(p, b, heads, dt), p[b + "attn.proj.bias"].to(dt))
-    f = f + a.index_select(1, inv)
-    y = F.gelu(_linear(_ln(f, p, b + "norm2"), p, b + "mlp.fc1"))
-    return f + _linear(y, p, b + "mlp.fc2")
+    a = F.linear(a, *s["proj"])
+    f, y = add_norm_rows(f, a, inv, *s["norm2"])
+    return f + F.linear(F.gelu(F.linear(y, *s["fc1"])), *s["fc2"])
 
 
-def _oihw(p: dict, name: str) -> dict:
-    """The conv `name` as `models.sr._conv` takes it ({"w": HWIO, "b"})."""
-    return {"w": p[name + ".weight"].permute(2, 3, 1, 0), "b": p[name + ".bias"]}
+def _norm_launches() -> int:
+    """The SwinIR norm kernel's launches so far, both entry points."""
+    return kernels.LAUNCHES["swin_norm_rows"] + kernels.LAUNCHES["swin_add_norm_rows"]
+
+
+def _oihw(p: dict, name: str, dtype: torch.dtype) -> dict:
+    """The conv `name` as `models.sr._conv` takes it ({"w": HWIO, "b"}), in
+    `dtype`."""
+    w, b = _pair_in(p, name, dtype)
+    return {"w": w.permute(2, 3, 1, 0), "b": b}
+
+
+def _prepare(params: dict, cfg: SwinIRConfig, dt: torch.dtype, hw: tuple) -> dict:
+    """Every weight of the forward as it reads them at compute dtype dt on
+    the padded map hw: the convs (`_oihw`; conv_first in float32), the two
+    plain norms, and each STL's (`_stl_weights`) under its prefix."""
+    ws = cfg.window_size
+    convs = ["conv_after_body", "conv_before_upsample.0", "conv_last"]
+    convs += [f"layers.{i}.conv" for i in range(len(cfg.depths))]
+    convs += [f"upsample.{2 * k}" for k in range(upsample_stages(cfg.factor))]
+    out = {name: _oihw(params, name, dt) for name in convs}
+    out["conv_first"] = _oihw(params, "conv_first", torch.float32)
+    for name in ("patch_embed.norm", "norm"):
+        out[name] = _pair_in(params, name, dt)
+    for i, (depth, heads) in enumerate(zip(cfg.depths, cfg.num_heads)):
+        for j in range(depth):
+            b = f"layers.{i}.residual_group.blocks.{j}."
+            out[b] = _stl_weights(params, b, heads, ws, ws // 2 if j % 2 else 0, hw, dt)
+    return out
+
+
+#: the prepared weights of the last `_PREPARED_KEPT` parameter sets used,
+#: oldest first: {(id(params), cfg, dtype, hw): (params, stamp, weights)};
+#: holding params keeps its id from being reused while its entry lives
+_PREPARED: dict = {}
+_PREPARED_KEPT = 4
+
+
+def _prepared(params: dict, cfg: SwinIRConfig, dt: torch.dtype, hw: tuple) -> dict:
+    """`_prepare(params, cfg, dt, hw)`, computed once while `params` holds
+    the same tensors at the same versions (a tensor replaced or written in
+    place prepares it anew); inference tensors, which keep no version, are
+    prepared at every call."""
+    if any(t.is_inference() for t in params.values()):
+        return _prepare(params, cfg, dt, hw)
+    key = (id(params), cfg, dt, hw)
+    stamp = [(id(t), t._version) for t in params.values()]
+    hit = _PREPARED.pop(key, None)
+    if hit is None or hit[1] != stamp:
+        hit = (params, stamp, _prepare(params, cfg, dt, hw))
+    _PREPARED[key] = hit
+    while len(_PREPARED) > _PREPARED_KEPT:
+        del _PREPARED[next(iter(_PREPARED))]
+    return hit[2]
 
 
 def _cl_map(f: torch.Tensor, hw: tuple) -> torch.Tensor:
@@ -334,9 +437,11 @@ def _cl_map(f: torch.Tensor, hw: tuple) -> torch.Tensor:
 
 
 def _stream(x: torch.Tensor) -> torch.Tensor:
-    """A channels_last [B, C, H, W] map as the stream [B, H*W, C] (a view)."""
+    """A [B, C, H, W] map as the contiguous stream [B, H*W, C]: a view of a
+    channels_last map, a copy of another (a float64 conv on the card leaves
+    its map NCHW), as the row-norm kernel reads whole rows."""
     b, c, h, w = x.shape
-    return x.permute(0, 2, 3, 1).reshape(b, h * w, c)
+    return x.permute(0, 2, 3, 1).reshape(b, h * w, c).contiguous()
 
 
 def swinir_forward(params: dict, x: torch.Tensor, cfg: SwinIRConfig = SwinIRConfig(),
@@ -349,31 +454,33 @@ def swinir_forward(params: dict, x: torch.Tensor, cfg: SwinIRConfig = SwinIRConf
     ph, pw = -h0 % ws, -w0 % ws
     hp, wp = h0 + ph, w0 + pw
     windows = bsz * (hp // ws) * (wp // ws) * sum(cfg.depths)
-    with stage_timer("swinir.forward", item=item, tiles=bsz, windows=windows), \
+    launched = _norm_launches()
+    with stage_timer("swinir.forward", item=item, tiles=bsz, windows=windows) as counts, \
             precision(dt), sdpa_kernel(_SDPA_BACKENDS):
+        wts = _prepared(params, cfg, dt, (hp, wp))
         if ph or pw:
             x = F.pad(x, (0, pw, 0, ph), mode="reflect")
         if cfg.img_range != 1.0:
             x = x * cfg.img_range
         with precision(torch.float32):  # the radiances unrounded (module docstring)
             x = _conv(x.float().contiguous(memory_format=torch.channels_last),
-                      _oihw(params, "conv_first"), torch.float32).to(dt)
-        f = _ln(_stream(x), params, "patch_embed.norm")
+                      wts["conv_first"], torch.float32).to(dt)
+        f = norm_rows(_stream(x), *wts["patch_embed.norm"])
         for i, (depth, heads) in enumerate(zip(cfg.depths, cfg.num_heads)):
             with stage_timer("swinir.rstb", item=i):
                 g = f
                 for j in range(depth):
-                    g = _stl(g, params, f"layers.{i}.residual_group.blocks.{j}.", heads, ws,
+                    g = _stl(g, wts[f"layers.{i}.residual_group.blocks.{j}."], heads, ws,
                              ws // 2 if j % 2 else 0, (hp, wp))
-                f = _stream(_conv(_cl_map(g, (hp, wp)), _oihw(params, f"layers.{i}.conv"),
-                                  dt)) + f
-        x = _conv(_cl_map(_ln(f, params, "norm"), (hp, wp)), _oihw(params, "conv_after_body"),
+                f = _stream(_conv(_cl_map(g, (hp, wp)), wts[f"layers.{i}.conv"], dt)) + f
+        x = _conv(_cl_map(norm_rows(f, *wts["norm"]), (hp, wp)), wts["conv_after_body"],
                   dt) + x
+        counts["norm_kernels"] = _norm_launches() - launched
         with stage_timer("swinir.upsample"):
-            x = F.leaky_relu(_conv(x, _oihw(params, "conv_before_upsample.0"), dt), 0.01)
+            x = F.leaky_relu(_conv(x, wts["conv_before_upsample.0"], dt), 0.01)
             for k in range(upsample_stages(cfg.factor)):
-                x = _pixel_shuffle_cl(_conv(x, _oihw(params, f"upsample.{2 * k}"), dt), 2)
-            y = _conv(x, _oihw(params, "conv_last"), dt)
+                x = _pixel_shuffle_cl(_conv(x, wts[f"upsample.{2 * k}"], dt), 2)
+            y = _conv(x, wts["conv_last"], dt)
             y = y[:, :, :h0 * cfg.factor, :w0 * cfg.factor]
             if cfg.img_range != 1.0:
                 y = y / cfg.img_range

@@ -65,7 +65,8 @@ def test_kernel_matches_plain_every_layout(cuda, factor, dtype):
     assert kernels.LAUNCHES == {"degrade_v3": 4, "degrade_v3psn": 2,
                                 "degrade_v3ps": 0, "degrade_v2": 0,
                                 "degrade_v1": 0, "degrade_v4": 0,
-                                "colsplit_raw": 0, "colsplit": 0}
+                                "colsplit_raw": 0, "colsplit": 0,
+                                "swin_norm_rows": 0, "swin_add_norm_rows": 0}
 
 
 @pytest.mark.cuda

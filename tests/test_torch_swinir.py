@@ -231,7 +231,9 @@ def test_one_forward_records_its_spans():
     rstb = [s for s in rows if s.name == "swinir.rstb"]
     up = [s for s in rows if s.name == "swinir.upsample"]
     assert len(fw) == 1 and len(rstb) == 6 and len(up) == 1
-    assert fw[0].item == 7 and fw[0].counts == {"tiles": 2, "windows": 2 * 2 * 36}
+    # norm_kernels: the row-norm kernel's launches in the forward, none on the CPU
+    assert fw[0].item == 7 and fw[0].counts == {"tiles": 2, "windows": 2 * 2 * 36,
+                                                "norm_kernels": 0}
     assert [s.item for s in rstb] == list(range(6))
     assert all(s.parent == fw[0].id for s in rstb + up)
 
@@ -251,3 +253,38 @@ def test_sr_scene_and_the_trainer_refuse_swinir(tmp_path):
                                            device="cpu")):
         with pytest.raises(ValueError, match="EDSR"):
             call()
+
+
+W = "layers.0.residual_group.blocks.1.attn.qkv.weight"
+
+
+@pytest.mark.parametrize("change", ["none", "written in place", "replaced", "another dict",
+                                    "inference tensors"])
+def test_weights_are_prepared_once_a_parameter_set(cases, monkeypatch, change):
+    """A second forward of the same parameter dict reuses the weights the
+    first prepared (casts, head padding, B_rel + M); a weight written in
+    place, a tensor replaced, another dict or inference tensors (no version
+    counter) prepare them anew; every output equals that of a fresh copy of
+    the parameters."""
+    cfg, params, x, _ = cases[2, (8, 8)]
+    if change == "inference tensors":
+        with torch.inference_mode():
+            params = {k: v.clone() for k, v in params.items()}
+    else:
+        params = {k: v.clone() for k, v in params.items()}
+    calls = []
+    real = sw._prepare
+    monkeypatch.setattr(sw, "_prepare", lambda *a: calls.append(a) or real(*a))
+    first = sw.swinir_forward(params, x, cfg)
+    if change == "written in place":
+        params[W].mul_(1.5)
+    elif change == "replaced":
+        params[W] = params[W] * 1.5
+    elif change == "another dict":
+        params = dict(params)
+    got = sw.swinir_forward(params, x, cfg)
+    assert len(calls) == (1 if change == "none" else 2)
+    with torch.inference_mode(change == "inference tensors"):
+        fresh = {k: v.clone() for k, v in params.items()}
+    assert torch.equal(got, sw.swinir_forward(fresh, x, cfg))
+    assert torch.equal(got, first) == (change in ("none", "another dict", "inference tensors"))
