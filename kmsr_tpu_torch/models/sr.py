@@ -27,7 +27,8 @@ stages, the last one folded into the output conv at factor/2) and
 "oneshot" (one width -> in_ch·factor² conv at LR, one shuffle).
 
 `sr_forward` is the one forward entry of the SR stage: given a
-`models.swinir.SwinIRConfig` it runs SwinIR instead.
+`models.swinir.SwinIRConfig` it runs SwinIR instead, given a
+`models.hat.HATConfig` HAT.
 """
 from __future__ import annotations
 
@@ -182,13 +183,16 @@ def sr_forward(
 ) -> torch.Tensor:
     """x: [B, C, h, w] -> [B, C, h*factor, w*factor], float32 (contiguous),
     through the network `cfg` configures: this EDSR for an `SRConfig`,
-    `models.swinir.swinir_forward` for a `SwinIRConfig` (`item` goes to
-    its spans). channels_last=False runs the EDSR's trunk on NCHW
-    activations instead (same arithmetic; for timing the layout)."""
+    `models.swinir.swinir_forward` for a `SwinIRConfig`,
+    `models.hat.hat_forward` for a `HATConfig` (`item` goes to their
+    spans). channels_last=False runs the EDSR's trunk on NCHW activations
+    instead (same arithmetic; for timing the layout)."""
     if not isinstance(cfg, SRConfig):
+        from .hat import HATConfig, hat_forward
         from .swinir import swinir_forward
 
-        return swinir_forward(params, x, cfg, compute_dtype, item=item)
+        forward = hat_forward if isinstance(cfg, HATConfig) else swinir_forward
+        return forward(params, x, cfg, compute_dtype, item=item)
     dt = compute_dtype
     fmt = torch.channels_last if channels_last else torch.contiguous_format
     # JAX's weakly typed `res_scale * r`: the scale rounded to the dtype
@@ -219,7 +223,7 @@ def require_edsr(cfg, what: str) -> None:
     network."""
     if not isinstance(cfg, SRConfig):
         raise ValueError(f"{what} runs the EDSR (SRConfig) only, not "
-                         f"{type(cfg).__name__}: SwinIR is served by sr_infer")
+                         f"{type(cfg).__name__}: SwinIR and HAT are served by sr_infer")
 
 
 def count_params(params: dict) -> int:

@@ -75,6 +75,14 @@ caller's; counts `tiles`, `windows`, the attention windows of all STLs, and
 `norm_kernels`, the row-norm kernel's launches in the forward: 2 an STL and
 2 more on a card, 74 at SwinIR-M, 0 on the CPU), and inside it
 `swinir.rstb` (item: the RSTB's index i) and `swinir.upsample`.
+
+HAT (`models.hat`) is SwinIR's trunk with other blocks in its groups, so
+it runs this module's parts: the trunk's forward (`_trunk_forward`: pad,
+conv_first, the norms, the groups' convs and skips, the upsampler and the
+spans), its parameter shapes and initialisation, the state-dict loading,
+the weights prepared once a parameter set (`_prepared`, keyed by the
+configuration too), the window attention (`_window_attention`,
+`_attend`, `_mlp`, the head padding) and the row norms.
 """
 from __future__ import annotations
 
@@ -150,19 +158,13 @@ def _pair(name: str, weight: tuple) -> dict:
     return {f"{name}.weight": weight, f"{name}.bias": weight[:1]}
 
 
-def param_shapes(cfg: SwinIRConfig = SwinIRConfig()) -> dict[str, tuple]:
-    """{published name: shape} of every parameter, in the published order."""
-    e, hid, nf = cfg.embed_dim, int(cfg.embed_dim * cfg.mlp_ratio), cfg.num_feat
+def _trunk_shapes(cfg, group) -> dict[str, tuple]:
+    """{published name: shape} of the trunk SwinIR and HAT share, in the
+    published order, with `group(i)` the shapes of group i's residual group."""
+    e, nf = cfg.embed_dim, cfg.num_feat
     shapes = {**_pair("conv_first", (e, cfg.in_ch, 3, 3)), **_pair("patch_embed.norm", (e,))}
-    for i, (depth, heads) in enumerate(zip(cfg.depths, cfg.num_heads)):
-        for j in range(depth):
-            b = f"layers.{i}.residual_group.blocks.{j}."
-            shapes.update({**_pair(b + "norm1", (e,)),
-                           b + "attn.relative_position_bias_table":
-                               ((2 * cfg.window_size - 1) ** 2, heads),
-                           **_pair(b + "attn.qkv", (3 * e, e)), **_pair(b + "attn.proj", (e, e)),
-                           **_pair(b + "norm2", (e,)), **_pair(b + "mlp.fc1", (hid, e)),
-                           **_pair(b + "mlp.fc2", (e, hid))})
+    for i in range(len(cfg.depths)):
+        shapes.update(group(i))
         shapes.update(_pair(f"layers.{i}.conv", (e, e, 3, 3)))
     shapes.update({**_pair("norm", (e,)), **_pair("conv_after_body", (e, e, 3, 3)),
                    **_pair("conv_before_upsample.0", (nf, e, 3, 3))})
@@ -172,16 +174,32 @@ def param_shapes(cfg: SwinIRConfig = SwinIRConfig()) -> dict[str, tuple]:
     return shapes
 
 
-def init_swinir(cfg: SwinIRConfig = SwinIRConfig(), seed: int = 0,
-                device: str | torch.device = "cuda") -> dict:
-    """SwinIR's own initialisation, drawn from a CPU `torch.Generator`
-    seeded with `seed`, then moved to `device`: linears and the
-    relative-position tables trunc-normal(0.02) with zero biases,
-    LayerNorms 1 / 0, convs PyTorch's default (uniform +-1/sqrt(fan_in),
-    weight and bias)."""
+def param_shapes(cfg: SwinIRConfig = SwinIRConfig()) -> dict[str, tuple]:
+    """{published name: shape} of every parameter, in the published order."""
+    e, hid = cfg.embed_dim, int(cfg.embed_dim * cfg.mlp_ratio)
+
+    def rstb(i):
+        shapes = {}
+        for j in range(cfg.depths[i]):
+            b = f"layers.{i}.residual_group.blocks.{j}."
+            shapes.update({**_pair(b + "norm1", (e,)),
+                           b + "attn.relative_position_bias_table":
+                               ((2 * cfg.window_size - 1) ** 2, cfg.num_heads[i]),
+                           **_pair(b + "attn.qkv", (3 * e, e)), **_pair(b + "attn.proj", (e, e)),
+                           **_pair(b + "norm2", (e,)), **_pair(b + "mlp.fc1", (hid, e)),
+                           **_pair(b + "mlp.fc2", (e, hid))})
+        return shapes
+    return _trunk_shapes(cfg, rstb)
+
+
+def init_params(shapes: dict, seed: int = 0, device: str | torch.device = "cuda") -> dict:
+    """The published initialisation of SwinIR and HAT for the parameters
+    `shapes`, drawn in their order from a CPU `torch.Generator` seeded with
+    `seed`, then moved to `device`: linears and the relative-position tables
+    trunc-normal(0.02) with zero biases, LayerNorms 1 / 0, convs PyTorch's
+    default (uniform +-1/sqrt(fan_in), weight and bias)."""
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
-    shapes = param_shapes(cfg)
     params = {}
     for name, shape in shapes.items():
         module, kind = name.rsplit(".", 1)
@@ -201,18 +219,23 @@ def init_swinir(cfg: SwinIRConfig = SwinIRConfig(), seed: int = 0,
     return params
 
 
-def from_state_dict(state: dict, cfg: SwinIRConfig = SwinIRConfig(),
-                    device: str | torch.device = "cpu") -> dict:
-    """The parameters of a published SwinIR state dict (its `params`
-    entry, or the dict itself) as float32 tensors on `device`; the derived
-    buffers are dropped. A missing, extra or misshapen entry raises
-    ValueError."""
+def init_swinir(cfg: SwinIRConfig = SwinIRConfig(), seed: int = 0,
+                device: str | torch.device = "cuda") -> dict:
+    """SwinIR's own initialisation (`init_params`)."""
+    return init_params(param_shapes(cfg), seed, device)
+
+
+def load_state(state: dict, shapes: dict, derived: tuple, what,
+               device: str | torch.device = "cpu") -> dict:
+    """The parameters `shapes` of a published state dict (its `params`
+    entry, or the dict itself) as float32 tensors on `device`; the entries
+    whose last name is in `derived` are dropped. A missing, extra or
+    misshapen entry raises ValueError (naming `what`)."""
     state = state.get("params", state)
-    shapes = param_shapes(cfg)
-    given = {k: v for k, v in state.items() if k.rsplit(".", 1)[-1] not in DERIVED}
+    given = {k: v for k, v in state.items() if k.rsplit(".", 1)[-1] not in derived}
     if set(given) != set(shapes):
         missing, extra = sorted(set(shapes) - set(given)), sorted(set(given) - set(shapes))
-        raise ValueError(f"state dict does not fit {cfg}: missing {missing[:4]}, "
+        raise ValueError(f"state dict does not fit {what}: missing {missing[:4]}, "
                          f"unexpected {extra[:4]}")
     out = {}
     for name, shape in shapes.items():
@@ -221,6 +244,13 @@ def from_state_dict(state: dict, cfg: SwinIRConfig = SwinIRConfig(),
             raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
         out[name] = t.detach().to(resolve_device(device), torch.float32)
     return out
+
+
+def from_state_dict(state: dict, cfg: SwinIRConfig = SwinIRConfig(),
+                    device: str | torch.device = "cpu") -> dict:
+    """The parameters of a published SwinIR state dict (`load_state`); the
+    derived buffers are dropped."""
+    return load_state(state, param_shapes(cfg), DERIVED, cfg, device)
 
 
 # ------------------------------------------------------------ derived tensors
@@ -290,19 +320,21 @@ def _head_pad(e: int, heads: int) -> tuple[int, int]:
     return hd, -hd % 8
 
 
-def _qkv_weights(p: dict, b: str, heads: int, dtype: torch.dtype) -> tuple:
-    """qkv's weight and bias in `dtype` with each head's rows zero-padded
-    (`_head_pad`): q, k and v come out [.., 3, heads, padded]."""
-    w, bias = p[b + "attn.qkv.weight"], p[b + "attn.qkv.bias"]
+def _qkv_weights(p: dict, name: str, heads: int, dtype: torch.dtype) -> tuple:
+    """The qkv linear `name`'s weight and bias in `dtype` with each head's
+    rows zero-padded (`_head_pad`): q, k and v come out [.., 3, heads,
+    padded]."""
+    w, bias = p[name + ".weight"], p[name + ".bias"]
     e = w.shape[1]
     hd, pad = _head_pad(e, heads)
     w = F.pad(w.to(dtype).view(3, heads, hd, e), (0, 0, 0, pad))
     return w.reshape(-1, e), F.pad(bias.to(dtype).view(3, heads, hd), (0, pad)).reshape(-1)
 
 
-def _proj_weight(p: dict, b: str, heads: int, dtype: torch.dtype) -> torch.Tensor:
-    """proj's weight in `dtype` with zero columns where the heads are padded."""
-    w = p[b + "attn.proj.weight"]
+def _proj_weight(p: dict, name: str, heads: int, dtype: torch.dtype) -> torch.Tensor:
+    """The proj linear `name`'s weight in `dtype` with zero columns where
+    the heads are padded."""
+    w = p[name + ".weight"]
     e = w.shape[0]
     hd, pad = _head_pad(e, heads)
     return F.pad(w.to(dtype).view(e, heads, hd), (0, pad)).reshape(e, -1)
@@ -342,41 +374,58 @@ def _pair_in(p: dict, name: str, dtype: torch.dtype) -> tuple[torch.Tensor, torc
 
 def _stl_weights(p: dict, b: str, heads: int, ws: int, shift: int, hw: tuple,
                  dt: torch.dtype) -> dict:
-    """The STL `b`'s weights as `_stl` reads them, in dt."""
-    return {"norm1": _pair_in(p, b + "norm1", dt), "qkv": _qkv_weights(p, b, heads, dt),
+    """The STL `b`'s weights as `_stl` reads them, in dt (HAT's HAB keeps
+    the same names, and reads them so too)."""
+    return {"norm1": _pair_in(p, b + "norm1", dt),
+            "qkv": _qkv_weights(p, b + "attn.qkv", heads, dt),
             "bias": attn_bias(p[b + "attn.relative_position_bias_table"], *hw, ws, shift, dt),
-            "proj": (_proj_weight(p, b, heads, dt), p[b + "attn.proj.bias"].to(dt)),
+            "proj": (_proj_weight(p, b + "attn.proj", heads, dt), p[b + "attn.proj.bias"].to(dt)),
             "norm2": _pair_in(p, b + "norm2", dt), "fc1": _pair_in(p, b + "mlp.fc1", dt),
             "fc2": _pair_in(p, b + "mlp.fc2", dt)}
+
+
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor, bsz: int,
+           scale: float) -> torch.Tensor:
+    """softmax(q k^T * scale + bias) v over the windows of bsz maps, q [B *
+    nW, heads, Nq, d], k and v [B * nW, heads, Nk, d]; bias [1, heads, Nq,
+    Nk] for every window, or [nW, heads, Nq, Nk], one a window of each map."""
+    n_win = q.shape[0]
+    if bias.shape[0] == 1:
+        bias = bias.expand(n_win, -1, -1, -1)
+    else:  # one mask a window of each map
+        bias = bias.expand(bsz, *bias.shape).reshape(n_win, *bias.shape[1:])
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=bias, scale=scale)
+
+
+def _window_attention(x: torch.Tensor, s: dict, heads: int, n: int) -> torch.Tensor:
+    """proj(WMSA(x)) for the normed rows x [B, P, C], already rolled and in
+    windows of n tokens, with the weights s (`_stl_weights`); the result in
+    x's order."""
+    bsz, p, e = x.shape
+    wq, bq = s["qkv"]
+    d = wq.shape[0] // (3 * heads)
+    q, k, v = F.linear(x, wq, bq).view(-1, n, 3, heads, d).permute(2, 0, 3, 1, 4).unbind(0)
+    a = _attend(q, k, v, s["bias"], bsz, (e // heads) ** -0.5)
+    return F.linear(a.transpose(1, 2).reshape(bsz, p, heads * d), *s["proj"])
+
+
+def _mlp(y: torch.Tensor, s: dict) -> torch.Tensor:
+    """fc2(GELU(fc1(y)))."""
+    return F.linear(F.gelu(F.linear(y, *s["fc1"])), *s["fc2"])
 
 
 def _stl(f: torch.Tensor, s: dict, heads: int, ws: int, shift: int,
          hw: tuple) -> torch.Tensor:
     """One Swin transformer layer on the stream f [B, H*W, C], with its
     weights s (`_stl_weights`, in f's dtype)."""
-    bsz, _, e = f.shape
-    h, w = hw
-    n = ws * ws
-    fwd, inv = _window_order(h, w, ws, shift, f.device)
-    x = norm_rows(f, *s["norm1"], fwd)  # rolled, in windows
-    wq, bq = s["qkv"]
-    d = wq.shape[0] // (3 * heads)
-    q, k, v = F.linear(x, wq, bq).view(-1, n, 3, heads, d).permute(2, 0, 3, 1, 4).unbind(0)
-    bias = s["bias"]
-    n_win = q.shape[0]
-    if bias.shape[0] == 1:
-        bias = bias.expand(n_win, -1, -1, -1)
-    else:  # one mask a window of each map
-        bias = bias.expand(bsz, *bias.shape).reshape(n_win, *bias.shape[1:])
-    a = F.scaled_dot_product_attention(q, k, v, attn_mask=bias, scale=(e // heads) ** -0.5)
-    a = a.transpose(1, 2).reshape(bsz, h * w, heads * d)
-    a = F.linear(a, *s["proj"])
+    fwd, inv = _window_order(*hw, ws, shift, f.device)
+    a = _window_attention(norm_rows(f, *s["norm1"], fwd), s, heads, ws * ws)  # rolled, windowed
     f, y = add_norm_rows(f, a, inv, *s["norm2"])
-    return f + F.linear(F.gelu(F.linear(y, *s["fc1"])), *s["fc2"])
+    return f + _mlp(y, s)
 
 
 def _norm_launches() -> int:
-    """The SwinIR norm kernel's launches so far, both entry points."""
+    """The row-norm kernel's launches so far, both entry points."""
     return kernels.LAUNCHES["swin_norm_rows"] + kernels.LAUNCHES["swin_add_norm_rows"]
 
 
@@ -387,11 +436,10 @@ def _oihw(p: dict, name: str, dtype: torch.dtype) -> dict:
     return {"w": w.permute(2, 3, 1, 0), "b": b}
 
 
-def _prepare(params: dict, cfg: SwinIRConfig, dt: torch.dtype, hw: tuple) -> dict:
-    """Every weight of the forward as it reads them at compute dtype dt on
-    the padded map hw: the convs (`_oihw`; conv_first in float32), the two
-    plain norms, and each STL's (`_stl_weights`) under its prefix."""
-    ws = cfg.window_size
+def _prepare_trunk(params: dict, cfg, dt: torch.dtype) -> dict:
+    """The weights of the trunk SwinIR and HAT share (`_trunk_forward`) at
+    compute dtype dt: the convs (`_oihw`; conv_first in float32) and the two
+    plain norms."""
     convs = ["conv_after_body", "conv_before_upsample.0", "conv_last"]
     convs += [f"layers.{i}.conv" for i in range(len(cfg.depths))]
     convs += [f"upsample.{2 * k}" for k in range(upsample_stages(cfg.factor))]
@@ -399,6 +447,15 @@ def _prepare(params: dict, cfg: SwinIRConfig, dt: torch.dtype, hw: tuple) -> dic
     out["conv_first"] = _oihw(params, "conv_first", torch.float32)
     for name in ("patch_embed.norm", "norm"):
         out[name] = _pair_in(params, name, dt)
+    return out
+
+
+def _prepare(params: dict, cfg: SwinIRConfig, dt: torch.dtype, hw: tuple) -> dict:
+    """Every weight of the forward as it reads them at compute dtype dt on
+    the padded map hw: the trunk's (`_prepare_trunk`) and each STL's
+    (`_stl_weights`) under its prefix."""
+    ws = cfg.window_size
+    out = _prepare_trunk(params, cfg, dt)
     for i, (depth, heads) in enumerate(zip(cfg.depths, cfg.num_heads)):
         for j in range(depth):
             b = f"layers.{i}.residual_group.blocks.{j}."
@@ -413,18 +470,19 @@ _PREPARED: dict = {}
 _PREPARED_KEPT = 4
 
 
-def _prepared(params: dict, cfg: SwinIRConfig, dt: torch.dtype, hw: tuple) -> dict:
-    """`_prepare(params, cfg, dt, hw)`, computed once while `params` holds
+def _prepared(prepare, params: dict, cfg, dt: torch.dtype, hw: tuple) -> dict:
+    """`prepare(params, cfg, dt, hw)`, computed once while `params` holds
     the same tensors at the same versions (a tensor replaced or written in
     place prepares it anew); inference tensors, which keep no version, are
-    prepared at every call."""
+    prepared at every call. The configuration is part of the key, so one
+    parameter dict read as another network's is prepared for each."""
     if any(t.is_inference() for t in params.values()):
-        return _prepare(params, cfg, dt, hw)
+        return prepare(params, cfg, dt, hw)
     key = (id(params), cfg, dt, hw)
     stamp = [(id(t), t._version) for t in params.values()]
     hit = _PREPARED.pop(key, None)
     if hit is None or hit[1] != stamp:
-        hit = (params, stamp, _prepare(params, cfg, dt, hw))
+        hit = (params, stamp, prepare(params, cfg, dt, hw))
     _PREPARED[key] = hit
     while len(_PREPARED) > _PREPARED_KEPT:
         del _PREPARED[next(iter(_PREPARED))]
@@ -444,20 +502,24 @@ def _stream(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1).reshape(b, h * w, c).contiguous()
 
 
-def swinir_forward(params: dict, x: torch.Tensor, cfg: SwinIRConfig = SwinIRConfig(),
-                   compute_dtype: torch.dtype = torch.bfloat16,
-                   item: Optional[object] = None) -> torch.Tensor:
-    """x: [B, C, h, w] -> [B, C, h*factor, w*factor], float32 (contiguous)."""
-    dt = compute_dtype
+def _trunk_forward(params: dict, x: torch.Tensor, cfg, dt: torch.dtype, prepare, group,
+                  names: tuple, item: Optional[object] = None,
+                  **counts: int) -> torch.Tensor:
+    """The forward SwinIR and HAT share, x [B, C, h, w] -> [B, C, h*factor,
+    w*factor], float32 (contiguous): reflect-pad to the window, conv_first,
+    patch_embed's norm, for each group i `f = conv3x3(group(f, wts, i, hw))
+    + f`, the last norm, conv_after_body + skip and the upsampler; `wts` is
+    `_prepared(prepare, params, cfg, dt, hw)` on the padded map hw. Spans
+    `names` = (forward, group, upsample): the forward's (item: the caller's)
+    counts `tiles`, `counts(hw)` and `norm_kernels`; a group's item is i."""
     bsz, _, h0, w0 = x.shape
     ws = cfg.window_size
     ph, pw = -h0 % ws, -w0 % ws
-    hp, wp = h0 + ph, w0 + pw
-    windows = bsz * (hp // ws) * (wp // ws) * sum(cfg.depths)
+    hw = (h0 + ph, w0 + pw)
     launched = _norm_launches()
-    with stage_timer("swinir.forward", item=item, tiles=bsz, windows=windows) as counts, \
+    with stage_timer(names[0], item=item, tiles=bsz, **counts) as counted, \
             precision(dt), sdpa_kernel(_SDPA_BACKENDS):
-        wts = _prepared(params, cfg, dt, (hp, wp))
+        wts = _prepared(prepare, params, cfg, dt, hw)
         if ph or pw:
             x = F.pad(x, (0, pw, 0, ph), mode="reflect")
         if cfg.img_range != 1.0:
@@ -466,17 +528,13 @@ def swinir_forward(params: dict, x: torch.Tensor, cfg: SwinIRConfig = SwinIRConf
             x = _conv(x.float().contiguous(memory_format=torch.channels_last),
                       wts["conv_first"], torch.float32).to(dt)
         f = norm_rows(_stream(x), *wts["patch_embed.norm"])
-        for i, (depth, heads) in enumerate(zip(cfg.depths, cfg.num_heads)):
-            with stage_timer("swinir.rstb", item=i):
-                g = f
-                for j in range(depth):
-                    g = _stl(g, wts[f"layers.{i}.residual_group.blocks.{j}."], heads, ws,
-                             ws // 2 if j % 2 else 0, (hp, wp))
-                f = _stream(_conv(_cl_map(g, (hp, wp)), wts[f"layers.{i}.conv"], dt)) + f
-        x = _conv(_cl_map(norm_rows(f, *wts["norm"]), (hp, wp)), wts["conv_after_body"],
-                  dt) + x
-        counts["norm_kernels"] = _norm_launches() - launched
-        with stage_timer("swinir.upsample"):
+        for i in range(len(cfg.depths)):
+            with stage_timer(names[1], item=i):
+                g = group(f, wts, i, hw)
+                f = _stream(_conv(_cl_map(g, hw), wts[f"layers.{i}.conv"], dt)) + f
+        x = _conv(_cl_map(norm_rows(f, *wts["norm"]), hw), wts["conv_after_body"], dt) + x
+        counted["norm_kernels"] = _norm_launches() - launched
+        with stage_timer(names[2]):
             x = F.leaky_relu(_conv(x, wts["conv_before_upsample.0"], dt), 0.01)
             for k in range(upsample_stages(cfg.factor)):
                 x = _pixel_shuffle_cl(_conv(x, wts[f"upsample.{2 * k}"], dt), 2)
@@ -485,3 +543,21 @@ def swinir_forward(params: dict, x: torch.Tensor, cfg: SwinIRConfig = SwinIRConf
             if cfg.img_range != 1.0:
                 y = y / cfg.img_range
             return y.to(torch.float32, memory_format=torch.contiguous_format)
+
+
+def swinir_forward(params: dict, x: torch.Tensor, cfg: SwinIRConfig = SwinIRConfig(),
+                   compute_dtype: torch.dtype = torch.bfloat16,
+                   item: Optional[object] = None) -> torch.Tensor:
+    """x: [B, C, h, w] -> [B, C, h*factor, w*factor], float32 (contiguous)."""
+    ws = cfg.window_size
+    n_win = -(-x.shape[2] // ws) * -(-x.shape[3] // ws)
+
+    def rstb(f, wts, i, hw):
+        for j in range(cfg.depths[i]):
+            f = _stl(f, wts[f"layers.{i}.residual_group.blocks.{j}."], cfg.num_heads[i], ws,
+                     ws // 2 if j % 2 else 0, hw)
+        return f
+
+    return _trunk_forward(params, x, cfg, compute_dtype, _prepare, rstb,
+                         ("swinir.forward", "swinir.rstb", "swinir.upsample"), item,
+                         windows=x.shape[0] * n_win * sum(cfg.depths))

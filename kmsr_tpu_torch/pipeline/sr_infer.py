@@ -20,14 +20,14 @@ when the device keeps failing. Each group is split over the host's cards
 (`parallel.local_dp`: the SR forward has no cross-sample state), as JAX
 shards the file batch over its local devices.
 
-Two networks (`--arch`): the compact EDSR (`models.sr`, default) and
-SwinIR-M (`models.swinir`, published widths); `sr_forward` routes by the
-configuration's type.
+Three networks (`--arch`): the compact EDSR (`models.sr`, default),
+SwinIR-M (`models.swinir`) and HAT-SRx4 (`models.hat`), the last two at
+their published widths; `sr_forward` routes by the configuration's type.
 
 Usage:
     python -m kmsr_tpu_torch.pipeline.sr_infer --input-dir TRAIN_DATA \
-        --model sr_model.npz --output-dir OUT [--arch edsr|swinir] [--factor 8] \
-        [--batch-size 128] [--device cuda|cpu]
+        --model sr_model.npz --output-dir OUT [--arch edsr|swinir|hat] \
+        [--factor 8 (4 for hat)] [--batch-size 128] [--device cuda|cpu]
 """
 from __future__ import annotations
 
@@ -45,6 +45,7 @@ from ..device import resolve_device
 from ..io.ncio import NCFile, copied, read_band_stack, write_bands
 from ..io.schema import GROUP_HR, GROUP_LR
 from ..models.sr import SRConfig, init_sr, sr_forward
+from ..models.hat import HATConfig, init_hat
 from ..models.swinir import SwinIRConfig, init_swinir
 from ..ops.metrics import psnr, ssim
 from ..utils.params_io import load_params
@@ -56,13 +57,18 @@ from .common import DeviceSyncGuard, RunReport, chunked_reader, local_batch_dp
 Chunk = tuple[list, list, list]
 
 
-def load_sr_model(model_path: str, cfg: SRConfig | SwinIRConfig,
+#: the SR networks' configurations
+SRConfigs = SRConfig | SwinIRConfig | HATConfig
+
+
+def load_sr_model(model_path: str, cfg: SRConfigs,
                   device: str | torch.device = "cuda") -> dict:
     """The `.npz` model at model_path on `device`: an EDSR (either
-    package's) for an `SRConfig`, a SwinIR (published names) for a
-    `SwinIRConfig`."""
+    package's) for an `SRConfig`, a SwinIR or a HAT (published names) for a
+    `SwinIRConfig` or a `HATConfig`."""
     dev = resolve_device(device)
-    init = init_swinir if isinstance(cfg, SwinIRConfig) else init_sr
+    init = (init_hat if isinstance(cfg, HATConfig) else
+            init_swinir if isinstance(cfg, SwinIRConfig) else init_sr)
     return load_params(model_path, init(cfg, device="cpu"), dev)
 
 
@@ -105,7 +111,7 @@ def _landed(t: torch.Tensor, out: Optional[torch.Tensor]) -> torch.Tensor:
     return to_host(t) if out is None else out.copy_(t, non_blocking=True)
 
 
-def dispatch(params: dict, lrs: list, hrs: Optional[list], cfg: SRConfig | SwinIRConfig,
+def dispatch(params: dict, lrs: list, hrs: Optional[list], cfg: SRConfigs,
              dev: torch.device, item=None, out: Optional[torch.Tensor] = None,
              metrics_out: Optional[torch.Tensor] = None) -> tuple:
     """Queue one shape group on `dev`: upload, bfloat16 forward, PSNR/SSIM
@@ -146,7 +152,7 @@ def _blocks(arrays: list, n_dev: int) -> list[list]:
 def run_batches(
     chunks: Iterable[Chunk],
     params: dict,
-    cfg: SRConfig | SwinIRConfig,
+    cfg: SRConfigs,
     on_batch: Callable[[list, np.ndarray, Optional[np.ndarray]], None],
     device: str | torch.device = "cuda",
     devices=None,
@@ -250,7 +256,7 @@ def sr_infer_folder(
     input_dir: str,
     model_path: str,
     output_dir: str,
-    cfg: SRConfig | SwinIRConfig = SRConfig(),
+    cfg: SRConfigs = SRConfig(),
     in_group: str = GROUP_LR,
     ref_group: str = GROUP_HR,
     batch_size: int = 32,
@@ -305,10 +311,12 @@ def main(argv=None) -> int:
     p.add_argument("--input-dir", required=True)
     p.add_argument("--model", required=True)
     p.add_argument("--output-dir", required=True)
-    p.add_argument("--arch", choices=["edsr", "swinir"], default="edsr",
+    p.add_argument("--arch", choices=["edsr", "swinir", "hat"], default="edsr",
                    help="edsr (default): the compact EDSR, sized by --width, --n-blocks "
-                        "and --upsampler; swinir: SwinIR-M at its published widths")
-    p.add_argument("--factor", type=int, default=8)
+                        "and --upsampler; swinir: SwinIR-M, hat: HAT-SRx4, each at its "
+                        "published widths")
+    p.add_argument("--factor", type=int, default=None,
+                   help="the upscale: 8 by default, 4 (HAT-SRx4's) for --arch hat")
     p.add_argument("--width", type=int, default=64)
     p.add_argument("--n-blocks", type=int, default=8)
     p.add_argument(
@@ -319,9 +327,14 @@ def main(argv=None) -> int:
     p.add_argument("--batch-size", type=int, default=128)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     a = p.parse_args(argv)
-    cfg = (SwinIRConfig(factor=a.factor) if a.arch == "swinir" else
-           SRConfig(width=a.width, n_blocks=a.n_blocks, factor=a.factor,
-                    upsampler=a.upsampler))
+    factor = a.factor or (4 if a.arch == "hat" else 8)
+    if a.arch == "hat":
+        cfg = HATConfig(factor=factor)
+    elif a.arch == "swinir":
+        cfg = SwinIRConfig(factor=factor)
+    else:
+        cfg = SRConfig(width=a.width, n_blocks=a.n_blocks, factor=factor,
+                       upsampler=a.upsampler)
     report = sr_infer_folder(
         a.input_dir, a.model, a.output_dir, cfg,
         in_group=a.in_group, ref_group=a.ref_group, batch_size=a.batch_size,
