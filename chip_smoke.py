@@ -386,22 +386,29 @@ and exits non-zero without them. Phases, one line each:
    Depth is cut to 4 patches and 256^2 scenes to keep the fixtures small;
    phase 6 runs the scene kernel at 8192^2.
 19. swin-norm: SwinIR's row-norm kernel (`kernels/swin_norm.cu`) at
-   SwinIR-M's stream, 32 maps of 64x64 tokens x 180 bf16 (131,072 rows),
-   the shifted window order: `norm_rows` against the plain F.layer_norm +
+   SwinIR-M's stream as the model carries it, 32 maps of 64x64 tokens x
+   184 bf16 (131,072 rows; `models.swinir.stream_width(180)`, the pad
+   zero) with a norm of 180, the shifted window order: `norm_rows` against
+   the plain F.layer_norm over the first 180 columns (zero past them) +
    index_select and `add_norm_rows` against the plain add of the gathered
-   branch + F.layer_norm, f_new bit for bit and y within one bf16 unit in
-   the last place or 1e-6 (float32's floor, where w * t and b cancel; the
-   ulp distance is tests/test_torch_swin_norm.py's). Then one SwinIR-M
-   forward at swinir-x8-tiles64's batch (32 x 5 x 64 x 64, bf16), the
-   counts set to 0 just before it and read after it: 38 `swin_norm_rows`
-   and 36 `swin_add_norm_rows` launches, and `norm_kernels` 74 on its
-   `swinir.forward` span, or the phase fails; its card time (the
-   profiler's, the kernels' own: a slow host cannot stretch it, as it does
-   CUDA events around the forward) and the host time of one tile's forward
-   (where the card never holds the host back). Then each entry point's profiler device time beside its
-   byte bound (norm: f read, y written; add norm: f and a read, f_new and
-   y written, at the card's HBM rate), the plain spelling it replaces and
-   F.layer_norm alone.
+   branch + the same norm, f_new bit for bit, the pad of y and f_new 0, and
+   y within one bf16 unit in the last place or 1e-6 (float32's floor, where
+   w * t and b cancel; the ulp distance is tests/test_torch_swin_norm.py's).
+   Then one SwinIR-M forward at swinir-x8-tiles64's batch (32 x 5 x 64 x 64,
+   bf16), the counts set to 0 just before it and read after it: 38
+   `swin_norm_rows` and 36 `swin_add_norm_rows` launches, `norm_kernels` 74
+   and `stream_width` 184 on its `swinir.forward` span, or the phase fails;
+   its card time (the profiler's, the kernels' own: a slow host cannot
+   stretch it, as it does CUDA events around the forward) and the host time
+   of one tile's forward (where the card never holds the host back). Then
+   each entry point's profiler device time beside its byte bound (norm: f
+   read, y written; add norm: f and a read, f_new and y written, at the
+   card's HBM rate), the plain spelling it replaces and F.layer_norm alone
+   (on 180-wide rows), and the kernel's time on unpadded 180-wide rows
+   beside it; last the trunk's four linears (qkv, proj, fc1, fc2) on the
+   131,072 rows at the published 180 and at 184 (`linears`: each one's
+   profiler time, byte bound and kernels, so it shows whether cuBLAS left
+   its sm80 `align2` kernels).
 
 data_stats, viz_cli and make_train_data --vis-dir are host numpy /
 matplotlib code that reads .nc through the same codec; the CPU tests
@@ -5383,19 +5390,25 @@ def phase_swin_norm(dev, card: str, failures: list) -> dict:
     bf16_ulps = _test_module("test_torch_swin_norm").bf16_ulps
     t0 = time.perf_counter()
     maps, side, c, ws = 32, 64, 180, 8
+    cp = sw.stream_width(c)
     gen = torch.Generator().manual_seed(SEED)
-    f = (torch.randn(maps, side * side, c, generator=gen) * 2 + 0.5).to(dev, torch.bfloat16)
-    a = torch.randn(maps, side * side, c, generator=gen).to(dev, torch.bfloat16)
+
+    def padded(t):  # the stream as the model carries it: the pad zero
+        return F.pad(t, (0, cp - c)).contiguous()
+
+    f180 = (torch.randn(maps, side * side, c, generator=gen) * 2 + 0.5).to(dev, torch.bfloat16)
+    a180 = torch.randn(maps, side * side, c, generator=gen).to(dev, torch.bfloat16)
+    f, a = padded(f180), padded(a180)
     w = (1 + (torch.rand(c, generator=gen) * 2 - 1) / 4).to(dev, torch.bfloat16)
     b = ((torch.rand(c, generator=gen) * 2 - 1) / 4).to(dev, torch.bfloat16)
     fwd, inv = sw._window_order(side, side, ws, ws // 2, dev)
 
     def plain_norm():
-        return F.layer_norm(f, (c,), w, b, sw.LN_EPS).index_select(1, fwd)
+        return padded(F.layer_norm(f[..., :c], (c,), w, b, sw.LN_EPS)).index_select(1, fwd)
 
     def plain_add_norm():
         g = f + a.index_select(1, inv)
-        return g, F.layer_norm(g, (c,), w, b, sw.LN_EPS)
+        return g, padded(F.layer_norm(g[..., :c], (c,), w, b, sw.LN_EPS))
 
     y = sw.norm_rows(f, w, b, fwd)
     f_new, y2 = sw.add_norm_rows(f, a, inv, w, b)
@@ -5406,15 +5419,18 @@ def phase_swin_norm(dev, card: str, failures: list) -> dict:
         checks[k] = {"max_ulps": int(u.max()), "past_one_ulp": int((u > 1).sum()),
                      "off_by_one_ulp": int((u == 1).sum()),
                      "max_abs_past_one_ulp": float(d[u > 1].max()) if (u > 1).any() else 0.0,
-                     "past_one_ulp_and_1e-6": int(((u > 1) & (d > 1e-6)).sum())}
+                     "past_one_ulp_and_1e-6": int(((u > 1) & (d > 1e-6)).sum()),
+                     "pad_zero": not got[..., c:].any().item()}
     checks["add_norm_rows"]["f_new_bit_equal"] = bool(torch.equal(f_new, want_f))
+    checks["add_norm_rows"]["f_new_pad_zero"] = not f_new[..., c:].any().item()
     for k, r in checks.items():
-        if r["past_one_ulp_and_1e-6"] or not r.get("f_new_bit_equal", True):
+        if (r["past_one_ulp_and_1e-6"] or not r.get("f_new_bit_equal", True)
+                or not r["pad_zero"] or not r.get("f_new_pad_zero", True)):
             failures.append(f"swin-norm {k}: {r}")
     del y, f_new, y2, want_f, want_y2
 
     # one SwinIR-M forward at swinir-x8-tiles64's batch: its launches, its
-    # span's count, its card time and (one tile, so the card never holds the
+    # span's counts, its card time and (one tile, so the card never holds the
     # host back) the host time its launches take
     cfg = sw.SwinIRConfig()
     params = sw.init_swinir(cfg, seed=SEED, device=dev)
@@ -5426,13 +5442,14 @@ def phase_swin_norm(dev, card: str, failures: list) -> dict:
     sw.swinir_forward(params, x, cfg)
     torch.cuda.synchronize()
     launches = {k: n for k, n in kernels.LAUNCHES.items() if n}
-    span_counts = [s.counts.get("norm_kernels") for s in profiling.spans()
-                   if s.name == "swinir.forward"]
+    span_counts = [(s.counts.get("norm_kernels"), s.counts.get("stream_width"))
+                   for s in profiling.spans() if s.name == "swinir.forward"]
     profiling.timing_report(reset=True)
     want = {"swin_norm_rows": sum(cfg.depths) + 2, "swin_add_norm_rows": sum(cfg.depths)}
-    if launches != want or span_counts != [2 * sum(cfg.depths) + 2]:
+    if launches != want or span_counts != [(2 * sum(cfg.depths) + 2, cp)]:
         failures.append(f"swin-norm: one SwinIR-M forward launched {launches} "
-                        f"(span counts {span_counts}), expected {want}")
+                        f"(span counts (norm_kernels, stream_width) {span_counts}), "
+                        f"expected {want} and stream_width {cp}")
     host = []
     for _ in range(10):
         torch.cuda.synchronize()
@@ -5440,34 +5457,60 @@ def phase_swin_norm(dev, card: str, failures: list) -> dict:
         sw.swinir_forward(params, x[:1], cfg)
         host.append((time.perf_counter() - t) * 1e3)
     torch.cuda.synchronize()
-    card = device_time(lambda: sw.swinir_forward(params, x, cfg))
-    forward = {"shape": list(x.shape), "launches": launches, "span_norm_kernels": span_counts,
-               "card_ms": card["device_ms"], "card_ms_from": card["device_ms_from"],
+    on_card = device_time(lambda: sw.swinir_forward(params, x, cfg))
+    forward = {"shape": list(x.shape), "launches": launches,
+               "span_norm_kernels_stream_width": span_counts,
+               "card_ms": on_card["device_ms"], "card_ms_from": on_card["device_ms_from"],
                "host_ms_one_tile": sorted(host)[len(host) // 2]}
-    log(f"[swin-norm] SwinIR-M forward of {maps} tiles: {launches}, "
+    log(f"[swin-norm] SwinIR-M forward of {maps} tiles: {launches}, stream {cp} wide, "
         f"card {forward['card_ms']:.2f} ms, host {forward['host_ms_one_tile']:.2f} ms")
     del params, x
 
     hbm = peaks(card)[0]
     stream = f.numel() * f.element_size()
-    res = {"shape": [maps, side * side, c], "dtype": "bfloat16", "checks": checks,
-           "plan": kernels.norm_plan(c, 2, (f.data_ptr(),)), "forward": forward}
-    for name, kernel, plain, library, nbytes in (
+    res = {"shape": [maps, side * side, cp], "norm_width": c, "dtype": "bfloat16",
+           "checks": checks, "plan": kernels.norm_plan(cp, 2, (f.data_ptr(),), c),
+           "plan_unpadded": kernels.norm_plan(c, 2, (f180.data_ptr(),)), "forward": forward}
+    for name, kernel, plain, unpadded, nbytes in (
             ("norm_rows", lambda: sw.norm_rows(f, w, b, fwd), plain_norm,
-             lambda: F.layer_norm(f, (c,), w, b, sw.LN_EPS), 2 * stream),
+             lambda: sw.norm_rows(f180, w, b, fwd), 2 * stream),
             ("add_norm_rows", lambda: sw.add_norm_rows(f, a, inv, w, b), plain_add_norm,
-             lambda: F.layer_norm(f, (c,), w, b, sw.LN_EPS), 4 * stream)):
+             lambda: sw.add_norm_rows(f180, a180, inv, w, b), 4 * stream)):
         t = device_time(kernel)
         bound = nbytes / hbm * 1e3
         res[name] = {"ms": t["device_ms"], "ms_from": t["device_ms_from"],
                      "device_kernels": t["device_kernels"], "bound_ms": bound,
                      "x_bound": t["device_ms"] / bound, "bytes": nbytes,
                      "plain_ms": device_time(plain)["device_ms"],
-                     "library_ms": device_time(library)["device_ms"],
-                     "library_call": "F.layer_norm alone"}
-        log(f"[swin-norm] {name}: {t['device_ms']:.4f} ms, bound {bound:.4f} ms "
-            f"(x{t['device_ms'] / bound:.2f}), plain {res[name]['plain_ms']:.4f}, "
-            f"F.layer_norm {res[name]['library_ms']:.4f}; {checks[name]}")
+                     "library_ms": device_time(
+                         lambda: F.layer_norm(f180, (c,), w, b, sw.LN_EPS))["device_ms"],
+                     "library_call": "F.layer_norm alone, 180-wide rows",
+                     "unpadded_180_ms": device_time(unpadded)["device_ms"]}
+        log(f"[swin-norm] {name}: {t['device_ms']:.4f} ms at {cp}, bound {bound:.4f} ms "
+            f"(x{t['device_ms'] / bound:.2f}), at 180 {res[name]['unpadded_180_ms']:.4f}, "
+            f"plain {res[name]['plain_ms']:.4f}, F.layer_norm {res[name]['library_ms']:.4f}; "
+            f"{checks[name]}")
+    del f, a, f180, a180
+
+    # the trunk's four linears on the cell's rows, at 180 and at the stream's width
+    rows = maps * side * side
+    res["linears"] = {}
+    for name, k_in, n_out in (("qkv", c, 576), ("proj", 192, c), ("fc1", c, 360),
+                              ("fc2", 360, c)):
+        for width in (c, cp):
+            k, n = (width if k_in == c else k_in), (width if n_out == c else n_out)
+            xin = torch.randn(rows, k, generator=gen).to(dev, torch.bfloat16)
+            wl = (torch.randn(n, k, generator=gen) / k ** 0.5).to(dev, torch.bfloat16)
+            bl = torch.randn(n, generator=gen).to(dev, torch.bfloat16)
+            t = device_time(lambda: F.linear(xin, wl, bl))
+            nbytes = 2 * (rows * (k + n) + n * k + n)
+            res["linears"][f"{name}_{width}"] = {
+                "k": k, "n": n, "ms": t["device_ms"], "bound_ms": nbytes / hbm * 1e3,
+                "kernels": t["device_kernels"],
+                "sm80": any("cutlass_80" in kk for kk in t["device_kernels"])}
+            del xin, wl, bl
+    log("[swin-norm] linears: " + json.dumps({k: (round(r["ms"], 4), r["sm80"])
+                                                for k, r in res["linears"].items()}))
     res["seconds"] = time.perf_counter() - t0
     return res
 

@@ -17,8 +17,9 @@ with a plain C interface, at first use, into `_build/` beside this file
 * `scene_stencil.cu` — the whole-scene slab stencil (`scene_stencil_raw`,
   `scene_stencil_ext`), the same row ring on a [C, rows, W] plane
   (`scene_tiles` is its plan);
-* `swin_norm.cu` — SwinIR's LayerNorm over the stream's rows with the
-  window attention's token gather and residual add folded in
+* `swin_norm.cu` — SwinIR's LayerNorm over the stream's rows (their first
+  C channels; the zero pad past them written 0) with the window
+  attention's token gather and residual add folded in
   (`swin_norm_rows`, `swin_add_norm_rows`; `norm_plan` is its plan). It
   replaces no TPU kernel: the JAX package's SwinIR has none.
 
@@ -194,7 +195,7 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
     elif name == "swin_norm":
         lib.kmsr_swin_norm.restype = ci
         lib.kmsr_swin_norm.argtypes = [
-            ci, ci, vp, vp, vp, vp, vp, vp, vp, cl, cl, ci, ci, ci,
+            ci, ci, vp, vp, vp, vp, vp, vp, vp, cl, cl, ci, ci, ci, ci,
             ctypes.c_double, vp,
         ]
         lib.kmsr_swin_norm_error_string.restype = ctypes.c_char_p
@@ -666,22 +667,25 @@ _NORM_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
 NORM_CHUNKS = 8
 
 
-def norm_plan(c: int, esize: int, ptrs: tuple[int, ...]) -> tuple[int, int]:
-    """The SwinIR norm's plan for rows of `c` elements of `esize` bytes:
-    (vec_bytes, lpr). A lane loads vectors of the widest of 16, 8, 4 or 2
-    bytes, no fewer than one element, that divides the row's bytes and the
-    address of every tensor `ptrs` holds (one element always does); a row
-    takes the fewest lanes, a power of 2 up to a warp, that hold its vectors
-    in NORM_CHUNKS each."""
+def norm_plan(cw: int, esize: int, ptrs: tuple[int, ...],
+              c: int | None = None) -> tuple[int, int]:
+    """The SwinIR norm's plan for rows of `cw` elements of `esize` bytes
+    normed over their first `c` (None: all cw): (vec_bytes, lpr). A lane
+    loads vectors of the widest of 16, 8, 4 or 2 bytes, no fewer than one
+    element, that divides the norm's bytes, the row's and the address of
+    every tensor `ptrs` holds (one element always does), so a vector is all
+    norm or all pad; a row takes the fewest lanes, a power of 2 up to a
+    warp, that hold the norm's vectors in NORM_CHUNKS each."""
     low = 0
     for p in ptrs:  # a power of 2 divides every address iff it divides their OR
         low |= p
-    return _norm_plan(c, esize, low & 15)
+    return _norm_plan(cw if c is None else c, cw, esize, low & 15)
 
 
 @functools.lru_cache(maxsize=None)
-def _norm_plan(c: int, esize: int, low: int) -> tuple[int, int]:
-    vb = next(v for v in (16, 8, 4, 2) if v >= esize and c * esize % v == 0 and low % v == 0)
+def _norm_plan(c: int, cw: int, esize: int, low: int) -> tuple[int, int]:
+    vb = next(v for v in (16, 8, 4, 2)
+              if v >= esize and c * esize % v == 0 and cw * esize % v == 0 and low % v == 0)
     nvec = c * esize // vb
     lpr = 1
     while lpr < 32 and lpr * NORM_CHUNKS < nvec:
@@ -700,12 +704,15 @@ def _swin_norm(f, a, idx, w, b, eps: float):
         raise ValueError(f"the stream must be [B, P, C], got {tuple(f.shape)}")
     if not f.is_contiguous():
         raise ValueError("f must be contiguous")
-    bsz, p, c = f.shape
+    bsz, p, cw = f.shape
     dt = f.dtype
     if a is not None:
         _check(a, "a", dev, (dt,))
         if a.shape != f.shape:
             raise ValueError(f"a shape {tuple(a.shape)} != {tuple(f.shape)}")
+    c = w.shape[0] if w.ndim == 1 else -1
+    if not 0 < c <= cw:
+        raise ValueError(f"w shape {tuple(w.shape)}: not [C] with C at most the row's {cw}")
     for t, what in ((w, "w"), (b, "b")):
         _check(t, what, dev, (dt,))
         if t.shape != (c,):
@@ -721,10 +728,10 @@ def _swin_norm(f, a, idx, w, b, eps: float):
         return f_new, y
     fp, wp, bp, yp = f.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr()
     ap, fnp = (a.data_ptr(), f_new.data_ptr()) if add else (0, 0)
-    vec_bytes, lpr = norm_plan(c, f.element_size(), (fp, wp, bp, yp, ap, fnp))
+    vec_bytes, lpr = norm_plan(cw, f.element_size(), (fp, wp, bp, yp, ap, fnp), c)
     rc = _call(dev, _lib("swin_norm").kmsr_swin_norm, int(add), _NORM_DTYPES[dt], fp,
                ap or None, None if idx is None else idx.data_ptr(), wp, bp, fnp or None, yp,
-               bsz * p, p, c, vec_bytes, lpr, eps)
+               bsz * p, p, c, cw, vec_bytes, lpr, eps)
     if rc != 0:
         reason = ("arguments refused" if rc < 0
                   else _lib("swin_norm").kmsr_swin_norm_error_string(rc).decode())
@@ -738,12 +745,14 @@ def _swin_norm(f, a, idx, w, b, eps: float):
 def swin_norm_rows(f: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                    idx: torch.Tensor | None, eps: float) -> torch.Tensor:
     """Launch the SwinIR norm: y[:, p] = LN(f[:, idx[p]]) (idx None: f[:, p]),
-    LN over the last axis with weight w and bias b, in float32 statistics
-    (float64 for float64 rows).
+    LN over the first C channels of the last axis with weight w and bias b
+    (C = len(w)), in float32 statistics (float64 for float64 rows); y's
+    channels past C are 0.
 
-    f: [B, P, C] float32, bfloat16 or float64; w, b: [C] in f's dtype; idx:
-    None or int64 [P], a permutation of the P tokens (not checked: an index
-    out of range reads out of bounds). All on one CUDA device and
+    f: [B, P, Cp] float32, bfloat16 or float64, Cp >= C (the stream's pad
+    channels past C are not read into the norm); w, b: [C] in f's dtype;
+    idx: None or int64 [P], a permutation of the P tokens (not checked: an
+    index out of range reads out of bounds). All on one CUDA device and
     contiguous. Returns y (new, f's shape and dtype); launches on the
     current stream, does not synchronize."""
     return _swin_norm(f, None, idx, w, b, eps)[1]
@@ -753,7 +762,7 @@ def swin_add_norm_rows(f: torch.Tensor, a: torch.Tensor, idx: torch.Tensor,
                        w: torch.Tensor, b: torch.Tensor,
                        eps: float) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the SwinIR norm after the residual add: f_new[:, q] = f[:, q] +
-    a[:, idx[q]] rounded to f's dtype, y = LN(f_new) as in
-    `swin_norm_rows`. a: f's shape and dtype; the rest as there. Returns
-    (f_new, y), both new: f is never written."""
+    a[:, idx[q]] rounded to f's dtype in the first C channels and 0 past
+    them, y = LN(f_new) as in `swin_norm_rows`. a: f's shape and dtype; the
+    rest as there. Returns (f_new, y), both new: f is never written."""
     return _swin_norm(f, a, idx, w, b, eps)

@@ -41,15 +41,20 @@ Arithmetic and layout are SwinIR's (`models.swinir`'s docstring): the
 stream, matmuls and convs in the compute dtype (bfloat16 by default) with
 float32 accumulation, LayerNorm statistics and softmax in float32,
 conv_first in float32, the head dim zero-padded to a multiple of 8 in the
-weights, every weight cast, padded and each bias built once a parameter
-set (`models.swinir._prepared`). HAT's own parts:
+weights, the stream carried `stream_width(C)` channels wide with its pad
+zero (184 for 180), every weight cast, padded and each bias built once a
+parameter set (`models.swinir._prepared`). HAT's own parts:
 
 - LN1 is read in two orders: rolled and in windows for the attention, in
   the map's order for the conv branch, so a HAB runs the row norm twice on
   the same rows (`norm_rows`, with and without the window order).
 - The conv branch runs on the channels_last map of the stream in the
-  compute dtype; the channel gate's pool and its two 1x1 convs run in
-  float32 on [B, C] (a pool a tile). The HAB's three-way residual is one
+  compute dtype, its middle channels padded as the stream's (C / 3 = 60 at
+  64) and its convs' pad weights and biases zero, so GELU(0) = 0 keeps the
+  pad zero and no width is one cuDNN pads itself; the channel gate's pool
+  and its two 1x1 convs run in float32 on [B, Cp] (a pool a tile), the
+  first reading no pad channel and the second writing 0 there, so the gate
+  is sigmoid(0) = 0.5 on a branch that is 0. The HAB's three-way residual is one
   `torch.addcmul` (f + y * (conv_scale * gate), the gate rounded to the
   compute dtype), then `add_norm_rows` adds the attention back through the
   window order's inverse and takes LN2, as SwinIR's.
@@ -64,7 +69,8 @@ Spans (`utils.profiling.stage_timer`): `hat.forward` (item: the caller's;
 counts `tiles`, `windows`, the HABs' attention windows, `ocab_windows`,
 the OCABs' query windows, and `norm_kernels`, the row-norm kernel's
 launches in the forward: 3 a HAB, 2 an OCAB and 2 more on a card, 122 at
-HAT-SRx4, 0 on the CPU), and inside it `hat.rhag` (item: the RHAG's index
+HAT-SRx4, 0 on the CPU, and `stream_width`, the Cp the stream ran at), and
+inside it `hat.rhag` (item: the RHAG's index
 i) with `hat.ocab` (item i) inside that, and `hat.upsample`.
 """
 from __future__ import annotations
@@ -82,12 +88,14 @@ from .sr import _conv
 from .swinir import (
     _attend,
     _cl_map,
+    _linear_in,
+    _linear_out,
     _mlp,
     _oihw,
     _pair,
     _pair_in,
     _prepare_trunk,
-    _proj_weight,
+    _proj_weights,
     _qkv_weights,
     _stl_weights,
     _stream,
@@ -99,6 +107,7 @@ from .swinir import (
     init_params,
     load_state,
     norm_rows,
+    stream_width,
     upsample_stages,
 )
 
@@ -250,28 +259,29 @@ def _hab_weights(p: dict, b: str, heads: int, ws: int, shift: int, hw: tuple,
                  dt: torch.dtype) -> dict:
     """The HAB `b`'s weights as `_hab` reads them: SwinIR's STL's
     (`_stl_weights`, the same names) and the conv branch's, its convs in dt
-    and the channel gate's 1x1 convs as float32 linears."""
+    and the channel gate's 1x1 convs as float32 linears, each padded with
+    zeros for the stream's width and the branch's (`stream_width`: 180 ->
+    184 and 60 -> 64 at HAT-SRx4), so the pad channels stay 0 through it."""
     cab = b + "conv_block.cab."
+    mid, e = p[cab + "0.weight"].shape[:2]
+    cp, mp = stream_width(e), stream_width(mid)
     out = _stl_weights(p, b, heads, ws, shift, hw, dt)
-    out.update({"cab0": _oihw(p, cab + "0", dt), "cab2": _oihw(p, cab + "2", dt),
-                "ca1": _gate_linear(p, cab + "3.attention.1"),
-                "ca3": _gate_linear(p, cab + "3.attention.3")})
+    out.update({"cab0": _oihw(p, cab + "0", dt, mp, cp), "cab2": _oihw(p, cab + "2", dt, cp, mp),
+                "ca1": _linear_in(p, cab + "3.attention.1", torch.float32),
+                "ca3": _linear_out(p, cab + "3.attention.3", torch.float32)})
     return out
 
 
-def _gate_linear(p: dict, name: str) -> tuple[torch.Tensor, torch.Tensor]:
-    """The channel gate's 1x1 conv `name` as a float32 linear (weight, bias)."""
-    w, bias = _pair_in(p, name, torch.float32)
-    return w.flatten(1), bias
-
-
 def _ocab_weights(p: dict, o: str, heads: int, ws: int, ows: int, dt: torch.dtype) -> dict:
-    """The OCAB `o`'s weights as `_ocab` reads them, in dt."""
+    """The OCAB `o`'s weights as `_ocab` reads them, in dt, the linears
+    padded for the stream's width as the HAB's."""
+    e = p[o + "norm1.weight"].shape[0]
     return {"norm1": _pair_in(p, o + "norm1", dt), "qkv": _qkv_weights(p, o + "qkv", heads, dt),
+            "scale": (e // heads) ** -0.5,
             "bias": oca_bias(p[o + "relative_position_bias_table"], ws, ows, dt),
-            "proj": (_proj_weight(p, o + "proj", heads, dt), p[o + "proj.bias"].to(dt)),
-            "norm2": _pair_in(p, o + "norm2", dt), "fc1": _pair_in(p, o + "mlp.fc1", dt),
-            "fc2": _pair_in(p, o + "mlp.fc2", dt)}
+            "proj": _proj_weights(p, o + "proj", heads, dt),
+            "norm2": _pair_in(p, o + "norm2", dt), "fc1": _linear_in(p, o + "mlp.fc1", dt),
+            "fc2": _linear_out(p, o + "mlp.fc2", dt)}
 
 
 def _prepare(params: dict, cfg: HATConfig, dt: torch.dtype, hw: tuple) -> dict:
@@ -321,7 +331,7 @@ def _ocab(f: torch.Tensor, s: dict, heads: int, ws: int, ows: int,
           hw: tuple) -> torch.Tensor:
     """The overlapping cross-attention block on the stream f [B, H*W, C],
     with its weights s (`_ocab_weights`, in f's dtype)."""
-    bsz, p, e = f.shape
+    bsz, p, _ = f.shape
     fwd, inv = _window_order(*hw, ws, 0, f.device)
     wq, bq = s["qkv"]
     hd = wq.shape[0] // 3
@@ -330,7 +340,7 @@ def _ocab(f: torch.Tensor, s: dict, heads: int, ws: int, ows: int,
     q = qkv[..., :hd].view(-1, ws * ws, heads, d).transpose(1, 2)
     kv = F.pad(qkv[..., hd:], (0, 0, 0, 1)).index_select(1, _oca_gather(*hw, ws, ows, f.device))
     k, v = kv.view(-1, ows * ows, 2, heads, d).permute(2, 0, 3, 1, 4).unbind(0)
-    a = _attend(q, k, v, s["bias"], bsz, (e // heads) ** -0.5)
+    a = _attend(q, k, v, s["bias"], bsz, s["scale"])
     a = F.linear(a.transpose(1, 2).reshape(bsz, p, hd), *s["proj"])
     f, z = add_norm_rows(f, a, inv, *s["norm2"])
     return f + _mlp(z, s)

@@ -46,9 +46,18 @@ Under compute_dtype=float32 TF32 is off (`models.sr.precision`). The
 convs are the EDSR's `_conv` (bias added after the rounding), the
 shuffles its `_pixel_shuffle_cl`.
 
-Layout: the stream is [B, H, W, C] (channels_last storage of the convs'
-[B, C, H, W]), so patch_embed and unembed are views (a copy where a conv
-leaves its map NCHW). Roll and window partition are one token permutation
+Layout: the stream is [B, H, W, Cp] (channels_last storage of the convs'
+[B, Cp, H, W]), so patch_embed and unembed are views (a copy where a conv
+leaves its map NCHW). Cp = `stream_width(C)`, the smallest multiple of 8 at
+or above C (184 for SwinIR-M's 180): the channels past C are a pad that
+stays exactly zero, so a bfloat16 row is a multiple of 16 bytes and the
+linears that read (qkv, fc1: K = Cp) and write (proj, fc2: N = Cp) the
+stream run cuBLAS's Hopper kernels, where 180-wide rows fall back to its
+sm80 align2 kernels (PERF.md). The weights carry the pad as zeros: the
+linears' and convs' extra input columns and output rows and biases are 0,
+so every product adds exact zeros and every pad output is 0; the norms keep
+C channels of weight, take their statistics over the first C, and write 0
+past them. A C that is already a multiple of 8 runs unpadded. Roll and window partition are one token permutation
 (`_window_order`), read by the norms rather than gathered on its own: an
 STL's LN1 writes its rows already rolled and in windows (`norm_rows` with
 fwd), and LN2 reads the attention branch back through inv as it adds it to
@@ -63,7 +72,7 @@ plain math path, in float32); the padding adds zero to every product,
 and the scale stays 1/sqrt(head dim). `_SDPA_BACKENDS` says which kernels.
 
 Weights: every weight the forward reads is cast to the compute dtype (and
-padded, and B_rel + M built) once a parameter set, compute dtype and map
+padded, for the heads and the stream, and B_rel + M built) once a parameter set, compute dtype and map
 size (`_prepared`), not at every forward: the same ops on the same values,
 so the output is the same bit for bit, and a forward launches about half
 as many host ops. A parameter set is the dict `params` itself, its tensors
@@ -71,9 +80,10 @@ unreplaced and unwritten (their version counters), so a weight written in
 place or a new dict is prepared anew; the last few sets are kept.
 
 Spans (`utils.profiling.stage_timer`): `swinir.forward` (item: the
-caller's; counts `tiles`, `windows`, the attention windows of all STLs, and
+caller's; counts `tiles`, `windows`, the attention windows of all STLs,
 `norm_kernels`, the row-norm kernel's launches in the forward: 2 an STL and
-2 more on a card, 74 at SwinIR-M, 0 on the CPU), and inside it
+2 more on a card, 74 at SwinIR-M, 0 on the CPU, and `stream_width`, the Cp
+the stream ran at), and inside it
 `swinir.rstb` (item: the RSTB's index i) and `swinir.upsample`.
 
 HAT (`models.hat`) is SwinIR's trunk with other blocks in its groups, so
@@ -314,6 +324,20 @@ def attn_bias(table: torch.Tensor, h: int, w: int, ws: int, shift: int,
 
 
 # ----------------------------------------------------------------- forward
+def stream_width(c: int) -> int:
+    """The width the residual stream of C channels is carried at: the
+    smallest multiple of 8 at or above C (184 for 180), so a row of 2-byte
+    elements is a multiple of 16 bytes (module docstring)."""
+    return -(-c // 8) * 8
+
+
+def _padded(t: torch.Tensor, *size: int) -> torch.Tensor:
+    """t with zeros after its entries on each axis up to `size` (a size an
+    axis); t itself where it has that shape."""
+    pad = [z for n, s in zip(reversed(size), reversed(t.shape)) for z in (0, n - s)]
+    return F.pad(t, pad) if any(pad) else t
+
+
 def _head_pad(e: int, heads: int) -> tuple[int, int]:
     """(head dim, zeros to pad it with up to a multiple of 8)."""
     hd = e // heads
@@ -322,49 +346,76 @@ def _head_pad(e: int, heads: int) -> tuple[int, int]:
 
 def _qkv_weights(p: dict, name: str, heads: int, dtype: torch.dtype) -> tuple:
     """The qkv linear `name`'s weight and bias in `dtype` with each head's
-    rows zero-padded (`_head_pad`): q, k and v come out [.., 3, heads,
-    padded]."""
+    rows zero-padded (`_head_pad`), so q, k and v come out [.., 3, heads,
+    padded], and zero columns for the stream's pad (`stream_width`)."""
     w, bias = p[name + ".weight"], p[name + ".bias"]
     e = w.shape[1]
     hd, pad = _head_pad(e, heads)
-    w = F.pad(w.to(dtype).view(3, heads, hd, e), (0, 0, 0, pad))
-    return w.reshape(-1, e), F.pad(bias.to(dtype).view(3, heads, hd), (0, pad)).reshape(-1)
+    w = F.pad(w.to(dtype).view(3, heads, hd, e), (0, 0, 0, pad)).reshape(-1, e)
+    return (_padded(w, w.shape[0], stream_width(e)),
+            F.pad(bias.to(dtype).view(3, heads, hd), (0, pad)).reshape(-1))
 
 
-def _proj_weight(p: dict, name: str, heads: int, dtype: torch.dtype) -> torch.Tensor:
-    """The proj linear `name`'s weight in `dtype` with zero columns where
-    the heads are padded."""
-    w = p[name + ".weight"]
+def _proj_weights(p: dict, name: str, heads: int, dtype: torch.dtype) -> tuple:
+    """The proj linear `name`'s weight and bias in `dtype`: zero columns
+    where the heads are padded, zero rows and bias for the stream's pad."""
+    w, bias = _pair_in(p, name, dtype)
     e = w.shape[0]
     hd, pad = _head_pad(e, heads)
-    return F.pad(w.to(dtype).view(e, heads, hd), (0, pad)).reshape(e, -1)
+    w, cp = F.pad(w.view(e, heads, hd), (0, pad)).reshape(e, -1), stream_width(e)
+    return _padded(w, cp, w.shape[1]), _padded(bias, cp)
+
+
+def _linear_in(p: dict, name: str, dtype: torch.dtype) -> tuple:
+    """A linear (or 1x1 conv, flattened) that reads the stream, in `dtype`:
+    zero columns for the stream's pad."""
+    w, bias = _pair_in(p, name, dtype)
+    w = w.flatten(1)
+    return _padded(w, w.shape[0], stream_width(w.shape[1])), bias
+
+
+def _linear_out(p: dict, name: str, dtype: torch.dtype) -> tuple:
+    """A linear (or 1x1 conv, flattened) that writes the stream, in `dtype`:
+    zero rows and bias for the stream's pad."""
+    w, bias = _pair_in(p, name, dtype)
+    w, cp = w.flatten(1), stream_width(w.shape[0])
+    return _padded(w, cp, w.shape[1]), _padded(bias, cp)
+
+
+def _layer_norm(f: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """F.layer_norm over f's first C = len(w) channels, zeros past them."""
+    c = w.shape[0]
+    return _padded(F.layer_norm(f[..., :c], (c,), w, b, LN_EPS), *f.shape)
 
 
 def norm_rows(f: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
               idx: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """y[:, p] = LN(f[:, idx[p]]) (idx None: LN(f)) for the stream f [B, P, C],
-    LN over C with weight w and bias b (taken in f's dtype), epsilon LN_EPS.
+    """y[:, p] = LN(f[:, idx[p]]) (idx None: LN(f)) for the stream f [B, P,
+    Cp], LN over its first C = len(w) channels (C <= Cp) with weight w and
+    bias b (taken in f's dtype), epsilon LN_EPS; y's channels past C are 0.
     On a card the hand-written kernel (`kernels.swin_norm_rows`; the tensors
     contiguous, on f's card); on the CPU its plain version, F.layer_norm
-    then index_select."""
+    (zero-padded past C) then index_select."""
     w, b = w.to(f.dtype), b.to(f.dtype)
     if f.device.type == "cuda":
         return kernels.swin_norm_rows(f, w, b, idx, LN_EPS)
-    y = F.layer_norm(f, f.shape[-1:], w, b, LN_EPS)
+    y = _layer_norm(f, w, b)
     return y if idx is None else y.index_select(1, idx)
 
 
 def add_norm_rows(f: torch.Tensor, a: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
                   b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """(f_new, y): f_new[:, q] = f[:, q] + a[:, idx[q]] in f's dtype (a new
-    tensor: f is never written), y = LN(f_new) as in `norm_rows`. On a card
-    the hand-written kernel (`kernels.swin_add_norm_rows`; a in f's dtype);
-    on the CPU its plain version, the add then F.layer_norm."""
+    """(f_new, y): f_new[:, q] = f[:, q] + a[:, idx[q]] in f's dtype in the
+    first C = len(w) channels, 0 past them (a new tensor: f is never
+    written), y = LN(f_new) as in `norm_rows`. On a card the hand-written
+    kernel (`kernels.swin_add_norm_rows`; a in f's dtype); on the CPU its
+    plain version, the add then F.layer_norm."""
     w, b = w.to(f.dtype), b.to(f.dtype)
     if f.device.type == "cuda":
         return kernels.swin_add_norm_rows(f, a, idx, w, b, LN_EPS)
     f = f + a.index_select(1, idx)
-    return f, F.layer_norm(f, f.shape[-1:], w, b, LN_EPS)
+    f[..., w.shape[0]:] = 0
+    return f, _layer_norm(f, w, b)
 
 
 def _pair_in(p: dict, name: str, dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
@@ -374,14 +425,17 @@ def _pair_in(p: dict, name: str, dtype: torch.dtype) -> tuple[torch.Tensor, torc
 
 def _stl_weights(p: dict, b: str, heads: int, ws: int, shift: int, hw: tuple,
                  dt: torch.dtype) -> dict:
-    """The STL `b`'s weights as `_stl` reads them, in dt (HAT's HAB keeps
-    the same names, and reads them so too)."""
+    """The STL `b`'s weights as `_stl` reads them, in dt, the linears padded
+    for the stream's width (HAT's HAB keeps the same names, and reads them so
+    too); `scale` is the attention's, 1/sqrt(head dim) unpadded."""
+    e = p[b + "norm1.weight"].shape[0]
     return {"norm1": _pair_in(p, b + "norm1", dt),
             "qkv": _qkv_weights(p, b + "attn.qkv", heads, dt),
+            "scale": (e // heads) ** -0.5,
             "bias": attn_bias(p[b + "attn.relative_position_bias_table"], *hw, ws, shift, dt),
-            "proj": (_proj_weight(p, b + "attn.proj", heads, dt), p[b + "attn.proj.bias"].to(dt)),
-            "norm2": _pair_in(p, b + "norm2", dt), "fc1": _pair_in(p, b + "mlp.fc1", dt),
-            "fc2": _pair_in(p, b + "mlp.fc2", dt)}
+            "proj": _proj_weights(p, b + "attn.proj", heads, dt),
+            "norm2": _pair_in(p, b + "norm2", dt), "fc1": _linear_in(p, b + "mlp.fc1", dt),
+            "fc2": _linear_out(p, b + "mlp.fc2", dt)}
 
 
 def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor, bsz: int,
@@ -398,14 +452,14 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tenso
 
 
 def _window_attention(x: torch.Tensor, s: dict, heads: int, n: int) -> torch.Tensor:
-    """proj(WMSA(x)) for the normed rows x [B, P, C], already rolled and in
+    """proj(WMSA(x)) for the normed rows x [B, P, Cp], already rolled and in
     windows of n tokens, with the weights s (`_stl_weights`); the result in
     x's order."""
-    bsz, p, e = x.shape
+    bsz, p, _ = x.shape
     wq, bq = s["qkv"]
     d = wq.shape[0] // (3 * heads)
     q, k, v = F.linear(x, wq, bq).view(-1, n, 3, heads, d).permute(2, 0, 3, 1, 4).unbind(0)
-    a = _attend(q, k, v, s["bias"], bsz, (e // heads) ** -0.5)
+    a = _attend(q, k, v, s["bias"], bsz, s["scale"])
     return F.linear(a.transpose(1, 2).reshape(bsz, p, heads * d), *s["proj"])
 
 
@@ -429,22 +483,29 @@ def _norm_launches() -> int:
     return kernels.LAUNCHES["swin_norm_rows"] + kernels.LAUNCHES["swin_add_norm_rows"]
 
 
-def _oihw(p: dict, name: str, dtype: torch.dtype) -> dict:
+def _oihw(p: dict, name: str, dtype: torch.dtype, out_ch: Optional[int] = None,
+          in_ch: Optional[int] = None) -> dict:
     """The conv `name` as `models.sr._conv` takes it ({"w": HWIO, "b"}), in
-    `dtype`."""
+    `dtype`, its output channels (and bias) and input channels zero-padded
+    up to out_ch and in_ch where given."""
     w, b = _pair_in(p, name, dtype)
-    return {"w": w.permute(2, 3, 1, 0), "b": b}
+    o, i = out_ch or w.shape[0], in_ch or w.shape[1]
+    return {"w": _padded(w, o, i, *w.shape[2:]).permute(2, 3, 1, 0), "b": _padded(b, o)}
 
 
 def _prepare_trunk(params: dict, cfg, dt: torch.dtype) -> dict:
     """The weights of the trunk SwinIR and HAT share (`_trunk_forward`) at
-    compute dtype dt: the convs (`_oihw`; conv_first in float32) and the two
-    plain norms."""
-    convs = ["conv_after_body", "conv_before_upsample.0", "conv_last"]
-    convs += [f"layers.{i}.conv" for i in range(len(cfg.depths))]
-    convs += [f"upsample.{2 * k}" for k in range(upsample_stages(cfg.factor))]
-    out = {name: _oihw(params, name, dt) for name in convs}
-    out["conv_first"] = _oihw(params, "conv_first", torch.float32)
+    compute dtype dt: the convs (`_oihw`; conv_first in float32), those on
+    the stream padded to its width (`stream_width`), and the two plain
+    norms."""
+    cp = stream_width(cfg.embed_dim)
+    convs = {"conv_after_body": (cp, cp), "conv_before_upsample.0": (None, cp),
+             "conv_last": (None, None)}
+    convs.update({f"layers.{i}.conv": (cp, cp) for i in range(len(cfg.depths))})
+    convs.update({f"upsample.{2 * k}": (None, None)
+                  for k in range(upsample_stages(cfg.factor))})
+    out = {name: _oihw(params, name, dt, *ch) for name, ch in convs.items()}
+    out["conv_first"] = _oihw(params, "conv_first", torch.float32, cp)
     for name in ("patch_embed.norm", "norm"):
         out[name] = _pair_in(params, name, dt)
     return out
@@ -511,7 +572,8 @@ def _trunk_forward(params: dict, x: torch.Tensor, cfg, dt: torch.dtype, prepare,
     + f`, the last norm, conv_after_body + skip and the upsampler; `wts` is
     `_prepared(prepare, params, cfg, dt, hw)` on the padded map hw. Spans
     `names` = (forward, group, upsample): the forward's (item: the caller's)
-    counts `tiles`, `counts(hw)` and `norm_kernels`; a group's item is i."""
+    counts `tiles`, `counts`, `norm_kernels` and `stream_width`; a group's
+    item is i."""
     bsz, _, h0, w0 = x.shape
     ws = cfg.window_size
     ph, pw = -h0 % ws, -w0 % ws
@@ -528,6 +590,7 @@ def _trunk_forward(params: dict, x: torch.Tensor, cfg, dt: torch.dtype, prepare,
             x = _conv(x.float().contiguous(memory_format=torch.channels_last),
                       wts["conv_first"], torch.float32).to(dt)
         f = norm_rows(_stream(x), *wts["patch_embed.norm"])
+        counted["stream_width"] = f.shape[-1]
         for i in range(len(cfg.depths)):
             with stage_timer(names[1], item=i):
                 g = group(f, wts, i, hw)

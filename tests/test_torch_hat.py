@@ -28,6 +28,10 @@ series a tile at this depth (two LN1 reads, the four linears, the
 attention, the conv branch and the adds of each block), in quadrature
 sqrt(45) * 2.0e-3 = 1.3e-2. The readings here: 1.04-1.09e-2; each
 knock-out moves the reference by 0.12 or more (0.12-0.45).
+
+The stream is carried `models.swinir.stream_width` wide, its pad zero: embed
+60 at 64 and the conv branch's 20 channels at 24 here (180 at 184 and 60 at 64
+at the published widths), so the small configuration runs the padded path.
 """
 from __future__ import annotations
 
@@ -294,12 +298,84 @@ def test_one_forward_records_its_spans(cases):
           for n in ("hat.forward", "hat.rhag", "hat.ocab", "hat.upsample")}
     fw = by["hat.forward"]
     assert len(fw) == 1 and len(by["hat.rhag"]) == 2 and len(by["hat.ocab"]) == 2
-    # 16 windows a map, 2 maps: 4 HABs' and 2 OCABs'; no row-norm kernel on the CPU
+    # 16 windows a map, 2 maps: 4 HABs' and 2 OCABs'; no row-norm kernel on the CPU;
+    # the stream carried 64 wide for embed 60
     assert fw[0].item == 7 and fw[0].counts == {"tiles": 2, "windows": 2 * 16 * 4,
-                                                "ocab_windows": 2 * 16 * 2, "norm_kernels": 0}
+                                                "ocab_windows": 2 * 16 * 2, "norm_kernels": 0,
+                                                "stream_width": 64}
     assert [s.item for s in by["hat.rhag"]] == [s.item for s in by["hat.ocab"]] == [0, 1]
     assert all(s.parent == fw[0].id for s in by["hat.rhag"] + by["hat.upsample"])
     assert [s.parent for s in by["hat.ocab"]] == [s.id for s in by["hat.rhag"]]
+
+
+def test_pads_stay_zero_through_every_block(cases, monkeypatch):
+    """The small configuration's stream (60 carried at 64) holds zeros past
+    channel 60 after every row norm, HAB, OCAB and conv, and so does the
+    conv branch's output before and after its gate."""
+    cfg, params, x, _ = cases[16, 16]
+    seen = []
+
+    def check(name, t, c):
+        seen.append(name)
+        assert t.shape[-1] == 64 and not t[..., c:].any(), f"{name}: pad not zero"
+
+    def wrap(name, fn):
+        def checked(*args, **kw):
+            out = fn(*args, **kw)
+            for t in out if isinstance(out, tuple) else (out,):
+                check(name, t, 60)
+            return out
+        return checked
+    for name in ("norm_rows", "add_norm_rows", "_hab", "_ocab", "_stream"):
+        monkeypatch.setattr(hat, name, wrap(name, getattr(hat, name)))
+    monkeypatch.setattr(sw, "_stream", wrap("_stream", sw._stream))
+    monkeypatch.setattr(sw, "norm_rows", wrap("trunk norm", sw.norm_rows))
+    real_cab = hat._cab
+
+    def cab(xn, s, hw):
+        y, gate = real_cab(xn, s, hw)
+        check("cab", y, 60)
+        check("gated cab", y * gate, 60)
+        mid = s["cab0"]["w"]
+        assert mid.shape[-1] == 24 and not mid[..., 20:].any()  # the branch's pad
+        return y, gate
+    monkeypatch.setattr(hat, "_cab", cab)
+    hat.hat_forward(params, x, cfg)
+    # 4 HABs: 2 LN1 reads, f_new and LN2, the branch, gated, its stream, the HAB;
+    # 2 OCABs: LN1, f_new and LN2, the OCAB; the trunk's streams and norms
+    assert seen.count("_hab") == 4 and seen.count("_ocab") == 2 and seen.count("cab") == 4
+    assert seen.count("norm_rows") == 4 * 2 + 2 and seen.count("trunk norm") == 2
+    assert seen.count("add_norm_rows") == 2 * (4 + 2)
+    assert seen.count("_stream") == 4 + 1 + 2  # the branch's, conv_first's, the groups' convs
+
+
+def test_prepared_weights_are_padded_to_the_stream_width():
+    """At the published widths the HAB's and OCAB's linears, the conv
+    branch (184 -> 64 -> 184) and the gate's 1x1 convs ([6, 184], [184, 6])
+    are padded with zeros; the norms keep 180."""
+    cfg = hat.HATConfig()
+    params = hat.init_hat(cfg, seed=3, device="cpu")
+    wts = hat._prepare(params, cfg, torch.bfloat16, (16, 16))
+    s = wts["layers.1.residual_group.blocks.2."]
+    o = wts["layers.1.residual_group.overlap_attn."]
+    for blk in (s, o):
+        assert tuple(blk["qkv"][0].shape) == (576, 184) and blk["scale"] == 30 ** -0.5
+        assert tuple(blk["proj"][0].shape) == (184, 192) and tuple(blk["proj"][1].shape) == (184,)
+        assert tuple(blk["fc1"][0].shape) == (360, 184)
+        assert tuple(blk["fc2"][0].shape) == (184, 360) and tuple(blk["fc2"][1].shape) == (184,)
+        assert blk["norm1"][0].shape == (180,)
+        for t in (blk["qkv"][0][:, 180:], blk["proj"][0][180:], blk["proj"][1][180:],
+                  blk["fc1"][0][:, 180:], blk["fc2"][0][180:], blk["fc2"][1][180:]):
+            assert not t.any()
+    c0, c2 = s["cab0"], s["cab2"]
+    assert tuple(c0["w"].shape) == (3, 3, 184, 64) and tuple(c2["w"].shape) == (3, 3, 64, 184)
+    assert not c0["w"][:, :, 180:].any() and not c0["w"][..., 60:].any()
+    assert not c0["b"][60:].any() and not c2["w"][:, :, 60:].any()
+    assert not c2["w"][..., 180:].any() and not c2["b"][180:].any()
+    (w1, b1), (w3, b3) = s["ca1"], s["ca3"]
+    assert (tuple(w1.shape), tuple(w3.shape), tuple(b3.shape)) == ((6, 184), (184, 6), (184,))
+    assert not w1[:, 180:].any() and not w3[180:].any() and not b3[180:].any()
+    assert w1.dtype == w3.dtype == torch.float32
 
 
 def _swinir_as_composed(params, x, cfg, dt=torch.bfloat16):
@@ -335,7 +411,7 @@ def _swinir_as_composed(params, x, cfg, dt=torch.bfloat16):
                         bias.expand(bsz, *bias.shape).reshape(q.shape[0], *bias.shape[1:]))
                 with torch.nn.attention.sdpa_kernel(sw._SDPA_BACKENDS):
                     a = torch.nn.functional.scaled_dot_product_attention(
-                        q, k, v, attn_mask=bias, scale=(e // heads) ** -0.5)
+                        q, k, v, attn_mask=bias, scale=(cfg.embed_dim // heads) ** -0.5)
                 a = torch.nn.functional.linear(
                     a.transpose(1, 2).reshape(bsz, hw[0] * hw[1], heads * d), *s["proj"])
                 g, y = sw.add_norm_rows(g, a, inv, *s["norm2"])
@@ -352,10 +428,8 @@ def _swinir_as_composed(params, x, cfg, dt=torch.bfloat16):
         return y.to(torch.float32, memory_format=torch.contiguous_format)
 
 
-@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("hw", [(8, 8), (10, 6)])
-def test_swinir_forward_is_bit_equal_to_its_own_composition(dt, hw):
-    cfg = sw.SwinIRConfig(embed_dim=24, depths=(2, 2), num_heads=(2, 2), window_size=4,
+def _twin_case(embed: int, dt, hw) -> None:
+    cfg = sw.SwinIRConfig(embed_dim=embed, depths=(2, 2), num_heads=(2, 2), window_size=4,
                           factor=2)
     gen = torch.Generator().manual_seed(5)
     params = {k: (torch.rand(s, generator=gen) * 2 - 1) * (
@@ -364,6 +438,19 @@ def test_swinir_forward_is_bit_equal_to_its_own_composition(dt, hw):
     x = torch.randn(2, 5, *hw, generator=gen)
     assert torch.equal(sw.swinir_forward(params, x, cfg, dt), _swinir_as_composed(params, x, cfg,
                                                                                    dt))
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hw", [(8, 8), (10, 6)])
+def test_swinir_forward_is_bit_equal_to_its_own_composition(dt, hw):
+    _twin_case(24, dt, hw)
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hw", [(8, 8), (10, 6)])
+def test_padded_swinir_forward_is_bit_equal_to_its_own_composition(dt, hw):
+    """Embed 20, carried at 24: the twin runs the same padded weights."""
+    _twin_case(20, dt, hw)
 
 
 # ------------------------------------------------------------------- the card
@@ -396,4 +483,5 @@ def test_card_forward_at_the_published_widths(cuda):
     fw = [s for s in profiling.spans() if s.name == "hat.forward"]
     launched = kernels.LAUNCHES["swin_norm_rows"] + kernels.LAUNCHES["swin_add_norm_rows"] - before
     assert launched == fw[-1].counts["norm_kernels"] == 6 * (6 * 3 + 2) + 2
+    assert fw[-1].counts["stream_width"] == 184
     assert _rel(got, want) <= CELL_LIMIT

@@ -72,7 +72,19 @@ def test_card_swinir_forward_matches_cpu(cuda, factor, hw):
     """SwinIR (embed 24, depths (2, 2), heads (2, 2), window 4) on the card,
     through its fused attention, against the port on the CPU by the rules
     above; weights fan-in uniform (qkv twice), tables in +-6."""
-    cfg = sw.SwinIRConfig(embed_dim=24, depths=(2, 2), num_heads=(2, 2), window_size=4,
+    _swinir_card_case(cuda, factor, hw, 24)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("factor,hw", [(2, (10, 6)), (8, (8, 8))])
+def test_card_padded_swinir_forward_matches_cpu(cuda, factor, hw):
+    """As above at embed 20, whose stream is carried 24 wide (the row norm
+    over the first 20 of each row, in every dtype)."""
+    _swinir_card_case(cuda, factor, hw, 20)
+
+
+def _swinir_card_case(cuda, factor, hw, embed):
+    cfg = sw.SwinIRConfig(embed_dim=embed, depths=(2, 2), num_heads=(2, 2), window_size=4,
                           factor=factor)
     gen = torch.Generator().manual_seed(factor)
     params = {k: (torch.rand(s, generator=gen) * 2 - 1) * (

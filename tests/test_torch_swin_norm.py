@@ -6,6 +6,13 @@ On the CPU the plain version must equal the parent's spelling exactly:
 F.layer_norm then index_select; the add through index_select then
 F.layer_norm. The kernel's plan (`kernels.norm_plan`) is checked there too.
 
+The model carries its stream wider than the norm (`models.swinir.
+stream_width`: rows of Cp = 184 for SwinIR-M's C = 180), so rows of width Cp
+with a weight of width C are checked too, on both paths: the statistics
+those of F.layer_norm over the first C columns, the pad columns of y and
+f_new exactly 0 whatever the input's pad holds (the test fills it with
+noise, so a norm that read it would show).
+
 On the card (marked `cuda`, skipped without one; python -m pytest
 tests/test_torch_swin_norm.py -m cuda) the kernel is held against the plain
 version run on the card: f_new bit for bit (the same add, rounded the same);
@@ -73,7 +80,56 @@ def test_cpu_norm_rows_is_the_plain_spelling(dtype, shape, shifted):
     assert torch.equal(sw.norm_rows(f, w.double(), b.float(), fwd), _plain_norm(f, w, b, fwd))
 
 
+#: (C, Cp, maps, (H, W), window): rows of Cp with a norm over their first C:
+#: SwinIR-M's stream (180 in 184), the test configuration padded (24 in 32),
+#: an odd width (181 in 184)
+PADDED = [(180, 184, 2, (16, 16), 8), (24, 32, 3, (12, 8), 4), (181, 184, 2, (16, 16), 8)]
+
+
+def _padded_stream(c, cp, maps, hw, dtype, dev, seed=0):
+    """`_stream` at width Cp, its pad columns noise (N(0, 4)); w, b of C."""
+    f, a, w, b = _stream(cp, maps, hw, dtype, dev, seed)
+    g = torch.Generator().manual_seed(seed + 100)
+    noise = (torch.randn(2, maps, hw[0] * hw[1], cp - c, generator=g) * 4).to(dev, dtype)
+    f, a = (torch.cat([t[..., :c], n], -1) for t, n in zip((f, a), noise))
+    return f, a, w[:c].contiguous(), b[:c].contiguous()
+
+
+def _plain_padded_norm(f, w, b, idx):
+    """LN over the first C columns (a copy of them), zeros past them."""
+    c = w.shape[0]
+    y = F.layer_norm(f[..., :c].contiguous(), (c,), w, b, sw.LN_EPS)
+    y = torch.cat([y, y.new_zeros(*y.shape[:-1], f.shape[-1] - c)], -1)
+    return y if idx is None else y.index_select(1, idx)
+
+
+def _plain_padded_add_norm(f, a, idx, w, b):
+    c = w.shape[0]
+    g = f[..., :c] + a[..., :c].index_select(1, idx)
+    g = torch.cat([g, g.new_zeros(*g.shape[:-1], f.shape[-1] - c)], -1)
+    return g, _plain_padded_norm(g, w, b, None)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", range(len(PADDED)))
+@pytest.mark.parametrize("shifted", [False, True])
+def test_cpu_padded_rows_norm_their_first_c_columns(dtype, shape, shifted):
+    c, cp, maps, hw, ws = PADDED[shape]
+    f, a, w, b = _padded_stream(c, cp, maps, hw, dtype, "cpu", seed=shape)
+    assert f.shape[-1] == cp and w.shape == (c,) and f[..., c:].abs().sum() > 0
+    fwd, inv = sw._window_order(*hw, ws, ws // 2 if shifted else 0, torch.device("cpu"))
+    y = sw.norm_rows(f, w, b, fwd)
+    assert torch.equal(y, _plain_padded_norm(f, w, b, fwd))
+    assert torch.equal(sw.norm_rows(f, w, b), _plain_padded_norm(f, w, b, None))
+    f_new, y2 = sw.add_norm_rows(f, a, inv, w, b)
+    want_f, want_y = _plain_padded_add_norm(f, a, inv, w, b)
+    assert torch.equal(f_new, want_f) and torch.equal(y2, want_y)
+    for t in (y, f_new, y2):
+        assert t.shape == f.shape and not t[..., c:].any()
+
+
 @pytest.mark.parametrize("c,esize,ptrs,want", [
+    (184, 2, (0, 256), (16, 4)),     # a 184-wide norm: 368-byte rows, 23 vectors, 4 lanes
     (180, 2, (0, 256), (8, 8)),      # SwinIR-M bf16: 360-byte rows, 45 vectors, 8 lanes of 5-6
     (180, 4, (0,), (16, 8)),         # float32: 45 vectors of 4
     (180, 8, (0,), (16, 16)),        # float64: 90 vectors of 2
@@ -87,6 +143,23 @@ def test_plan_takes_the_widest_vector_and_fewest_lanes(c, esize, ptrs, want):
     vb, lpr = kernels.norm_plan(c, esize, ptrs)
     assert (vb, lpr) == want
     assert (c * esize) % vb == 0 and all(p % vb == 0 for p in ptrs)
+    nvec = c * esize // vb
+    assert lpr == 32 or lpr * kernels.NORM_CHUNKS >= nvec > lpr // 2 * kernels.NORM_CHUNKS
+
+
+@pytest.mark.parametrize("c,cw,esize,want", [
+    (180, 184, 2, (8, 8)),     # SwinIR-M's stream as carried: 45 norm vectors of 8 bytes, 1 pad
+    (180, 184, 4, (16, 8)),    # float32: 45 of 16 bytes, 1 pad
+    (24, 32, 2, (16, 1)),      # the test configuration padded: 3 norm vectors, 1 pad
+    (181, 184, 2, (2, 32)),    # an odd norm: single elements, 3 of them pad
+    (60, 64, 2, (8, 2)),       # HAT's narrow configuration: 15 of 8 bytes, 1 pad
+])
+def test_plan_of_a_padded_row_splits_no_vector(c, cw, esize, want):
+    """Rows of cw normed over their first c: the widest vector dividing
+    both, so each vector is all norm or all pad; lanes by the norm's."""
+    vb, lpr = kernels.norm_plan(cw, esize, (0, 256), c)
+    assert (vb, lpr) == want
+    assert (c * esize) % vb == 0 and (cw * esize) % vb == 0
     nvec = c * esize // vb
     assert lpr == 32 or lpr * kernels.NORM_CHUNKS >= nvec > lpr // 2 * kernels.NORM_CHUNKS
 
@@ -146,6 +219,32 @@ def test_card_kernel_matches_plain(cuda, dtype, shape):
     assert kernels.LAUNCHES["swin_add_norm_rows"] == 2
 
 
+#: PADDED's widths on the card, SwinIR-M's at its cell's 32 maps of 64x64
+CARD_PADDED = [(180, 184, 32, (64, 64), 8)] + PADDED[1:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", range(len(CARD_PADDED)))
+def test_card_padded_rows_match_plain(cuda, dtype, shape):
+    """Rows of Cp, a norm of C: y within the bounds above of the plain
+    version over the first C columns, f_new bit for bit, both 0 in the pad
+    whatever the input's pad holds."""
+    c, cp, maps, hw, ws = CARD_PADDED[shape]
+    f, a, w, b = _padded_stream(c, cp, maps, hw, dtype, cuda, seed=shape)
+    for shift in (0, ws // 2):
+        fwd, inv = sw._window_order(*hw, ws, shift, cuda)
+        y = sw.norm_rows(f, w, b, fwd)
+        _close(y, _plain_padded_norm(f, w, b, fwd))
+        f_new, y2 = sw.add_norm_rows(f, a, inv, w, b)
+        want_f, want_y = _plain_padded_add_norm(f, a, inv, w, b)
+        assert torch.equal(f_new, want_f)
+        _close(y2, want_y)
+        for t in (y, f_new, y2):
+            assert not t[..., c:].any()
+    _close(sw.norm_rows(f, w, b), _plain_padded_norm(f, w, b, None))
+
+
 @pytest.mark.cuda
 def test_card_kernel_on_a_misaligned_view(cuda):
     """A view one element into its storage: 2-byte vectors, one element each."""
@@ -177,6 +276,7 @@ def test_card_swinir_m_forward_launches_74(cuda):
     fw = [s for s in profiling.spans() if s.name == "swinir.forward"]
     profiling.timing_report(reset=True)
     assert len(fw) == 1 and fw[0].counts["norm_kernels"] == 2 * sum(cfg.depths) + 2 == 74
+    assert fw[0].counts["stream_width"] == 184
 
 
 @pytest.mark.cuda
@@ -197,3 +297,7 @@ def test_card_kernel_refuses_what_it_does_not_take(cuda):
         sw.norm_rows(f.transpose(0, 1), w, b)
     with pytest.raises(ValueError, match="idx shape"):
         sw.add_norm_rows(f, a, inv[:-1], w, b)
+    with pytest.raises(ValueError, match="w shape"):  # a norm wider than the row
+        kernels.swin_norm_rows(f[..., :16].contiguous(), w, b, fwd, sw.LN_EPS)
+    with pytest.raises(ValueError, match="b shape"):
+        kernels.swin_norm_rows(f, w, b[:20].contiguous(), fwd, sw.LN_EPS)

@@ -19,6 +19,12 @@ significant bits (2^-9 = 2.0e-3 relative rounding), and the stream passes
 the attention, two adds an STL; the convs and shuffles), which add in
 quadrature to sqrt(40) * 2.0e-3 = 1.3e-2. The readings here: 0.67-0.77e-2;
 the knock-outs move the reference by 9.2-22.6e-2.
+
+The residual stream is carried `models.swinir.stream_width` channels wide
+(the smallest multiple of 8 at or above embed_dim), its pad zero: embed 24
+is already a multiple of 8, so a second small configuration, embed 20
+(heads of 10) carried at 24, runs the padded path against the reference
+at the same tolerances, with the pad checked after every block.
 """
 from __future__ import annotations
 
@@ -43,8 +49,12 @@ SMALL = dict(embed_dim=24, depths=(2, 2), num_heads=(2, 2), window_size=4)
 MAPS = [(8, 8), (10, 6)]
 
 
-def _cfg(factor: int) -> sw.SwinIRConfig:
-    return sw.SwinIRConfig(factor=factor, **SMALL)
+#: a small configuration whose stream is padded (20 -> 24)
+PADDED = dict(SMALL, embed_dim=20)
+
+
+def _cfg(factor: int, **kw) -> sw.SwinIRConfig:
+    return sw.SwinIRConfig(factor=factor, **{**SMALL, **kw})
 
 
 def _draw(cfg: sw.SwinIRConfig, seed: int) -> dict:
@@ -231,9 +241,10 @@ def test_one_forward_records_its_spans():
     rstb = [s for s in rows if s.name == "swinir.rstb"]
     up = [s for s in rows if s.name == "swinir.upsample"]
     assert len(fw) == 1 and len(rstb) == 6 and len(up) == 1
-    # norm_kernels: the row-norm kernel's launches in the forward, none on the CPU
+    # norm_kernels: the row-norm kernel's launches in the forward, none on the CPU;
+    # stream_width: the stream's padded width, 184 for the published 180
     assert fw[0].item == 7 and fw[0].counts == {"tiles": 2, "windows": 2 * 2 * 36,
-                                                "norm_kernels": 0}
+                                                "norm_kernels": 0, "stream_width": 184}
     assert [s.item for s in rstb] == list(range(6))
     assert all(s.parent == fw[0].id for s in rstb + up)
 
@@ -253,6 +264,92 @@ def test_sr_scene_and_the_trainer_refuse_swinir(tmp_path):
                                            device="cpu")):
         with pytest.raises(ValueError, match="EDSR"):
             call()
+
+
+@pytest.fixture(scope="module")
+def padded_cases():
+    """{map: (cfg, params, x, reference output)} at embed 20 (carried at 24), x2."""
+    out = {}
+    for k, hw in enumerate(MAPS):
+        cfg = _cfg(2, embed_dim=PADDED["embed_dim"])
+        params = _draw(cfg, seed=20 + k)
+        x = torch.from_numpy(np.random.default_rng(20 + k).standard_normal((2, 5, *hw))
+                             .astype(np.float32))
+        out[hw] = (cfg, params, x, _ref(params, x, cfg))
+    return out
+
+
+def _pads_stay_zero(monkeypatch, module, names: tuple, c: int) -> list:
+    """Wrap each function `names` of `module` so that every 3-d tensor it
+    returns (alone or in a tuple) is checked to hold zeros past channel c;
+    returns the list of the widths seen."""
+    seen = []
+
+    def wrap(fn):
+        def checked(*args, **kw):
+            out = fn(*args, **kw)
+            for t in out if isinstance(out, tuple) else (out,):
+                if t.dim() == 3:  # the stream [B, P, Cp]; the gate's [B, 1, Cp] too
+                    seen.append(t.shape[-1])
+                    assert not t[..., c:].any(), f"{fn.__name__}: pad not zero"
+            return out
+        return checked
+    for name in names:
+        monkeypatch.setattr(module, name, wrap(getattr(module, name)))
+    return seen
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hw", MAPS)
+def test_padded_stream_matches_reference_with_its_pad_zero(padded_cases, monkeypatch, dt, hw):
+    """embed 20 carried at 24: the output within the tolerances above, the
+    stream's pad zero after every norm, every STL and every RSTB's conv, and
+    the forward's span counting stream_width 24."""
+    cfg, params, x, want = padded_cases[hw]
+    assert sw.stream_width(cfg.embed_dim) == 24
+    seen = _pads_stay_zero(monkeypatch, sw, ("norm_rows", "add_norm_rows", "_stl", "_stream"),
+                           cfg.embed_dim)
+    profiling.timing_report(reset=True)
+    got = sw.swinir_forward(params, x, cfg, compute_dtype=dt)
+    fw = [s for s in profiling.spans() if s.name == "swinir.forward"]
+    profiling.timing_report(reset=True)
+    # 4 STLs: LN1, f_new and LN2, the STL's output each; 2 RSTB convs; conv_first;
+    # 2 plain norms
+    assert seen == [24] * (4 * 4 + 2 + 1 + 2)
+    assert fw[0].counts["stream_width"] == 24
+    if dt == torch.float32:
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    else:
+        assert _rel(got, want) <= BF16_REL
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+def test_prepared_weights_are_padded_to_the_stream_width(dt):
+    """At the published widths every weight that reads or writes the stream
+    is padded from 180 to 184 with zeros (the heads still padded 30 -> 32);
+    the norms keep 180; the pad bits are zero and the rest is the weight."""
+    cfg = sw.SwinIRConfig()
+    params = sw.init_swinir(cfg, seed=2, device="cpu")
+    wts = sw._prepare(params, cfg, dt, (8, 8))
+    s = wts["layers.2.residual_group.blocks.1."]
+    (wq, bq), (wp, bp), (w1, b1), (w2, b2) = s["qkv"], s["proj"], s["fc1"], s["fc2"]
+    assert (wq.shape, bq.shape, wp.shape, bp.shape) == ((576, 184), (576,), (184, 192), (184,))
+    assert (w1.shape, b1.shape, w2.shape, b2.shape) == ((360, 184), (360,), (184, 360), (184,))
+    assert s["norm1"][0].shape == s["norm2"][1].shape == (180,)
+    assert s["scale"] == 30 ** -0.5
+    for t in (wq[:, 180:], wp[180:], bp[180:], w1[:, 180:], w2[180:], b2[180:]):
+        assert t.numel() and not t.any()
+    p = params["layers.2.residual_group.blocks.1.mlp.fc2.weight"]
+    assert torch.equal(w2[:180], p.to(dt))
+    shapes = {k: tuple(wts[k]["w"].shape) for k in ("conv_first", "layers.3.conv",
+                                                   "conv_after_body", "conv_before_upsample.0")}
+    assert shapes == {"conv_first": (3, 3, 5, 184), "layers.3.conv": (3, 3, 184, 184),
+                      "conv_after_body": (3, 3, 184, 184),
+                      "conv_before_upsample.0": (3, 3, 184, 64)}
+    for k in ("conv_first", "layers.3.conv", "conv_after_body"):
+        assert not wts[k]["w"][..., 180:].any() and not wts[k]["b"][180:].any()
+    for k in ("layers.3.conv", "conv_after_body", "conv_before_upsample.0"):
+        assert not wts[k]["w"][:, :, 180:].any()
 
 
 W = "layers.0.residual_group.blocks.1.attn.qkv.weight"
